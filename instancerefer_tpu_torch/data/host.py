@@ -1,0 +1,159 @@
+"""Host bridge: the JAX package's numpy pipeline, reached without JAX.
+
+The padded numpy batch is built by the shared host pipeline
+(``instancerefer_tpu/data/pipeline.py`` up to ``collate``,
+``data/synthetic.py`` and ``ops/voxelize.py`` — numpy and ctypes only).  It
+is reused, not copied.  One seam stands in the way: importing any
+``instancerefer_tpu.ops.*`` submodule first runs ``ops/__init__.py``, which
+imports ``ops/sparse.py`` and with it ``jax`` and ``flax``.  ``_bare_ops()``
+registers a bare package module for ``instancerefer_tpu.ops`` (its
+``__path__`` is the real directory) before the first such import, so the
+submodules load without that ``__init__``.  An ``instancerefer_tpu.ops``
+that is already imported is never replaced; every import of it in the JAX
+package and its tests is a submodule import, so both packages share one
+process safely.
+
+``batch_to_torch`` is the counterpart of
+``instancerefer_tpu.data.pipeline.batch_to_device_dict``: the same numpy
+batch becomes the dict of tensors the port's model consumes.  The TPU band
+metadata (``ws3``/``wskt3``/``dws``/``dwskt``/``up8``/``uws``/``uwskt``/
+``band_*``) is dropped — the port's kernel gathers exactly — and so are the
+train-only inverse maps (``uprow``/``upk``).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import importlib.machinery
+import os
+import sys
+import types
+from typing import Dict, Tuple
+
+import numpy as np
+import torch
+
+_OPS = "instancerefer_tpu.ops"
+
+
+def _bare_ops() -> None:
+    if _OPS in sys.modules:
+        return
+    import instancerefer_tpu  # its __init__ is a docstring and a version
+
+    path = os.path.join(os.path.dirname(instancerefer_tpu.__file__), "ops")
+    spec = importlib.machinery.ModuleSpec(_OPS, None, is_package=True)
+    spec.submodule_search_locations = [path]
+    mod = types.ModuleType(_OPS)
+    mod.__spec__ = spec
+    mod.__path__ = [path]
+    mod.__package__ = _OPS
+    sys.modules[_OPS] = mod
+    instancerefer_tpu.ops = mod
+
+
+_bare_ops()
+
+from instancerefer_tpu.data import pipeline, synthetic  # noqa: E402
+from instancerefer_tpu.ops import voxelize  # noqa: E402
+
+BatchSpec = pipeline.BatchSpec
+TEST_SPEC = synthetic.TEST_SPEC
+make_batch = synthetic.make_batch
+
+# keys of the numpy batch that this port does not read: the TPU band
+# metadata and the train-only inverse down maps
+_DROPPED_STEMS = (
+    "ws3", "wskt3", "dws", "dwskt", "up8", "uws", "uwskt", "band", "uprow", "upk",
+)
+_PYRAMID_STEMS = ("coords", "owner", "nbr3", "down") + _DROPPED_STEMS
+
+
+@dataclasses.dataclass
+class SparseStage:
+    """One resolution level of a batched sparse voxel tensor.
+
+    Counterpart of ``instancerefer_tpu/ops/sparse.py:SparseStage`` without the
+    band fields.  Rows of sample ``b`` occupy the block ``[b*cap, (b+1)*cap)``.
+
+    Attributes:
+      coords: [V, 3] int32 voxel coords in base-voxel units.
+      owner:  [V] int64 owner id (scene: batch index; instance: flat
+        candidate id ``b * max_candidates + c``), -1 on padding rows.
+      mask:   [V] bool, ``owner >= 0``.
+      nbr3:   [V, 27] int32 same-stage 3^3 neighbour rows, -1 = empty.
+      down:   [V, 8] int32 previous-stage 2^3 rows, -1 = empty; [V, 0] on
+        stage 0.
+      stride: tensor stride of the stage (1, 2, 4, 8, 16).
+    """
+
+    coords: torch.Tensor
+    owner: torch.Tensor
+    mask: torch.Tensor
+    nbr3: torch.Tensor
+    down: torch.Tensor
+    stride: int
+
+
+def _dense(value: np.ndarray, device) -> torch.Tensor:
+    a = np.asarray(value)
+    if a.dtype.kind in "iu":
+        a = a.astype(np.int64)
+    elif a.dtype.kind == "f":
+        a = a.astype(np.float32)
+    return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+
+
+def _check_map(name: str, nbr: np.ndarray, v_in: int) -> None:
+    if nbr.size and int(nbr.max()) >= v_in:
+        raise ValueError(
+            f"{name} holds row {int(nbr.max())} but its input stage has {v_in} rows"
+        )
+
+
+def _pyramid(batch, prefix: str, num_stages: int, device) -> Tuple[SparseStage, ...]:
+    stages = []
+    v_prev = 0
+    for s in range(num_stages):
+        nbr3 = np.ascontiguousarray(batch[f"{prefix}_nbr3_{s}"], np.int32)
+        v = nbr3.shape[0]
+        _check_map(f"{prefix}_nbr3_{s}", nbr3, v)
+        if s > 0:
+            down = np.ascontiguousarray(batch[f"{prefix}_down_{s}"], np.int32)
+            _check_map(f"{prefix}_down_{s}", down, v_prev)
+        else:
+            down = np.zeros((v, 0), np.int32)
+        owner = torch.from_numpy(batch[f"{prefix}_owner_{s}"].astype(np.int64))
+        stages.append(
+            SparseStage(
+                coords=torch.from_numpy(
+                    np.ascontiguousarray(batch[f"{prefix}_coords_{s}"], np.int32)
+                ).to(device),
+                owner=owner.to(device),
+                mask=(owner >= 0).to(device),
+                nbr3=torch.from_numpy(nbr3).to(device),
+                down=torch.from_numpy(down).to(device),
+                stride=1 << s,
+            )
+        )
+        v_prev = v
+    return tuple(stages)
+
+
+def batch_to_torch(batch: Dict[str, np.ndarray], spec: BatchSpec, device) -> Dict:
+    """Flat numpy batch (``collate`` output) -> the data dict of tensors.
+
+    Dense keys keep their names: integer arrays become int64, floats f32,
+    bools stay bool.  ``scene_pyramid`` / ``inst_pyramid`` are tuples of
+    ``SparseStage``.  Raises ``ValueError`` if a neighbour map points past
+    its input stage, since the kernel trusts its indices.
+    """
+    drop = tuple(f"{p}_{s}" for p in ("scene", "inst") for s in _PYRAMID_STEMS)
+    dd = {
+        k: _dense(v, device)
+        for k, v in batch.items()
+        if not k.startswith(drop) and np.ndim(v) > 0
+    }
+    dd["scene_pyramid"] = _pyramid(batch, "scene", spec.num_stages, device)
+    dd["inst_pyramid"] = _pyramid(batch, "inst", spec.num_stages, device)
+    return dd

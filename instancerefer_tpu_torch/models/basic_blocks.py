@@ -1,0 +1,176 @@
+"""Sparse-conv building blocks over padded ``SparseStage`` pyramids, eval mode.
+
+Counterpart of ``instancerefer_tpu/models/basic_blocks.py``.  Module and
+parameter names follow the reference's ``state_dict`` (``stem.0.net.0.kernel``,
+``stage1.1.net.3.kernel``, ...), so converted weights load by name.  In eval
+mode every BatchNorm of an encoder folds into a per-channel affine that the
+CUDA kernel applies (with the ReLU) to its f32 accumulator, where the JAX
+package fuses it (``models/basic_blocks.py:303-309,334-341``).  Train mode
+lands with the train slice; the modules raise if asked for it.
+
+Sparse-conv kernels are stored [K, Cin, Cout] in the offset order of the
+host maps (``instancerefer_tpu/ops/voxelize.KERNEL_OFFSETS_3/2``).
+"""
+
+from __future__ import annotations
+
+from typing import Sequence, Tuple
+
+import torch
+from torch import nn
+
+from instancerefer_tpu_torch.data.host import SparseStage
+from instancerefer_tpu_torch.ops.gather_conv import gather_conv
+from instancerefer_tpu_torch.ops.precision import cast_in
+
+
+def _eval_only(module: nn.Module) -> None:
+    if module.training:
+        raise NotImplementedError(
+            f"{type(module).__name__}: only eval mode is ported; call .eval()"
+        )
+
+
+class MaskedBatchNorm(nn.Module):
+    """BatchNorm with torch's parameter/buffer names, eval mode.
+
+    Normalizes channel ``channel_dim`` with the running statistics.  The
+    masked batch statistics of train mode come with the train slice.
+    """
+
+    def __init__(self, features: int, eps: float = 1e-5):
+        super().__init__()
+        self.eps = eps
+        self.weight = nn.Parameter(torch.ones(features))
+        self.bias = nn.Parameter(torch.zeros(features))
+        self.register_buffer("running_mean", torch.zeros(features))
+        self.register_buffer("running_var", torch.ones(features))
+        self.register_buffer("num_batches_tracked", torch.tensor(0, dtype=torch.long))
+
+    def fold_eval(self) -> Tuple[torch.Tensor, torch.Tensor]:
+        """(scale', bias') with y = x * scale' + bias':
+        scale' = weight / sqrt(var + eps), bias' = bias - mean * scale'."""
+        _eval_only(self)
+        sc = self.weight * torch.rsqrt(self.running_var + self.eps)
+        return sc, self.bias - self.running_mean * sc
+
+    def forward(self, x: torch.Tensor, channel_dim: int = -1) -> torch.Tensor:
+        sc, bi = self.fold_eval()
+        shape = [1] * x.dim()
+        shape[channel_dim] = -1
+        y = (x.float() - self.running_mean.view(shape)) * sc.view(shape) + self.bias.view(shape)
+        return y.to(x.dtype)
+
+
+class SparseConv(nn.Module):
+    """Weights of one sparse conv (torchsparse ``spnn.Conv3d``, no bias):
+    ``kernel`` [K, Cin, Cout], K = 27 (3^3 submanifold) or 8 (2^3 stride 2).
+    Zeros until ``models/instancerefer.init_parameters`` or a state_dict
+    fills them."""
+
+    def __init__(self, cin: int, cout: int, volume: int):
+        super().__init__()
+        self.kernel = nn.Parameter(torch.zeros(volume, cin, cout))
+
+
+def _conv(x, nbr, conv: SparseConv, bn: MaskedBatchNorm, relu: bool):
+    sc, bi = bn.fold_eval()
+    return gather_conv(x, nbr, cast_in(conv.kernel).contiguous(), sc.contiguous(),
+                       bi.contiguous(), relu)
+
+
+class BasicConvolutionBlock(nn.Module):
+    """Conv3d + BN + ReLU; ks 3 = submanifold over ``nbr3``, ks 2 = stride-2
+    over ``down`` (reference ``models/basic_blocks.py:10-25``)."""
+
+    def __init__(self, cin: int, cout: int, ks: int):
+        super().__init__()
+        self.ks = ks
+        self.net = nn.Sequential(
+            SparseConv(cin, cout, ks ** 3), MaskedBatchNorm(cout), nn.ReLU()
+        )
+
+    def forward(self, x: torch.Tensor, sv: SparseStage) -> torch.Tensor:
+        nbr = sv.nbr3 if self.ks == 3 else sv.down
+        return _conv(x, nbr, self.net[0], self.net[1], relu=True)
+
+
+class ResidualBlock(nn.Module):
+    """conv3-BN-ReLU-conv3-BN + identity, ReLU (reference
+    ``models/basic_blocks.py:28-56``; every use has inc == outc, stride 1)."""
+
+    def __init__(self, c: int):
+        super().__init__()
+        self.net = nn.Sequential(
+            SparseConv(c, c, 27), MaskedBatchNorm(c), nn.ReLU(),
+            SparseConv(c, c, 27), MaskedBatchNorm(c),
+        )
+
+    def forward(self, x: torch.Tensor, sv: SparseStage) -> torch.Tensor:
+        h = _conv(x, sv.nbr3, self.net[0], self.net[1], relu=True)
+        h = _conv(h, sv.nbr3, self.net[3], self.net[4], relu=False)
+        return torch.relu(h + x)
+
+
+class SparseConvEncoder(nn.Module):
+    """Stem + 4 x [stride-2 conv, residual block]; channels
+    in -> 32 -> 64 -> 128 -> 128 -> 128.  Returns the stride-16 stage's
+    features in f32 (the stem takes Cin = 7 as it is, no lane padding)."""
+
+    def __init__(self, cin: int, widths: Sequence[int] = (32, 64, 128, 128, 128)):
+        super().__init__()
+        w = widths
+        self.stem = nn.Sequential(BasicConvolutionBlock(cin, w[0], 3))
+        for i in range(1, 5):
+            setattr(self, f"stage{i}", nn.Sequential(
+                BasicConvolutionBlock(w[i - 1], w[i], 2),
+                ResidualBlock(w[i]),
+            ))
+
+    def forward(self, feats: torch.Tensor, pyramid: Sequence[SparseStage]) -> torch.Tensor:
+        _eval_only(self)
+        x = self.stem[0](cast_in(feats).contiguous(), pyramid[0])
+        for i in range(1, 5):
+            stage = getattr(self, f"stage{i}")
+            x = stage[0](x, pyramid[i])
+            x = stage[1](x, pyramid[i])
+        return x.float()
+
+
+BEVEncoder = SparseConvEncoder  # same topology (reference :136-171)
+
+
+def sparse_crop_mask(sv: SparseStage, loc_min, loc_max) -> torch.Tensor:
+    """Rows whose coords lie in [loc_min, loc_max) — reference ``spcrop`` as a mask."""
+    lo = torch.tensor(loc_min, dtype=sv.coords.dtype, device=sv.coords.device)
+    hi = torch.tensor(loc_max, dtype=sv.coords.dtype, device=sv.coords.device)
+    return ((sv.coords >= lo) & (sv.coords < hi)).all(-1) & sv.mask
+
+
+class ToDenseBEVConvolution(nn.Module):
+    """Per-z-bin linear kernels + scatter-add into a dense [B, H, W, C] BEV
+    (reference ``models/basic_blocks.py:195-243``): n_z masked GEMMs, then
+    ``index_add_`` with cropped rows dumped into one extra cell.  On the
+    card ``index_add_`` sums with atomics, in no fixed order."""
+
+    def __init__(self, cin: int, cout: int, bev_shape: Tuple[int, int], n_kernels: int):
+        super().__init__()
+        self.bev_shape = bev_shape
+        self.n_kernels = n_kernels
+        self.kernel = nn.Parameter(torch.zeros(n_kernels, cin, cout))  # see SparseConv
+
+    def forward(self, feats, sv: SparseStage, crop_mask, batch_size: int):
+        h, w = self.bev_shape
+        stride = sv.stride
+        cout = self.kernel.shape[2]
+        zbin = (sv.coords[:, 2] // stride).clamp(0, self.n_kernels - 1)
+        rows = feats.new_zeros(feats.shape[0], cout)
+        for z in range(self.n_kernels):
+            rows = rows + (feats * (zbin == z)[:, None]) @ self.kernel[z]
+        bx = (sv.coords[:, 0] // stride).clamp(0, h - 1).long()
+        by = (sv.coords[:, 1] // stride).clamp(0, w - 1).long()
+        lin = (sv.owner.clamp(min=0) * h + bx) * w + by
+        lin = torch.where(crop_mask, lin, batch_size * h * w)
+        grid = rows.new_zeros(batch_size * h * w + 1, cout)
+        grid.index_add_(0, lin, rows * crop_mask[:, None])
+        return grid[:-1].view(batch_size, h, w, cout)

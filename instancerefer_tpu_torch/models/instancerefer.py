@@ -1,0 +1,66 @@
+"""Top-level InstanceRefer, counterpart of
+``instancerefer_tpu/models/instancerefer.py``: lang -> attribute -> relation
+-> scene over one data dict.  Eval mode only in this slice."""
+
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import torch
+from torch import nn
+
+from instancerefer_tpu_torch.models.attribute_module import AttributeModule
+from instancerefer_tpu_torch.models.basic_blocks import (
+    MaskedBatchNorm,
+    SparseConv,
+    ToDenseBEVConvolution,
+)
+from instancerefer_tpu_torch.models.lang_module import LangModule
+from instancerefer_tpu_torch.models.relation_module import RelationModule
+from instancerefer_tpu_torch.models.scene_module import SceneModule
+
+
+class InstanceRefer(nn.Module):
+    def __init__(self, input_feature_dim: int, num_classes: int = 18,
+                 max_candidates: int = 16, k: int = 8,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.lang = LangModule(num_classes)
+        self.attribute = AttributeModule(input_feature_dim, max_candidates)
+        self.relation = RelationModule(input_feature_dim, num_classes, k=k)
+        self.scene = SceneModule(input_feature_dim)
+        init_parameters(self, generator)
+
+    def forward(self, data_dict: dict) -> dict:
+        data_dict = self.lang(data_dict)
+        data_dict = self.attribute(data_dict)
+        data_dict = self.relation(data_dict)
+        return self.scene(data_dict)
+
+
+@torch.no_grad()
+def init_parameters(model: nn.Module, generator: Optional[torch.Generator] = None) -> None:
+    """Torch's default initialization, drawn from ``generator``: U(+-1/sqrt(fan_in))
+    for linear, conv and sparse-conv weights and biases (fan_in = K * Cin for
+    a sparse conv), U(+-1/sqrt(hidden)) for the GRU, ones/zeros for norms."""
+
+    def uniform(t: torch.Tensor, fan_in: int) -> None:
+        bound = 1.0 / math.sqrt(max(fan_in, 1))
+        t.copy_(torch.empty(t.shape).uniform_(-bound, bound, generator=generator))
+
+    for m in model.modules():
+        if isinstance(m, (nn.Linear, nn.Conv2d)):
+            fan_in = m.weight[0].numel()
+            uniform(m.weight, fan_in)
+            uniform(m.bias, fan_in)
+        elif isinstance(m, SparseConv):
+            uniform(m.kernel, m.kernel.shape[0] * m.kernel.shape[1])
+        elif isinstance(m, ToDenseBEVConvolution):
+            uniform(m.kernel, m.kernel.shape[1])
+        elif isinstance(m, nn.GRU):
+            for p in m.parameters():
+                uniform(p, m.hidden_size)
+        elif isinstance(m, (nn.LayerNorm, MaskedBatchNorm)):
+            m.weight.fill_(1.0)
+            m.bias.fill_(0.0)
