@@ -17,8 +17,9 @@ process safely.
 ``instancerefer_tpu.data.pipeline.batch_to_device_dict``: the same numpy
 batch becomes the dict of tensors the port's model consumes.  The TPU band
 metadata (``ws3``/``wskt3``/``dws``/``dwskt``/``up8``/``uws``/``uwskt``/
-``band_*``) is dropped — the port's kernel gathers exactly — and so are the
-train-only inverse maps (``uprow``/``upk``).
+``band_*``) is dropped — the port's kernels gather exactly.  The inverse
+down maps (``uprow``/``upk``) become each stage's ``up8``, the map the down
+conv's dX gathers over, whether or not the batch carries bands.
 """
 
 from __future__ import annotations
@@ -61,8 +62,8 @@ BatchSpec = pipeline.BatchSpec
 TEST_SPEC = synthetic.TEST_SPEC
 make_batch = synthetic.make_batch
 
-# keys of the numpy batch that this port does not read: the TPU band
-# metadata and the train-only inverse down maps
+# keys of the numpy batch that stay out of the dense dict: the TPU band
+# metadata, and the inverse down maps (read into ``SparseStage.up8``)
 _DROPPED_STEMS = (
     "ws3", "wskt3", "dws", "dwskt", "up8", "uws", "uwskt", "band", "uprow", "upk",
 )
@@ -84,6 +85,10 @@ class SparseStage:
       nbr3:   [V, 27] int32 same-stage 3^3 neighbour rows, -1 = empty.
       down:   [V, 8] int32 previous-stage 2^3 rows, -1 = empty; [V, 0] on
         stage 0.
+      up8:    [V_prev, 8] int32 inverse of ``down``: ``up8[u, k]`` is the row
+        of this stage that previous-stage row u feeds at offset k, -1 = none
+        (``ops/voxelize.build_up8``); [V, 0] on stage 0.  The down conv's dX
+        gathers over it.
       stride: tensor stride of the stage (1, 2, 4, 8, 16).
     """
 
@@ -92,6 +97,7 @@ class SparseStage:
     mask: torch.Tensor
     nbr3: torch.Tensor
     down: torch.Tensor
+    up8: torch.Tensor
     stride: int
 
 
@@ -121,8 +127,10 @@ def _pyramid(batch, prefix: str, num_stages: int, device) -> Tuple[SparseStage, 
         if s > 0:
             down = np.ascontiguousarray(batch[f"{prefix}_down_{s}"], np.int32)
             _check_map(f"{prefix}_down_{s}", down, v_prev)
+            up8 = voxelize.build_up8(batch[f"{prefix}_uprow_{s}"], batch[f"{prefix}_upk_{s}"])
+            _check_map(f"{prefix}_up8_{s}", up8, v)
         else:
-            down = np.zeros((v, 0), np.int32)
+            down = up8 = np.zeros((v, 0), np.int32)
         owner = torch.from_numpy(batch[f"{prefix}_owner_{s}"].astype(np.int64))
         stages.append(
             SparseStage(
@@ -133,6 +141,7 @@ def _pyramid(batch, prefix: str, num_stages: int, device) -> Tuple[SparseStage, 
                 mask=(owner >= 0).to(device),
                 nbr3=torch.from_numpy(nbr3).to(device),
                 down=torch.from_numpy(down).to(device),
+                up8=torch.from_numpy(up8).to(device),
                 stride=1 << s,
             )
         )

@@ -3,7 +3,8 @@
 over every candidate at once, a global max pool per candidate, and the dot
 product of the normalized visual and language embeddings.  Candidates arrive
 padded with ``cand_mask``; ``score_mask`` marks the rows the reference
-scores (samples with >= 2 candidates)."""
+scores (samples with >= 2 candidates).  The language BatchNorm's train
+statistics count the rows of ``sample_valid``."""
 
 from __future__ import annotations
 
@@ -39,7 +40,9 @@ class AttributeModule(nn.Module):
         cand_mask = data_dict["cand_mask"]
         b, c = cand_mask.shape[0], self.max_candidates
 
-        lang = l2_normalize(self.lang_emb_fc(data_dict["lang_attr_feats"]), dim=1)
+        fc = self.lang_emb_fc
+        lang = torch.relu(fc[1](fc[0](data_dict["lang_attr_feats"]), data_dict.get("sample_valid")))
+        lang = l2_normalize(fc[3](lang), dim=1)
         feats = self.net(data_dict["inst_feats"], pyramid)
         pooled = masked_global_max_pool(feats, pyramid[-1].owner, b * c).view(b, c, self.v_dim)
         out["obj_feats"] = pooled

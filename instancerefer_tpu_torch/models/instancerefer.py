@@ -1,6 +1,8 @@
 """Top-level InstanceRefer, counterpart of
 ``instancerefer_tpu/models/instancerefer.py``: lang -> attribute -> relation
--> scene over one data dict.  Eval mode only in this slice."""
+-> scene over one data dict.  Train or eval mode follows ``nn.Module.train()``
+(the JAX package's ``train=`` argument); the BN momentum of train mode is
+set with ``set_bn_momentum`` (its ``bn_momentum=`` argument)."""
 
 from __future__ import annotations
 
@@ -24,13 +26,28 @@ from instancerefer_tpu_torch.models.scene_module import SceneModule
 class InstanceRefer(nn.Module):
     def __init__(self, input_feature_dim: int, num_classes: int = 18,
                  max_candidates: int = 16, k: int = 8,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None,
+                 dropout_override: Optional[float] = None):
+        """``dropout_override``: None keeps each module's reference rate
+        (lang word dropout 0.1, relation and scene 0.15); a float sets every
+        dropout to it (0.0 for parity runs)."""
         super().__init__()
         self.lang = LangModule(num_classes)
         self.attribute = AttributeModule(input_feature_dim, max_candidates)
         self.relation = RelationModule(input_feature_dim, num_classes, k=k)
         self.scene = SceneModule(input_feature_dim)
         init_parameters(self, generator)
+        if dropout_override is not None:
+            for m in self.modules():
+                if isinstance(m, nn.Dropout):
+                    m.p = dropout_override
+
+    def set_bn_momentum(self, momentum: float) -> None:
+        """Momentum of every BatchNorm's running-statistics update (the
+        reference's BNMomentumScheduler sets it per epoch)."""
+        for m in self.modules():
+            if isinstance(m, MaskedBatchNorm):
+                m.momentum = momentum
 
     def forward(self, data_dict: dict) -> dict:
         data_dict = self.lang(data_dict)

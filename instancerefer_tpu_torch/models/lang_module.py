@@ -1,7 +1,8 @@
 """Language encoder, counterpart of ``instancerefer_tpu/models/lang_module.py``:
 GloVe projection, 2-layer bidirectional GRU over the packed sequence, four
 attention heads that pool the *projected embeddings* (not the GRU states, a
-reference quirk) and the 18-way text classifier."""
+reference quirk) and the 18-way text classifier.  The word dropout is live
+in train mode; the GRU's backward is cuDNN's on the card."""
 
 from __future__ import annotations
 

@@ -2,7 +2,9 @@
 ``instancerefer_tpu/models/relation_module.py``: kNN (k = 8) from each
 candidate to the instances of its scene, an EdgeConv with learned edge
 weights and max aggregation, and the cosine against the relation language
-embedding.  ``relation_scores`` is [B, C], aligned with ``cand_mask``."""
+embedding.  ``relation_scores`` is [B, C], aligned with ``cand_mask``.  In
+train mode the language BatchNorm counts the rows of ``sample_valid`` and
+the dropouts are live."""
 
 from __future__ import annotations
 
@@ -84,6 +86,8 @@ class RelationModule(nn.Module):
             data_dict["cand_slot"], data_dict["cand_mask"],
         )
         vis = self.vis_emb_fc(feats)
-        lang = self.lang_emb_fc(data_dict["lang_rel_feats"])
+        fc = self.lang_emb_fc
+        lang = torch.relu(fc[1](fc[0](data_dict["lang_rel_feats"]), data_dict.get("sample_valid")))
+        lang = fc[4](fc[3](lang))
         out["relation_scores"] = cosine_similarity(vis, lang[:, None, :], dim=-1)
         return out

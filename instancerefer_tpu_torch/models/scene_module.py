@@ -2,7 +2,9 @@
 BEV encoder over the whole scene, crop and scatter to a dense 15 x 25 BEV,
 two VALID 3 x 3 ``nn.Conv2d`` (NCHW, fed from the NHWC BEV through one
 permute) down to 11 x 21 = 231 cells, language attention over the cells,
-the 9-way region head and the scene <-> object cosine."""
+the 9-way region head and the scene <-> object cosine.  In train mode the
+BatchNorms take ``sample_valid`` (as whole BEV planes on the two dense
+ones) and the dropouts are live."""
 
 from __future__ import annotations
 
@@ -62,11 +64,18 @@ class SceneModule(nn.Module):
         final = pyramid[-1]
         crop = sparse_crop_mask(final, self.loc_min, self.loc_max)
         bev = self.to_bev[1](feats, final, crop, bsz)  # [B, 15, 25, 128]
-        bev = torch.relu(self.to_bev[2](bev))
+        # sample_valid masks whole planes of loader-padded samples out of the
+        # batch statistics (train mode)
+        valid = data_dict.get("sample_valid")
+
+        def plane_mask(hh, ww):
+            return None if valid is None else valid[:, None, None].expand(bsz, hh, ww)
+
+        bev = torch.relu(self.to_bev[2](bev, plane_mask(*bev.shape[1:3])))
 
         x = bev.permute(0, 3, 1, 2)  # NCHW
         x = self.vis_emb_fc[0](x)
-        x = torch.relu(self.vis_emb_fc[1](x, channel_dim=1))
+        x = torch.relu(self.vis_emb_fc[1](x, plane_mask(*x.shape[2:]), channel_dim=1))
         x = self.vis_emb_fc[4](self.vis_emb_fc[3](x))  # [B, h, 11, 21]
         hh, ww = x.shape[2], x.shape[3]
         cells = x.flatten(2).transpose(1, 2)  # [B, 231, h]
@@ -76,7 +85,8 @@ class SceneModule(nn.Module):
         out["vis_atten"] = atten.view(bsz, hh, ww)
         scene_feats = torch.einsum("bn,bnh->bh", atten, cells)
 
-        out["seg_scores"] = self.cls(scene_feats)
+        s = torch.relu(self.cls[1](self.cls[0](scene_feats), valid))
+        out["seg_scores"] = self.cls[3](s)
         obj = self.vis_emb_fc1(data_dict["obj_feats"])  # [B, C, h]
         out["scene_scores"] = cosine_similarity(obj, scene_feats[:, None, :], dim=-1)
         return out

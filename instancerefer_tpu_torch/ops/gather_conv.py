@@ -1,4 +1,5 @@
-"""Wrapper of the CUDA sparse-conv gather-GEMM (``csrc/gather_conv.cu``).
+"""Build of the CUDA sources and the wrapper of the gather-GEMM kernel (K1,
+``csrc/gather_conv.cu``).
 
 The kernel replaces the TPU kernel ``instancerefer_tpu/ops/pallas_conv.py:
 _conv_kernel`` (through ``windowed_gather_conv``); the source's header says
@@ -8,10 +9,13 @@ what bounds it on the card and what its design does about that.
 on the CPU.  A CUDA tensor launches the kernel or raises; there is no
 fallback.  ``gather_conv.launches`` counts kernel launches and nothing else.
 
-The source builds at first use with ``nvcc`` into ``instancerefer_tpu_torch/
-build/`` (a plain-C shared library loaded with ``ctypes``), keyed by a hash
-of the source, so an edited ``.cu`` rebuilds.  ``nvcc`` is found on ``PATH``
-or under ``$CUDA_HOME/bin`` (default ``/usr/local/cuda``).
+``build()`` compiles every ``.cu`` source under ``csrc/`` with ``nvcc``, one
+process per source and all at once, into ``instancerefer_tpu_torch/build/``
+(plain-C shared libraries loaded with ``ctypes``).  The libraries are keyed
+by a hash of everything under ``csrc/`` and the flags, so an edited source or
+header rebuilds; each is written to a temporary file and moved into place.
+``nvcc`` is found on ``PATH`` or under ``$CUDA_HOME/bin`` (default
+``/usr/local/cuda``).
 """
 
 from __future__ import annotations
@@ -23,21 +27,21 @@ import os
 import shutil
 import subprocess
 import tempfile
-from typing import Optional
+from typing import Dict, Optional
 
 import torch
 
 from instancerefer_tpu_torch.ops import sparse
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-SOURCE = os.path.join(_PKG, "csrc", "gather_conv.cu")
+CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "build")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 COUTS = (32, 64, 128)
-_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
 def _nvcc() -> str:
@@ -46,65 +50,117 @@ def _nvcc() -> str:
         return found
     path = os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "nvcc")
     if not os.path.exists(path):
-        raise RuntimeError("gather_conv: nvcc not found on PATH or under CUDA_HOME")
+        raise RuntimeError("nvcc not found on PATH or under CUDA_HOME")
     return path
 
 
-def build() -> str:
-    """Compile the source (if its hash has no library yet); returns the
-    library path.  ``nvcc``'s report (``-Xptxas -v``: registers, shared
-    memory, spills) is kept beside it as ``.log``."""
-    with open(SOURCE, "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    lib = os.path.join(BUILD_DIR, f"gather_conv_{digest}.so")
-    if os.path.exists(lib):
-        return lib
+def build() -> Dict[str, str]:
+    """Compile the sources that have no library for the current hash yet;
+    returns {source stem: library path}.  ``nvcc``'s report (``-Xptxas -v``:
+    registers, shared memory, spills) is kept beside each library as
+    ``.log``."""
+    names = sorted(os.listdir(CSRC))
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for name in names:
+        with open(os.path.join(CSRC, name), "rb") as f:
+            h.update(name.encode() + b"\0" + f.read())
+    digest = h.hexdigest()[:16]
+    libs = {
+        n[:-3]: os.path.join(BUILD_DIR, f"{n[:-3]}_{digest}.so") for n in names if n.endswith(".cu")
+    }
+    todo = {stem: lib for stem, lib in libs.items() if not os.path.exists(lib)}
+    if not todo:
+        return libs
     os.makedirs(BUILD_DIR, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
+    nvcc = _nvcc()
+    jobs = {}
     try:
-        res = subprocess.run(
-            [_nvcc(), *NVCC_FLAGS, "-o", tmp, SOURCE],
-            capture_output=True, text=True,
-        )
-        with open(lib[:-3] + ".log", "w") as f:
-            f.write(res.stdout + res.stderr)
-        if res.returncode != 0:
-            raise RuntimeError(f"gather_conv: nvcc failed\n{res.stderr}")
-        os.replace(tmp, lib)
+        for stem, lib in todo.items():
+            fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+            os.close(fd)
+            proc = subprocess.Popen(
+                [nvcc, *NVCC_FLAGS, "-o", tmp, os.path.join(CSRC, stem + ".cu")],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+            )
+            jobs[stem] = (proc, tmp)
+        failed = []
+        for stem, (proc, tmp) in jobs.items():
+            report = proc.communicate()[0]
+            with open(todo[stem][:-3] + ".log", "w") as f:
+                f.write(report)
+            if proc.returncode != 0:
+                failed.append(f"{stem}.cu:\n{report}")
+            else:
+                os.replace(tmp, todo[stem])
+        if failed:
+            raise RuntimeError("nvcc failed\n" + "\n".join(failed))
     finally:
-        if os.path.exists(tmp):
-            os.remove(tmp)
-    return lib
+        for proc, tmp in jobs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            if os.path.exists(tmp):
+                os.remove(tmp)
+    return libs
 
 
 @functools.cache
-def _library() -> ctypes.CDLL:
-    lib = ctypes.CDLL(build())
+def library(stem: str) -> ctypes.CDLL:
+    """The loaded library built from ``csrc/<stem>.cu``."""
+    return ctypes.CDLL(build()[stem])
+
+
+@functools.cache
+def _entry():
+    fn = library("gather_conv").ir_gather_conv
     p = ctypes.c_void_p
-    lib.ir_gather_conv.restype = ctypes.c_int
-    lib.ir_gather_conv.argtypes = [
+    fn.restype = ctypes.c_int
+    fn.argtypes = [
         p, p, p, p, p, p, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
-        ctypes.c_int, ctypes.c_int, ctypes.c_int, p,
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, p,
     ]
-    return lib
+    return fn
 
 
-def _check(feats, nbr, weight, scale, bias):
-    dev = feats.device
-    if feats.dtype not in _DTYPES:
+def check_launch(name: str, rc: int) -> None:
+    if rc != 0:
+        raise RuntimeError(f"{name}: kernel launch failed with CUDA error {rc}")
+
+
+def check_tensors(name: str, *tensors: torch.Tensor) -> None:
+    """One device for all, contiguous, and a device the wrapper serves."""
+    dev = tensors[0].device
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"{name}: unsupported device {dev}")
+    for t in tensors:
+        if t.device != dev:
+            raise ValueError(f"{name}: tensors on {t.device} and {dev}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: inputs must be contiguous")
+
+
+def check_map(name: str, nbr: torch.Tensor, k: Optional[int] = None) -> None:
+    """int32 [V, K], with K = ``k`` where given."""
+    if nbr.dtype != torch.int32:
+        raise TypeError(f"{name}: nbr dtype {nbr.dtype} is not int32")
+    if nbr.dim() != 2 or (k is not None and nbr.shape[1] != k):
+        raise ValueError(f"{name}: nbr {tuple(nbr.shape)} is not [V, {k or 'K'}]")
+
+
+def _check(feats, nbr, weight, scale, bias, out_dtype):
+    if feats.dtype not in DTYPES:
         raise TypeError(f"gather_conv: feats dtype {feats.dtype} not f32/bf16")
     if weight.dtype != feats.dtype:
         raise TypeError(f"gather_conv: weight {weight.dtype} != feats {feats.dtype}")
-    if nbr.dtype != torch.int32:
-        raise TypeError(f"gather_conv: nbr dtype {nbr.dtype} is not int32")
-    if feats.dim() != 2 or nbr.dim() != 2 or weight.dim() != 3:
+    if out_dtype not in (feats.dtype, torch.float32):
+        raise TypeError(f"gather_conv: output {out_dtype} is neither {feats.dtype} nor f32")
+    if feats.dim() != 2 or weight.dim() != 3:
         raise ValueError("gather_conv: want feats [V_in, Cin], nbr [V_out, K], weight [K, Cin, Cout]")
     k, cin, cout = weight.shape
-    if nbr.shape[1] != k or feats.shape[1] != cin:
+    check_map("gather_conv", nbr, k)
+    if feats.shape[1] != cin:
         raise ValueError(
-            f"gather_conv: feats {tuple(feats.shape)}, nbr {tuple(nbr.shape)}, "
-            f"weight {tuple(weight.shape)} disagree"
+            f"gather_conv: feats {tuple(feats.shape)}, weight {tuple(weight.shape)} disagree"
         )
     if cout not in COUTS:
         raise ValueError(f"gather_conv: Cout {cout} not in {COUTS}")
@@ -116,11 +172,7 @@ def _check(feats, nbr, weight, scale, bias):
             if t.dtype != torch.float32 or t.shape != (cout,):
                 raise ValueError("gather_conv: scale/bias must be f32 [Cout]")
             tensors.append(t)
-    for t in tensors:
-        if t.device != dev:
-            raise ValueError(f"gather_conv: tensors on {t.device} and {dev}")
-        if not t.is_contiguous():
-            raise ValueError("gather_conv: inputs must be contiguous")
+    check_tensors("gather_conv", *tensors)
 
 
 def gather_conv(
@@ -130,6 +182,7 @@ def gather_conv(
     scale: Optional[torch.Tensor] = None,
     bias: Optional[torch.Tensor] = None,
     relu: bool = False,
+    out_dtype: Optional[torch.dtype] = None,
 ) -> torch.Tensor:
     """out[v] = relu?(sum_k feats[nbr[v, k]] @ weight[k] * scale + bias).
 
@@ -138,27 +191,25 @@ def gather_conv(
       nbr:    [V_out, K] int32 rows of ``feats`` (all < V_in), -1 = empty.
       weight: [K, Cin, Cout] in ``feats.dtype``; Cout in {32, 64, 128}.
       scale/bias: optional [Cout] f32 epilogue (folded eval BatchNorm).
-    Returns [V_out, Cout] in ``feats.dtype``; accumulation is f32.
+      out_dtype: ``feats.dtype`` (the default) or f32.
+    Returns [V_out, Cout] in ``out_dtype``; accumulation is f32.
     """
-    _check(feats, nbr, weight, scale, bias)
+    out_dtype = feats.dtype if out_dtype is None else out_dtype
+    _check(feats, nbr, weight, scale, bias, out_dtype)
     if feats.device.type == "cpu":
-        return sparse.gather_conv(feats, nbr, weight, scale, bias, relu)
-    if feats.device.type != "cuda":
-        raise ValueError(f"gather_conv: unsupported device {feats.device}")
+        return sparse.gather_conv(feats, nbr, weight, scale, bias, relu, out_dtype)
     k, cin, cout = weight.shape
     v_out = nbr.shape[0]
-    out = torch.empty(v_out, cout, dtype=feats.dtype, device=feats.device)
+    out = torch.empty(v_out, cout, dtype=out_dtype, device=feats.device)
     if v_out == 0:
         return out
-    rc = _library().ir_gather_conv(
+    check_launch("gather_conv", _entry()(
         feats.data_ptr(), nbr.data_ptr(), weight.data_ptr(),
         None if scale is None else scale.data_ptr(),
         None if bias is None else bias.data_ptr(),
-        out.data_ptr(), v_out, k, cin, cout, int(relu), _DTYPES[feats.dtype],
-        torch.cuda.current_stream(feats.device).cuda_stream,
-    )
-    if rc != 0:
-        raise RuntimeError(f"gather_conv: kernel launch failed with CUDA error {rc}")
+        out.data_ptr(), v_out, k, cin, cout, int(relu), DTYPES[feats.dtype],
+        DTYPES[out_dtype], torch.cuda.current_stream(feats.device).cuda_stream,
+    ))
     gather_conv.launches += 1
     return out
 

@@ -1,9 +1,12 @@
 """Plain PyTorch sparse ops over padded rows.
 
-Counterparts of ``instancerefer_tpu/ops/sparse.py``.  ``gather_conv`` here is
-the plain twin of the CUDA kernel in ``ops/gather_conv.py``: the wrapper runs
-it for CPU tensors, and the tests and ``chip_smoke.py`` hold the kernel
-against it.
+Counterparts of ``instancerefer_tpu/ops/sparse.py``.  ``gather_conv``,
+``subm_conv_bwd`` and ``conv_dw`` here are the plain twins of the CUDA
+kernels K1, K2 and K3 (wrappers in ``ops/gather_conv.py`` and
+``ops/conv_bwd.py``): the wrappers run them for CPU tensors, and the tests
+and ``chip_smoke.py`` hold the kernels against them.  They import no kernel,
+so the wrappers and the autograd Functions (``ops/sparse_conv.py``) can
+import them.
 """
 
 from __future__ import annotations
@@ -20,9 +23,11 @@ def gather_conv(
     scale: Optional[torch.Tensor] = None,
     bias: Optional[torch.Tensor] = None,
     relu: bool = False,
+    out_dtype: Optional[torch.dtype] = None,
 ) -> torch.Tensor:
     """out[v] = sum_k feats[nbr[v, k]] @ weight[k], then the optional
-    per-channel ``acc * scale + bias`` and ReLU, stored in ``feats.dtype``.
+    per-channel ``acc * scale + bias`` and ReLU, stored in ``out_dtype``
+    (default ``feats.dtype``).
 
     Args:
       feats:  [V_in, Cin] bf16 or f32.
@@ -32,8 +37,7 @@ def gather_conv(
     Products and the sum over k and Cin are f32, as in the kernel.
     """
     acc = feats.new_zeros(nbr.shape[0], weight.shape[2], dtype=torch.float32)
-    table = torch.cat([feats, feats.new_zeros(1, feats.shape[1])]).float()
-    safe = torch.where(nbr >= 0, nbr, feats.shape[0]).long()
+    table, safe = _table(feats, nbr)
     w = weight.float()
     for k in range(nbr.shape[1]):
         acc = acc + table[safe[:, k]] @ w[k]
@@ -41,7 +45,40 @@ def gather_conv(
         acc = acc * scale + bias
     if relu:
         acc = torch.relu(acc)
-    return acc.to(feats.dtype)
+    return acc.to(feats.dtype if out_dtype is None else out_dtype)
+
+
+def _table(rows: torch.Tensor, nbr: torch.Tensor):
+    """(rows as f32 with a zero row appended, nbr with -1 pointing at it)."""
+    table = torch.cat([rows, rows.new_zeros(1, rows.shape[1])]).float()
+    return table, torch.where(nbr >= 0, nbr, rows.shape[0]).long()
+
+
+def subm_conv_bwd(feats, nbr, g, weight):
+    """(dX, dW) of the 3^3 submanifold conv over its symmetric map, both
+    f32 — the twin of K2 (``pallas_conv.py:_bwd_fused_kernel``):
+    dX[u] = sum_k g[nbr(u,k)] @ W[K-1-k]^T, dW[K-1-k] = sum_u x[u]^T
+    g[nbr(u,k)].  The mirror K-1-k holds in the host maps' offset order
+    (``KERNEL_OFFSETS_3[26-k] == -KERNEL_OFFSETS_3[k]``), the order the
+    port stores its kernels in."""
+    k = nbr.shape[1]
+    table, safe = _table(g, nbr)
+    x, w = feats.float(), weight.float()
+    dx = x.new_zeros(x.shape)
+    dw = x.new_empty(weight.shape)
+    for i in range(k):
+        rows = table[safe[:, i]]
+        dx = dx + rows @ w[k - 1 - i].T
+        dw[k - 1 - i] = x.T @ rows
+    return dx, dw
+
+
+def conv_dw(feats, nbr, g):
+    """dW[k] = sum_v feats[nbr[v,k]]^T g[v], f32 — the twin of K3
+    (``pallas_conv.py:_dw_kernel``)."""
+    table, safe = _table(feats, nbr)
+    gf = g.float()
+    return torch.stack([table[safe[:, i]].T @ gf for i in range(nbr.shape[1])])
 
 
 def masked_global_max_pool(

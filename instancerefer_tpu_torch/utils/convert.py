@@ -7,6 +7,11 @@ through the host bridge) and returns reference-named tensors that the port's
 sparse-conv kernels in torchsparse's offset order; the port keeps the host
 maps' order (``ops/voxelize.KERNEL_OFFSETS_3/2``), so each kernel is
 re-permuted here, once, with the exporter's own ``_PERM3``/``_PERM2``.
+
+JAX gradients (and Adam's moments) have the tree of the params, so
+``state_dict_from_jax(grads, batch_stats)`` names them as the port's
+parameters, with the same layout changes and kernel permutation; the tests
+hold the port's gradients and trajectories against JAX's that way.
 """
 
 from __future__ import annotations

@@ -1,5 +1,5 @@
-"""The port runs where there is no jax, flax or yaml, and ``chip_smoke.py``
-refuses to run without a GPU.
+"""The port runs where there is no jax, flax or yaml (an eval forward and
+one train step), and ``chip_smoke.py`` refuses to run without a GPU.
 
 The GPU machine has PyTorch but none of jax, flax or yaml, so the port —
 host bridge included — must not import them, even indirectly.
@@ -24,6 +24,7 @@ from instancerefer_tpu_torch.data.host import TEST_SPEC, batch_to_torch, make_ba
 from instancerefer_tpu_torch.models.instancerefer import InstanceRefer
 from instancerefer_tpu_torch.train.evaluate import get_eval
 from instancerefer_tpu_torch.train.losses import get_loss
+from instancerefer_tpu_torch.train.solver import make_optimizer, train_step
 
 dd = batch_to_torch(make_batch(2, TEST_SPEC, seed=0), TEST_SPEC, "cpu")
 model = InstanceRefer(TEST_SPEC.feat_dim, TEST_SPEC.num_classes, TEST_SPEC.max_candidates,
@@ -33,6 +34,9 @@ ms = torch.tensor(np.linspace(0.3, 2.0, 18)[:, None] * np.array([[1.0, 0.9, 0.8]
 with torch.no_grad():
     out = get_eval(get_loss(model(dd), ms))
 assert torch.isfinite(out["loss"]) and out["lang_scores"].shape == (2, 18)
+metrics, _ = train_step(model, make_optimizer(model.parameters(), 1e-3, 1e-5), dd, ms)
+assert torch.isfinite(metrics["loss"]) and model.training
+assert all(torch.isfinite(p.grad).all() for p in model.parameters() if p.grad is not None)
 assert not any(m in sys.modules and sys.modules[m] is not None for m in ("jax", "flax", "yaml"))
 print("ok")
 """
