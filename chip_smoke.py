@@ -34,6 +34,23 @@ Phases, in order; any failure exits nonzero without the final ``ok`` line:
    step, 5 timed steps, then one step on each of 2 more batches; loss and
    every gradient finite, ``ref_iou`` in [0, 1], 34 / 16 / 10 launches of
    K1 / K2 / K3 per step; train scenes/s and peak device memory.
+8. The CLIs at full width: a fake ScanRefer root (40 000 points and 12
+   instances a scene, the 18-class label map, 64 descriptions a scene as
+   in ScanRefer: 16 train batches of 32 over 8 scenes, 8 val batches over
+   4) and ``config/InstanceRefer.yaml`` as text with batch 32, 2 epochs,
+   the lr milestone after epoch 1 and the fitted caps of
+   ``config/band_profile.synthetic.yaml``.  ``main(argv)`` of train, eval
+   (cold, then from its cache), train resumed for a third epoch, and one
+   epoch with ``use_gt_lang: False``, each with the launch counters set to 0
+   just before and read just after: 34 / 16 / 10 launches of K1 / K2 / K3
+   per train step, 26 of K1 per eval forward, none from the cache.  The
+   artifacts exist, every logged loss is finite, the lr is 1e-4 after the
+   milestone and a resumed run goes on from epoch 3.  ``[cli]`` lines give
+   the train CLI's scenes/s per iteration (fetch + step) in the steady
+   state (every iteration but an epoch's first) and over its whole run
+   (validation and checkpoints included), the eval CLI's scenes/s end to
+   end, and the iter reports' means: fetch (split into the wait on the
+   loader and ``batch_to_torch``), forward, backward, eval.
 
 Then one line ``{"kernels": [...]}`` (launch counts of phase 7; ms and
 plain_ms of K1 from phase 2, of K2 and K3 from phase 5, bf16 summed over
@@ -44,10 +61,17 @@ synthetic.
 
 from __future__ import annotations
 
+import contextlib
 import copy
+import io
 import json
+import os
+import pickle
+import re
+import shutil
 import statistics
 import subprocess
+import tempfile
 import time
 
 import numpy as np
@@ -476,6 +500,245 @@ def phase_train(spec, dev, dds):
     return launches
 
 
+REPO = os.path.dirname(os.path.abspath(__file__))
+# ScanRefer has 65-67 descriptions a scene in each split; the fake root has 64
+CLI_SCENES = {"train": range(0, 8), "val": range(8, 12)}
+CLI_BATCHES = {"train": 16, "val": 8}  # batches of BATCH a split
+EVAL_LAUNCHES = {"gather_conv": CONVS_PER_FORWARD, "subm_conv_bwd": 0, "conv_dw": 0}
+# (nyu40 id, nyu40 class) of the 18 classes: the tsv's columns 4 and 7; the
+# last is not a class name and maps to "others"
+NYU40 = ((3, "cabinet"), (4, "bed"), (5, "chair"), (6, "sofa"), (7, "table"), (8, "door"),
+         (9, "window"), (10, "bookshelf"), (11, "picture"), (12, "counter"), (14, "desk"),
+         (16, "curtain"), (24, "refrigerator"), (28, "shower curtain"), (33, "toilet"),
+         (34, "sink"), (36, "bathtub"), (35, "lamp"))
+WORDS = ("the", "a", "is", "it", "this", "that", "of", "to", "in", "on", "with", "and",
+         "next", "near", "left", "right", "front", "behind", "corner", "room", "wall",
+         "brown", "white", "black", "small", "large", "wooden", "square", "round", "facing")
+
+
+def write_fake_scanrefer(root: str, rng: np.random.Generator) -> None:
+    """The layout of ``tests/fake_scanrefer.py`` without its multiview file:
+    per-scene PointGroup npys, the label tsv of the 18 classes, a GloVe
+    pickle and ``ScanRefer_filtered_{split}.json``.  A scene is drawn as
+    ``data/synthetic.py`` draws one: a 4 x 4 x 0.1 m floor of unlabelled
+    points and 12 boxes of 256 points, 40 000 points in all; of its 12
+    instances three pairs share a class and six are alone in theirs."""
+    pg = os.path.join(root, "scannet", "pointgroup_data")
+    meta = os.path.join(root, "scannet", "meta_data")
+    os.makedirs(pg)
+    os.makedirs(meta)
+    n_inst, per_inst = SCENE_KW["num_instances"], 256
+    n_floor = SCENE_KW["num_points"] - n_inst * per_inst
+    slots = (0, 0, 1, 1, 2, 2, 3, 4, 5, 6, 7, 8)  # instance -> class slot of its scene
+    objects = {}
+    for si in range(max(CLI_SCENES["val"]) + 1):
+        scene_id = f"scene{si:04d}_00"
+        classes = rng.permutation(len(NYU40))[:max(slots) + 1]
+        xyz = [rng.uniform([0, 0, 0], [4, 4, 0.1], size=(n_floor, 3))]
+        ins, sem = [np.zeros(n_floor, np.int64)], [np.ones(n_floor, np.int64)]  # nyu40 1: wall
+        boxes = []
+        for i, slot in enumerate(slots):
+            nyu = NYU40[classes[slot]][0]
+            center = rng.uniform(0.5, 3.5, size=3)
+            center[2] = rng.uniform(0.2, 1.5)
+            pts = center + rng.uniform(-0.5, 0.5, size=(per_inst, 3)) * rng.uniform(0.2, 0.9, size=3)
+            xyz.append(pts)
+            ins.append(np.full(per_inst, i + 1, np.int64))
+            sem.append(np.full(per_inst, nyu, np.int64))
+            mn, mx = pts.min(0), pts.max(0)
+            boxes.append(np.concatenate([(mn + mx) / 2, mx - mn, [nyu, i]]))
+        xyz = np.concatenate(xyz)
+        nrm = rng.normal(size=xyz.shape)
+        nrm /= np.linalg.norm(nrm, axis=1, keepdims=True)
+        verts = np.concatenate([xyz, rng.uniform(0, 255, size=xyz.shape), nrm], 1)
+        np.save(os.path.join(pg, f"{scene_id}_aligned_vert.npy"), verts.astype(np.float32))
+        np.save(os.path.join(pg, f"{scene_id}_ins_label_pg.npy"), np.concatenate(ins))
+        np.save(os.path.join(pg, f"{scene_id}_sem_label_pg.npy"), np.concatenate(sem))
+        np.save(os.path.join(pg, f"{scene_id}_aligned_bbox.npy"), np.stack(boxes))
+        objects[si] = [NYU40[classes[slot]][1] for slot in slots]
+
+    with open(os.path.join(meta, "scannetv2-labels.combined.tsv"), "w") as f:
+        f.write("id\traw_category\tcategory\tcount\tnyu40id\teigen13id\tnyuClass\tnyu40class\n")
+        for i, (nyu, name) in enumerate(NYU40):
+            f.write(f"{i + 1}\t{name}\t{name}\t1\t{nyu}\t0\t{name}\t{name}\n")
+    vocab = set(WORDS) | {w for _, name in NYU40 for w in name.split()} | {"unk"}
+    with open(os.path.join(root, "glove.p"), "wb") as f:
+        pickle.dump({w: rng.normal(size=300).astype(np.float32) for w in sorted(vocab)}, f)
+    for split, scenes in CLI_SCENES.items():
+        anns, seen = [], {}
+        for _ in range(CLI_BATCHES[split] * BATCH):
+            si = int(rng.choice(scenes))
+            obj = int(rng.integers(n_inst))
+            name = objects[si][obj]
+            ann_id = seen[si, obj] = seen.get((si, obj), -1) + 1
+            tokens = [str(w) for w in rng.choice(WORDS, size=int(rng.integers(6, 40)))]
+            tokens[1:1] = name.split()
+            anns.append({"scene_id": f"scene{si:04d}_00", "object_id": str(obj),
+                         "object_name": name.replace(" ", "_"), "ann_id": str(ann_id),
+                         "token": tokens, "description": " ".join(tokens)})
+        with open(os.path.join(root, f"ScanRefer_filtered_{split}.json"), "w") as f:
+            json.dump(anns, f)
+
+
+def cli_config_text() -> str:
+    """``config/InstanceRefer.yaml`` with batch 32, 2 epochs, the lr milestone
+    after epoch 1, an iter report every step, and the synthetic band
+    profile's fitted caps."""
+    text = open(os.path.join(REPO, "config", "InstanceRefer.yaml")).read()
+    for old, new in (("batch_size: 64", f"batch_size: {BATCH}"), ("epoch: 25", "epoch: 2"),
+                     ("lr_decay_step: [15, 20]", "lr_decay_step: [1]"), ("verbose: 20", "verbose: 1")):
+        if text.count(old) != 1:
+            raise AssertionError(f"config/InstanceRefer.yaml: {old!r} not found once")
+        text = text.replace(old, new)
+    if not text.rstrip().splitlines()[-1].startswith("  "):
+        raise AssertionError("config/InstanceRefer.yaml no longer ends in its TPU section")
+    return text + f"  band_profile: {os.path.join(REPO, 'config', 'band_profile.synthetic.yaml')}\n"
+
+
+def _records(run: str):
+    with open(os.path.join(run, "scalars.jsonl")) as f:
+        return [json.loads(line) for line in f]
+
+
+def phase_cli():
+    import warnings
+
+    from instancerefer_tpu_torch.config import load_config
+    from instancerefer_tpu_torch.ops import conv_bwd
+    from instancerefer_tpu_torch.ops.gather_conv import gather_conv
+    from instancerefer_tpu_torch.ops.precision import set_compute_dtype
+    from instancerefer_tpu_torch.scripts import eval as eval_cli
+    from instancerefer_tpu_torch.scripts import train as train_cli
+
+    counters = {"gather_conv": gather_conv, "subm_conv_bwd": conv_bwd.subm_conv_bwd,
+                "conv_dw": conv_bwd.conv_dw}
+    root = tempfile.mkdtemp(prefix="cli_smoke_")
+    try:
+        t0 = time.perf_counter()
+        write_fake_scanrefer(root, np.random.default_rng(0))
+        configs = {"main": cli_config_text()}
+        configs["predicted"] = configs["main"].replace("use_gt_lang: True", "use_gt_lang: False") \
+            .replace("epoch: 2", "epoch: 1")
+        for name, text in configs.items():
+            with open(os.path.join(root, f"{name}.yaml"), "w") as f:
+                f.write(text)
+        log(f"[cli] fake ScanRefer root ({len(CLI_SCENES['train'])} train and "
+            f"{len(CLI_SCENES['val'])} val scenes, {CLI_BATCHES['train']} and "
+            f"{CLI_BATCHES['val']} batches of {BATCH}) written in {time.perf_counter() - t0:.1f} s")
+
+        def argv(config, log_dir):
+            return ["--config", os.path.join(root, f"{config}.yaml"), "--log_dir", log_dir,
+                    "--data_root", root, "--output_root", os.path.join(root, "outputs"),
+                    "--device", "cuda"]
+
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")  # the profile overrides the yaml's caps, on purpose
+            spec = load_config(argv("main", "x")).batch_spec()
+        for k, v in SPEC_KW.items():
+            if getattr(spec, k) != v:
+                raise AssertionError(f"the CLI config's {k} is {getattr(spec, k)}, want {v}")
+
+        def drive(label, fn, args, want_per_step):
+            """One CLI ``main`` with the launch counters set to 0 just before
+            and read just after; ``want_per_step(result)`` gives the launches
+            it must have made.  Its standard output is kept back, and shown
+            if it fails."""
+            for f in counters.values():
+                f.launches = 0
+            torch.cuda.synchronize()
+            start = time.perf_counter()
+            out = io.StringIO()
+            try:
+                with warnings.catch_warnings(), contextlib.redirect_stdout(out):
+                    warnings.simplefilter("ignore")
+                    result = fn(args)
+            except BaseException:
+                log(out.getvalue()[-4000:])
+                raise
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - start
+            got = {k: f.launches for k, f in counters.items()}
+            want = want_per_step(result)
+            log(f"[cli] {label}: {wall:.1f} s wall, launches " +
+                ", ".join(f"{k} {got[k]}" for k in counters))
+            if got != want:
+                raise AssertionError(f"{label}: launches {got}, want {want}")
+            return result, wall
+
+        def train_launches(epochs):
+            def want(solver):
+                n_train, n_val = solver.steps["train"], solver.steps["val"]
+                if n_train != CLI_BATCHES["train"] * epochs or n_val != CLI_BATCHES["val"] * epochs:
+                    raise AssertionError(f"{n_train} train and {n_val} val steps in {epochs} epochs")
+                return {k: TRAIN_LAUNCHES[k] * n_train + EVAL_LAUNCHES[k] * n_val for k in counters}
+            return want
+
+        solver, train_wall = drive("train", train_cli.main, argv("main", "cli"), train_launches(2))
+        run = solver.root
+        for name in ("model_last.pth", "model.pth", "checkpoint.tar", "log.txt", "scalars.jsonl",
+                     "best.txt", "info.json"):
+            if not os.path.isfile(os.path.join(run, name)):
+                raise AssertionError(f"train wrote no {name}")
+        records = _records(run)
+        bad = [r for r in records for k in ("loss", "ref_loss", "lang_loss", "seg_loss")
+               if not np.isfinite(r[k])]
+        per_epoch = CLI_BATCHES["train"]
+        if bad or len(records) != 2 * (per_epoch + 1):
+            raise AssertionError(f"{len(records)} records, non-finite losses in {bad[:2]}")
+        lrs = [r["lr"] for r in records if r["phase"] == "train"]
+        if not np.allclose(lrs, [1e-3] * per_epoch + [1e-4] * per_epoch, rtol=1e-9, atol=0):
+            raise AssertionError(f"lr per train step {lrs}")
+
+        n_val = CLI_BATCHES["val"] * BATCH
+        _, eval_wall = drive("eval (cold)", eval_cli.main, argv("main", "cli"),
+                             lambda _: {k: EVAL_LAUNCHES[k] * CLI_BATCHES["val"] for k in counters})
+        scores = np.load(os.path.join(run, "scores.npz"))
+        if len(scores["ref_iou"]) != n_val or not np.isfinite(scores["ref_iou"]).all():
+            raise AssertionError("scores.npz: wrong length or non-finite ious")
+        table, _ = drive("eval (cached)", eval_cli.main, argv("main", "cli"),
+                         lambda _: {k: 0 for k in counters})
+        if table["overall"]["overall"]["count"] != n_val:
+            raise AssertionError("the cached table does not count every description")
+
+        with open(os.path.join(root, "resume.yaml"), "w") as f:
+            f.write(configs["main"].replace(
+                "epoch: 2", f"epoch: 3\n  use_checkpoint: {os.path.basename(run)}"))
+        resumed, _ = drive("train resumed", train_cli.main, argv("resume", "cli"),
+                          train_launches(1))
+        text = open(os.path.join(resumed.root, "log.txt")).read()
+        first = _records(resumed.root)[0]
+        if resumed.root == run or "epoch 3 starting" not in text or "epoch 2 starting" in text \
+                or first["iter"] != 2 * per_epoch or abs(first["lr"] - 1e-4) > 1e-12:
+            raise AssertionError("the resumed run does not go on from epoch 3")
+        drive("train use_gt_lang False", train_cli.main, argv("predicted", "clipred"),
+              train_launches(1))
+
+        text = open(os.path.join(run, "log.txt")).read()
+        reports = {k: np.array([float(v) for v in
+                                re.findall(rf"\[info\] mean_{k}_time: (\S+)s", text)])
+                   for k in ("fetch", "fetch_load", "fetch_copy", "forward", "backward", "eval",
+                             "iter")}
+        if any(len(v) != 2 * per_epoch for v in reports.values()):
+            raise AssertionError("the train log holds no iter report for every iteration")
+        # an epoch's first fetch waits for the loader to start and for two batches
+        steady = np.arange(2 * per_epoch) % per_epoch != 0
+        log(f"[cli] train B={BATCH}: {BATCH / reports['iter'][steady].mean():.2f} scenes/s "
+            f"per iteration (fetch + step) in the steady state, the mean of {steady.sum()} "
+            f"iterations; {BATCH / reports['iter'].mean():.2f} over all {steady.size}; "
+            f"{steady.size * BATCH / train_wall:.2f} over the CLI's wall time of "
+            f"{train_wall:.2f} s (setup, validation and checkpoints included)")
+        log("[cli] train iter report, steady-state means: " + ", ".join(
+            f"{k} {v[steady].mean() * 1e3:.2f} ms" for k, v in reports.items())
+            + "; each epoch's first iteration: " + ", ".join(
+            f"fetch {f * 1e3:.1f} ms" for f in reports["fetch"][~steady]))
+        log(f"[cli] eval B={BATCH}: {n_val / eval_wall:.2f} scenes/s end to end "
+            f"({n_val} descriptions in {eval_wall:.2f} s: dataset, weights, host "
+            f"pipeline, forwards and scores.npz)")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+        set_compute_dtype(None)
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device; this script runs only on a GPU")
@@ -509,6 +772,8 @@ def main() -> None:
     bwd = phase_bwd_kernels(batches[0], dev)
     phase_train_parity(spec, dev)
     launches = phase_train(spec, dev, dds)
+    del dds
+    phase_cli()
 
     k1 = {"worst": max(worst, bwd["gather_conv"]["worst"]), "ms": ms, "plain_ms": plain_ms}
     entries = (

@@ -2,7 +2,12 @@
 ``instancerefer_tpu/models/instancerefer.py``: lang -> attribute -> relation
 -> scene over one data dict.  Train or eval mode follows ``nn.Module.train()``
 (the JAX package's ``train=`` argument); the BN momentum of train mode is
-set with ``set_bn_momentum`` (its ``bn_momentum=`` argument)."""
+set with ``set_bn_momentum`` (its ``bn_momentum=`` argument).
+
+``build_model`` is what the CLIs call: the model of a config.  The JAX
+package can switch the attribute, relation and scene modules off, but cannot
+train such a model either (``get_loss`` sums all three scores), so here a
+config that switches one off is refused."""
 
 from __future__ import annotations
 
@@ -25,14 +30,14 @@ from instancerefer_tpu_torch.models.scene_module import SceneModule
 
 class InstanceRefer(nn.Module):
     def __init__(self, input_feature_dim: int, num_classes: int = 18,
-                 max_candidates: int = 16, k: int = 8,
+                 max_candidates: int = 16, use_bidir: bool = True, k: int = 8,
                  generator: Optional[torch.Generator] = None,
                  dropout_override: Optional[float] = None):
         """``dropout_override``: None keeps each module's reference rate
         (lang word dropout 0.1, relation and scene 0.15); a float sets every
         dropout to it (0.0 for parity runs)."""
         super().__init__()
-        self.lang = LangModule(num_classes)
+        self.lang = LangModule(num_classes, use_bidir)
         self.attribute = AttributeModule(input_feature_dim, max_candidates)
         self.relation = RelationModule(input_feature_dim, num_classes, k=k)
         self.scene = SceneModule(input_feature_dim)
@@ -54,6 +59,24 @@ class InstanceRefer(nn.Module):
         data_dict = self.attribute(data_dict)
         data_dict = self.relation(data_dict)
         return self.scene(data_dict)
+
+
+MODULE_SWITCHES = ("attribute_module", "relation_module", "scene_module")
+
+
+def build_model(cfg, generator: Optional[torch.Generator] = None) -> InstanceRefer:
+    """The model of a ``config.Config``: input width, classes, candidates,
+    ``use_bidir`` and ``k``.  Raises ``ValueError`` naming the key when one
+    of ``MODULE_SWITCHES`` is off."""
+    for key in MODULE_SWITCHES:
+        if not getattr(cfg, key):
+            raise ValueError(
+                f"{key} is off ({getattr(cfg, key)!r}): the port builds and trains "
+                "only the full model, whose loss sums the attribute, relation and "
+                "scene scores"
+            )
+    return InstanceRefer(cfg.input_feature_dim, cfg.num_classes, cfg.max_candidates,
+                         use_bidir=cfg.use_bidir, k=cfg.k, generator=generator)
 
 
 @torch.no_grad()

@@ -1,7 +1,8 @@
 """Language encoder, counterpart of ``instancerefer_tpu/models/lang_module.py``:
-GloVe projection, 2-layer bidirectional GRU over the packed sequence, four
-attention heads that pool the *projected embeddings* (not the GRU states, a
-reference quirk) and the 18-way text classifier.  The word dropout is live
+GloVe projection, 2-layer GRU over the packed sequence (bidirectional unless
+``use_bidir=False``, as the config's ``use_bidir``), four attention heads that
+pool the *projected embeddings* (not the GRU states, a reference quirk) and
+the 18-way text classifier.  The word dropout is live
 in train mode; the GRU's backward is cuDNN's on the card."""
 
 from __future__ import annotations
@@ -20,8 +21,8 @@ def masked_softmax(logits: torch.Tensor, mask: torch.Tensor, dim: int = -1) -> t
 class LangModule(nn.Module):
     HEADS = ("fc_a", "fc_cls", "fc_rel", "fc_scene")
 
-    def __init__(self, num_text_classes: int, emb_size: int = 300, hidden_size: int = 128,
-                 word_dropout: float = 0.1):
+    def __init__(self, num_text_classes: int, use_bidir: bool = True, emb_size: int = 300,
+                 hidden_size: int = 128, word_dropout: float = 0.1):
         super().__init__()
         h_dim = 256
         self.word_projection = nn.Sequential(
@@ -29,9 +30,9 @@ class LangModule(nn.Module):
             nn.Linear(h_dim, h_dim), nn.ReLU(),
         )
         self.gru = nn.GRU(h_dim, hidden_size, num_layers=2, batch_first=True,
-                          bidirectional=True)
+                          bidirectional=use_bidir)
         for name in self.HEADS:
-            setattr(self, name, nn.Linear(2 * hidden_size, 1))
+            setattr(self, name, nn.Linear(hidden_size * (1 + use_bidir), 1))
         self.lang_cls = nn.Sequential(nn.Linear(h_dim, num_text_classes))
 
     def forward(self, data_dict: dict) -> dict:
@@ -39,7 +40,7 @@ class LangModule(nn.Module):
         lengths = data_dict["lang_len"]  # [B]
         t = feats.shape[1]
         embed = self.word_projection(feats)
-        gru_out = packed_gru(self.gru, embed, lengths)  # [B, T, 256]
+        gru_out = packed_gru(self.gru, embed, lengths)  # [B, T, 128 * (1 + bidir)]
         mask = length_mask(lengths, t)
 
         out = dict(data_dict)

@@ -1,4 +1,4 @@
-"""Length-masked stacked bidirectional GRU, counterpart of
+"""Length-masked stacked GRU (one or two directions), counterpart of
 ``instancerefer_tpu/ops/gru.py``.
 
 The JAX package reproduces pack/pad semantics with masks inside a

@@ -1,10 +1,12 @@
 """Evaluation, counterpart of ``instancerefer_tpu/train/evaluate.get_eval``:
 0 candidates -> zero box (a miss), 1 -> that candidate, >= 2 -> argmax of
 the summed scores; ``ref_acc`` and Acc@IoU per sample.  ``get_loss`` runs
-first (it produces ``cluster_label`` and ``ref_gt_obb``)."""
+first (it produces ``cluster_label`` and ``ref_gt_obb``).  ``aggregate_scores``
+is the eval CLI's host-side table, in numpy."""
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from instancerefer_tpu_torch.ops.boxes import box3d_iou_aabb, get_3d_box_corners
@@ -50,3 +52,29 @@ def get_eval(data_dict: dict) -> dict:
     out["num_missed"] = ((num_cand == 0) & valid).sum()
     out["sample_valid"] = valid
     return out
+
+
+def aggregate_scores(ious, ref_acc, multiple, others) -> dict:
+    """The unique/multiple x others table of the reference's
+    ``scripts/eval.py:201-334``: {unique, multiple, overall} x
+    {not_in_others, in_others, overall}, each cell with ref_acc, Acc@0.25,
+    Acc@0.5 and its count (0 everywhere for an empty cell, as the reference)."""
+    ious = np.asarray(ious)
+    ref_acc = np.asarray(ref_acc)
+    multiple = np.asarray(multiple).astype(bool)
+    others = np.asarray(others).astype(bool)
+
+    def cell(mask):
+        if mask.sum() == 0:
+            return {"ref_acc": 0.0, "acc@0.25iou": 0.0, "acc@0.5iou": 0.0, "count": 0}
+        return {
+            "ref_acc": float(ref_acc[mask].mean()),
+            "acc@0.25iou": float((ious[mask] >= 0.25).mean()),
+            "acc@0.5iou": float((ious[mask] >= 0.5).mean()),
+            "count": int(mask.sum()),
+        }
+
+    all_mask = np.ones_like(multiple)
+    rows = {"unique": ~multiple, "multiple": multiple, "overall": all_mask}
+    cols = {"not_in_others": ~others, "in_others": others, "overall": all_mask}
+    return {rk: {ck: cell(rm & cm) for ck, cm in cols.items()} for rk, rm in rows.items()}

@@ -1,25 +1,103 @@
-"""The train step and its schedules, counterpart of the step of
-``instancerefer_tpu/train/solver.py`` (``make_optimizer`` :121-134,
-``bn_momentum_for_epoch`` :137-150, ``train_step`` :250-268, ``_metrics``
-:270-285).  The epoch loop, reports and checkpoints are not ported yet.
+"""Training solver, counterpart of ``instancerefer_tpu/train/solver.py``: the
+train step, its schedules, and the ``Solver`` that runs the epoch loop with
+the reference's reports and checkpoints.
 
 * ``make_optimizer``: ``torch.optim.Adam`` with L2 weight decay folded into
   the gradient — the optax chain ``add_decayed_weights -> scale_by_adam ->
   lr`` of the JAX package, with the same defaults (betas 0.9/0.999, eps 1e-8).
-* ``make_scheduler``: ``MultiStepLR`` over epochs; step it once per epoch.
+* ``make_scheduler``: ``MultiStepLR`` over epochs, stepped once per epoch;
+  JAX's per-step boundaries at ``epoch * steps_per_epoch`` give the same lr.
 * ``bn_momentum_for_epoch``: the reference's BNMomentumScheduler.
+* ``train_step``: train-mode forward -> ``get_loss`` -> backward -> Adam ->
+  ``get_eval``.
+* ``Solver``: the epoch loop (resumable from its epoch counter), a prefetch
+  of depth 2 with the host-side capacity-overflow log, the iter / epoch /
+  best report templates of the reference (``lib/solver.py:23-60``),
+  ``log.txt``, ``scalars.jsonl`` (whose train records also carry the lr),
+  ``best.txt``, optional tensorboardX, best-model selection on val
+  ``iou_rate_0.25``, and the reference's three checkpoint roles:
+  ``model_last.pth`` every epoch, ``model.pth`` on a new best, and
+  ``checkpoint.tar`` = {epoch, model_state_dict, optimizer_state_dict, best}
+  at the end and on Ctrl-C.  Every file holds the reference's layout
+  (``utils/convert``).  Forward, backward and eval are timed per step with
+  CUDA events on a card (the host clock on the CPU), read once the step's
+  metrics are on the host.  Fetch time is the host clock; each iter report
+  is followed by its split into the wait on the loader and the time in
+  ``batch_to_torch``.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Iterable, Optional, Sequence, Tuple
+import collections
+import json
+import os
+import time
+import warnings
+from typing import Dict, Iterable, List, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 
+from instancerefer_tpu_torch.data.host import batch_to_torch
 from instancerefer_tpu_torch.train.evaluate import get_eval
 from instancerefer_tpu_torch.train.losses import get_loss
+from instancerefer_tpu_torch.utils.convert import (
+    from_reference,
+    load_reference_state_dict,
+    to_reference,
+    to_reference_state_dict,
+)
+from instancerefer_tpu_torch.utils.eta import decode_eta
 
+ITER_REPORT_TEMPLATE = """
+-------------------------------iter: [{epoch_id}: {iter_id}/{total_iter}]-------------------------------
+[loss] train_loss: {train_loss}
+[loss] train_ref_loss: {train_ref_loss}
+[loss] train_lang_loss: {train_lang_loss}
+[loss] train_seg_loss: {train_seg_loss}
+[loss] train_lang_acc: {train_lang_acc}
+[sco.] train_ref_acc: {train_ref_acc}
+[sco.] train_seg_acc: {train_seg_acc}
+[sco.] train_iou_rate_0.25: {train_iou_rate_25}, train_iou_rate_0.5: {train_iou_rate_5}
+[info] mean_fetch_time: {mean_fetch_time}s
+[info] mean_forward_time: {mean_forward_time}s
+[info] mean_backward_time: {mean_backward_time}s
+[info] mean_eval_time: {mean_eval_time}s
+[info] mean_iter_time: {mean_iter_time}s
+[info] ETA: {eta_h}h {eta_m}m {eta_s}s
+"""
+
+# the fetch of the iter report in its two parts, logged after it
+FETCH_SPLIT_TEMPLATE = """[info] mean_fetch_load_time: {mean_load_time}s
+[info] mean_fetch_copy_time: {mean_copy_time}s"""
+
+EPOCH_REPORT_TEMPLATE = """
+---------------------------------summary---------------------------------
+[val]   val_loss: {val_loss}
+[val]   val_lang_loss: {val_lang_loss}
+[val]   val_lang_acc: {val_lang_acc}
+[val]   val_seg_acc: {val_seg_acc}
+[val]   val_ref_acc: {val_ref_acc}
+[val]   val_iou_rate_0.25: {val_iou_rate_25}, val_iou_rate_0.5: {val_iou_rate_5}
+"""
+
+BEST_REPORT_TEMPLATE = """
+--------------------------------------best--------------------------------------
+[best] epoch: {epoch}
+[loss] loss: {loss}
+[loss] ref_loss: {ref_loss}
+[loss] lang_loss: {lang_loss}
+[loss] lang_acc: {lang_acc}
+[sco.] ref_acc: {ref_acc}
+[sco.] iou_rate_0.25: {iou_rate_25}, iou_rate_0.5: {iou_rate_5}
+"""
+
+# batches on the device ahead of the step
+PREFETCH = 2
+# the top-level submodules a ``use_pretrained`` warm start copies
+PRETRAINED_MODULES = ("lang", "attribute", "relation", "scene")
 METRIC_KEYS = ("loss", "ref_loss", "lang_loss", "seg_loss", "lang_acc", "ref_acc", "seg_acc")
+MOMENTS = ("exp_avg", "exp_avg_sq")
 
 
 def make_optimizer(params: Iterable[torch.nn.Parameter], lr: float, wd: float) -> torch.optim.Adam:
@@ -27,13 +105,25 @@ def make_optimizer(params: Iterable[torch.nn.Parameter], lr: float, wd: float) -
 
 
 def make_scheduler(optimizer: torch.optim.Optimizer, lr_decay_step: Optional[Sequence[int]],
-                   lr_decay_rate: Optional[float]) -> torch.optim.lr_scheduler.MultiStepLR:
-    """lr x rate at each milestone epoch; constant without both."""
+                   lr_decay_rate: Optional[float], start_epoch: int = 0
+                   ) -> torch.optim.lr_scheduler.MultiStepLR:
+    """lr x rate at each milestone epoch; constant without both.  The lr is
+    set to that of epoch ``start_epoch`` from each group's initial lr, so a
+    resumed run rebuilds its schedule from the epoch alone."""
+    for group in optimizer.param_groups:
+        group["lr"] = group.setdefault("initial_lr", group["lr"])
     if lr_decay_step and lr_decay_rate:
         steps = lr_decay_step if isinstance(lr_decay_step, (list, tuple)) else [lr_decay_step]
-        return torch.optim.lr_scheduler.MultiStepLR(optimizer, [int(e) for e in steps],
-                                                    float(lr_decay_rate))
-    return torch.optim.lr_scheduler.MultiStepLR(optimizer, [], 1.0)
+        sched = torch.optim.lr_scheduler.MultiStepLR(optimizer, [int(e) for e in steps],
+                                                     float(lr_decay_rate))
+    else:
+        sched = torch.optim.lr_scheduler.MultiStepLR(optimizer, [], 1.0)
+    with warnings.catch_warnings():
+        # "lr_scheduler.step() before optimizer.step()": on purpose here
+        warnings.simplefilter("ignore", UserWarning)
+        for _ in range(start_epoch):
+            sched.step()
+    return sched
 
 
 def bn_momentum_for_epoch(epoch: int, bn_decay_step, bn_decay_rate) -> float:
@@ -55,18 +145,494 @@ def train_metrics(out: dict) -> Dict[str, torch.Tensor]:
     return metrics
 
 
+def metrics_to_host(metrics: Dict[str, torch.Tensor]) -> Dict[str, float]:
+    """Every scalar of a step in one device -> host transfer."""
+    keys = list(metrics)
+    values = torch.stack([metrics[k].float() for k in keys]).cpu().tolist()
+    return dict(zip(keys, values))
+
+
+class PhaseTimer:
+    """Phase boundaries of one step: CUDA events on a card (read after the
+    step's results reached the host, so reading them waits for nothing),
+    the host clock on the CPU."""
+
+    def __init__(self, device):
+        self.device = torch.device(device)
+        self.marks: List = []
+
+    def mark(self) -> None:
+        if self.device.type == "cuda":
+            event = torch.cuda.Event(enable_timing=True)
+            event.record(torch.cuda.current_stream(self.device))
+            self.marks.append(event)
+        else:
+            self.marks.append(time.perf_counter())
+
+    def seconds(self) -> List[float]:
+        """Seconds between consecutive marks; forgets the marks."""
+        marks, self.marks = self.marks, []
+        if self.device.type == "cuda":
+            marks[-1].synchronize()
+            return [a.elapsed_time(b) / 1e3 for a, b in zip(marks, marks[1:])]
+        return [b - a for a, b in zip(marks, marks[1:])]
+
+
 def train_step(model: torch.nn.Module, optimizer: torch.optim.Optimizer, dd: dict,
-               mean_size: torch.Tensor, bn_momentum: float = 0.1
-               ) -> Tuple[Dict[str, torch.Tensor], dict]:
+               mean_size: torch.Tensor, bn_momentum: float = 0.1,
+               timer: Optional[PhaseTimer] = None) -> Tuple[Dict[str, torch.Tensor], dict]:
     """Train-mode forward -> ``get_loss`` -> backward -> ``optimizer.step()``
     -> ``get_eval``.  Returns (metrics, the step's outputs).  The gradients
-    stay in ``.grad`` until the next step."""
+    stay in ``.grad`` until the next step.  ``timer`` marks the bounds of
+    forward (with the loss), backward (with Adam) and eval."""
+    mark = timer.mark if timer is not None else (lambda: None)
     model.train()
     model.set_bn_momentum(bn_momentum)
     optimizer.zero_grad(set_to_none=True)
+    mark()
     out = get_loss(model(dd), mean_size)
+    mark()
     out["loss"].backward()
     optimizer.step()
+    mark()
     with torch.no_grad():
         out = get_eval(out)
-    return train_metrics(out), out
+        metrics = train_metrics(out)
+    mark()
+    return metrics, out
+
+
+def _named_moments(optimizer_state: dict, names: List[str], convert) -> dict:
+    """An optimizer state_dict with its Adam moments passed through
+    ``convert`` ({name: tensor} -> {name: tensor}), keyed by parameter name."""
+    state = {}
+    for idx, st in optimizer_state["state"].items():
+        st = dict(st)
+        name = names[int(idx)]
+        for m in MOMENTS:
+            if m in st:
+                st[m] = convert({name: st[m]})[name]
+        state[idx] = st
+    return {"state": state, "param_groups": optimizer_state["param_groups"]}
+
+
+class Solver:
+    def __init__(
+        self,
+        model: torch.nn.Module,
+        mean_size_arr: np.ndarray,
+        spec,
+        device,
+        *,
+        lr: float = 1e-3,
+        wd: float = 1e-5,
+        lr_decay_step=(15, 20),
+        lr_decay_rate: float = 0.1,
+        bn_decay_step=None,
+        bn_decay_rate=None,
+        stamp: str = "run",
+        output_dir: str = "outputs",
+        start_val: int = 0,
+    ):
+        self.device = torch.device(device)
+        self.model = model.to(self.device)
+        self.spec = spec
+        self.mean_size = torch.tensor(np.asarray(mean_size_arr), dtype=torch.float32,
+                                      device=self.device)
+        self.optimizer = make_optimizer(self.model.parameters(), lr, wd)
+        self.lr_decay_step = lr_decay_step
+        self.lr_decay_rate = lr_decay_rate
+        self.bn_decay_step = bn_decay_step
+        self.bn_decay_rate = bn_decay_rate
+        self.stamp = stamp
+        # validation (and best-model selection) starts at epoch start_val
+        self.start_val = start_val
+        self.root = os.path.join(output_dir, stamp)
+        os.makedirs(self.root, exist_ok=True)
+        self.log_path = os.path.join(self.root, "log.txt")
+        self.scalars_path = os.path.join(self.root, "scalars.jsonl")
+        self.timer = PhaseTimer(self.device)
+
+        # tensorboard writers (reference lib/solver.py:96-102); optional dep
+        self._log_writer = {}
+        try:
+            from tensorboardX import SummaryWriter
+
+            for phase in ("train", "val"):
+                d = os.path.join(self.root, "tensorboard", phase)
+                os.makedirs(d, exist_ok=True)
+                self._log_writer[phase] = SummaryWriter(d)
+        except ImportError:
+            pass
+
+        self.best = {
+            "epoch": 0, "loss": float("inf"), "ref_loss": float("inf"),
+            "lang_loss": float("inf"), "seg_loss": float("inf"),
+            "lang_acc": -float("inf"), "ref_acc": -float("inf"),
+            "seg_acc": -float("inf"),
+            "iou_rate_0.25": -float("inf"), "iou_rate_0.5": -float("inf"),
+        }
+        self.epochs_done = 0  # the epoch counter a checkpoint resumes from
+        self.steps = {"train": 0, "val": 0}  # steps run by this solver
+        self._global_iter_id = 0
+        self._total_iter = {"train": 0}
+        self._iters_per_epoch = 1
+        self._val_len = 0
+        self.init_log()
+
+    # ------------------------------------------------------------------- loop
+    def __call__(self, dataloader: Dict[str, Iterable], epoch: int, verbose: int):
+        self.epoch = epoch
+        self.verbose = verbose
+        self._total_iter["train"] = len(dataloader["train"]) * epoch
+        self._iters_per_epoch = max(len(dataloader["train"]), 1)
+        self._val_len = len(dataloader["val"])  # for the ETA's val term
+
+        # resume: the epoch counter of a restored checkpoint sets the lr, the
+        # BN momentum and the iteration count (reference lib/solver.py:373-381)
+        start_epoch = self.epochs_done
+        self.scheduler = make_scheduler(self.optimizer, self.lr_decay_step,
+                                        self.lr_decay_rate, start_epoch)
+        self._global_iter_id = start_epoch * len(dataloader["train"])
+        epoch_id = start_epoch
+        for epoch_id in range(start_epoch, epoch):
+            try:
+                self._log(f"epoch {epoch_id + 1} starting...")
+                bn_momentum = bn_momentum_for_epoch(
+                    epoch_id, self.bn_decay_step, self.bn_decay_rate
+                )
+                self._feed(dataloader["train"], "train", epoch_id, bn_momentum)
+                self.scheduler.step()
+                self._log("saving last models...\n")
+                self.save_checkpoint("model_last")
+                if epoch_id + 1 >= self.start_val:
+                    self.init_log()
+                    self._feed(dataloader["val"], "val", epoch_id)
+                self.epochs_done = epoch_id + 1
+            except KeyboardInterrupt:
+                self._finish(epoch_id)
+                return
+        self._finish(epoch_id)
+
+    def _prefetch(self, loader, overflow_log=None):
+        """Batches on the device, ``PREFETCH`` ahead of the step, each with
+        the host seconds its fetch spent waiting on the loader (whose threads
+        build the batches) and in ``batch_to_torch``.  The depth is JAX's,
+        whose ``device_put`` is asynchronous.  Here the copies are
+        synchronous on this thread, so the depth overlaps nothing with the
+        step: it only moves the waits (an epoch's first fetch waits for two
+        batches).  ``overflow_log`` ({"scene": [], "inst": []}) gathers each
+        batch's capacity-overflow fractions from the host arrays, before
+        they are copied."""
+        queue = collections.deque()
+        it = iter(loader)
+        while True:
+            load = copy = 0.0
+            while len(queue) < PREFETCH:
+                start = time.perf_counter()
+                try:
+                    nxt = next(it)
+                except StopIteration:
+                    break
+                load += time.perf_counter() - start
+                if overflow_log is not None and isinstance(nxt.get("scene_overflow"), np.ndarray):
+                    overflow_log["scene"].append(float(nxt["scene_overflow"].mean()))
+                    overflow_log["inst"].append(float(nxt["inst_overflow"].mean()))
+                    co = nxt.get("cand_overflow")
+                    if isinstance(co, np.ndarray):
+                        overflow_log.setdefault("cand", []).append(float(co.mean()))
+                start = time.perf_counter()
+                queue.append(batch_to_torch(nxt, self.spec, self.device))
+                copy += time.perf_counter() - start
+            if not queue:
+                return
+            yield queue.popleft(), load, copy
+
+    def _report_overflow(self, phase, overflow_log):
+        """Epoch-wide capacity-overflow fractions (every batch, not just the
+        first): a capacity bust anywhere in the epoch is surfaced here."""
+        if not overflow_log["scene"]:
+            return
+        so = float(np.mean(overflow_log["scene"]))
+        io_ = float(np.mean(overflow_log["inst"]))
+        so_max = float(np.max(overflow_log["scene"]))
+        io_max = float(np.max(overflow_log["inst"]))
+        if max(so, io_, so_max, io_max) > 0.01:
+            self._log(
+                f"WARNING: [{phase}] voxel capacity overflow over the epoch "
+                f"(scene mean {so:.1%} / max {so_max:.1%}, instance mean "
+                f"{io_:.1%} / max {io_max:.1%}) — raise scene_caps/inst_caps "
+                f"in the TPU config section to avoid dropped voxels"
+            )
+        cand = overflow_log.get("cand", [])
+        if cand and max(cand) > 0:
+            self._log(
+                f"WARNING: [{phase}] candidate capacity overflow over the "
+                f"epoch (mean {float(np.mean(cand)):.2%} / max "
+                f"{float(np.max(cand)):.2%} of filtered instances dropped) — "
+                f"the reference keeps every filtered candidate; raise "
+                f"max_candidates in the TPU config section"
+            )
+
+    def _eval_step(self, dd: dict) -> Dict[str, torch.Tensor]:
+        self.model.eval()
+        with torch.no_grad():
+            self.timer.mark()
+            out = get_loss(self.model(dd), self.mean_size)
+            self.timer.mark()
+            metrics = train_metrics(get_eval(out))
+            self.timer.mark()
+        return metrics
+
+    def _feed(self, loader, phase, epoch_id, bn_momentum: float = 0.1):
+        fetch_start = time.perf_counter()
+        overflow_log = {"scene": [], "inst": []}
+        for dd, load, copy in self._prefetch(loader, overflow_log=overflow_log):
+            self.log[phase]["fetch"].append(time.perf_counter() - fetch_start)
+            self.log[phase]["fetch_load"].append(load)
+            self.log[phase]["fetch_copy"].append(copy)
+            start = time.perf_counter()
+            if phase == "train":
+                metrics, _ = train_step(self.model, self.optimizer, dd, self.mean_size,
+                                        bn_momentum, self.timer)
+            else:
+                metrics = self._eval_step(dd)
+            metrics = metrics_to_host(metrics)
+            phases = self.timer.seconds()
+            step_time = time.perf_counter() - start
+            self.steps[phase] += 1
+            self.log[phase]["forward"].append(phases[0])
+            self.log[phase]["backward"].append(phases[1] if phase == "train" else 0.0)
+            self.log[phase]["eval"].append(phases[-1])
+
+            for k in METRIC_KEYS:
+                self.log[phase][k].append(metrics[k])
+            for k in ("iou25_hits", "iou5_hits", "iou_count"):
+                self.log[phase][k] += metrics[k]
+            denom = max(self.log[phase]["iou_count"], 1.0)
+            self.log[phase]["iou_rate_0.25"] = self.log[phase]["iou25_hits"] / denom
+            self.log[phase]["iou_rate_0.5"] = self.log[phase]["iou5_hits"] / denom
+
+            if phase == "train":
+                iter_time = self.log[phase]["fetch"][-1] + step_time
+                self.log[phase]["iter_time"].append(iter_time)
+                if (self._global_iter_id + 1) % self.verbose == 0:
+                    self._train_report(epoch_id)
+                    self._dump_log("train")
+                    self.init_log()
+                self._global_iter_id += 1
+            fetch_start = time.perf_counter()
+
+        self._report_overflow(phase, overflow_log)
+        if phase == "val":
+            self._dump_log("val")
+            self._epoch_report(epoch_id)
+            cur = self.log["val"]["iou_rate_0.25"]
+            if cur > self.best["iou_rate_0.25"]:
+                self._log(f"best iou_rate_0.25 achieved: {cur}")
+                for k in METRIC_KEYS:
+                    self.best[k] = float(np.mean(self.log["val"][k])) if self.log["val"][k] else 0.0
+                self.best["epoch"] = epoch_id + 1
+                self.best["iou_rate_0.25"] = self.log["val"]["iou_rate_0.25"]
+                self.best["iou_rate_0.5"] = self.log["val"]["iou_rate_0.5"]
+                self._log("saving best models...\n")
+                self.save_checkpoint("model")
+
+    # ------------------------------------------------------------ checkpoints
+    def _param_names(self) -> List[str]:
+        return [n for n, _ in self.model.named_parameters()]
+
+    def save_checkpoint(self, name: str, with_opt: bool = False) -> str:
+        """``<name>.pth`` (the model's state_dict) or, ``with_opt``,
+        ``<name>.tar`` (epoch, state_dict, optimizer state, best), in the
+        reference's layout; written whole or not at all."""
+        payload = to_reference_state_dict(self.model)
+        if with_opt:
+            payload = {
+                "epoch": self.epochs_done,
+                "model_state_dict": payload,
+                "optimizer_state_dict": _named_moments(
+                    self.optimizer.state_dict(), self._param_names(), to_reference),
+                "best": dict(self.best),
+            }
+        path = os.path.join(self.root, name + (".tar" if with_opt else ".pth"))
+        torch.save(payload, path + ".tmp")
+        os.replace(path + ".tmp", path)
+        return path
+
+    def load_checkpoint(self, path: str, with_opt: bool = False):
+        """A ``.pth`` state_dict or a ``.tar`` checkpoint; ``with_opt`` also
+        restores the optimizer, the epoch counter and the best metrics (a
+        ``.tar`` only)."""
+        blob = torch.load(path, map_location="cpu", weights_only=True)
+        is_tar = isinstance(blob, dict) and "model_state_dict" in blob
+        load_reference_state_dict(self.model, blob["model_state_dict"] if is_tar else blob)
+        if not with_opt:
+            return
+        if not is_tar:
+            raise ValueError(f"{path} holds no optimizer state (not a checkpoint.tar)")
+        names = self._param_names()
+        opt = _named_moments(blob["optimizer_state_dict"], names, from_reference)
+        params = dict(self.model.named_parameters())
+        for idx, st in opt["state"].items():
+            p = params[names[int(idx)]]
+            for m in MOMENTS:
+                if m in st and st[m].shape != p.shape:
+                    raise ValueError(f"{path}: {m} of {names[int(idx)]} has shape "
+                                     f"{tuple(st[m].shape)}, the parameter {tuple(p.shape)}")
+        self.optimizer.load_state_dict(opt)
+        self.epochs_done = int(blob.get("epoch", 0))
+        for k, v in (blob.get("best") or {}).items():
+            self.best[k] = int(v) if k == "epoch" else float(v)
+
+    def load_pretrained_modules(self, path: str):
+        """Partial warm start: the weights of ``PRETRAINED_MODULES`` that the
+        file holds; the rest stay as they are (reference ``use_pretrained``,
+        ``scripts/train.py:83-96``)."""
+        blob = torch.load(path, map_location="cpu", weights_only=True)
+        sd = from_reference(blob.get("model_state_dict", blob))
+        current = self.model.state_dict()
+        current.update({k: v for k, v in sd.items()
+                        if k.split(".", 1)[0] in PRETRAINED_MODULES})
+        self.model.load_state_dict(current)
+
+    def profile_steps(self, loader, out_dir: str, num_steps: int = 3) -> str:
+        """A ``torch.profiler`` trace (CPU and, on a card, CUDA activity) over
+        a few train steps after one warm-up step; returns the trace's path."""
+        from torch.profiler import ProfilerActivity, profile
+
+        it = (dd for dd, _, _ in self._prefetch(loader))
+        train_step(self.model, self.optimizer, next(it), self.mean_size)
+        activities = [ProfilerActivity.CPU]
+        if self.device.type == "cuda":
+            activities.append(ProfilerActivity.CUDA)
+        with profile(activities=activities) as prof:
+            for _, dd in zip(range(num_steps), it):
+                metrics, _ = train_step(self.model, self.optimizer, dd, self.mean_size)
+                metrics_to_host(metrics)
+        os.makedirs(out_dir, exist_ok=True)
+        path = os.path.join(out_dir, "trace.json")
+        prof.export_chrome_trace(path)
+        self._log(f"profiler trace written to {path}")
+        return path
+
+    def _finish(self, epoch_id):
+        self._best_report()
+        self._log("saving checkpoint...\n")
+        self.save_checkpoint("checkpoint", with_opt=True)
+        self._log("saving last models...\n")
+        self.save_checkpoint("model_last")
+        # tensorboard json export (lib/solver.py:389-391)
+        for phase, w in self._log_writer.items():
+            w.export_scalars_to_json(
+                os.path.join(self.root, "tensorboard", phase, "all_scalars.json")
+            )
+            w.close()
+
+    # ----------------------------------------------------------------- logging
+    def init_log(self):
+        self.log = {
+            phase: {
+                "forward": [], "backward": [], "eval": [], "fetch": [], "fetch_load": [],
+                "fetch_copy": [], "iter_time": [],
+                **{k: [] for k in METRIC_KEYS},
+                "iou25_hits": 0.0, "iou5_hits": 0.0, "iou_count": 0.0,
+                "iou_rate_0.25": 0.0, "iou_rate_0.5": 0.0,
+            }
+            for phase in ["train", "val"]
+        }
+
+    def _log(self, msg: str):
+        with open(self.log_path, "a") as f:
+            f.write(msg + "\n")
+        print(msg, flush=True)
+
+    def _dump_log(self, phase):
+        rec = {"iter": self._global_iter_id, "phase": phase}
+        for key in METRIC_KEYS:
+            vals = self.log[phase][key]
+            rec[key] = float(np.mean(vals)) if vals else 0.0
+        rec["iou_rate_0.25"] = self.log[phase]["iou_rate_0.25"]
+        rec["iou_rate_0.5"] = self.log[phase]["iou_rate_0.5"]
+        if phase == "train":
+            rec["lr"] = self.optimizer.param_groups[0]["lr"]
+        with open(self.scalars_path, "a") as f:
+            f.write(json.dumps(rec) + "\n")
+        if phase in self._log_writer:
+            w = self._log_writer[phase]
+            groups = {"loss": ["loss", "ref_loss", "lang_loss", "seg_loss"],
+                      "score": ["lang_acc", "ref_acc", "seg_acc"]}
+            for g, keys in groups.items():
+                for k in keys:
+                    w.add_scalar(f"{g}/{k}", rec[k], self._global_iter_id)
+            w.add_scalar("score/iou_rate_0.25", rec["iou_rate_0.25"], self._global_iter_id)
+            w.add_scalar("score/iou_rate_0.5", rec["iou_rate_0.5"], self._global_iter_id)
+
+    def _train_report(self, epoch_id):
+        log = self.log["train"]
+        mean_train_time = float(np.mean(log["iter_time"]))
+        mean_est_val_time = float(np.mean([f + fw for f, fw in zip(log["fetch"], log["forward"])]))
+        remaining_iters = self._total_iter["train"] - self._global_iter_id - 1
+        eta_sec = remaining_iters * mean_train_time
+        # the val term counts only the validating epochs still ahead
+        cur_epoch = self._global_iter_id // self._iters_per_epoch
+        remaining_vals = max(self.epoch - max(cur_epoch, max(self.start_val - 1, 0)), 0)
+        eta_sec += self._val_len * remaining_vals * mean_est_val_time
+        eta = decode_eta(eta_sec)
+        self._log(
+            ITER_REPORT_TEMPLATE.format(
+                epoch_id=epoch_id + 1,
+                iter_id=self._global_iter_id + 1,
+                total_iter=self._total_iter["train"],
+                train_loss=round(float(np.mean(log["loss"])), 5),
+                train_ref_loss=round(float(np.mean(log["ref_loss"])), 5),
+                train_lang_loss=round(float(np.mean(log["lang_loss"])), 5),
+                train_seg_loss=round(float(np.mean(log["seg_loss"])), 5),
+                train_lang_acc=round(float(np.mean(log["lang_acc"])), 5),
+                train_ref_acc=round(float(np.mean(log["ref_acc"])), 5),
+                train_seg_acc=round(float(np.mean(log["seg_acc"])), 5),
+                train_iou_rate_25=round(log["iou_rate_0.25"], 5),
+                train_iou_rate_5=round(log["iou_rate_0.5"], 5),
+                mean_fetch_time=round(float(np.mean(log["fetch"])), 5),
+                mean_forward_time=round(float(np.mean(log["forward"])), 5),
+                mean_backward_time=round(float(np.mean(log["backward"])), 5),
+                mean_eval_time=round(float(np.mean(log["eval"])), 5),
+                mean_iter_time=round(mean_train_time, 5),
+                eta_h=eta["h"], eta_m=eta["m"], eta_s=eta["s"],
+            )
+        )
+        self._log(FETCH_SPLIT_TEMPLATE.format(
+            mean_load_time=round(float(np.mean(log["fetch_load"])), 5),
+            mean_copy_time=round(float(np.mean(log["fetch_copy"])), 5),
+        ))
+
+    def _epoch_report(self, epoch_id):
+        self._log(f"epoch [{epoch_id + 1}/{self.epoch}] done...")
+        log = self.log["val"]
+        self._log(
+            EPOCH_REPORT_TEMPLATE.format(
+                val_loss=round(float(np.mean(log["loss"])), 5),
+                val_lang_loss=round(float(np.mean(log["lang_loss"])), 5),
+                val_lang_acc=round(float(np.mean(log["lang_acc"])), 5),
+                val_seg_acc=round(float(np.mean(log["seg_acc"])), 5),
+                val_ref_acc=round(float(np.mean(log["ref_acc"])), 5),
+                val_iou_rate_25=round(log["iou_rate_0.25"], 5),
+                val_iou_rate_5=round(log["iou_rate_0.5"], 5),
+            )
+        )
+
+    def _best_report(self):
+        self._log("training completed...")
+        report = BEST_REPORT_TEMPLATE.format(
+            epoch=self.best["epoch"],
+            loss=round(self.best["loss"], 5),
+            ref_loss=round(self.best["ref_loss"], 5),
+            lang_loss=round(self.best["lang_loss"], 5),
+            lang_acc=round(self.best["lang_acc"], 5),
+            ref_acc=round(self.best["ref_acc"], 5),
+            iou_rate_25=round(self.best["iou_rate_0.25"], 5),
+            iou_rate_5=round(self.best["iou_rate_0.5"], 5),
+        )
+        self._log(report)
+        with open(os.path.join(self.root, "best.txt"), "w") as f:
+            f.write(report)

@@ -1,19 +1,28 @@
-"""The port runs where there is no jax, flax or yaml (an eval forward and
-one train step), and ``chip_smoke.py`` refuses to run without a GPU.
+"""The port runs where there is no jax, flax, yaml, orbax or optax (an eval
+forward, one train step, and the train and eval CLIs), and
+``chip_smoke.py`` refuses to run without a GPU.
 
-The GPU machine has PyTorch but none of jax, flax or yaml, so the port —
-host bridge included — must not import them, even indirectly.
+The GPU machine has PyTorch but none of jax, flax, yaml, orbax or optax, so
+the port — host bridge included — must not import them, even indirectly.
 """
 
 import ast
+import glob
+import json
 import os
 import shutil
 import subprocess
 import sys
 
+import numpy as np
+import pytest
+import torch
+
+from fake_scanrefer import make_fake_root
+
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PACKAGE = os.path.join(ROOT, "instancerefer_tpu_torch")
-BANNED = {"jax", "flax", "yaml"}
+BANNED = {"jax", "flax", "yaml", "orbax", "optax"}
 
 SLICE_WITHOUT_JAX = """
 import sys
@@ -78,3 +87,117 @@ def test_chip_smoke_fails_without_a_gpu(tmp_path):
                              capture_output=True, text=True, timeout=300)
         assert res.returncode != 0
         assert '"ok": true' not in res.stdout
+
+
+TINY = """
+GENERAL:
+  manual_seed: 123
+DATA:
+  num_points: 500
+MODEL:
+  use_gt_lang: True
+TRAIN:
+  batch_size: 4
+  num_workers: 1
+  epoch: 2
+  verbose: 1
+  lr_decay_step: [1]
+TPU:
+  compute_dtype: float32
+  max_des_len: 16
+  lang_bucket: 8
+  max_instances: 8
+  max_candidates: 4
+  scene_caps: [256, 128, 64, 32, 16]
+  inst_caps: [256, 128, 64, 32, 16]
+"""
+
+
+@pytest.fixture(scope="module")
+def cli(tmp_path_factory):
+    """``python -m instancerefer_tpu_torch.scripts.<name> ...`` in a process
+    where importing any of ``BANNED`` raises ImportError."""
+    tmp = tmp_path_factory.mktemp("cli")
+    blocked = tmp / "blocked"
+    for name in BANNED:
+        (blocked / name).mkdir(parents=True)
+        (blocked / name / "__init__.py").write_text(
+            f"raise ImportError('{name} is not installed on the card')\n")
+    root = tmp / "fake"
+    make_fake_root(root, np.random.default_rng(0))
+    (root / "tiny.yaml").write_text(TINY)
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join([str(blocked), ROOT]))
+
+    def run(name, *args, log_dir="clirun", config="tiny.yaml", device="cpu"):
+        argv = [sys.executable, "-m", f"instancerefer_tpu_torch.scripts.{name}",
+                "--config", str(root / config), "--log_dir", log_dir,
+                "--data_root", str(root), "--output_root", str(root / "outputs"), *args]
+        if device:
+            argv += ["--device", device]
+        return subprocess.run(argv, cwd=str(tmp), env=env, capture_output=True, text=True,
+                              timeout=300)
+
+    def runs(log_dir):
+        return sorted(glob.glob(str(root / "outputs" / "ScanRefer" / log_dir / "checkpoints" / "*")))
+
+    return dict(run=run, runs=runs, root=root)
+
+
+def _ok(res):
+    assert res.returncode == 0, res.stdout[-3000:] + res.stderr[-3000:]
+    return res.stdout
+
+
+def test_clis_run_without_jax(cli):
+    run, root = cli["run"], cli["root"]
+    out = _ok(run("train"))
+    assert "start training" in out and "epoch 2 starting" in out
+    (first,) = cli["runs"]("clirun")
+    for name in ("model_last.pth", "model.pth", "checkpoint.tar", "log.txt", "scalars.jsonl",
+                 "best.txt", "info.json"):
+        assert os.path.isfile(os.path.join(first, name)), name
+    tar = torch.load(os.path.join(first, "checkpoint.tar"), weights_only=True)
+    assert tar["epoch"] == 2 and set(tar) == {"epoch", "model_state_dict",
+                                              "optimizer_state_dict", "best"}
+    last = torch.load(os.path.join(first, "model_last.pth"), weights_only=True)
+    assert list(last) == list(tar["model_state_dict"])
+    assert "lang.gru.weight_ih_l0_reverse" in last
+    records = [json.loads(line) for line in open(os.path.join(first, "scalars.jsonl"))]
+    train = [r for r in records if r["phase"] == "train"]
+    assert [r["lr"] for r in train] == [1e-3, 1e-3, 1e-4, 1e-4]  # 2 steps an epoch
+    assert all(np.isfinite(r["loss"]) for r in records)
+    assert json.load(open(os.path.join(first, "info.json")))["num_devices"] == 1
+
+    # the tiny caps overflow: eval refuses to score, and caches nothing
+    res = run("eval")
+    assert res.returncode != 0 and "capacity overflow" in res.stderr
+    assert not os.path.exists(os.path.join(first, "scores.npz"))
+    cold = _ok(run("eval", "--allow_overflow"))
+    scores = dict(np.load(os.path.join(first, "scores.npz")))
+    assert len(scores["ref_iou"]) == 6 and "acc@0.25" in cold
+    warm = _ok(run("eval"))
+    assert "loading cached scores" in warm
+    overall = [[line for line in o.splitlines() if line.startswith("overall:")]
+               for o in (cold, warm)]
+    assert overall[0] and overall[0] == overall[1]
+
+    stamp = os.path.basename(first)
+    (root / "resume.yaml").write_text(
+        TINY.replace("epoch: 2", f"epoch: 3\n  use_checkpoint: {stamp}"))
+    out = _ok(run("train", config="resume.yaml"))
+    assert "loading checkpoint" in out
+    assert "epoch 3 starting" in out and "epoch 2 starting" not in out
+    assert len(cli["runs"]("clirun")) == 2
+
+    (root / "predicted.yaml").write_text(
+        TINY.replace("use_gt_lang: True", "use_gt_lang: False").replace("epoch: 2", "epoch: 1"))
+    out = _ok(run("train", log_dir="predrun", config="predicted.yaml"))
+    assert "epoch 1 starting" in out
+    out = _ok(run("eval", "--allow_overflow", log_dir="predrun", config="predicted.yaml"))
+    assert "pass 1 done: predicted classes for 6 samples" in out
+
+
+@pytest.mark.parametrize("name", ["train", "eval"])
+def test_clis_need_a_card_unless_told_cpu(cli, name):
+    res = cli["run"](name, log_dir="nocard", device=None)
+    assert res.returncode != 0 and "--device cpu" in res.stderr
