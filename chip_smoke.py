@@ -4,28 +4,39 @@
 
 Phases, in order; any failure exits nonzero without the final ``ok`` line:
 
-1. Device: the card's name and power limit (``nvidia-smi``) and whether the
-   host voxelizer's native library is in use; the build of every CUDA
-   source under ``instancerefer_tpu_torch/csrc/`` (one ``nvcc`` each, all at
-   once).
+1. Device: the card's name and power limit (``nvidia-smi``) and the port's
+   own native voxelizer library (built with ``g++`` from
+   ``instancerefer_tpu_torch/native/``), which must be in use; the build of
+   every CUDA source under ``instancerefer_tpu_torch/csrc/`` (one ``nvcc``
+   each, all at once), whose ``-Xptxas -v`` reports must show no spills.
 2. K1 vs plain twin: the CUDA gather-GEMM against ``ops/sparse.gather_conv``
-   at three main-path shapes of a 32-scene batch (scene stem 7 -> 32 over
-   ``nbr3``, stage-1 down 32 -> 64 over ``down``, stage-3 residual
-   128 -> 128 over ``nbr3``), in f32 and bf16, with and without the fused
-   BN/ReLU epilogue.  Times are CUDA-event medians of 10.
+   at four main-path shapes of a 32-scene batch (scene stem 7 -> 32 over
+   ``nbr3``, stage-1 down 32 -> 64 over ``down``, stage-2 and stage-3
+   residuals 128 -> 128 over ``nbr3``), in f32 (the FMA kernel) and bf16
+   (the tensor-core kernel, but the FMA one at the stem), with and without
+   the fused BN/ReLU epilogue.  Times are CUDA-event medians of 10.  Each
+   line also gives the bound (the larger of the bytes over 3.35 TB/s and the
+   flops of the map's valid entries over the H100's peak for the type: 989
+   TFLOP/s bf16, 67 TFLOP/s f32) and the im2col yardstick: no single
+   PyTorch call computes a gather-GEMM, so one index gather into
+   [V, K*Cin] and one ``torch.mm`` (K2: two, K3: one), which only this
+   script runs.
 3. Slice parity, card vs CPU: eval forward + ``get_loss`` + ``get_eval`` on
    a 2-scene batch at the full-size spec, f32 with TF32 off, BN running
    statistics moved off their defaults.
 4. Eval at full size: 32-scene batches (the bench's synthetic scenes) in the
    bf16 policy, three batches from distinct seeds, the first repeated;
    outputs finite, ``ref_iou`` in [0, 1], 26 kernel launches per forward;
-   eval scenes/s and peak device memory.
+   eval scenes/s and peak device memory; then one forward under
+   ``torch.profiler``: the sparse-conv kernels' device time by wrapper, the
+   device's busy time and idle share (``[profile]``).
 5. K2, K3 and K1's f32 output vs their plain twins on the maps of the
    32-scene batch: K3 at the scene stem (K = 27, 7 -> 32) and the stage-1
-   down (K = 8, 32 -> 64), K2 at the stage-1 (64 -> 64) and stage-3
-   (128 -> 128) residuals, K1 over the stage-1 ``up8`` (64 -> 32, f32 out);
-   f32 and bf16 inputs; two launches on the same inputs give bit-identical
-   dW.  CUDA-event medians of 10.
+   down (K = 8, 32 -> 64), K2 at the stage-1 (64 -> 64), stage-2 and
+   stage-3 (128 -> 128) residuals, K1 over the stage-1 ``up8`` (64 -> 32,
+   f32 out); f32 and bf16 inputs; two launches on the same inputs give
+   bit-identical dW.  CUDA-event medians of 10, with bound and yardstick as
+   in phase 2.
 6. Train parity, card vs CPU: one ``train_step`` on a 2-scene batch at the
    full-size spec, f32, TF32 off, deterministic cuDNN, dropout 0, the same
    weights: loss, every parameter gradient, the running statistics, then
@@ -33,7 +44,8 @@ Phases, in order; any failure exits nonzero without the final ``ok`` line:
 7. Train at full size: 32-scene batches in the bf16 policy, one warm-up
    step, 5 timed steps, then one step on each of 2 more batches; loss and
    every gradient finite, ``ref_iou`` in [0, 1], 34 / 16 / 10 launches of
-   K1 / K2 / K3 per step; train scenes/s and peak device memory.
+   K1 / K2 / K3 per step; train scenes/s and peak device memory; then one
+   step under ``torch.profiler``, as in phase 4.
 8. The CLIs at full width: a fake ScanRefer root (40 000 points and 12
    instances a scene, the 18-class label map, 64 descriptions a scene as
    in ScanRefer: 16 train batches of 32 over 8 scenes, 8 val batches over
@@ -52,11 +64,12 @@ Phases, in order; any failure exits nonzero without the final ``ok`` line:
    end, and the iter reports' means: fetch (split into the wait on the
    loader and ``batch_to_torch``), forward, backward, eval.
 
-Then one line ``{"kernels": [...]}`` (launch counts of phase 7; ms and
-plain_ms of K1 from phase 2, of K2 and K3 from phase 5, bf16 summed over
-the shapes), the ``nvidia-smi`` line and, last, ``{"ok": true, "device":
-...}``.  Weights are random (``torch.Generator`` seeds); scenes are
-synthetic.
+Then one line ``{"kernels": [...]}`` (launch counts of phase 7; ms,
+plain_ms, bound_ms and im2col_ms of K1 from phase 2, of K2 and K3 from
+phase 5, bf16 summed over the shapes; library_ms is null, since no single
+PyTorch call computes these functions), the ``nvidia-smi`` line and, last,
+``{"ok": true, "device": ...}``.  Weights are random (``torch.Generator``
+seeds); scenes are synthetic.
 """
 
 from __future__ import annotations
@@ -77,14 +90,13 @@ import time
 import numpy as np
 import torch
 
-# the spec of config/band_profile.synthetic.yaml, as literals (no yaml here);
-# pallas_conv only selects the raster row order, the port ignores the bands
+# the capacities of config/band_profile.synthetic.yaml, as literals (no yaml
+# here); the port ignores its band geometry
 SPEC_KW = dict(
     scene_caps=(18176, 4352, 1280, 512, 256),
     inst_caps=(1792, 1792, 1280, 512, 256),
     max_candidates=8,
     max_instances=24,
-    pallas_conv=True,
 )
 SCENE_KW = dict(num_points=40000, num_instances=12, num_candidates=4)
 MEAN_SIZE = np.linspace(0.3, 2.0, 18)[:, None] * np.array([[1.0, 0.9, 0.8]])
@@ -120,6 +132,10 @@ DX_TOL, DW_TOL = 1e-5, 1e-4
 LOSS_RTOL, STATS_RTOL, GRAD_LAYER, GRAD_ALL, ADAM_MEAN = 1e-4, 1e-3, 5e-2, 2e-2, 0.25
 LR, WD = 1e-3, 1e-5  # config/InstanceRefer.yaml's Adam
 TRAIN_LAUNCHES = {"gather_conv": 34, "subm_conv_bwd": 16, "conv_dw": 10}  # per train step
+# an H100 SXM's dense peaks at 700 W: bf16 on the tensor cores, f32 outside
+# them (TF32 is off), and device memory
+PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
+PEAK_BYTES_PER_S = 3.35e12
 
 
 def log(msg: str) -> None:
@@ -138,6 +154,89 @@ def median_ms(fn, reps: int = 10) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def bound(flops: float, nbytes: float, dt):
+    """(least ms the card could take, what bounds it): flops over the peak
+    of the type or bytes over the memory rate, whichever is larger."""
+    t_ops, t_bytes = flops / PEAK_FLOPS[dt], nbytes / PEAK_BYTES_PER_S
+    return max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes"
+
+
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def im2col(rows, nbr):
+    """One index gather of ``rows`` by ``nbr`` (-1: a zero row) into
+    [V, K * C]; the table and indices are set up outside the timing."""
+    table = torch.cat([rows, rows.new_zeros(1, rows.shape[1])])
+    safe = torch.where(nbr >= 0, nbr, rows.shape[0]).long().reshape(-1)
+    return lambda: table.index_select(0, safe).view(nbr.shape[0], -1)
+
+
+class Totals:
+    """Per-kernel sums over the shapes of the main path's configuration."""
+
+    def __init__(self):
+        self.worst = 0.0
+        self.ms = self.plain_ms = self.im2col_ms = self.ops_ms = self.bytes_ms = 0.0
+
+    def add(self, t_k, t_p, t_i, flops, nb, dt):
+        self.ms += t_k
+        self.plain_ms += t_p
+        self.im2col_ms += t_i
+        self.ops_ms += flops / PEAK_FLOPS[dt] * 1e3
+        self.bytes_ms += nb / PEAK_BYTES_PER_S * 1e3
+
+    def entry(self):
+        return {"max_abs_err": self.worst, "ms": self.ms, "plain_ms": self.plain_ms,
+                "bound_ms": max(self.ops_ms, self.bytes_ms),
+                "bound_by": "operations" if self.ops_ms >= self.bytes_ms else "bytes",
+                "library_ms": None, "im2col_ms": self.im2col_ms}
+
+
+# the sparse-conv kernels' names as the profiler reports them, by wrapper:
+# the gather-GEMM templates end in MIRROR_T (true: K2's dX), the FMA dW in
+# GATHER_A (true: K3); sum_partials_kernel serves K2 and K3
+KERNEL_FAMILIES = (
+    ("K1 dX over up8", re.compile(r"gather_gemm_tc_kernel<float, \d+, \d+, false>")),
+    ("K1 forward", re.compile(r"gather_gemm(_tc)?_kernel<.*false>")),
+    ("K2", re.compile(r"gather_gemm(_tc)?_kernel<.*true>|dw_tc_kernel|dw_partial_kernel<.*false>")),
+    ("K3", re.compile(r"dw_partial_kernel<.*true>")),
+    ("K2/K3 sum of splits", re.compile(r"sum_partials_kernel")),
+)
+
+
+def profile_kernels(label: str, fn) -> None:
+    """One call of ``fn`` under ``torch.profiler``: the device time of the
+    sparse-conv kernels by wrapper, of all device work, and the wall time
+    (the profiler's own cost included), logged as a ``[profile]`` line."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    by_family = {name: 0.0 for name, _ in KERNEL_FAMILIES}
+    device = 0.0
+    for ev in prof.key_averages():
+        if ev.device_type != DeviceType.CUDA:  # an op's row repeats its kernels' time
+            continue
+        t = ev.self_device_time_total / 1e3
+        device += t
+        family = next((name for name, pat in KERNEL_FAMILIES if pat.search(ev.key)), None)
+        if family is not None:
+            by_family[family] += t
+    sparse = sum(by_family.values())
+    log(f"[profile] {label}: sparse-conv kernels {sparse:.2f} ms (" + ", ".join(
+        f"{k} {v:.2f}" for k, v in by_family.items()) + f"); device busy {device:.2f} ms of "
+        f"{wall:.2f} ms wall under the profiler, idle {1 - device / wall:.1%}")
+    if sparse == 0:
+        raise AssertionError(f"{label}: the profiler saw no sparse-conv kernel")
 
 
 def make_model(spec, seed: int):
@@ -167,22 +266,27 @@ def run_slice(model, dd, mean_size):
 
 def phase_kernel(batch, dev):
     from instancerefer_tpu_torch.ops import sparse
-    from instancerefer_tpu_torch.ops.gather_conv import gather_conv
+    from instancerefer_tpu_torch.ops.gather_conv import gather_conv, route
 
     gen = torch.Generator(device=dev).manual_seed(0)
     shapes = (
         ("scene stem", "scene_nbr3_0", "scene_nbr3_0", 7, 32),
         ("scene stage1 down", "scene_down_1", "scene_nbr3_0", 32, 64),
+        ("scene stage2 residual", "scene_nbr3_2", "scene_nbr3_2", 128, 128),
         ("scene stage3 residual", "scene_nbr3_3", "scene_nbr3_3", 128, 128),
     )
-    worst, ms, plain_ms = 0.0, 0.0, 0.0
+    totals = Totals()
     for name, key, in_key, cin, cout in shapes:
         nbr = torch.from_numpy(np.ascontiguousarray(batch[key], np.int32)).to(dev)
         v_in = batch[in_key].shape[0]
         k = nbr.shape[1]
+        nnz = int((nbr >= 0).sum())
         for dt in (torch.float32, torch.bfloat16):
             feats = torch.randn(v_in, cin, device=dev, generator=gen).to(dt)
             w = (torch.randn(k, cin, cout, device=dev, generator=gen) / (k * cin) ** 0.5).to(dt)
+            gather = im2col(feats, nbr)
+            w2 = w.reshape(k * cin, cout)
+            t_i = median_ms(lambda: torch.mm(gather(), w2))
             for epi in (False, True):
                 sc = (0.5 + torch.rand(cout, device=dev, generator=gen)) if epi else None
                 bi = 0.1 * torch.randn(cout, device=dev, generator=gen) if epi else None
@@ -194,21 +298,28 @@ def phase_kernel(batch, dev):
                 tol = KERNEL_TOL[dt] * max(scale, 1e-30)
                 t_k = median_ms(lambda: gather_conv(feats, nbr, w, sc, bi, relu=epi))
                 t_p = median_ms(lambda: sparse.gather_conv(feats, nbr, w, sc, bi, relu=epi))
+                flops = 2 * nnz * cin * cout
+                nb = nbytes(feats, nbr, w, got) + (2 * cout * 4 if epi else 0)
+                b_ms, b_by = bound(flops, nb, dt)
                 log(f"[kernel] {name} V_out={nbr.shape[0]} K={k} {cin}->{cout} "
-                    f"{str(dt)[6:]} epilogue={epi}: max_abs={err:.3e} max_rel={err / max(scale, 1e-30):.3e} "
+                    f"{str(dt)[6:]} epilogue={epi} route={route(dt, cin, dev)}: max_abs={err:.3e} "
+                    f"max_rel={err / max(scale, 1e-30):.3e} "
                     f"(tol {KERNEL_TOL[dt]:g} x max|ref|={scale:.3f}) "
-                    f"kernel_ms={t_k:.4f} plain_ms={t_p:.4f}")
+                    f"kernel_ms={t_k:.4f} plain_ms={t_p:.4f} bound_ms={b_ms:.4f} ({b_by}: "
+                    f"{flops / 1e9:.2f} GFLOP, {nb / 1e6:.1f} MB) library_ms=none (no single "
+                    f"PyTorch call) im2col_ms={t_i:.4f}")
                 if not err <= tol:
                     raise AssertionError(f"gather_conv disagrees with its twin at {name} {dt} epilogue={epi}")
-                worst = max(worst, err)
+                totals.worst = max(totals.worst, err)
                 if dt == torch.bfloat16 and epi:  # the main path's configuration
-                    ms += t_k
-                    plain_ms += t_p
-    return worst, ms, plain_ms
+                    totals.add(t_k, t_p, t_i, flops, nb, dt)
+            del gather
+    return totals
 
 
 def phase_parity(spec, dev):
-    from instancerefer_tpu_torch.data.host import batch_to_torch, make_batch
+    from instancerefer_tpu_torch.data.host import batch_to_torch
+    from instancerefer_tpu_torch.data.synthetic import make_batch
     from instancerefer_tpu_torch.ops.precision import set_compute_dtype
 
     set_compute_dtype(None)
@@ -277,6 +388,7 @@ def phase_full(spec, dev, dds, model):
         raise AssertionError(f"{launches} kernel launches for {n_forward} forwards")
     peak = torch.cuda.max_memory_allocated(dev)
     sps = BATCH * repeats / dt
+    profile_kernels(f"eval forward B={BATCH} bf16", lambda: run_slice(model, dds[0], ms))
     for i, out in enumerate(outs[-3:]):
         log(f"[full] batch seed {i}: loss={out['loss'].item():.4f} "
             f"ref_acc_mean={out['ref_acc_mean'].item():.4f} "
@@ -296,10 +408,9 @@ def _max_err(got, ref):
 
 def phase_bwd_kernels(batch, dev):
     """K3, K2 and K1's f32 output against their twins; returns per kernel
-    the worst |err| and the bf16 times summed over its shapes."""
-    from instancerefer_tpu_torch.data.host import voxelize
-    from instancerefer_tpu_torch.ops import conv_bwd, sparse
-    from instancerefer_tpu_torch.ops.gather_conv import gather_conv
+    the ``Totals`` of its bf16 shapes (the worst |err| of all)."""
+    from instancerefer_tpu_torch.ops import conv_bwd, sparse, voxelize
+    from instancerefer_tpu_torch.ops.gather_conv import gather_conv, route
 
     def imap(a):
         return torch.from_numpy(np.ascontiguousarray(a, np.int32)).to(dev)
@@ -320,24 +431,47 @@ def phase_bwd_kernels(batch, dev):
         ("conv_dw", "scene stem", imap(batch["scene_nbr3_0"]), rows[0], 7, 32),
         ("conv_dw", "scene stage1 down", imap(batch["scene_down_1"]), rows[0], 32, 64),
         ("subm_conv_bwd", "scene stage1 residual", imap(batch["scene_nbr3_1"]), rows[1], 64, 64),
+        ("subm_conv_bwd", "scene stage2 residual", imap(batch["scene_nbr3_2"]), rows[2], 128, 128),
         ("subm_conv_bwd", "scene stage3 residual", imap(batch["scene_nbr3_3"]), rows[3], 128, 128),
         ("gather_conv", "scene stage1 down dX over up8", imap(up8), rows[1], 64, 32),
     )
     gen = torch.Generator(device=dev).manual_seed(1)
-    res = {name: {"worst": 0.0, "ms": 0.0, "plain_ms": 0.0} for name in kernels}
+    res = {name: Totals() for name in kernels}
     for name, label, nbr, v_in, cin, cout in cases:
         kern, twin, outs, tols = kernels[name]
         v_out, k = nbr.shape
+        nnz = int((nbr >= 0).sum())
         for dt in (torch.float32, torch.bfloat16):
             def rnd(*shape, scale=1.0):
                 return (scale * torch.randn(*shape, device=dev, generator=gen)).to(dt)
 
+            # flops of the map's valid entries, and the im2col yardstick: one
+            # gather into [V, K * C] and the products of the same function
             if name == "conv_dw":
                 args = (rnd(v_in, cin), nbr, rnd(v_out, cout))
+                gather = im2col(args[0], nbr)
+                flops = 2 * nnz * cin * cout
+
+                def yardstick():
+                    return torch.mm(gather().t(), args[2])
             elif name == "subm_conv_bwd":
                 args = (rnd(v_out, cin), nbr, rnd(v_out, cout), rnd(k, cin, cout, scale=(k * cin) ** -0.5))
+                gather = im2col(args[2], nbr)
+                wd = args[3].flip(0).transpose(1, 2).reshape(k * cout, cin)  # W[K-1-k]^T
+                flops = 4 * nnz * cin * cout
+
+                def yardstick():
+                    cols = gather()
+                    return torch.mm(cols, wd), torch.mm(args[0].t(), cols)
             else:
                 args = (rnd(v_in, cin), nbr, rnd(k, cin, cout, scale=(k * cin) ** -0.5))
+                gather = im2col(args[0], nbr)
+                w2 = args[2].reshape(k * cin, cout)
+                flops = 2 * nnz * cin * cout
+
+                def yardstick():
+                    return torch.mm(gather(), w2)
+
             def run(fn):
                 out = fn(*args)
                 return out if isinstance(out, tuple) else (out,)
@@ -349,6 +483,9 @@ def phase_bwd_kernels(batch, dev):
                 raise AssertionError(f"{name} at {label} {dt}: dW differs between two launches")
             t_k = median_ms(lambda: kern(*args))
             t_p = median_ms(lambda: twin(*args))
+            t_i = median_ms(yardstick)
+            nb = nbytes(*args, *got)
+            b_ms, b_by = bound(flops, nb, dt)
             for out_name, g, r, tol in zip(outs, got, ref, tols):
                 err, scale = _max_err(g, r)
                 log(f"[bwd-kernel] {name} {label} {out_name} V_out={v_out} K={k} {cin}->{cout} "
@@ -356,17 +493,23 @@ def phase_bwd_kernels(batch, dev):
                     f"(tol {tol:g} x max|ref|={scale:.3f})")
                 if g.dtype != torch.float32 or not err <= tol * max(scale, 1e-30):
                     raise AssertionError(f"{name} disagrees with its twin at {label} {dt} {out_name}")
-                res[name]["worst"] = max(res[name]["worst"], err)
-            log(f"[bwd-kernel] {name} {label} {str(dt)[6:]}: kernel_ms={t_k:.4f} plain_ms={t_p:.4f}"
+                res[name].worst = max(res[name].worst, err)
+            path = route(dt, cin, dev)
+            if name == "conv_dw" and path == "tensor_core":
+                path = "fma"  # K3 has an FMA kernel only
+            log(f"[bwd-kernel] {name} {label} {str(dt)[6:]} route={path}: kernel_ms={t_k:.4f} "
+                f"plain_ms={t_p:.4f} bound_ms={b_ms:.4f} ({b_by}: {flops / 1e9:.2f} GFLOP, "
+                f"{nb / 1e6:.1f} MB) library_ms=none (no single PyTorch call) im2col_ms={t_i:.4f}"
                 + ("" if again is None else "; dW bit-identical across two launches"))
             if dt == torch.bfloat16:  # the main path's type
-                res[name]["ms"] += t_k
-                res[name]["plain_ms"] += t_p
+                res[name].add(t_k, t_p, t_i, flops, nb, dt)
+            del gather
     return res
 
 
 def phase_train_parity(spec, dev):
-    from instancerefer_tpu_torch.data.host import batch_to_torch, make_batch
+    from instancerefer_tpu_torch.data.host import batch_to_torch
+    from instancerefer_tpu_torch.data.synthetic import make_batch
     from instancerefer_tpu_torch.models.instancerefer import InstanceRefer
     from instancerefer_tpu_torch.ops.precision import set_compute_dtype
     from instancerefer_tpu_torch.train.solver import make_optimizer, train_step
@@ -488,6 +631,7 @@ def phase_train(spec, dev, dds):
             raise AssertionError(f"{k}: {launches[k]} launches in {n_steps} train steps, "
                                  f"want {per_step} per step")
     peak = torch.cuda.max_memory_allocated(dev)
+    profile_kernels(f"train step B={BATCH} bf16", lambda: train_step(model, opt, dds[0], ms))
     for i, r in enumerate(results):
         log(f"[train] step {i}: loss={r['loss']:.4f} ref_loss={r['ref_loss']:.4f} "
             f"lang_loss={r['lang_loss']:.4f} seg_loss={r['seg_loss']:.4f} ref_acc={r['ref_acc']:.4f}")
@@ -746,18 +890,32 @@ def main() -> None:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
-    from instancerefer_tpu_torch.data.host import BatchSpec, batch_to_torch, make_batch, voxelize
+    from instancerefer_tpu_torch.data.host import batch_to_torch
+    from instancerefer_tpu_torch.data.pipeline import BatchSpec
+    from instancerefer_tpu_torch.data.synthetic import make_batch
     from instancerefer_tpu_torch.ops import gather_conv as gc_mod
+    from instancerefer_tpu_torch.ops import voxelize
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True,
     ).stdout.strip().splitlines()[0]
     log(f"[device] {torch.cuda.get_device_name(0)}; torch {torch.__version__} cuda {torch.version.cuda}")
-    log(f"[device] host voxelizer native: {voxelize.native_available()}")
+    if not voxelize.native_available():
+        raise AssertionError("the port's native voxelizer did not build; the host runs numpy")
+    log(f"[device] host voxelizer: the port's own native library {voxelize.native_library_path()}")
     t0 = time.perf_counter()
     libs = gc_mod.build()
     log(f"[build] {', '.join(sorted(libs))} ready in {time.perf_counter() - t0:.1f} s")
+    for stem, lib in sorted(libs.items()):
+        report = open(lib[:-3] + ".log").read()
+        spills = [line.strip() for line in report.splitlines()
+                  if "spill" in line and " 0 bytes spill stores, 0 bytes spill loads" not in line]
+        regs = [int(n) for n in re.findall(r"Used (\d+) registers", report)]
+        log(f"[build] {stem}: {len(regs)} kernels, at most {max(regs)} registers, "
+            f"{len(spills)} with spills (-Xptxas -v)")
+        if spills:
+            raise AssertionError(f"{stem}: ptxas spills registers: {spills}")
 
     spec = BatchSpec(**SPEC_KW)
     t0 = time.perf_counter()
@@ -766,7 +924,7 @@ def main() -> None:
     dds = [batch_to_torch(b, spec, dev) for b in batches]
     log(f"[host] 3 batches of {BATCH} scenes built in {time.perf_counter() - t0:.1f} s")
 
-    worst, ms, plain_ms = phase_kernel(batches[0], dev)
+    k1 = phase_kernel(batches[0], dev)
     phase_parity(spec, dev)
     phase_full(spec, dev, dds, make_model(spec, seed=2).to(dev))
     bwd = phase_bwd_kernels(batches[0], dev)
@@ -775,7 +933,7 @@ def main() -> None:
     del dds
     phase_cli()
 
-    k1 = {"worst": max(worst, bwd["gather_conv"]["worst"]), "ms": ms, "plain_ms": plain_ms}
+    k1.worst = max(k1.worst, bwd["gather_conv"].worst)
     entries = (
         ("gather_conv", "gather_conv.cu", 51, k1),
         ("subm_conv_bwd", "subm_conv_bwd.cu", 267, bwd["subm_conv_bwd"]),
@@ -787,10 +945,8 @@ def main() -> None:
         "source": f"instancerefer_tpu_torch/csrc/{src}",
         "replaces": f"instancerefer_tpu/ops/pallas_conv.py:{line}",
         "launches": launches[name],
-        "max_abs_err": r["worst"],
-        "ms": r["ms"],
-        "plain_ms": r["plain_ms"],
-    } for name, src, line, r in entries]}))
+        **totals.entry(),
+    } for name, src, line, totals in entries]}))
     log(smi)
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -13,11 +13,10 @@ the repo's configs use, and raises on anything else rather than guess:
 
 ``Config`` holds every field of the JAX package's ``Config`` that the port
 consumes, with the same defaults, plus ``device``.  The TPU band geometry
-(the ``pallas_*`` keys other than ``pallas_conv``) has no meaning here, and
-four keys change nothing, in JAX either: those keys are named in
-``IGNORED_KEYS`` and skipped.  ``pallas_conv`` keeps one meaning, the raster
-row order of the host pipeline's voxels (the port gathers exactly and builds
-no bands of its own).  ``lang_bucket`` sets each batch's
+and the switch to it (the ``pallas_*`` keys) have no meaning here: the port
+gathers exactly and its host pipeline always emits raster row order.  Those
+keys, and four that change nothing in JAX either, are named in
+``IGNORED_KEYS`` and skipped.  ``lang_bucket`` sets each batch's
 token grid; the packed GRU gives the same result on any grid.
 ``compute_dtype`` is the sparse convs' input type (``ops/precision``).
 """
@@ -33,13 +32,13 @@ from typing import Any, Dict, List, Optional, Sequence
 
 import torch
 
-from instancerefer_tpu_torch.data.host import BatchSpec
+from instancerefer_tpu_torch.data.pipeline import BatchSpec
 
 # JAX Config fields the port does not keep: keys that change nothing, in JAX
 # either (its solver stores val_step but validates once an epoch; --debug is
-# parsed and dropped), and the banded Pallas conv geometry
+# parsed and dropped), and the banded Pallas conv and its geometry
 IGNORED_KEYS = (
-    "model", "language_module", "val_step", "debug",
+    "model", "language_module", "val_step", "debug", "pallas_conv",
     "pallas_chunk", "pallas_window", "pallas_subwin", "pallas_subwin_inst",
     "pallas_count_drops", "pallas_down_chunk", "pallas_down_subwin",
     "pallas_down_window", "pallas_down_subwin_inst", "pallas_down_window_inst",
@@ -99,10 +98,9 @@ class Config:
     scene_caps: Sequence[int] = (20480, 8192, 4096, 2048, 1024)
     inst_caps: Sequence[int] = (4096, 2048, 1024, 512, 256)
     compute_dtype: str = "bfloat16"
-    pallas_conv: bool = True
     lang_bucket: int = 32
-    # a calibration profile whose capacity keys (and pallas_conv) overlay
-    # the ones above at load time
+    # a calibration profile whose capacity keys overlay the ones above at
+    # load time
     band_profile: Optional[str] = None
     # eval fails on any capacity overflow unless this is set
     allow_overflow: bool = False
@@ -120,9 +118,7 @@ class Config:
         )
 
     def batch_spec(self) -> BatchSpec:
-        """The host pipeline's spec: the JAX package's, with ``pallas_conv``
-        as written (it selects the raster order; nothing here asks which
-        backend runs) and one data shard."""
+        """The host pipeline's spec."""
         return BatchSpec(
             max_tokens=self.max_des_len,
             max_instances=self.max_instances,
@@ -131,9 +127,7 @@ class Config:
             inst_caps=tuple(self.inst_caps),
             num_classes=self.num_classes,
             feat_dim=self.input_feature_dim,
-            pallas_conv=bool(self.pallas_conv),
             lang_bucket=self.lang_bucket,
-            data_shards=1,
         )
 
     def torch_device(self) -> torch.device:
@@ -269,12 +263,12 @@ _PROFILE_CAP_KEYS = ("scene_caps", "inst_caps", "max_candidates", "max_instances
 
 def band_profile_kwargs(path: str) -> Dict[str, Any]:
     """The keys of a calibration profile that the port applies: the fitted
-    capacities and ``pallas_conv``; lists become tuples.  The JAX package
-    also applies the profile's band geometry, which the port ignores."""
+    capacities; lists become tuples.  The JAX package also applies the
+    profile's band geometry, which the port ignores."""
     return {
         k: tuple(v) if isinstance(v, list) else v
         for k, v in flatten_yaml(path).items()
-        if (k in _PROFILE_CAP_KEYS or k == "pallas_conv") and v is not None
+        if k in _PROFILE_CAP_KEYS and v is not None
     }
 
 

@@ -14,23 +14,36 @@
 // over down), and in training the down conv's dX, which is this kernel over
 // the inverse map up8 with W^T and an f32 output.
 //
-// What bounds it on the card: the gathered bytes.  Each output row reads K
-// input rows of Cin values (27 x 128 x 2 B = 6.9 KB per row of a bf16
-// 128-channel residual conv) to do 2*K*Cin*Cout flops, so the work is a
-// gather feeding a small GEMM.  The largest input stage at the bench's
-// batch (32 scenes: 139264 rows x 64 channels, 18 MB in bf16) fits the
-// 50 MB L2, so most gathered rows come from L2, not HBM.  Design
-// (irsc::gather_gemm_kernel in sparse_conv.cuh): output-stationary tiles of
-// 64 rows x Cout channels, rows and weights staged in shared memory as f32,
-// FMA into registers; no atomics.  Accumulation is f32 for both input
-// types; the epilogue runs on the f32 accumulator and the store rounds to
-// the output type.  Tensor cores (mma/wgmma), TMA and skipping all-padding
-// tiles are later work.
+// Two routes, chosen by the wrapper (ops/gather_conv.py) from the input type
+// and Cin alone:
 //
-// C interface (bound with ctypes): ir_gather_conv returns cudaGetLastError()
+//   ir_gather_conv_tc  bf16 with Cin >= 16 (every down, residual and up8
+//     call): irsc::tc::gather_gemm_tc_kernel (sparse_conv_tc.cuh).  Tiles of
+//     64 output rows x Cout, 4 warps issuing mma.sync.m16n8k16 (bf16 in, f32
+//     accumulate) from ldmatrix; per offset, the 64 rows are gathered by
+//     index with 16-byte cp.async (a -1 index zero-fills its row) and W[k]
+//     is staged the same way, in a ring of 2 so the next offset's gather
+//     overlaps this one's MMAs.  Offsets with no valid index in the tile are
+//     skipped, and a tile of padding rows only stores its epilogue.
+//   ir_gather_conv     f32 inputs and the 7-channel stems: the FMA template
+//     irsc::gather_gemm_kernel (sparse_conv.cuh), f32 products and sums in
+//     registers (a tensor-core f32 path would be TF32, and a k-depth of 16
+//     would waste more than half of each stem tile).
+//
+// What bounds the tensor-core route on the card: the bytes it stages, not
+// the MMAs.  Per block and offset it moves 64 gathered rows (Cin x 2 B
+// each) and the whole W[k] slice (Cin x Cout x 2 B, up to 32 KB) from L2
+// into shared memory for 2 x 64 x Cin x Cout flops: 32 KB of weights per
+// 2.1 MFLOP at 128 -> 128, which the L2 serves more slowly than the tensor
+// cores consume it.  Taller tiles would share W[k] across more rows at the
+// cost of blocks on the small stages; that is the next lever.  The FMA route
+// is bound by its FMA issue rate (~20 TFLOP/s measured, PERF.md).
+//
+// C interface (bound with ctypes): each entry returns cudaGetLastError()
 // after the launch, or cudaErrorInvalidValue for an unsupported shape.
 
 #include "sparse_conv.cuh"
+#include "sparse_conv_tc.cuh"
 
 namespace {
 
@@ -57,18 +70,21 @@ cudaError_t dispatch(const void* feats, const void* nbr, const void* w, const vo
 #undef IR_K1
 }
 
+bool bad_rows(long long v_out, int k_offsets, int cin, int bm) {
+  return v_out <= 0 || k_offsets <= 0 || cin <= 0 || (v_out + bm - 1) / bm > 0x7fffffffLL;
+}
+
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16 (feats and w share it).  out_dtype: the
-// same codes; float32 input takes float32 output, bfloat16 input either.
-// scale and bias are float32 [cout], both null for no affine epilogue.
+// The FMA route.  dtype: 0 = float32, 1 = bfloat16 (feats and w share it).
+// out_dtype: the same codes; float32 input takes float32 output, bfloat16
+// input either.  scale and bias are float32 [cout], both null for no affine
+// epilogue.
 extern "C" int ir_gather_conv(const void* feats, const void* nbr, const void* w,
                               const void* scale, const void* bias, void* out,
                               long long v_out, int k_offsets, int cin, int cout, int relu,
                               int dtype, int out_dtype, void* stream) {
-  if (v_out <= 0 || k_offsets <= 0 || cin <= 0 ||
-      (v_out + irsc::GEMM_BM - 1) / irsc::GEMM_BM > 0x7fffffffLL)
-    return cudaErrorInvalidValue;
+  if (bad_rows(v_out, k_offsets, cin, irsc::GEMM_BM)) return cudaErrorInvalidValue;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0 && out_dtype == 0)
     return dispatch<float, float>(feats, nbr, w, scale, bias, out, v_out, k_offsets, cin, cout,
@@ -79,5 +95,23 @@ extern "C" int ir_gather_conv(const void* feats, const void* nbr, const void* w,
   if (dtype == 1 && out_dtype == 0)
     return dispatch<__nv_bfloat16, float>(feats, nbr, w, scale, bias, out, v_out, k_offsets,
                                           cin, cout, relu, s);
+  return cudaErrorInvalidValue;
+}
+
+// The tensor-core route: bfloat16 feats and w [K, cin, cout] (16-byte
+// aligned), cin and cout each one of 32, 64, 128; out_dtype 0 = float32,
+// 1 = bfloat16.
+extern "C" int ir_gather_conv_tc(const void* feats, const void* nbr, const void* w,
+                                 const void* scale, const void* bias, void* out,
+                                 long long v_out, int k_offsets, int cin, int cout, int relu,
+                                 int out_dtype, void* stream) {
+  if (bad_rows(v_out, k_offsets, cin, irsc::tc::BM)) return cudaErrorInvalidValue;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (out_dtype == 1)
+    return irsc::tc::dispatch_gather_gemm_tc<__nv_bfloat16, false>(
+        feats, nbr, w, scale, bias, out, v_out, k_offsets, cin, cout, relu, s);
+  if (out_dtype == 0)
+    return irsc::tc::dispatch_gather_gemm_tc<float, false>(feats, nbr, w, scale, bias, out,
+                                                           v_out, k_offsets, cin, cout, relu, s);
   return cudaErrorInvalidValue;
 }

@@ -13,79 +13,119 @@
 // _bwd_fused_kernel (called through windowed_conv_bwd_fused).  That kernel
 // gathers g once per offset by one-hot matmuls over per-offset bands and
 // feeds the same gathered rows to both dX and dW, carrying dW across its
-// sequential grid in VMEM.  This entry point launches two kernels:
+// sequential grid in VMEM.  Each entry point here launches two kernels
+// (dX, then the dW split reduction and its fixed-order sum), with the same
+// two routes as K1, chosen by the wrapper (ops/conv_bwd.py) from the type:
 //
-//   dX: irsc::gather_gemm_kernel with MIRROR_T — output-stationary like K1,
-//       W[K-1-k]^T read in place, no atomics, f32 store.
-//   dW: irsc::dw_partial_kernel (x rows plain, g rows gathered, written to
-//       slot K-1-k) + irsc::sum_partials_kernel — the deterministic split
-//       reduction of K3 (conv_dw.cu), no float atomics.
+//   ir_subm_conv_bwd_tc  bf16 (sparse_conv_tc.cuh):
+//     dX: irsc::tc::gather_gemm_tc_kernel with MIRROR_T — the K1 tile on
+//         tensor cores, W[K-1-k] staged as it lies ([Cin][Cout]) and read
+//         by plain ldmatrix as the transposed B operand; f32 store.
+//     dW: irsc::tc::dw_tc_kernel — block (k, split) accumulates [Cin, Cout]
+//         in registers from x tiles read transposed (ldmatrix.trans) times
+//         the gathered g rows, skipping row tiles with no valid index at k;
+//         then irsc::sum_partials_kernel adds the splits in a fixed order,
+//         so dW is bit-identical across launches.
+//   ir_subm_conv_bwd     f32 only: the FMA templates irsc::gather_gemm_kernel
+//     (MIRROR_T) and irsc::dw_partial_kernel, f32 products (no TF32).
 //
-// What bounds each part on the card: both are gathers feeding small GEMMs
-// (2*K*V*Cin*Cout FMA each).  dX reads K gathered g rows per output row,
-// mostly from L2, and the whole weight tensor per 64-row block; dW reads K
-// passes over x and K gathered passes over g.  Later work: fuse the two so
-// one gather of g feeds both (the TPU kernel's design, halving the gather
-// traffic, bounded then by the dW partials' registers), tensor cores
-// (mma/wgmma), TMA, and skipping rows whose index is -1.
+// What bounds the tensor-core route on the card: the bytes staged into
+// shared memory.  dX moves, per 64-row block and offset, 64 gathered g rows
+// and the whole W[K-1-k] slice, as K1 does.  dW makes K passes over x (one
+// per offset block column) and gathers g once per offset, so it reads x K
+// times from L2; its MMAs need far less time than those reads.  g is still
+// gathered twice, once for dX and once for dW; fusing the two (the TPU
+// kernel's design) would save one gather pass at the price of dW partials
+// held beside the dX tile, and is left for when the card shows it pays.
 //
-// C interface (bound with ctypes): ir_subm_conv_bwd returns
-// cudaGetLastError() after the launches, or cudaErrorInvalidValue for an
-// unsupported shape.
+// C interface (bound with ctypes): each entry returns cudaGetLastError()
+// after the launches, or cudaErrorInvalidValue for an unsupported shape.
 
 #include "sparse_conv.cuh"
+#include "sparse_conv_tc.cuh"
 
 namespace {
 
 using irsc::launch_gather_gemm;
 
-// dX: the reduction runs over g's cout channels (BK = 32), the output has
-// the conv's cin channels.
-template <typename T>
+// FMA dX: the reduction runs over g's cout channels (BK = 32), the output
+// has the conv's cin channels.
 cudaError_t launch_dx(const void* g, const void* nbr, const void* w, void* dx, long long v,
                       int k_offsets, int cin, int cout, cudaStream_t stream) {
   switch (cin) {
     case 32:
-      return launch_gather_gemm<T, float, 32, 32, true>(g, nbr, w, nullptr, nullptr, dx, v,
-                                                        k_offsets, cout, 0, stream);
+      return launch_gather_gemm<float, float, 32, 32, true>(g, nbr, w, nullptr, nullptr, dx,
+                                                            v, k_offsets, cout, 0, stream);
     case 64:
-      return launch_gather_gemm<T, float, 64, 32, true>(g, nbr, w, nullptr, nullptr, dx, v,
-                                                        k_offsets, cout, 0, stream);
+      return launch_gather_gemm<float, float, 64, 32, true>(g, nbr, w, nullptr, nullptr, dx,
+                                                            v, k_offsets, cout, 0, stream);
     case 128:
-      return launch_gather_gemm<T, float, 128, 32, true>(g, nbr, w, nullptr, nullptr, dx, v,
-                                                         k_offsets, cout, 0, stream);
+      return launch_gather_gemm<float, float, 128, 32, true>(g, nbr, w, nullptr, nullptr, dx,
+                                                             v, k_offsets, cout, 0, stream);
     default:
       return cudaErrorInvalidValue;
   }
 }
 
-template <typename T>
-cudaError_t run(const void* x, const void* nbr, const void* g, const void* w, void* dx,
-                void* partial, void* dw, long long v, int k_offsets, int cin, int cout,
-                int splits, cudaStream_t stream) {
-  const cudaError_t err = launch_dx<T>(g, nbr, w, dx, v, k_offsets, cin, cout, stream);
-  if (err != cudaSuccess) return err;
-  return irsc::dispatch_dw<T, false>(x, g, nbr, partial, dw, v, k_offsets, cin, cout, splits,
-                                     stream);
+// CIN and COUT each one of 32, 64, 128.
+cudaError_t dispatch_dw_tc(const void* x, const void* g, const void* nbr, void* partial,
+                           long long rows, int k_offsets, int cin, int cout, int splits,
+                           cudaStream_t stream) {
+#define IRSC_DW_TC(CI, CO) \
+  return irsc::tc::launch_dw_tc<CI, CO>(x, g, nbr, partial, rows, k_offsets, splits, stream)
+#define IRSC_DW_TC_COUT(CI)          \
+  switch (cout) {                    \
+    case 32: IRSC_DW_TC(CI, 32);     \
+    case 64: IRSC_DW_TC(CI, 64);     \
+    case 128: IRSC_DW_TC(CI, 128);   \
+    default: return cudaErrorInvalidValue; \
+  }
+  switch (cin) {
+    case 32: IRSC_DW_TC_COUT(32)
+    case 64: IRSC_DW_TC_COUT(64)
+    case 128: IRSC_DW_TC_COUT(128)
+    default: return cudaErrorInvalidValue;
+  }
+#undef IRSC_DW_TC_COUT
+#undef IRSC_DW_TC
+}
+
+bool bad_shape(long long v, int k_offsets, int cout, int splits) {
+  return v <= 0 || k_offsets <= 0 || k_offsets % 2 == 0 || cout < 32 || splits <= 0 ||
+         splits > 65535 || (v + irsc::GEMM_BM - 1) / irsc::GEMM_BM > 0x7fffffffLL;
 }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16 (x, g and w share it).  x [v, cin],
-// g [v, cout], nbr [v, K] with K odd and symmetric, w [K, cin, cout];
-// dx f32 [v, cin]; partial f32 scratch of splits * K * cin * cout; dw f32
-// [K, cin, cout].
+// The FMA route, float32: x [v, cin], g [v, cout], nbr [v, K] with K odd
+// and symmetric, w [K, cin, cout]; dx f32 [v, cin]; partial f32 scratch of
+// splits * K * cin * cout; dw f32 [K, cin, cout].
 extern "C" int ir_subm_conv_bwd(const void* x, const void* nbr, const void* g, const void* w,
                                 void* dx, void* partial, void* dw, long long v, int k_offsets,
-                                int cin, int cout, int splits, int dtype, void* stream) {
-  if (v <= 0 || k_offsets <= 0 || k_offsets % 2 == 0 || cout < 32 || splits <= 0 ||
-      splits > 65535 || (v + irsc::GEMM_BM - 1) / irsc::GEMM_BM > 0x7fffffffLL)
-    return cudaErrorInvalidValue;
+                                int cin, int cout, int splits, void* stream) {
+  if (bad_shape(v, k_offsets, cout, splits)) return cudaErrorInvalidValue;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    return run<float>(x, nbr, g, w, dx, partial, dw, v, k_offsets, cin, cout, splits, s);
-  if (dtype == 1)
-    return run<__nv_bfloat16>(x, nbr, g, w, dx, partial, dw, v, k_offsets, cin, cout, splits,
-                              s);
-  return cudaErrorInvalidValue;
+  const cudaError_t err = launch_dx(g, nbr, w, dx, v, k_offsets, cin, cout, s);
+  if (err != cudaSuccess) return err;
+  return irsc::dispatch_dw<float, false>(x, g, nbr, partial, dw, v, k_offsets, cin, cout, splits,
+                                         s);
+}
+
+// The tensor-core route: bfloat16 x, g and w (16-byte aligned), cin and
+// cout each one of 32, 64, 128; the other arguments as above.
+extern "C" int ir_subm_conv_bwd_tc(const void* x, const void* nbr, const void* g, const void* w,
+                                   void* dx, void* partial, void* dw, long long v,
+                                   int k_offsets, int cin, int cout, int splits, void* stream) {
+  if (bad_shape(v, k_offsets, cout, splits)) return cudaErrorInvalidValue;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t err = irsc::tc::dispatch_gather_gemm_tc<float, true>(
+      g, nbr, w, nullptr, nullptr, dx, v, k_offsets, cout, cin, 0, s);
+  if (err != cudaSuccess) return err;
+  err = dispatch_dw_tc(x, g, nbr, partial, v, k_offsets, cin, cout, splits, s);
+  if (err != cudaSuccess) return err;
+  const long long n = static_cast<long long>(k_offsets) * cin * cout;
+  irsc::sum_partials_kernel<<<static_cast<unsigned>((n + irsc::THREADS - 1) / irsc::THREADS),
+                              irsc::THREADS, 0, s>>>(static_cast<const float*>(partial),
+                                                     static_cast<float*>(dw), n, splits);
+  return cudaGetLastError();
 }

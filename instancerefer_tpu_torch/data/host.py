@@ -1,73 +1,27 @@
-"""Host bridge: the JAX package's numpy pipeline, reached without JAX.
+"""Host -> card: the padded numpy batch as tensors.
 
-The padded numpy batch is built by the shared host pipeline
-(``instancerefer_tpu/data/pipeline.py`` up to ``collate``,
-``data/synthetic.py`` and ``ops/voxelize.py`` — numpy and ctypes only).  It
-is reused, not copied.  One seam stands in the way: importing any
-``instancerefer_tpu.ops.*`` submodule first runs ``ops/__init__.py``, which
-imports ``ops/sparse.py`` and with it ``jax`` and ``flax``.  ``_bare_ops()``
-registers a bare package module for ``instancerefer_tpu.ops`` (its
-``__path__`` is the real directory) before the first such import, so the
-submodules load without that ``__init__``.  An ``instancerefer_tpu.ops``
-that is already imported is never replaced; every import of it in the JAX
-package and its tests is a submodule import, so both packages share one
-process safely.
-
-``batch_to_torch`` is the counterpart of
-``instancerefer_tpu.data.pipeline.batch_to_device_dict``: the same numpy
-batch becomes the dict of tensors the port's model consumes.  The TPU band
-metadata (``ws3``/``wskt3``/``dws``/``dwskt``/``up8``/``uws``/``uwskt``/
-``band_*``) is dropped — the port's kernels gather exactly.  The inverse
-down maps (``uprow``/``upk``) become each stage's ``up8``, the map the down
-conv's dX gathers over, whether or not the batch carries bands.
+``batch_to_torch`` is the counterpart of the JAX package's
+``data/pipeline.batch_to_device_dict``: the ``collate`` output of the port's
+host pipeline (``data/pipeline.py``, ``data/synthetic.py``,
+``ops/voxelize.py``) becomes the dict of tensors the port's model consumes.
+The inverse down maps (``uprow``/``upk``) become each stage's ``up8``, the
+map the down conv's dX gathers over.
 """
 
 from __future__ import annotations
 
 import dataclasses
-import importlib.machinery
-import os
-import sys
-import types
 from typing import Dict, Tuple
 
 import numpy as np
 import torch
 
-_OPS = "instancerefer_tpu.ops"
+from instancerefer_tpu_torch.data.pipeline import BatchSpec
+from instancerefer_tpu_torch.ops import voxelize
 
-
-def _bare_ops() -> None:
-    if _OPS in sys.modules:
-        return
-    import instancerefer_tpu  # its __init__ is a docstring and a version
-
-    path = os.path.join(os.path.dirname(instancerefer_tpu.__file__), "ops")
-    spec = importlib.machinery.ModuleSpec(_OPS, None, is_package=True)
-    spec.submodule_search_locations = [path]
-    mod = types.ModuleType(_OPS)
-    mod.__spec__ = spec
-    mod.__path__ = [path]
-    mod.__package__ = _OPS
-    sys.modules[_OPS] = mod
-    instancerefer_tpu.ops = mod
-
-
-_bare_ops()
-
-from instancerefer_tpu.data import pipeline, synthetic  # noqa: E402
-from instancerefer_tpu.ops import voxelize  # noqa: E402
-
-BatchSpec = pipeline.BatchSpec
-TEST_SPEC = synthetic.TEST_SPEC
-make_batch = synthetic.make_batch
-
-# keys of the numpy batch that stay out of the dense dict: the TPU band
-# metadata, and the inverse down maps (read into ``SparseStage.up8``)
-_DROPPED_STEMS = (
-    "ws3", "wskt3", "dws", "dwskt", "up8", "uws", "uwskt", "band", "uprow", "upk",
-)
-_PYRAMID_STEMS = ("coords", "owner", "nbr3", "down") + _DROPPED_STEMS
+# the voxel pyramid's keys, read into ``SparseStage``s (``uprow``/``upk``
+# into ``up8``) rather than kept as dense tensors
+_PYRAMID_STEMS = ("coords", "owner", "nbr3", "down", "uprow", "upk")
 
 
 @dataclasses.dataclass
@@ -75,7 +29,7 @@ class SparseStage:
     """One resolution level of a batched sparse voxel tensor.
 
     Counterpart of ``instancerefer_tpu/ops/sparse.py:SparseStage`` without the
-    band fields.  Rows of sample ``b`` occupy the block ``[b*cap, (b+1)*cap)``.
+    TPU band fields.  Rows of sample ``b`` occupy the block ``[b*cap, (b+1)*cap)``.
 
     Attributes:
       coords: [V, 3] int32 voxel coords in base-voxel units.

@@ -7,9 +7,11 @@
   ``pallas_conv.py:_dw_kernel`` (through ``windowed_conv_dw``).
 
 Each runs its plain twin (``ops/sparse.subm_conv_bwd`` / ``conv_dw``) for
-tensors on the CPU; a CUDA tensor launches the kernel or raises, with no
-fallback.  ``<wrapper>.launches`` counts kernel launches and nothing else.
-Both outputs are f32.  dW is a split reduction: the wrapper picks the split
+tensors on the CPU; a CUDA tensor launches a kernel or raises, with no
+fallback.  ``subm_conv_bwd`` takes the route ``gather_conv.route`` gives
+(bf16: the tensor-core kernels, f32: the FMA ones, which take f32 only);
+``conv_dw`` has the FMA kernel only, for both types.  ``<wrapper>.launches``
+counts kernel launches and nothing else.  Both outputs are f32.  dW is a split reduction: the wrapper picks the split
 count from the shapes alone, so a given shape always sums in the same order
 and repeated launches give bit-identical dW.
 """
@@ -24,7 +26,7 @@ import torch
 
 from instancerefer_tpu_torch.ops import sparse
 from instancerefer_tpu_torch.ops.gather_conv import (
-    COUTS, DTYPES, check_launch, check_map, check_tensors, library,
+    COUTS, DTYPES, check_launch, check_map, check_tc, check_tensors, library, route,
 )
 
 DW_ROWS = 32  # rows per shared tile of the dW kernel (DW_BR in sparse_conv.cuh)
@@ -38,11 +40,11 @@ def dw_splits(rows: int, k: int) -> int:
 
 
 @functools.cache
-def _entry(stem: str, name: str, n_args: int):
+def _entry(stem: str, name: str, n_args: int, n_ints: int = 5):
     fn = getattr(library(stem), name)
     p = ctypes.c_void_p
     fn.restype = ctypes.c_int
-    fn.argtypes = [p] * n_args + [ctypes.c_longlong] + [ctypes.c_int] * 5 + [p]
+    fn.argtypes = [p] * n_args + [ctypes.c_longlong] + [ctypes.c_int] * n_ints + [p]
     return fn
 
 
@@ -116,8 +118,11 @@ def subm_conv_bwd(
         raise ValueError(f"subm_conv_bwd: feats {tuple(feats.shape)}, nbr {tuple(nbr.shape)}, "
                          f"g {tuple(g.shape)}, weight {tuple(weight.shape)} disagree")
     check_tensors("subm_conv_bwd", feats, nbr, g, weight)
-    if feats.device.type == "cpu":
+    path = route(feats.dtype, cin, feats.device)
+    if path == "twin":
         return sparse.subm_conv_bwd(feats, nbr, g, weight)
+    if path == "tensor_core":
+        check_tc("subm_conv_bwd", (cin, cout), feats, g, weight)
     v = nbr.shape[0]
     dx = torch.empty(v, cin, dtype=torch.float32, device=feats.device)
     dw = torch.empty(k, cin, cout, dtype=torch.float32, device=feats.device)
@@ -125,9 +130,10 @@ def subm_conv_bwd(
         return dx, dw.zero_()
     splits = dw_splits(v, k)
     partial = torch.empty(splits, k, cin, cout, dtype=torch.float32, device=feats.device)
-    check_launch("subm_conv_bwd", _entry("subm_conv_bwd", "ir_subm_conv_bwd", 7)(
+    name = "ir_subm_conv_bwd_tc" if path == "tensor_core" else "ir_subm_conv_bwd"
+    check_launch("subm_conv_bwd", _entry("subm_conv_bwd", name, 7, 4)(
         feats.data_ptr(), nbr.data_ptr(), g.data_ptr(), weight.data_ptr(), dx.data_ptr(),
-        partial.data_ptr(), dw.data_ptr(), v, k, cin, cout, splits, DTYPES[feats.dtype],
+        partial.data_ptr(), dw.data_ptr(), v, k, cin, cout, splits,
         torch.cuda.current_stream(feats.device).cuda_stream,
     ))
     subm_conv_bwd.launches += 1

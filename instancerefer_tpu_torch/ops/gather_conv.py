@@ -5,9 +5,12 @@ The kernel replaces the TPU kernel ``instancerefer_tpu/ops/pallas_conv.py:
 _conv_kernel`` (through ``windowed_gather_conv``); the source's header says
 what bounds it on the card and what its design does about that.
 
-``gather_conv`` runs the plain twin (``ops/sparse.gather_conv``) for tensors
-on the CPU.  A CUDA tensor launches the kernel or raises; there is no
-fallback.  ``gather_conv.launches`` counts kernel launches and nothing else.
+``route`` picks the path of a call from the device, the input type and Cin
+alone: the plain twin (``ops/sparse.gather_conv``) for tensors on the CPU;
+on a card the tensor-core kernel for bf16 with Cin >= 16 and the FMA kernel
+otherwise (f32, and the 7-channel stems).  A CUDA tensor launches a kernel
+or raises; there is no fallback.  ``gather_conv.launches`` counts kernel
+launches and nothing else.
 
 ``build()`` compiles every ``.cu`` source under ``csrc/`` with ``nvcc``, one
 process per source and all at once, into ``instancerefer_tpu_torch/build/``
@@ -42,6 +45,26 @@ NVCC_FLAGS = (
 )
 COUTS = (32, 64, 128)
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+TC_MIN_CIN = 16  # narrower inputs would waste most of an mma's k-depth of 16
+TC_WIDTHS = (32, 64, 128)  # Cin and Cout the tensor-core kernels are built for
+
+
+def route(dtype: torch.dtype, cin: int, device) -> str:
+    """``"twin"`` on the CPU; on a card ``"tensor_core"`` for bf16 inputs
+    with ``cin >= TC_MIN_CIN``, else ``"fma"``."""
+    if torch.device(device).type == "cpu":
+        return "twin"
+    return "tensor_core" if dtype == torch.bfloat16 and cin >= TC_MIN_CIN else "fma"
+
+
+def check_tc(name: str, widths, *tensors: torch.Tensor) -> None:
+    """What the tensor-core kernels take: widths in ``TC_WIDTHS`` and
+    16-byte aligned data (their 16-byte ``cp.async`` copies)."""
+    if any(w not in TC_WIDTHS for w in widths):
+        raise ValueError(f"{name}: the tensor-core kernel takes widths in {TC_WIDTHS}, "
+                         f"got {widths}")
+    if any(t.data_ptr() % 16 for t in tensors):
+        raise ValueError(f"{name}: the tensor-core kernel needs 16-byte aligned inputs")
 
 
 def _nvcc() -> str:
@@ -111,14 +134,13 @@ def library(stem: str) -> ctypes.CDLL:
 
 
 @functools.cache
-def _entry():
-    fn = library("gather_conv").ir_gather_conv
+def _entry(name: str, n_codes: int):
+    """``ir_gather_conv`` (FMA, dtype and out_dtype codes) or
+    ``ir_gather_conv_tc`` (out_dtype code only)."""
+    fn = getattr(library("gather_conv"), name)
     p = ctypes.c_void_p
     fn.restype = ctypes.c_int
-    fn.argtypes = [
-        p, p, p, p, p, p, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
-        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, p,
-    ]
+    fn.argtypes = [p] * 6 + [ctypes.c_longlong] + [ctypes.c_int] * (4 + n_codes) + [p]
     return fn
 
 
@@ -187,7 +209,8 @@ def gather_conv(
     """out[v] = relu?(sum_k feats[nbr[v, k]] @ weight[k] * scale + bias).
 
     Args:
-      feats:  [V_in, Cin] f32 or bf16, contiguous.
+      feats:  [V_in, Cin] f32 or bf16, contiguous; on a card, bf16 with
+        Cin >= 16 needs Cin in {32, 64, 128}.
       nbr:    [V_out, K] int32 rows of ``feats`` (all < V_in), -1 = empty.
       weight: [K, Cin, Cout] in ``feats.dtype``; Cout in {32, 64, 128}.
       scale/bias: optional [Cout] f32 epilogue (folded eval BatchNorm).
@@ -196,20 +219,28 @@ def gather_conv(
     """
     out_dtype = feats.dtype if out_dtype is None else out_dtype
     _check(feats, nbr, weight, scale, bias, out_dtype)
-    if feats.device.type == "cpu":
-        return sparse.gather_conv(feats, nbr, weight, scale, bias, relu, out_dtype)
     k, cin, cout = weight.shape
+    path = route(feats.dtype, cin, feats.device)
+    if path == "twin":
+        return sparse.gather_conv(feats, nbr, weight, scale, bias, relu, out_dtype)
+    if path == "tensor_core":
+        check_tc("gather_conv", (cin, cout), feats, weight)
     v_out = nbr.shape[0]
     out = torch.empty(v_out, cout, dtype=out_dtype, device=feats.device)
     if v_out == 0:
         return out
-    check_launch("gather_conv", _entry()(
+    args = [
         feats.data_ptr(), nbr.data_ptr(), weight.data_ptr(),
         None if scale is None else scale.data_ptr(),
         None if bias is None else bias.data_ptr(),
-        out.data_ptr(), v_out, k, cin, cout, int(relu), DTYPES[feats.dtype],
-        DTYPES[out_dtype], torch.cuda.current_stream(feats.device).cuda_stream,
-    ))
+        out.data_ptr(), v_out, k, cin, cout, int(relu),
+    ]
+    if path == "tensor_core":
+        fn, codes = _entry("ir_gather_conv_tc", 1), [DTYPES[out_dtype]]
+    else:
+        fn, codes = _entry("ir_gather_conv", 2), [DTYPES[feats.dtype], DTYPES[out_dtype]]
+    stream = torch.cuda.current_stream(feats.device).cuda_stream
+    check_launch("gather_conv", fn(*args, *codes, stream))
     gather_conv.launches += 1
     return out
 

@@ -80,14 +80,13 @@ def check_eval_overflow(overflow_max: dict, allow: bool):
 
 def score(cfg: Config, root: str, device: torch.device) -> dict:
     """Per-sample scores of the val split (valid rows only)."""
-    import instancerefer_tpu_torch.data.host  # noqa: F401  (the bridge dataset.py needs)
-    from instancerefer_tpu.data.dataset import (
+    from instancerefer_tpu_torch.data.dataset import (
         PaddedLoader,
         PredictedClassLoader,
         ScannetReferenceDataset,
         get_scanrefer,
     )
-    from instancerefer_tpu.data.scannet_config import ScannetDatasetConfig
+    from instancerefer_tpu_torch.data.scannet_config import ScannetDatasetConfig
     from instancerefer_tpu_torch.data.host import batch_to_torch
     from instancerefer_tpu_torch.models.instancerefer import build_model
     from instancerefer_tpu_torch.ops.precision import set_compute_dtype

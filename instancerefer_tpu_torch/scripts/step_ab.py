@@ -1,0 +1,227 @@
+"""Time the bf16 train step of several checkouts of the port, alternated in
+one call on one GPU, and profile the host side of one step of each.
+
+    python -m instancerefer_tpu_torch.scripts.step_ab ROOT [ROOT ...] \\
+        [--rounds 2] [--steps 20] [--out FILE]
+
+Each ROOT is a checkout holding ``chip_smoke.py`` and
+``instancerefer_tpu_torch/``.  The step is the one that phase 7 of
+``chip_smoke.py`` times (``train_step`` on a 32-scene synthetic batch at
+the fitted caps, random weights, Adam), run by ROOT's own package with
+ROOT's own constants.  A round runs the roots in order and then in reverse
+(A B B A), each in a fresh process, so a drift of the host over the call
+falls on every root alike.  Each run prints one line ``STEP_AB {...}``:
+
+- ``wall_ms``: each timed step, host clock around ``torch.cuda.synchronize()``;
+- ``host_ms``: each step's time to return from ``train_step`` (its launches
+  and the waits inside it); ``cpu_ms``: the process's CPU time over the step;
+- ``gc_ms``: time in Python's garbage collector over all timed steps;
+- ``probe_before`` / ``probe_after``: the host's speed: ``py_ms``, a fixed
+  pure-Python loop, and ``op_us``, one small torch CPU op (the dispatch the
+  step's launches go through); the best of 5 each;
+- ``load1``: the host's 1-minute load average before the run;
+- ``profile``: one step under ``torch.profiler``: device busy ms, the
+  host's self CPU ms over all ops, its busiest ops, and the CUDA runtime
+  calls (count, self CPU ms).
+
+Then a table of the runs, and per root the median of its runs' medians.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import statistics
+import subprocess
+import sys
+import time
+
+PREFIX = "STEP_AB "
+
+
+def _probe() -> dict:
+    import torch
+
+    def py_loop() -> float:
+        t0, s = time.perf_counter(), 0
+        for i in range(200_000):
+            s += i * i
+        return (time.perf_counter() - t0) * 1e3
+
+    a, b = torch.ones(1), torch.ones(1)
+
+    def op() -> float:
+        t0 = time.perf_counter()
+        for _ in range(2000):
+            torch.add(a, b)
+        return (time.perf_counter() - t0) / 2000 * 1e6
+
+    return {"py_ms": min(py_loop() for _ in range(5)), "op_us": min(op() for _ in range(5))}
+
+
+def _profile(fn) -> dict:
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    device = host = 0.0
+    ops, runtime = [], {}
+    for ev in prof.key_averages():
+        if ev.device_type == DeviceType.CUDA:
+            device += ev.self_device_time_total / 1e3
+            continue
+        ms = ev.self_cpu_time_total / 1e3
+        host += ms
+        if ev.key.startswith("cu"):
+            runtime[ev.key] = [ev.count, round(ms, 3)]
+        else:
+            ops.append([ev.key, ev.count, round(ms, 3)])
+    ops.sort(key=lambda r: -r[2])
+    return {"wall_ms": wall, "device_busy_ms": device, "host_self_cpu_ms": host,
+            "top_ops": ops[:12], "runtime": runtime}
+
+
+def child(steps: int) -> dict:
+    sys.path.insert(0, os.getcwd())  # ROOT's package and chip_smoke.py
+    import gc
+
+    import torch
+
+    import chip_smoke as cs
+    from instancerefer_tpu_torch.data.host import batch_to_torch
+    from instancerefer_tpu_torch.models.instancerefer import InstanceRefer
+    from instancerefer_tpu_torch.ops import gather_conv
+    from instancerefer_tpu_torch.ops.precision import set_compute_dtype
+    from instancerefer_tpu_torch.train.solver import make_optimizer, train_step
+
+    try:
+        from instancerefer_tpu_torch.data.pipeline import BatchSpec
+        from instancerefer_tpu_torch.data.synthetic import make_batch
+    except ImportError:  # a checkout whose host bridge re-exports them
+        from instancerefer_tpu_torch.data.host import BatchSpec, make_batch
+
+    if not torch.cuda.is_available():
+        raise SystemExit("step_ab: no CUDA device")
+    dev = torch.device("cuda", 0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    gather_conv.build()
+    spec = BatchSpec(**cs.SPEC_KW)
+    batch = make_batch(cs.BATCH, spec, seed=0, mean_size_arr=cs.MEAN_SIZE, **cs.SCENE_KW)
+    dd = batch_to_torch(batch, spec, dev)
+    set_compute_dtype("bfloat16")
+    model = InstanceRefer(spec.feat_dim, spec.num_classes, spec.max_candidates,
+                          generator=torch.Generator().manual_seed(5)).to(dev)
+    opt = make_optimizer(model.parameters(), cs.LR, cs.WD)
+    mean_size = torch.tensor(cs.MEAN_SIZE, dtype=torch.float32, device=dev)
+
+    def step():
+        return train_step(model, opt, dd, mean_size)
+
+    load1 = os.getloadavg()[0]
+    probe_before = _probe()
+    for _ in range(2):  # warm-up
+        step()
+    torch.cuda.synchronize()
+    in_gc, gc_start = [0.0], [0.0]
+
+    def on_gc(phase, _info):
+        if phase == "start":
+            gc_start[0] = time.perf_counter()
+        else:
+            in_gc[0] += time.perf_counter() - gc_start[0]
+
+    wall, host, cpu, losses = [], [], [], []
+    gc.callbacks.append(on_gc)
+    try:
+        for _ in range(steps):
+            torch.cuda.synchronize()
+            t0, c0 = time.perf_counter(), time.process_time()
+            metrics, _out = step()
+            t1 = time.perf_counter()
+            torch.cuda.synchronize()
+            t2, c1 = time.perf_counter(), time.process_time()
+            wall.append((t2 - t0) * 1e3)
+            host.append((t1 - t0) * 1e3)
+            cpu.append((c1 - c0) * 1e3)
+            losses.append(metrics["loss"])
+    finally:
+        gc.callbacks.remove(on_gc)
+    if not all(bool(torch.isfinite(x)) for x in losses):
+        raise AssertionError("non-finite loss")
+    probe_after = _probe()
+    prof = _profile(step)
+    set_compute_dtype(None)
+    return {"wall_ms": wall, "host_ms": host, "cpu_ms": cpu, "gc_ms": in_gc[0] * 1e3,
+            "probe_before": probe_before, "probe_after": probe_after, "load1": load1,
+            "profile": prof}
+
+
+def _order(roots, rounds: int):
+    return [r for _ in range(rounds) for r in list(roots) + list(roots)[::-1]]
+
+
+def main(argv=None) -> None:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("roots", nargs="*", help="checkouts holding chip_smoke.py")
+    ap.add_argument("--rounds", type=int, default=2, help="A B B A rounds")
+    ap.add_argument("--steps", type=int, default=20, help="timed steps a run")
+    ap.add_argument("--out", help="also append each run's record to this file")
+    ap.add_argument("--child", action="store_true", help=argparse.SUPPRESS)
+    args = ap.parse_args(argv)
+    if args.child:
+        print(PREFIX + json.dumps(child(args.steps)), flush=True)
+        return
+    if not args.roots:
+        ap.error("give at least one ROOT")
+
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True)
+    print(smi.stdout.strip(), flush=True)
+    runs = []
+    for i, root in enumerate(_order([os.path.abspath(r) for r in args.roots], args.rounds)):
+        proc = subprocess.run(
+            [sys.executable, os.path.abspath(__file__), "--child", "--steps", str(args.steps)],
+            cwd=root, capture_output=True, text=True, timeout=900)
+        lines = [ln for ln in proc.stdout.splitlines() if ln.startswith(PREFIX)]
+        if proc.returncode or not lines:
+            sys.stderr.write(proc.stdout[-4000:] + proc.stderr[-4000:])
+            raise SystemExit(f"step_ab: run {i} of {root} failed (rc {proc.returncode})")
+        rec = dict(json.loads(lines[-1][len(PREFIX):]), run=i, root=root)
+        runs.append(rec)
+        print(PREFIX + json.dumps(rec), flush=True)
+        if args.out:
+            with open(args.out, "a") as f:
+                f.write(json.dumps(rec) + "\n")
+
+    med = statistics.median
+    print("run  root                  wall ms med [min, max]     host ms  cpu ms  gc ms  "
+          "busy ms  py ms before/after  op us before/after  load1")
+    for r in runs:
+        p = r["probe_before"], r["probe_after"]
+        print(f"{r['run']:>3}  {os.path.basename(r['root']):<20}  {med(r['wall_ms']):8.2f} "
+              f"[{min(r['wall_ms']):.2f}, {max(r['wall_ms']):.2f}]  {med(r['host_ms']):7.2f}  "
+              f"{med(r['cpu_ms']):6.2f}  {r['gc_ms']:5.2f}  {r['profile']['device_busy_ms']:7.2f}  "
+              f"{p[0]['py_ms']:.2f} / {p[1]['py_ms']:.2f}  {p[0]['op_us']:.3f} / {p[1]['op_us']:.3f}  "
+              f"{r['load1']:.2f}")
+    for root in dict.fromkeys(r["root"] for r in runs):
+        mine = [r for r in runs if r["root"] == root]
+        walls = [med(r["wall_ms"]) for r in mine]
+        line = (f"{os.path.basename(root)}: median step {med(walls):.2f} ms over {len(mine)} "
+                f"runs ({', '.join(f'{w:.2f}' for w in walls)})")
+        if len(mine) > 2:  # does the step follow the host's speed across runs?
+            line += "; correlation with the probes " + ", ".join(
+                f"{key} {statistics.correlation(walls, [r['probe_before'][key] for r in mine]):.3f}"
+                for key in ("py_ms", "op_us"))
+        print(line)
+
+
+if __name__ == "__main__":
+    main()

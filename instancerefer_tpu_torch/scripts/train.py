@@ -3,9 +3,9 @@
     python -m instancerefer_tpu_torch.scripts.train --config config/InstanceRefer.yaml \\
         --log_dir mylog [--device cpu]
 
-Seeding (numpy and torch), a backup of the model and solver sources into the
-run directory, the shared ``ScannetReferenceDataset``/``PaddedLoader``
-(reached through the host bridge), the model of the config, warm start
+Seeding (numpy and torch), a backup of the model, solver and dataset sources
+into the run directory, the port's ``ScannetReferenceDataset``/
+``PaddedLoader``, the model of the config, warm start
 (``use_checkpoint`` resumes a run's ``checkpoint.tar``, ``--pretrain`` loads
 a ``.pth``/``.tar``, ``use_pretrained`` copies the submodules of a run's
 ``model_last.pth``), predicted-class candidate filtering when
@@ -28,22 +28,20 @@ import torch
 from instancerefer_tpu_torch.config import Config, load_config
 
 _PORT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-# (package directory, file) of the sources a run backs up
+# the port's sources a run backs up
 BACKUP = (
-    [(_PORT, f"models/{m}.py") for m in ("instancerefer", "lang_module", "attribute_module",
-                                          "relation_module", "scene_module")]
-    + [(_PORT, "train/solver.py"),
-       (os.path.join(os.path.dirname(_PORT), "instancerefer_tpu"), "data/dataset.py")]
+    [f"models/{m}.py" for m in ("instancerefer", "lang_module", "attribute_module",
+                                "relation_module", "scene_module")]
+    + ["train/solver.py", "data/dataset.py"]
 )
 
 
 def init_experiment(cfg: Config, stamp: str) -> str:
     root = os.path.join(cfg.path_output, stamp)
-    backup = os.path.join(root, "backup")
-    for pkg, rel in BACKUP:
-        dest = os.path.join(backup, os.path.basename(pkg), rel)
+    for rel in BACKUP:
+        dest = os.path.join(root, "backup", os.path.basename(_PORT), rel)
         os.makedirs(os.path.dirname(dest), exist_ok=True)
-        shutil.copyfile(os.path.join(pkg, rel), dest)
+        shutil.copyfile(os.path.join(_PORT, rel), dest)
     return root
 
 
@@ -74,14 +72,13 @@ def train(cfg: Config):
 
     set_compute_dtype(cfg.compute_dtype)
 
-    import instancerefer_tpu_torch.data.host  # noqa: F401  (the bridge dataset.py needs)
-    from instancerefer_tpu.data.dataset import (
+    from instancerefer_tpu_torch.data.dataset import (
         PaddedLoader,
         PredictedClassLoader,
         ScannetReferenceDataset,
         get_scanrefer,
     )
-    from instancerefer_tpu.data.scannet_config import ScannetDatasetConfig
+    from instancerefer_tpu_torch.data.scannet_config import ScannetDatasetConfig
     from instancerefer_tpu_torch.models.instancerefer import build_model
     from instancerefer_tpu_torch.train.solver import Solver
 

@@ -26,6 +26,7 @@ import pytest
 import torch
 
 from instancerefer_tpu.data.pipeline import batch_to_device_dict
+from instancerefer_tpu.data.synthetic import TEST_SPEC, make_batch
 from instancerefer_tpu.models import lang_module as jlang
 from instancerefer_tpu.models.instancerefer import InstanceRefer as JaxModel
 from instancerefer_tpu.train.evaluate import get_eval as jax_eval
@@ -34,10 +35,11 @@ from instancerefer_tpu.utils import convert_torch
 from instancerefer_tpu.utils.convert_torch import export_state_dict
 
 from instancerefer_tpu_torch.config import Config
-from instancerefer_tpu_torch.data.host import TEST_SPEC, batch_to_torch, make_batch
+from instancerefer_tpu_torch.data.host import batch_to_torch
 from instancerefer_tpu_torch.models.instancerefer import InstanceRefer, build_model
 from instancerefer_tpu_torch.train.evaluate import get_eval
 from instancerefer_tpu_torch.train.losses import get_loss
+from instancerefer_tpu_torch.utils import convert
 from instancerefer_tpu_torch.utils.convert import (
     load_reference_state_dict,
     state_dict_from_jax,
@@ -136,8 +138,9 @@ def test_bare_load_state_dict_is_wrong_when_the_orders_differ(jax_side, monkeypa
     """Kernel-order regression: with the reference's offsets in another
     order, a bare ``load_state_dict`` of its file loads "fine" and computes
     wrong scores; ``load_reference_state_dict`` does not."""
-    monkeypatch.setattr(convert_torch, "_PERM3", np.arange(27)[::-1].copy())
-    monkeypatch.setattr(convert_torch, "_PERM2", np.arange(8)[::-1].copy())
+    for exporter in (convert_torch, convert):  # the JAX package's and the port's key maps
+        monkeypatch.setattr(exporter, "_PERM3", np.arange(27)[::-1].copy())
+        monkeypatch.setattr(exporter, "_PERM2", np.arange(8)[::-1].copy())
     pth = tmp_path / "reversed.pth"
     ref = export_state_dict(jax_side["params"], jax_side["stats"])
     torch.save({k: torch.from_numpy(np.array(v)) for k, v in ref.items()}, pth)

@@ -6,12 +6,14 @@ reference-layout ``model_last.pth`` into a run directory of a fake ScanRefer
 root (``tests/fake_scanrefer.make_fake_root``: 6 val descriptions, so batches
 of 4 end in a padded one).  The port's CLI scores the val split on the CPU in
 f32; JAX runs ``apply`` + ``get_loss`` + ``get_eval`` over the same
-``PaddedLoader`` batches.  ``scores.npz`` holds the valid rows only:
+``PaddedLoader`` batches, built in the port's raster row order
+(``pallas_conv=True``) and run through JAX's XLA path.  ``scores.npz`` holds the valid rows only:
 ``ref_iou`` agrees at rtol 1e-4 / atol 1e-5, ``ref_acc``, ``lang_correct``,
 ``multiple`` and ``others`` are equal, and so is the Acc table.  A second run
 reads the cache.
 """
 
+import dataclasses
 import functools
 import os
 
@@ -22,7 +24,7 @@ import pytest
 import torch
 
 from instancerefer_tpu.data.dataset import PaddedLoader, ScannetReferenceDataset, get_scanrefer
-from instancerefer_tpu.data.pipeline import batch_to_device_dict
+from instancerefer_tpu.data.pipeline import BatchSpec, batch_to_device_dict
 from instancerefer_tpu.data.scannet_config import ScannetDatasetConfig
 from instancerefer_tpu.models.instancerefer import InstanceRefer as JaxModel
 from instancerefer_tpu.train.evaluate import aggregate_scores as jax_aggregate
@@ -68,7 +70,8 @@ def runs(tmp_path_factory):
     argv = ["--config", str(root / "tiny.yaml"), "--log_dir", "evalrun",
             "--data_root", str(root), "--output_root", str(root / "outputs"), "--device", "cpu"]
     cfg = load_config(argv)
-    spec = cfg.batch_spec()
+    spec = BatchSpec(**dataclasses.asdict(cfg.batch_spec()), pallas_conv=True)
+    xla_spec = dataclasses.replace(spec, pallas_conv=False)
     dc = ScannetDatasetConfig(meta_dir=cfg.path_scannet_meta)
     dataset = ScannetReferenceDataset(
         get_scanrefer(cfg.data_root, "val"), "val", data_root=cfg.data_root,
@@ -83,7 +86,7 @@ def runs(tmp_path_factory):
                      max_candidates=cfg.max_candidates)
     v = jax.jit(functools.partial(model.init, train=False))(
         {"params": jax.random.key(7), "dropout": jax.random.key(8)},
-        batch_to_device_dict(batches[0], spec))
+        batch_to_device_dict(batches[0], xla_spec))
     params = jax.tree.map(np.asarray, jax.device_get(v["params"]))
     stats = perturb_stats(jax.device_get(v["batch_stats"]), 9)
 
@@ -100,7 +103,7 @@ def runs(tmp_path_factory):
         valid = b["sample_valid"]
         dd = {k: val for k, val in b.items() if k != "sample_valid"}
         res = jax.device_get(step({"params": params, "batch_stats": stats},
-                                  batch_to_device_dict(dd, spec)))
+                                  batch_to_device_dict(dd, xla_spec)))
         for k in want:
             want[k].append(np.asarray(res[k])[valid])
     want = {k: np.concatenate(val) for k, val in want.items()}

@@ -17,6 +17,7 @@ import pytest
 import torch
 
 from instancerefer_tpu.data.pipeline import batch_to_device_dict
+from instancerefer_tpu.data.synthetic import TEST_SPEC, make_batch
 from instancerefer_tpu.models import attribute_module as jattr
 from instancerefer_tpu.models import basic_blocks as jbb
 from instancerefer_tpu.models import lang_module as jlang
@@ -28,7 +29,7 @@ from instancerefer_tpu.ops.gru import MaskedGRU
 from instancerefer_tpu.ops.knn import knn_padded as jax_knn
 from instancerefer_tpu.ops.sparse import masked_global_max_pool as jax_pool
 
-from instancerefer_tpu_torch.data.host import TEST_SPEC, batch_to_torch, make_batch
+from instancerefer_tpu_torch.data.host import batch_to_torch
 from instancerefer_tpu_torch.models.instancerefer import InstanceRefer
 from instancerefer_tpu_torch.ops import boxes, gru, knn, sparse
 from instancerefer_tpu_torch.utils.convert import state_dict_from_jax

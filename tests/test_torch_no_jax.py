@@ -1,9 +1,10 @@
-"""The port runs where there is no jax, flax, yaml, orbax or optax (an eval
-forward, one train step, and the train and eval CLIs), and
-``chip_smoke.py`` refuses to run without a GPU.
+"""The port runs where there is no jax, flax, yaml, orbax or optax and no
+JAX package (an eval forward, one train step, and the train and eval CLIs),
+and ``chip_smoke.py`` refuses to run without a GPU.
 
 The GPU machine has PyTorch but none of jax, flax, yaml, orbax or optax, so
-the port — host bridge included — must not import them, even indirectly.
+the port — host pipeline included — must not import them, even indirectly;
+and it imports nothing of ``instancerefer_tpu``, not even its numpy modules.
 """
 
 import ast
@@ -22,14 +23,16 @@ from fake_scanrefer import make_fake_root
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PACKAGE = os.path.join(ROOT, "instancerefer_tpu_torch")
-BANNED = {"jax", "flax", "yaml", "orbax", "optax"}
+BANNED = {"jax", "flax", "yaml", "orbax", "optax", "instancerefer_tpu"}
 
 SLICE_WITHOUT_JAX = """
 import sys
 sys.modules["jax"] = sys.modules["flax"] = sys.modules["yaml"] = None
+sys.modules["instancerefer_tpu"] = None
 import numpy as np
 import torch
-from instancerefer_tpu_torch.data.host import TEST_SPEC, batch_to_torch, make_batch
+from instancerefer_tpu_torch.data.host import batch_to_torch
+from instancerefer_tpu_torch.data.synthetic import TEST_SPEC, make_batch
 from instancerefer_tpu_torch.models.instancerefer import InstanceRefer
 from instancerefer_tpu_torch.train.evaluate import get_eval
 from instancerefer_tpu_torch.train.losses import get_loss
@@ -46,12 +49,15 @@ assert torch.isfinite(out["loss"]) and out["lang_scores"].shape == (2, 18)
 metrics, _ = train_step(model, make_optimizer(model.parameters(), 1e-3, 1e-5), dd, ms)
 assert torch.isfinite(metrics["loss"]) and model.training
 assert all(torch.isfinite(p.grad).all() for p in model.parameters() if p.grad is not None)
-assert not any(m in sys.modules and sys.modules[m] is not None for m in ("jax", "flax", "yaml"))
+assert not any(m in sys.modules and sys.modules[m] is not None
+               for m in ("jax", "flax", "yaml", "instancerefer_tpu"))
 print("ok")
 """
 
 
 def test_slice_runs_without_jax_flax_yaml():
+    """An eval forward and a train step where jax, flax, yaml and the JAX
+    package cannot be imported."""
     res = subprocess.run([sys.executable, "-c", SLICE_WITHOUT_JAX], cwd=ROOT,
                          env=dict(os.environ, PYTHONPATH=ROOT), capture_output=True,
                          text=True, timeout=300)
@@ -60,6 +66,8 @@ def test_slice_runs_without_jax_flax_yaml():
 
 
 def test_no_module_imports_jax_flax_or_yaml():
+    """No module of the port, and not ``chip_smoke.py``, imports any of
+    ``BANNED``, the JAX package among them."""
     files = [os.path.join(ROOT, "chip_smoke.py")]
     for d, _, names in os.walk(PACKAGE):
         files += [os.path.join(d, n) for n in names if n.endswith(".py")]
@@ -116,7 +124,8 @@ TPU:
 @pytest.fixture(scope="module")
 def cli(tmp_path_factory):
     """``python -m instancerefer_tpu_torch.scripts.<name> ...`` in a process
-    where importing any of ``BANNED`` raises ImportError."""
+    where importing any of ``BANNED`` (the JAX package too) raises
+    ImportError."""
     tmp = tmp_path_factory.mktemp("cli")
     blocked = tmp / "blocked"
     for name in BANNED:

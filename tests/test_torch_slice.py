@@ -17,14 +17,14 @@ import numpy as np
 import pytest
 import torch
 
+from instancerefer_tpu.data import pipeline, synthetic
 from instancerefer_tpu.data.pipeline import batch_to_device_dict
+from instancerefer_tpu.data.synthetic import TEST_SPEC, make_batch
 from instancerefer_tpu.models.instancerefer import InstanceRefer as JaxModel
 from instancerefer_tpu.train.evaluate import get_eval as jax_eval
 from instancerefer_tpu.train.losses import get_loss as jax_loss
 
-from instancerefer_tpu_torch.data.host import (
-    TEST_SPEC, batch_to_torch, make_batch, pipeline, synthetic,
-)
+from instancerefer_tpu_torch.data.host import batch_to_torch
 from instancerefer_tpu_torch.models.instancerefer import InstanceRefer
 from instancerefer_tpu_torch.train.evaluate import get_eval
 from instancerefer_tpu_torch.train.losses import get_loss

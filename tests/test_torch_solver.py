@@ -30,11 +30,12 @@ import numpy as np
 import pytest
 import torch
 
+from instancerefer_tpu.data import pipeline, synthetic
 from instancerefer_tpu.data.pipeline import batch_to_device_dict
+from instancerefer_tpu.data.synthetic import TEST_SPEC, make_batch
 from instancerefer_tpu.models.instancerefer import InstanceRefer as JaxModel
 from instancerefer_tpu.train import solver as jax_solver
 
-from instancerefer_tpu_torch.data.host import TEST_SPEC, make_batch, pipeline, synthetic
 from instancerefer_tpu_torch.models.instancerefer import InstanceRefer
 from instancerefer_tpu_torch.train import solver
 from instancerefer_tpu_torch.utils.convert import state_dict_from_jax

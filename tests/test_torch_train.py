@@ -36,12 +36,14 @@ import optax
 import pytest
 import torch
 
+from instancerefer_tpu.data import pipeline, synthetic
 from instancerefer_tpu.data.pipeline import batch_to_device_dict
+from instancerefer_tpu.data.synthetic import TEST_SPEC
 from instancerefer_tpu.models.instancerefer import InstanceRefer as JaxModel
 from instancerefer_tpu.train import solver as jax_solver
 from instancerefer_tpu.train.losses import get_loss as jax_loss
 
-from instancerefer_tpu_torch.data.host import TEST_SPEC, batch_to_torch, pipeline, synthetic
+from instancerefer_tpu_torch.data.host import batch_to_torch
 from instancerefer_tpu_torch.models.instancerefer import InstanceRefer
 from instancerefer_tpu_torch.ops import conv_bwd, gather_conv
 from instancerefer_tpu_torch.train import solver
