@@ -10,11 +10,12 @@ Phases, in order; any failure exits nonzero without the final ``ok`` line:
    every CUDA source under ``instancerefer_tpu_torch/csrc/`` (one ``nvcc``
    each, all at once), whose ``-Xptxas -v`` reports must show no spills.
 2. K1 vs plain twin: the CUDA gather-GEMM against ``ops/sparse.gather_conv``
-   at four main-path shapes of a 32-scene batch (scene stem 7 -> 32 over
-   ``nbr3``, stage-1 down 32 -> 64 over ``down``, stage-2 and stage-3
-   residuals 128 -> 128 over ``nbr3``), in f32 (the FMA kernel) and bf16
-   (the tensor-core kernel, but the FMA one at the stem), with and without
-   the fused BN/ReLU epilogue.  Times are CUDA-event medians of 10.  Each
+   at five main-path shapes of a 32-scene batch (scene and instance stems
+   7 -> 32 over ``nbr3``, stage-1 down 32 -> 64 over ``down``, stage-2 and
+   stage-3 residuals 128 -> 128 over ``nbr3``), in f32 (the FMA kernel) and
+   bf16 (the stem kernel at the stems, the tensor-core kernel elsewhere),
+   with and without the fused BN/ReLU epilogue.  Times are CUDA-event
+   medians of 10.  Each
    line also gives the bound (the larger of the bytes over 3.35 TB/s and the
    flops of the map's valid entries over the H100's peak for the type: 989
    TFLOP/s bf16, 67 TFLOP/s f32) and the im2col yardstick: no single
@@ -31,12 +32,13 @@ Phases, in order; any failure exits nonzero without the final ``ok`` line:
    ``torch.profiler``: the sparse-conv kernels' device time by wrapper, the
    device's busy time and idle share (``[profile]``).
 5. K2, K3 and K1's f32 output vs their plain twins on the maps of the
-   32-scene batch: K3 at the scene stem (K = 27, 7 -> 32) and the stage-1
-   down (K = 8, 32 -> 64), K2 at the stage-1 (64 -> 64), stage-2 and
-   stage-3 (128 -> 128) residuals, K1 over the stage-1 ``up8`` (64 -> 32,
-   f32 out); f32 and bf16 inputs; two launches on the same inputs give
-   bit-identical dW.  CUDA-event medians of 10, with bound and yardstick as
-   in phase 2.
+   32-scene batch: K3 at every shape a train step launches it at (both
+   stems, K = 27, 7 -> 32, and the four down convs of both encoders, K = 8,
+   32 -> 64, 64 -> 128, 128 -> 128 twice), K2 at the scene stage-1
+   (64 -> 64), stage-2 and stage-3 (128 -> 128) residuals, K1 over the
+   stage-1 ``up8`` (64 -> 32, f32 out); f32 and bf16 inputs; two launches
+   on the same inputs give bit-identical dW.  CUDA-event medians of 10,
+   with bound and yardstick as in phase 2.
 6. Train parity, card vs CPU: one ``train_step`` on a 2-scene batch at the
    full-size spec, f32, TF32 off, deterministic cuDNN, dropout 0, the same
    weights: loss, every parameter gradient, the running statistics, then
@@ -102,6 +104,9 @@ SCENE_KW = dict(num_points=40000, num_instances=12, num_candidates=4)
 MEAN_SIZE = np.linspace(0.3, 2.0, 18)[:, None] * np.array([[1.0, 0.9, 0.8]])
 BATCH = 32
 CONVS_PER_FORWARD = 26  # 2 encoders x (stem + 4 x (down + 2 subm))
+FEAT_DIM = 7  # the stems' Cin: xyz, rgb, height
+WIDTHS = (32, 64, 128, 128, 128)  # the encoders' channels by stage
+ENCODERS = (("scene", "scene"), ("instance", "inst"))  # (label, batch key prefix)
 # kernel vs twin: |err| <= TOL * max|ref|.  f32 differs only in summation
 # order; bf16 outputs round the same f32 sum, so they may differ by one
 # bf16 ulp (2^-7 relative) where the two sums straddle a rounding boundary.
@@ -197,13 +202,14 @@ class Totals:
 
 
 # the sparse-conv kernels' names as the profiler reports them, by wrapper:
-# the gather-GEMM templates end in MIRROR_T (true: K2's dX), the FMA dW in
-# GATHER_A (true: K3); sum_partials_kernel serves K2 and K3
+# the gather-GEMM templates end in MIRROR_T (true: K2's dX), the dW ones in
+# GATHER_A / GATHER_X (true: K3); the stem kernels are K1's and K3's;
+# sum_partials_kernel serves K2 and K3
 KERNEL_FAMILIES = (
     ("K1 dX over up8", re.compile(r"gather_gemm_tc_kernel<float, \d+, \d+, false>")),
-    ("K1 forward", re.compile(r"gather_gemm(_tc)?_kernel<.*false>")),
-    ("K2", re.compile(r"gather_gemm(_tc)?_kernel<.*true>|dw_tc_kernel|dw_partial_kernel<.*false>")),
-    ("K3", re.compile(r"dw_partial_kernel<.*true>")),
+    ("K1 forward", re.compile(r"gather_gemm(_tc)?_kernel<.*false>|stem_conv_kernel")),
+    ("K2", re.compile(r"gather_gemm(_tc)?_kernel<.*true>|dw_(tc|partial)_kernel<.*false>")),
+    ("K3", re.compile(r"dw_(tc|partial)_kernel<.*true>|stem_dw_kernel")),
     ("K2/K3 sum of splits", re.compile(r"sum_partials_kernel")),
 )
 
@@ -270,7 +276,8 @@ def phase_kernel(batch, dev):
 
     gen = torch.Generator(device=dev).manual_seed(0)
     shapes = (
-        ("scene stem", "scene_nbr3_0", "scene_nbr3_0", 7, 32),
+        ("scene stem", "scene_nbr3_0", "scene_nbr3_0", FEAT_DIM, WIDTHS[0]),
+        ("instance stem", "inst_nbr3_0", "inst_nbr3_0", FEAT_DIM, WIDTHS[0]),
         ("scene stage1 down", "scene_down_1", "scene_nbr3_0", 32, 64),
         ("scene stage2 residual", "scene_nbr3_2", "scene_nbr3_2", 128, 128),
         ("scene stage3 residual", "scene_nbr3_3", "scene_nbr3_3", 128, 128),
@@ -415,7 +422,9 @@ def phase_bwd_kernels(batch, dev):
     def imap(a):
         return torch.from_numpy(np.ascontiguousarray(a, np.int32)).to(dev)
 
-    rows = [batch[f"scene_nbr3_{s}"].shape[0] for s in range(5)]
+    def rows(prefix, s):
+        return batch[f"{prefix}_nbr3_{s}"].shape[0]
+
     up8 = voxelize.build_up8(batch["scene_uprow_1"], batch["scene_upk_1"])
     f32_out = torch.float32
     # name: (kernel, twin, names of the outputs, their tolerances)
@@ -426,15 +435,23 @@ def phase_bwd_kernels(batch, dev):
         "gather_conv": (lambda *a: gather_conv(*a, out_dtype=f32_out),
                         lambda *a: sparse.gather_conv(*a, out_dtype=f32_out), ("out",), (DX_TOL,)),
     }
-    # (kernel, label, map, rows of the gathered input, cin, cout)
-    cases = (
-        ("conv_dw", "scene stem", imap(batch["scene_nbr3_0"]), rows[0], 7, 32),
-        ("conv_dw", "scene stage1 down", imap(batch["scene_down_1"]), rows[0], 32, 64),
-        ("subm_conv_bwd", "scene stage1 residual", imap(batch["scene_nbr3_1"]), rows[1], 64, 64),
-        ("subm_conv_bwd", "scene stage2 residual", imap(batch["scene_nbr3_2"]), rows[2], 128, 128),
-        ("subm_conv_bwd", "scene stage3 residual", imap(batch["scene_nbr3_3"]), rows[3], 128, 128),
-        ("gather_conv", "scene stage1 down dX over up8", imap(up8), rows[1], 64, 32),
-    )
+    # (kernel, label, map, rows of the gathered input, cin, cout): K3 at
+    # every shape of a train step (one launch each), then K2 and K1
+    cases = []
+    for enc, p in ENCODERS:
+        cases.append(("conv_dw", f"{enc} stem", imap(batch[f"{p}_nbr3_0"]), rows(p, 0),
+                      FEAT_DIM, WIDTHS[0]))
+        cases += [("conv_dw", f"{enc} stage{s} down", imap(batch[f"{p}_down_{s}"]),
+                   rows(p, s - 1), WIDTHS[s - 1], WIDTHS[s]) for s in range(1, 5)]
+    cases += [
+        ("subm_conv_bwd", "scene stage1 residual", imap(batch["scene_nbr3_1"]), rows("scene", 1),
+         64, 64),
+        ("subm_conv_bwd", "scene stage2 residual", imap(batch["scene_nbr3_2"]), rows("scene", 2),
+         128, 128),
+        ("subm_conv_bwd", "scene stage3 residual", imap(batch["scene_nbr3_3"]), rows("scene", 3),
+         128, 128),
+        ("gather_conv", "scene stage1 down dX over up8", imap(up8), rows("scene", 1), 64, 32),
+    ]
     gen = torch.Generator(device=dev).manual_seed(1)
     res = {name: Totals() for name in kernels}
     for name, label, nbr, v_in, cin, cout in cases:
@@ -494,10 +511,8 @@ def phase_bwd_kernels(batch, dev):
                 if g.dtype != torch.float32 or not err <= tol * max(scale, 1e-30):
                     raise AssertionError(f"{name} disagrees with its twin at {label} {dt} {out_name}")
                 res[name].worst = max(res[name].worst, err)
-            path = route(dt, cin, dev)
-            if name == "conv_dw" and path == "tensor_core":
-                path = "fma"  # K3 has an FMA kernel only
-            log(f"[bwd-kernel] {name} {label} {str(dt)[6:]} route={path}: kernel_ms={t_k:.4f} "
+            log(f"[bwd-kernel] {name} {label} {str(dt)[6:]} route={route(dt, cin, dev)}: "
+                f"kernel_ms={t_k:.4f} "
                 f"plain_ms={t_p:.4f} bound_ms={b_ms:.4f} ({b_by}: {flops / 1e9:.2f} GFLOP, "
                 f"{nb / 1e6:.1f} MB) library_ms=none (no single PyTorch call) im2col_ms={t_i:.4f}"
                 + ("" if again is None else "; dW bit-identical across two launches"))

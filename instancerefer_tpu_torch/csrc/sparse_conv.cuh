@@ -2,7 +2,11 @@
 //
 //   gather_gemm_kernel   out[v] = epilogue(sum_k A[nbr[v, k]] @ Wk)      K1, K2's dX
 //   dw_partial_kernel    partial[s, k'] = sum_{rows r of split s} a_r^T b_r  K2's/K3's dW
-//   sum_partials_kernel  dW = sum_s partial[s]                             (fixed order)
+//   sum_partials_kernel  dW = sum_s partial[s]        (fixed order; every dW route)
+//
+// The two FMA templates (f32 products) serve f32 inputs, and bf16 inputs
+// with 8 < Cin < 16 (the stems with use_normal's 10 channels); bf16
+// otherwise takes sparse_conv_stem.cuh (Cin <= 8) or sparse_conv_tc.cuh.
 //
 // Every source under csrc/ is compiled on its own into its own library, so
 // each includes this header and instantiates what it launches.
@@ -240,15 +244,43 @@ dw_partial_kernel(const T* __restrict__ a, const T* __restrict__ b, const int* _
   }
 }
 
-// dw[i] = sum_{s < splits} partial[s * n + i], s ascending.
+// dw[i] = sum_{s < splits} partial[s * n + i] in an order fixed by n and
+// splits alone: the splits fall into SUM_RUNS runs of consecutive splits,
+// each run is summed in ascending order by its own warp, and the run sums
+// are added in ascending order.  A block covers 32 elements (a coalesced
+// row of each partial), so a small dW with many splits (the stems': 6048
+// elements, ~500 splits) still spreads over ~200 blocks.
+constexpr int SUM_RUNS = THREADS / 32;
+
 __global__ void __launch_bounds__(THREADS)
 sum_partials_kernel(const float* __restrict__ partial, float* __restrict__ dw, long long n,
                     int splits) {
-  const long long i = static_cast<long long>(blockIdx.x) * THREADS + threadIdx.x;
-  if (i >= n) return;
+  __shared__ float run_s[SUM_RUNS][32];
+  const int e = threadIdx.x % 32;
+  const int q = threadIdx.x / 32;
+  const long long i = static_cast<long long>(blockIdx.x) * 32 + e;
+  const int per = (splits + SUM_RUNS - 1) / SUM_RUNS;
+  const int p_end = min(splits, (q + 1) * per);
   float s = 0.f;
-  for (int p = 0; p < splits; ++p) s += partial[p * n + i];
-  dw[i] = s;
+  if (i < n) {
+#pragma unroll 4
+    for (int p = q * per; p < p_end; ++p) s += partial[p * n + i];
+  }
+  run_s[q][e] = s;
+  __syncthreads();
+  if (q == 0 && i < n) {
+    float t = 0.f;
+#pragma unroll
+    for (int j = 0; j < SUM_RUNS; ++j) t += run_s[j][e];
+    dw[i] = t;
+  }
+}
+
+inline cudaError_t launch_sum_partials(const void* partial, void* dw, long long n, int splits,
+                                       cudaStream_t stream) {
+  sum_partials_kernel<<<static_cast<unsigned>((n + 31) / 32), THREADS, 0, stream>>>(
+      static_cast<const float*>(partial), static_cast<float*>(dw), n, splits);
+  return cudaGetLastError();
 }
 
 template <typename T, int CIN_P, int COUT, bool GATHER_A>
@@ -260,12 +292,10 @@ cudaError_t launch_dw(const void* a, const void* b, const void* nbr, void* parti
   dw_partial_kernel<T, CIN_P, COUT, GATHER_A><<<grid, THREADS, 0, stream>>>(
       static_cast<const T*>(a), static_cast<const T*>(b), static_cast<const int*>(nbr),
       static_cast<float*>(partial), rows, k_offsets, cin, rows_per_split);
-  cudaError_t err = cudaGetLastError();
+  const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  const long long n = static_cast<long long>(k_offsets) * cin * COUT;
-  sum_partials_kernel<<<static_cast<unsigned>((n + THREADS - 1) / THREADS), THREADS, 0, stream>>>(
-      static_cast<const float*>(partial), static_cast<float*>(dw), n, splits);
-  return cudaGetLastError();
+  return launch_sum_partials(partial, dw, static_cast<long long>(k_offsets) * cin * COUT, splits,
+                             stream);
 }
 
 // CIN_P: the smallest of 8, 32, 64, 128 that holds cin.

@@ -4,6 +4,8 @@
 //   gather_gemm_tc_kernel  out[v] = epilogue(sum_k A[nbr[v, k]] @ Wk)     K1, K2's dX
 //   dw_tc_kernel           partial[s, K-1-k] = sum_{rows r of split s}
 //                              x_r^T g[nbr[r, k]]                         K2's dW
+//                          partial[s, k] = sum_{rows r of split s}
+//                              x[nbr[r, k]]^T g_r     (GATHER_X)          K3's dW
 //
 // Both feed warp-level mma.sync.m16n8k16 (bf16 x bf16 -> f32) from shared
 // memory through ldmatrix, and stage their operands with 16-byte cp.async
@@ -21,7 +23,8 @@
 // source address is the (valid) base pointer.
 //
 // The FMA templates of sparse_conv.cuh stay for f32 inputs (no TF32 here:
-// the f32 parity runs need f32 products), the 7-channel stems and K3.
+// the f32 parity runs need f32 products); the 7-channel stems have their
+// own tensor-core kernels in sparse_conv_stem.cuh, built from these parts.
 
 #pragma once
 
@@ -29,6 +32,8 @@
 #include <cuda_runtime.h>
 
 #include <atomic>
+
+#include "sparse_conv.cuh"  // sum_partials_kernel
 
 namespace irsc {
 namespace tc {
@@ -312,18 +317,22 @@ cudaError_t dispatch_gather_gemm_tc(const void* feats, const void* nbr, const vo
 }
 
 // ---------------------------------------------------------------------------
-// K2's weight gradient on tensor cores, as the same deterministic split
-// reduction as dw_partial_kernel: block (k, s) walks the row tiles of split
-// s in order and keeps its [CIN, COUT] product in registers,
+// The weight gradient of K2 and K3 (down convs) on tensor cores, as the same
+// deterministic split reduction as dw_partial_kernel: block (k, s) walks the
+// row tiles of split s in order and keeps its [CIN, COUT] product in
+// registers,
 //
-//   partial[s, K-1-k] = sum over rows r of split s of  x_r^T g[nbr[r, k]],
+//   K2:             partial[s, K-1-k] = sum over rows r of split s of  x_r^T g[nbr[r, k]]
+//   K3 (GATHER_X):  partial[s, k]     = sum over rows r of split s of  x[nbr[r, k]]^T g_r
 //
-// with x staged [BR][CIN] (row tiles are contiguous) and read transposed by
-// ldmatrix.trans as the A operand, and the gathered g rows staged [BR][COUT]
-// as B.  A tile whose BR indices at offset k are all -1 (padding, or rows
-// with no neighbour there) contributes zero and is neither loaded nor
-// multiplied.  Warps split the [CIN, COUT] tile WM x WN ways.  No float
-// atomics: sum_partials_kernel adds the splits in a fixed order.
+// The x rows are staged [BR][CIN] and read transposed by ldmatrix.trans as
+// the A operand, the g rows staged [BR][COUT] as B; whichever side the map
+// names is gathered by index with 16-byte cp.async (a -1 index zero-fills
+// its row), the other is a contiguous row tile.  A tile whose BR indices at
+// offset k are all -1 (padding, or rows with no neighbour there)
+// contributes zero and is neither loaded nor multiplied.  Warps split the
+// [CIN, COUT] tile WM x WN ways.  No float atomics: sum_partials_kernel
+// adds the splits in a fixed order.
 // ---------------------------------------------------------------------------
 template <int CIN, int COUT>
 struct DwShape {
@@ -336,7 +345,7 @@ struct DwShape {
 
 // (a minimum of one block per SM: without it ptxas spills 8 bytes of the
 // narrow instantiations to keep them under 64 registers)
-template <int CIN, int COUT>
+template <int CIN, int COUT, bool GATHER_X>
 __global__ void __launch_bounds__(THREADS, 1)
 dw_tc_kernel(const bf16* __restrict__ x, const bf16* __restrict__ g, const int* __restrict__ nbr,
              float* __restrict__ partial, long long rows, int k_offsets,
@@ -359,6 +368,13 @@ dw_tc_kernel(const bf16* __restrict__ x, const bf16* __restrict__ g, const int* 
   const long long r_begin = static_cast<long long>(blockIdx.y) * rows_per_split;
   const long long r_end = min(rows, r_begin + rows_per_split);
 
+  // the source row of tile row r0 + r on the gathered side (the map's
+  // index) or on the contiguous side (the row itself); -1 past the split
+  auto gathered = [&](long long r) -> long long {
+    return r < r_end ? nbr[r * k_offsets + k] : -1;
+  };
+  auto contiguous = [&](long long r) -> long long { return r < r_end ? r : -1; };
+
   auto load = [&](int buf, long long r0) {
     bf16* x_s = stages + buf * S::STAGE_ELEMS;
     bf16* g_s = x_s + S::X_ELEMS;
@@ -366,17 +382,16 @@ dw_tc_kernel(const bf16* __restrict__ x, const bf16* __restrict__ g, const int* 
     for (int e = tid; e < BR * CPX; e += THREADS) {
       const int r = e / CPX;
       const int c = e % CPX;
-      const bool ok = r0 + r < r_end;
-      cp_async16(x_s + r * S::X_STRIDE + c * 8, ok ? x + (r0 + r) * CIN + c * 8 : x,
-                 ok ? 16 : 0);
+      const long long src = GATHER_X ? gathered(r0 + r) : contiguous(r0 + r);
+      cp_async16(x_s + r * S::X_STRIDE + c * 8, src >= 0 ? x + src * CIN + c * 8 : x,
+                 src >= 0 ? 16 : 0);
     }
     constexpr int CPG = COUT / 8;
     for (int e = tid; e < BR * CPG; e += THREADS) {
       const int r = e / CPG;
       const int c = e % CPG;
-      const int src = r0 + r < r_end ? nbr[(r0 + r) * k_offsets + k] : -1;
-      cp_async16(g_s + r * S::G_STRIDE + c * 8,
-                 src >= 0 ? g + static_cast<long long>(src) * COUT + c * 8 : g,
+      const long long src = GATHER_X ? contiguous(r0 + r) : gathered(r0 + r);
+      cp_async16(g_s + r * S::G_STRIDE + c * 8, src >= 0 ? g + src * COUT + c * 8 : g,
                  src >= 0 ? 16 : 0);
     }
   };
@@ -437,8 +452,8 @@ dw_tc_kernel(const bf16* __restrict__ x, const bf16* __restrict__ g, const int* 
     compute(pending);
   }
 
-  float* dst = partial + (static_cast<long long>(blockIdx.y) * k_offsets + k_offsets - 1 - k) *
-                             CIN * COUT;
+  const int k_out = GATHER_X ? k : k_offsets - 1 - k;
+  float* dst = partial + (static_cast<long long>(blockIdx.y) * k_offsets + k_out) * CIN * COUT;
 #pragma unroll
   for (int i = 0; i < MT; ++i)
 #pragma unroll
@@ -451,13 +466,14 @@ dw_tc_kernel(const bf16* __restrict__ x, const bf16* __restrict__ g, const int* 
     }
 }
 
-template <int CIN, int COUT>
-cudaError_t launch_dw_tc(const void* x, const void* g, const void* nbr, void* partial,
+// dw_tc_kernel over a (K, splits) grid, then the fixed-order sum into dw.
+template <int CIN, int COUT, bool GATHER_X>
+cudaError_t launch_dw_tc(const void* x, const void* g, const void* nbr, void* partial, void* dw,
                          long long rows, int k_offsets, int splits, cudaStream_t stream) {
-  auto kernel = dw_tc_kernel<CIN, COUT>;
+  auto kernel = dw_tc_kernel<CIN, COUT, GATHER_X>;
   constexpr size_t smem = DwShape<CIN, COUT>::SMEM_BYTES;
   static std::atomic<int> smem_set{0};
-  const cudaError_t err = reserve_smem(kernel, smem_set, smem);
+  cudaError_t err = reserve_smem(kernel, smem_set, smem);
   if (err != cudaSuccess) return err;
   const long long tiles = (rows + BR - 1) / BR;
   const long long rows_per_split = (tiles + splits - 1) / splits * BR;
@@ -467,7 +483,35 @@ cudaError_t launch_dw_tc(const void* x, const void* g, const void* nbr, void* pa
                                           static_cast<const int*>(nbr),
                                           static_cast<float*>(partial), rows, k_offsets,
                                           rows_per_split);
-  return cudaGetLastError();
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  return launch_sum_partials(partial, dw, static_cast<long long>(k_offsets) * CIN * COUT, splits,
+                             stream);
+}
+
+// CIN and COUT each one of 32, 64, 128.
+template <bool GATHER_X>
+cudaError_t dispatch_dw_tc(const void* x, const void* g, const void* nbr, void* partial, void* dw,
+                           long long rows, int k_offsets, int cin, int cout, int splits,
+                           cudaStream_t stream) {
+#define IRSC_DW_TC(CI, CO)                                                                   \
+  return launch_dw_tc<CI, CO, GATHER_X>(x, g, nbr, partial, dw, rows, k_offsets, splits, \
+                                        stream)
+#define IRSC_DW_TC_COUT(CI)                \
+  switch (cout) {                          \
+    case 32: IRSC_DW_TC(CI, 32);           \
+    case 64: IRSC_DW_TC(CI, 64);           \
+    case 128: IRSC_DW_TC(CI, 128);         \
+    default: return cudaErrorInvalidValue; \
+  }
+  switch (cin) {
+    case 32: IRSC_DW_TC_COUT(32)
+    case 64: IRSC_DW_TC_COUT(64)
+    case 128: IRSC_DW_TC_COUT(128)
+    default: return cudaErrorInvalidValue;
+  }
+#undef IRSC_DW_TC_COUT
+#undef IRSC_DW_TC
 }
 
 }  // namespace tc

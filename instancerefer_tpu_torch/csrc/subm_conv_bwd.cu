@@ -67,29 +67,6 @@ cudaError_t launch_dx(const void* g, const void* nbr, const void* w, void* dx, l
   }
 }
 
-// CIN and COUT each one of 32, 64, 128.
-cudaError_t dispatch_dw_tc(const void* x, const void* g, const void* nbr, void* partial,
-                           long long rows, int k_offsets, int cin, int cout, int splits,
-                           cudaStream_t stream) {
-#define IRSC_DW_TC(CI, CO) \
-  return irsc::tc::launch_dw_tc<CI, CO>(x, g, nbr, partial, rows, k_offsets, splits, stream)
-#define IRSC_DW_TC_COUT(CI)          \
-  switch (cout) {                    \
-    case 32: IRSC_DW_TC(CI, 32);     \
-    case 64: IRSC_DW_TC(CI, 64);     \
-    case 128: IRSC_DW_TC(CI, 128);   \
-    default: return cudaErrorInvalidValue; \
-  }
-  switch (cin) {
-    case 32: IRSC_DW_TC_COUT(32)
-    case 64: IRSC_DW_TC_COUT(64)
-    case 128: IRSC_DW_TC_COUT(128)
-    default: return cudaErrorInvalidValue;
-  }
-#undef IRSC_DW_TC_COUT
-#undef IRSC_DW_TC
-}
-
 bool bad_shape(long long v, int k_offsets, int cout, int splits) {
   return v <= 0 || k_offsets <= 0 || k_offsets % 2 == 0 || cout < 32 || splits <= 0 ||
          splits > 65535 || (v + irsc::GEMM_BM - 1) / irsc::GEMM_BM > 0x7fffffffLL;
@@ -121,11 +98,6 @@ extern "C" int ir_subm_conv_bwd_tc(const void* x, const void* nbr, const void* g
   cudaError_t err = irsc::tc::dispatch_gather_gemm_tc<float, true>(
       g, nbr, w, nullptr, nullptr, dx, v, k_offsets, cout, cin, 0, s);
   if (err != cudaSuccess) return err;
-  err = dispatch_dw_tc(x, g, nbr, partial, v, k_offsets, cin, cout, splits, s);
-  if (err != cudaSuccess) return err;
-  const long long n = static_cast<long long>(k_offsets) * cin * cout;
-  irsc::sum_partials_kernel<<<static_cast<unsigned>((n + irsc::THREADS - 1) / irsc::THREADS),
-                              irsc::THREADS, 0, s>>>(static_cast<const float*>(partial),
-                                                     static_cast<float*>(dw), n, splits);
-  return cudaGetLastError();
+  return irsc::tc::dispatch_dw_tc<false>(x, g, nbr, partial, dw, v, k_offsets, cin, cout,
+                                         splits, s);
 }

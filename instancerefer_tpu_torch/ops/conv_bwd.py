@@ -8,12 +8,13 @@
 
 Each runs its plain twin (``ops/sparse.subm_conv_bwd`` / ``conv_dw``) for
 tensors on the CPU; a CUDA tensor launches a kernel or raises, with no
-fallback.  ``subm_conv_bwd`` takes the route ``gather_conv.route`` gives
-(bf16: the tensor-core kernels, f32: the FMA ones, which take f32 only);
-``conv_dw`` has the FMA kernel only, for both types.  ``<wrapper>.launches``
-counts kernel launches and nothing else.  Both outputs are f32.  dW is a split reduction: the wrapper picks the split
-count from the shapes alone, so a given shape always sums in the same order
-and repeated launches give bit-identical dW.
+fallback.  Both take the route ``gather_conv.route`` gives: for bf16 the
+tensor-core kernels at Cin >= 16 and, for ``conv_dw``, the stem kernel at
+Cin <= 8 (K = 27); the FMA kernels for f32.  ``<wrapper>.launches`` counts
+kernel launches and nothing else.  Both outputs are f32.  dW is a split
+reduction: the wrapper picks the split count from the shapes alone, so a
+given shape always sums in the same order and repeated launches give
+bit-identical dW.
 """
 
 from __future__ import annotations
@@ -26,22 +27,31 @@ import torch
 
 from instancerefer_tpu_torch.ops import sparse
 from instancerefer_tpu_torch.ops.gather_conv import (
-    COUTS, DTYPES, check_launch, check_map, check_tc, check_tensors, library, route,
+    COUTS, DTYPES, check_launch, check_map, check_stem, check_tc, check_tensors, cuda_stream,
+    library, route,
 )
 
-DW_ROWS = 32  # rows per shared tile of the dW kernel (DW_BR in sparse_conv.cuh)
-DW_BLOCKS = 512  # about four blocks per SM of an H100 across the K offsets
+DW_BLOCKS = 512  # about four blocks per SM of an H100
+# The fewest rows a split takes, by route: a row tile of the FMA (32) and
+# stem (64) kernels; 8 tiles of 64 on the tensor-core (K, split) grid,
+# where a split of fewer rows would write a larger partial ([K, Cin, Cout]
+# f32: 0.5 MB at a 128 -> 128 down) than the rows it reads.
+SPLIT_ROWS = {"fma": 32, "stem": 64, "tensor_core": 512}
 
 
-def dw_splits(rows: int, k: int) -> int:
-    """Row splits of the dW reduction: about ``DW_BLOCKS`` blocks in all,
-    at most one per tile of rows."""
-    return max(1, min(-(-rows // DW_ROWS), -(-DW_BLOCKS // k)))
+def dw_splits(rows: int, blocks_per_split: int, path: str) -> int:
+    """Row splits of the dW reduction on route ``path``: about
+    ``DW_BLOCKS`` blocks in all, at least ``SPLIT_ROWS[path]`` rows a split.
+    A split spans K blocks on the (K, split) grids and Cout / 32 on the
+    stem kernel's."""
+    return max(1, min(-(-rows // SPLIT_ROWS[path]), -(-DW_BLOCKS // blocks_per_split)))
 
 
 @functools.cache
-def _entry(stem: str, name: str, n_args: int, n_ints: int = 5):
-    fn = getattr(library(stem), name)
+def _entry(source: str, name: str, n_args: int, n_ints: int = 5):
+    """``name`` of the library built from ``csrc/<source>.cu``: ``n_args``
+    pointers, the row count, ``n_ints`` ints and the stream."""
+    fn = getattr(library(source), name)
     p = ctypes.c_void_p
     fn.restype = ctypes.c_int
     fn.argtypes = [p] * n_args + [ctypes.c_longlong] + [ctypes.c_int] * n_ints + [p]
@@ -63,7 +73,9 @@ def conv_dw(feats: torch.Tensor, nbr: torch.Tensor, g: torch.Tensor) -> torch.Te
     """dW[k] = sum_v feats[nbr[v, k]]^T g[v].
 
     Args:
-      feats: [V_in, Cin] f32 or bf16, Cin <= 128.
+      feats: [V_in, Cin] f32 or bf16, Cin <= 128; on a card, bf16 with
+        Cin >= 16 needs Cin in {32, 64, 128}, and bf16 with Cin <= 8 needs
+        K = 27.
       nbr:   [V_out, K] int32 rows of ``feats`` (all < V_in), -1 = empty.
       g:     [V_out, Cout] in ``feats.dtype``; Cout in {32, 64, 128}.
     Returns [K, Cin, Cout] f32.
@@ -74,19 +86,27 @@ def conv_dw(feats: torch.Tensor, nbr: torch.Tensor, g: torch.Tensor) -> torch.Te
         raise ValueError(f"conv_dw: feats {tuple(feats.shape)}, nbr {tuple(nbr.shape)}, "
                          f"g {tuple(g.shape)} disagree")
     check_tensors("conv_dw", feats, nbr, g)
-    if feats.device.type == "cpu":
-        return sparse.conv_dw(feats, nbr, g)
     (v_out, k), cin, cout = nbr.shape, feats.shape[1], g.shape[1]
+    path = route(feats.dtype, cin, feats.device)
+    if path == "twin":
+        return sparse.conv_dw(feats, nbr, g)
+    if path == "tensor_core":
+        check_tc("conv_dw", (cin, cout), feats, g)
+    elif path == "stem":
+        check_stem("conv_dw", k, g)
     dw = torch.empty(k, cin, cout, dtype=torch.float32, device=feats.device)
     if v_out == 0:
         return dw.zero_()
-    splits = dw_splits(v_out, k)
+    splits = dw_splits(v_out, cout // 32 if path == "stem" else k, path)
     partial = torch.empty(splits, k, cin, cout, dtype=torch.float32, device=feats.device)
-    check_launch("conv_dw", _entry("conv_dw", "ir_conv_dw", 5)(
-        feats.data_ptr(), nbr.data_ptr(), g.data_ptr(), partial.data_ptr(), dw.data_ptr(),
-        v_out, k, cin, cout, splits, DTYPES[feats.dtype],
-        torch.cuda.current_stream(feats.device).cuda_stream,
-    ))
+    args = [feats.data_ptr(), nbr.data_ptr(), g.data_ptr(), partial.data_ptr(), dw.data_ptr(),
+            v_out, k, cin, cout, splits]
+    if path == "fma":
+        fn, codes = _entry("conv_dw", "ir_conv_dw", 5), [DTYPES[feats.dtype]]
+    else:
+        fn, codes = _entry("conv_dw", f"ir_conv_dw_{'tc' if path == 'tensor_core' else 'stem'}",
+                           5, 4), []
+    check_launch("conv_dw", fn(*args, *codes, cuda_stream(feats)))
     conv_dw.launches += 1
     return dw
 
@@ -128,13 +148,12 @@ def subm_conv_bwd(
     dw = torch.empty(k, cin, cout, dtype=torch.float32, device=feats.device)
     if v == 0:
         return dx, dw.zero_()
-    splits = dw_splits(v, k)
+    splits = dw_splits(v, k, path)
     partial = torch.empty(splits, k, cin, cout, dtype=torch.float32, device=feats.device)
     name = "ir_subm_conv_bwd_tc" if path == "tensor_core" else "ir_subm_conv_bwd"
     check_launch("subm_conv_bwd", _entry("subm_conv_bwd", name, 7, 4)(
         feats.data_ptr(), nbr.data_ptr(), g.data_ptr(), weight.data_ptr(), dx.data_ptr(),
-        partial.data_ptr(), dw.data_ptr(), v, k, cin, cout, splits,
-        torch.cuda.current_stream(feats.device).cuda_stream,
+        partial.data_ptr(), dw.data_ptr(), v, k, cin, cout, splits, cuda_stream(feats),
     ))
     subm_conv_bwd.launches += 1
     return dx, dw

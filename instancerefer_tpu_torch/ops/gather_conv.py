@@ -7,10 +7,15 @@ what bounds it on the card and what its design does about that.
 
 ``route`` picks the path of a call from the device, the input type and Cin
 alone: the plain twin (``ops/sparse.gather_conv``) for tensors on the CPU;
-on a card the tensor-core kernel for bf16 with Cin >= 16 and the FMA kernel
-otherwise (f32, and the 7-channel stems).  A CUDA tensor launches a kernel
-or raises; there is no fallback.  ``gather_conv.launches`` counts kernel
-launches and nothing else.
+on a card, for bf16, the stem kernel for Cin <= 8 (the 7-channel stems,
+K = 27) and the tensor-core kernel for Cin >= 16; the FMA kernel otherwise
+(f32).  A CUDA tensor launches a kernel or raises; there is no fallback.
+``gather_conv.launches`` counts kernel launches and nothing else.
+
+The stem kernels (K1 here, K3 in ``ops/conv_bwd.py``) take their depth from
+the im2col of a row: ``stem_im2col`` and ``stem_weight`` write, in
+PyTorch, the layout they build in shared memory (the tests hold it against
+the plain twins).
 
 ``build()`` compiles every ``.cu`` source under ``csrc/`` with ``nvcc``, one
 process per source and all at once, into ``instancerefer_tpu_torch/build/``
@@ -47,14 +52,59 @@ COUTS = (32, 64, 128)
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 TC_MIN_CIN = 16  # narrower inputs would waste most of an mma's k-depth of 16
 TC_WIDTHS = (32, 64, 128)  # Cin and Cout the tensor-core kernels are built for
+STEM_K = 27  # the stem kernels' map: the 3^3 submanifold conv
+STEM_MAX_CIN = 8  # Cin the stem kernels take (csrc/sparse_conv_stem.cuh)
 
 
 def route(dtype: torch.dtype, cin: int, device) -> str:
-    """``"twin"`` on the CPU; on a card ``"tensor_core"`` for bf16 inputs
-    with ``cin >= TC_MIN_CIN``, else ``"fma"``."""
+    """``"twin"`` on the CPU; on a card, for bf16 inputs, ``"stem"`` with
+    ``cin <= STEM_MAX_CIN`` and ``"tensor_core"`` with ``cin >= TC_MIN_CIN``;
+    ``"fma"`` otherwise."""
     if torch.device(device).type == "cpu":
         return "twin"
-    return "tensor_core" if dtype == torch.bfloat16 and cin >= TC_MIN_CIN else "fma"
+    if dtype != torch.bfloat16:
+        return "fma"
+    if cin <= STEM_MAX_CIN:
+        return "stem"
+    return "tensor_core" if cin >= TC_MIN_CIN else "fma"
+
+
+def stem_depth(cin: int) -> int:
+    """The stem kernels' depth: ``STEM_K * cin`` rounded up to a k-step
+    of 16 (189 -> 192 at Cin = 7)."""
+    return -(-STEM_K * cin // 16) * 16
+
+
+def stem_im2col(feats: torch.Tensor, nbr: torch.Tensor) -> torch.Tensor:
+    """[V_out, stem_depth(Cin)] f32: row v holds feats[nbr[v, k]] for
+    k = 0..26 side by side (column k * Cin + c; zeros for -1), then zero
+    columns: the stem kernels' tile, for every row."""
+    table, safe = sparse.gather_table(feats, nbr)
+    cols = table[safe].reshape(nbr.shape[0], -1)
+    return torch.nn.functional.pad(cols, (0, stem_depth(feats.shape[1]) - cols.shape[1]))
+
+
+def stem_weight(weight: torch.Tensor) -> torch.Tensor:
+    """[stem_depth(Cin), Cout] f32: W [27, Cin, Cout] as stored, row
+    k * Cin + c, then zero rows.  ``stem_im2col(x, nbr) @ stem_weight(w)`` is
+    the conv, and ``stem_im2col(x, nbr).T @ g`` is dW in this layout."""
+    k, cin, cout = weight.shape
+    flat = weight.float().reshape(k * cin, cout)
+    return torch.nn.functional.pad(flat, (0, 0, 0, stem_depth(cin) - k * cin))
+
+
+def check_stem(name: str, k: int, *tensors: torch.Tensor) -> None:
+    """What the stem kernels take: the 27-offset map and 16-byte aligned
+    ``tensors`` (the ones they copy with 16-byte ``cp.async``)."""
+    if k != STEM_K:
+        raise ValueError(f"{name}: the stem kernel takes K = {STEM_K} offsets, got {k}")
+    if any(t.data_ptr() % 16 for t in tensors):
+        raise ValueError(f"{name}: the stem kernel needs 16-byte aligned inputs")
+
+
+def cuda_stream(t: torch.Tensor) -> int:
+    """The handle of PyTorch's current stream on ``t``'s card."""
+    return torch.cuda.current_stream(t.device).cuda_stream
 
 
 def check_tc(name: str, widths, *tensors: torch.Tensor) -> None:
@@ -135,8 +185,8 @@ def library(stem: str) -> ctypes.CDLL:
 
 @functools.cache
 def _entry(name: str, n_codes: int):
-    """``ir_gather_conv`` (FMA, dtype and out_dtype codes) or
-    ``ir_gather_conv_tc`` (out_dtype code only)."""
+    """``ir_gather_conv`` (FMA, dtype and out_dtype codes), or
+    ``ir_gather_conv_tc`` / ``ir_gather_conv_stem`` (out_dtype code only)."""
     fn = getattr(library("gather_conv"), name)
     p = ctypes.c_void_p
     fn.restype = ctypes.c_int
@@ -210,7 +260,8 @@ def gather_conv(
 
     Args:
       feats:  [V_in, Cin] f32 or bf16, contiguous; on a card, bf16 with
-        Cin >= 16 needs Cin in {32, 64, 128}.
+        Cin >= 16 needs Cin in {32, 64, 128}, and bf16 with Cin <= 8 needs
+        K = 27.
       nbr:    [V_out, K] int32 rows of ``feats`` (all < V_in), -1 = empty.
       weight: [K, Cin, Cout] in ``feats.dtype``; Cout in {32, 64, 128}.
       scale/bias: optional [Cout] f32 epilogue (folded eval BatchNorm).
@@ -225,6 +276,8 @@ def gather_conv(
         return sparse.gather_conv(feats, nbr, weight, scale, bias, relu, out_dtype)
     if path == "tensor_core":
         check_tc("gather_conv", (cin, cout), feats, weight)
+    elif path == "stem":
+        check_stem("gather_conv", k, weight)
     v_out = nbr.shape[0]
     out = torch.empty(v_out, cout, dtype=out_dtype, device=feats.device)
     if v_out == 0:
@@ -235,12 +288,12 @@ def gather_conv(
         None if bias is None else bias.data_ptr(),
         out.data_ptr(), v_out, k, cin, cout, int(relu),
     ]
-    if path == "tensor_core":
-        fn, codes = _entry("ir_gather_conv_tc", 1), [DTYPES[out_dtype]]
-    else:
+    if path == "fma":
         fn, codes = _entry("ir_gather_conv", 2), [DTYPES[feats.dtype], DTYPES[out_dtype]]
-    stream = torch.cuda.current_stream(feats.device).cuda_stream
-    check_launch("gather_conv", fn(*args, *codes, stream))
+    else:
+        fn, codes = _entry(f"ir_gather_conv_{'tc' if path == 'tensor_core' else 'stem'}", 1), \
+            [DTYPES[out_dtype]]
+    check_launch("gather_conv", fn(*args, *codes, cuda_stream(feats)))
     gather_conv.launches += 1
     return out
 

@@ -37,7 +37,7 @@ def gather_conv(
     Products and the sum over k and Cin are f32, as in the kernel.
     """
     acc = feats.new_zeros(nbr.shape[0], weight.shape[2], dtype=torch.float32)
-    table, safe = _table(feats, nbr)
+    table, safe = gather_table(feats, nbr)
     w = weight.float()
     for k in range(nbr.shape[1]):
         acc = acc + table[safe[:, k]] @ w[k]
@@ -48,8 +48,9 @@ def gather_conv(
     return acc.to(feats.dtype if out_dtype is None else out_dtype)
 
 
-def _table(rows: torch.Tensor, nbr: torch.Tensor):
-    """(rows as f32 with a zero row appended, nbr with -1 pointing at it)."""
+def gather_table(rows: torch.Tensor, nbr: torch.Tensor):
+    """(rows as f32 with a zero row appended, nbr with -1 pointing at it):
+    ``table[safe]`` gathers ``rows`` by ``nbr``, zeros for -1."""
     table = torch.cat([rows, rows.new_zeros(1, rows.shape[1])]).float()
     return table, torch.where(nbr >= 0, nbr, rows.shape[0]).long()
 
@@ -62,7 +63,7 @@ def subm_conv_bwd(feats, nbr, g, weight):
     (``KERNEL_OFFSETS_3[26-k] == -KERNEL_OFFSETS_3[k]``), the order the
     port stores its kernels in."""
     k = nbr.shape[1]
-    table, safe = _table(g, nbr)
+    table, safe = gather_table(g, nbr)
     x, w = feats.float(), weight.float()
     dx = x.new_zeros(x.shape)
     dw = x.new_empty(weight.shape)
@@ -76,7 +77,7 @@ def subm_conv_bwd(feats, nbr, g, weight):
 def conv_dw(feats, nbr, g):
     """dW[k] = sum_v feats[nbr[v,k]]^T g[v], f32 — the twin of K3
     (``pallas_conv.py:_dw_kernel``)."""
-    table, safe = _table(feats, nbr)
+    table, safe = gather_table(feats, nbr)
     gf = g.float()
     return torch.stack([table[safe[:, i]].T @ gf for i in range(nbr.shape[1])])
 

@@ -1,5 +1,6 @@
 """Time the bf16 train step of several checkouts of the port, alternated in
-one call on one GPU, and profile the host side of one step of each.
+one call on one GPU, profile the host side of one step of each, and time
+each checkout's sparse-conv wrappers at the stems' and down convs' shapes.
 
     python -m instancerefer_tpu_torch.scripts.step_ab ROOT [ROOT ...] \\
         [--rounds 2] [--steps 20] [--out FILE]
@@ -21,10 +22,15 @@ falls on every root alike.  Each run prints one line ``STEP_AB {...}``:
   step's launches go through); the best of 5 each;
 - ``load1``: the host's 1-minute load average before the run;
 - ``profile``: one step under ``torch.profiler``: device busy ms, the
-  host's self CPU ms over all ops, its busiest ops, and the CUDA runtime
-  calls (count, self CPU ms).
+  sparse-conv kernels' device ms by wrapper (ROOT's own
+  ``chip_smoke.KERNEL_FAMILIES``), the host's self CPU ms over all ops, its
+  busiest ops, and the CUDA runtime calls (count, self CPU ms);
+- ``kernels_ms``: CUDA-event medians of 10 launches of ROOT's wrappers on
+  the same batch's maps, bf16: K1 with its BN/ReLU epilogue at both stems,
+  and K3 at both stems and every down conv of both encoders (``SHAPES``).
 
-Then a table of the runs, and per root the median of its runs' medians.
+Then a table of the runs, per root the median of its runs' medians, and
+per shape the median of each root's kernel times.
 """
 
 from __future__ import annotations
@@ -38,6 +44,22 @@ import sys
 import time
 
 PREFIX = "STEP_AB "
+WIDTHS = (32, 64, 128, 128, 128)  # the encoders' channels by stage
+
+
+def _shapes():
+    """(label, wrapper, map key, key of the map whose rows are the input,
+    Cin, Cout) of the K1 stems and of every K3 launch of a train step."""
+    shapes = []
+    for enc, p in (("scene", "scene"), ("instance", "inst")):
+        stem = (f"{p}_nbr3_0", f"{p}_nbr3_0", 7, WIDTHS[0])
+        shapes += [(f"K1 {enc} stem", "gather_conv", *stem), (f"K3 {enc} stem", "conv_dw", *stem)]
+        shapes += [(f"K3 {enc} stage{s} down", "conv_dw", f"{p}_down_{s}", f"{p}_nbr3_{s - 1}",
+                    WIDTHS[s - 1], WIDTHS[s]) for s in range(1, 5)]
+    return shapes
+
+
+SHAPES = _shapes()
 
 
 def _probe() -> dict:
@@ -60,7 +82,7 @@ def _probe() -> dict:
     return {"py_ms": min(py_loop() for _ in range(5)), "op_us": min(op() for _ in range(5))}
 
 
-def _profile(fn) -> dict:
+def _profile(fn, families=()) -> dict:
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -73,9 +95,13 @@ def _profile(fn) -> dict:
         wall = (time.perf_counter() - t0) * 1e3
     device = host = 0.0
     ops, runtime = [], {}
+    by_family = {name: 0.0 for name, _ in families}
     for ev in prof.key_averages():
         if ev.device_type == DeviceType.CUDA:
             device += ev.self_device_time_total / 1e3
+            family = next((name for name, pat in families if pat.search(ev.key)), None)
+            if family is not None:
+                by_family[family] += ev.self_device_time_total / 1e3
             continue
         ms = ev.self_cpu_time_total / 1e3
         host += ms
@@ -84,8 +110,35 @@ def _profile(fn) -> dict:
         else:
             ops.append([ev.key, ev.count, round(ms, 3)])
     ops.sort(key=lambda r: -r[2])
-    return {"wall_ms": wall, "device_busy_ms": device, "host_self_cpu_ms": host,
-            "top_ops": ops[:12], "runtime": runtime}
+    return {"wall_ms": wall, "device_busy_ms": device, "kernels_by_wrapper_ms": by_family,
+            "host_self_cpu_ms": host, "top_ops": ops[:12], "runtime": runtime}
+
+
+def _time_kernels(batch, dev, median_ms) -> dict:
+    """ROOT's K1 and K3 wrappers at ``SHAPES``, bf16, random inputs."""
+    import numpy as np
+    import torch
+
+    from instancerefer_tpu_torch.ops.conv_bwd import conv_dw
+    from instancerefer_tpu_torch.ops.gather_conv import gather_conv
+
+    gen = torch.Generator(device=dev).manual_seed(7)
+
+    def rnd(*shape):
+        return torch.randn(*shape, device=dev, generator=gen)
+
+    out = {}
+    for label, wrapper, key, in_key, cin, cout in SHAPES:
+        nbr = torch.from_numpy(np.ascontiguousarray(batch[key], np.int32)).to(dev)
+        x = rnd(batch[in_key].shape[0], cin).bfloat16()
+        if wrapper == "gather_conv":
+            w = (rnd(nbr.shape[1], cin, cout) / (nbr.shape[1] * cin) ** 0.5).bfloat16()
+            sc, bi = 0.5 + torch.rand(cout, device=dev, generator=gen), 0.1 * rnd(cout)
+            out[label] = median_ms(lambda: gather_conv(x, nbr, w, sc, bi, relu=True))
+        else:
+            g = rnd(nbr.shape[0], cout).bfloat16()
+            out[label] = median_ms(lambda: conv_dw(x, nbr, g))
+    return out
 
 
 def child(steps: int) -> dict:
@@ -157,11 +210,12 @@ def child(steps: int) -> dict:
     if not all(bool(torch.isfinite(x)) for x in losses):
         raise AssertionError("non-finite loss")
     probe_after = _probe()
-    prof = _profile(step)
+    prof = _profile(step, getattr(cs, "KERNEL_FAMILIES", ()))
     set_compute_dtype(None)
+    kernels = _time_kernels(batch, dev, cs.median_ms)
     return {"wall_ms": wall, "host_ms": host, "cpu_ms": cpu, "gc_ms": in_gc[0] * 1e3,
             "probe_before": probe_before, "probe_after": probe_after, "load1": load1,
-            "profile": prof}
+            "profile": prof, "kernels_ms": kernels}
 
 
 def _order(roots, rounds: int):
@@ -203,14 +257,15 @@ def main(argv=None) -> None:
 
     med = statistics.median
     print("run  root                  wall ms med [min, max]     host ms  cpu ms  gc ms  "
-          "busy ms  py ms before/after  op us before/after  load1")
+          "busy ms  K3 ms  py ms before/after  op us before/after  load1")
     for r in runs:
         p = r["probe_before"], r["probe_after"]
+        k3 = r["profile"]["kernels_by_wrapper_ms"].get("K3", float("nan"))
         print(f"{r['run']:>3}  {os.path.basename(r['root']):<20}  {med(r['wall_ms']):8.2f} "
               f"[{min(r['wall_ms']):.2f}, {max(r['wall_ms']):.2f}]  {med(r['host_ms']):7.2f}  "
               f"{med(r['cpu_ms']):6.2f}  {r['gc_ms']:5.2f}  {r['profile']['device_busy_ms']:7.2f}  "
-              f"{p[0]['py_ms']:.2f} / {p[1]['py_ms']:.2f}  {p[0]['op_us']:.3f} / {p[1]['op_us']:.3f}  "
-              f"{r['load1']:.2f}")
+              f"{k3:5.2f}  {p[0]['py_ms']:.2f} / {p[1]['py_ms']:.2f}  "
+              f"{p[0]['op_us']:.3f} / {p[1]['op_us']:.3f}  {r['load1']:.2f}")
     for root in dict.fromkeys(r["root"] for r in runs):
         mine = [r for r in runs if r["root"] == root]
         walls = [med(r["wall_ms"]) for r in mine]
@@ -221,6 +276,13 @@ def main(argv=None) -> None:
                 f"{key} {statistics.correlation(walls, [r['probe_before'][key] for r in mine]):.3f}"
                 for key in ("py_ms", "op_us"))
         print(line)
+    roots = list(dict.fromkeys(r["root"] for r in runs))
+    print("kernel ms, bf16, median of each root's runs: " + ", ".join(
+        os.path.basename(root) for root in roots))
+    for label, *_ in SHAPES:
+        print(f"  {label}: " + ", ".join(
+            f"{med(r['kernels_ms'][label] for r in runs if r['root'] == root):.4f}"
+            for root in roots))
 
 
 if __name__ == "__main__":

@@ -1,11 +1,14 @@
-"""Which path a sparse-conv call takes, and the tensor-core kernels against
-their plain twins on the card.
+"""Which path a sparse-conv call takes, the stem kernels' layout, and the
+tensor-core and stem kernels against their plain twins on the card.
 
 ``ops/gather_conv.route`` decides from the device, the input type and Cin
-alone: the plain twin on the CPU; on a card the tensor-core kernels for bf16
-with Cin >= 16 (K1's down, residual and ``up8`` calls, and K2) and the FMA
-kernels otherwise (f32, and the 7-channel stems).  K3 has an FMA kernel
-only.
+alone: the plain twin on the CPU; on a card, for bf16, the stem kernels at
+Cin <= 8 (K1 and K3 at the 7-channel stems) and the tensor-core kernels at
+Cin >= 16 (K1's down, residual and ``up8`` calls, K2, and K3 at the downs);
+the FMA kernels otherwise (f32).  The stem kernels take their depth from
+the im2col of a row; ``stem_im2col``/``stem_weight`` write that layout in
+PyTorch and are held here against the plain twins (f32, sums in another
+order: 1e-5).
 
 The card tests (``@pytest.mark.gpu``) skip without a CUDA device.  This file
 imports no JAX, so on a card it also runs without the repo's conftest:
@@ -17,6 +20,7 @@ output, K2's dX) within 1e-5 and dW within 1e-4 of the largest value.
 
 import itertools
 
+import numpy as np
 import pytest
 import torch
 
@@ -34,7 +38,9 @@ WIDTHS = (32, 64, 128)
     (torch.bfloat16, 128, "cuda", "tensor_core"),
     (torch.bfloat16, 16, "cuda", "tensor_core"),
     (torch.bfloat16, 15, "cuda", "fma"),
-    (torch.bfloat16, 7, "cuda", "fma"),
+    (torch.bfloat16, 9, "cuda", "fma"),
+    (torch.bfloat16, 8, "cuda", "stem"),
+    (torch.bfloat16, 7, "cuda", "stem"),
     (torch.float32, 128, "cuda", "fma"),
     (torch.float32, 7, "cuda", "fma"),
 ])
@@ -67,6 +73,103 @@ def test_cpu_calls_take_the_twin_and_launch_nothing(cin):
         got, want = conv_bwd.subm_conv_bwd(x, nbr, g, w), sparse.subm_conv_bwd(x, nbr, g, w)
         assert all(a.dtype == torch.float32 and torch.equal(a, b) for a, b in zip(got, want))
     assert (G.gather_conv.launches, conv_bwd.subm_conv_bwd.launches) == before
+
+
+@pytest.mark.parametrize("cin", [7, 3, 8])
+def test_stem_layout_matches_the_twins(cin):
+    """im2col of the rows times the flattened weight is the conv, and its
+    transpose times g is dW in the stored [27, Cin, Cout] layout."""
+    rng = np.random.default_rng(cin)
+    v_in, v_out, width = 300, 200, 27 * cin
+    nbr = rng.integers(0, v_in, size=(v_out, 27)).astype(np.int32)
+    nbr[rng.random(nbr.shape) >= 0.4] = -1
+    nbr[100:164] = -1  # a tile of padding rows
+    x, w, g = (torch.from_numpy(rng.normal(size=s).astype(np.float32))
+               for s in ((v_in, cin), (27, cin, 32), (v_out, 32)))
+    nbr = torch.from_numpy(nbr)
+    cols, wf = G.stem_im2col(x, nbr), G.stem_weight(w)
+    depth = G.stem_depth(cin)
+    assert depth % 16 == 0 and width <= depth < width + 16 and G.stem_depth(7) == 192
+    assert cols.shape == (v_out, depth) and wf.shape == (depth, 32)
+    assert not cols[:, width:].any() and not wf[width:].any() and not cols[100:164].any()
+    v, k = 5, 11  # column k * Cin + c holds channel c of neighbour k
+    want = x[nbr[v, k]] if nbr[v, k] >= 0 else torch.zeros(cin)
+    assert torch.equal(cols[v, k * cin:(k + 1) * cin], want)
+    assert torch.equal(wf[k * cin:(k + 1) * cin], w[k])
+    torch.testing.assert_close(cols @ wf, sparse.gather_conv(x, nbr, w), rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close((cols.T @ g)[:width].reshape(27, cin, 32),
+                               sparse.conv_dw(x, nbr, g), rtol=1e-5, atol=1e-5)
+
+
+def _fake_entries(monkeypatch, module, path):
+    """Route every call of ``module``'s wrapper to ``path`` and record the
+    C entry it would launch instead of launching it."""
+    calls = []
+
+    def entry(*key):
+        name = next(k for k in key if str(k).startswith("ir_"))
+
+        def launch(*args):
+            calls.append((name, len(args)))
+            return 0
+        return launch
+
+    monkeypatch.setattr(module, "route", lambda dtype, cin, device: path)
+    monkeypatch.setattr(module, "_entry", entry)
+    monkeypatch.setattr(module, "cuda_stream", lambda t: 0)
+    return calls
+
+
+@pytest.mark.parametrize("path, cin, k, entry, n_args", [
+    ("twin", 7, 27, None, 0),
+    ("fma", 7, 27, "ir_conv_dw", 12),
+    ("tensor_core", 32, 8, "ir_conv_dw_tc", 11),
+    ("stem", 7, 27, "ir_conv_dw_stem", 11),
+])
+def test_conv_dw_follows_route(monkeypatch, path, cin, k, entry, n_args):
+    """K3's wrapper launches the entry of the route it is given (one launch
+    counted) and runs the twin only on the route ``"twin"``."""
+    calls = _fake_entries(monkeypatch, conv_bwd, path)
+    gen = torch.Generator().manual_seed(k)
+    x = torch.randn(40, cin, generator=gen).bfloat16()
+    nbr = torch.randint(-1, 40, (50, k), generator=gen, dtype=torch.int32)
+    g = torch.randn(50, 32, generator=gen).bfloat16()
+    before = conv_bwd.conv_dw.launches
+    out = conv_bwd.conv_dw(x, nbr, g)
+    assert out.shape == (k, cin, 32) and out.dtype == torch.float32
+    if entry is None:
+        assert calls == [] and conv_bwd.conv_dw.launches == before
+        assert torch.equal(out, sparse.conv_dw(x, nbr, g))
+    else:
+        assert calls == [(entry, n_args)] and conv_bwd.conv_dw.launches == before + 1
+
+
+@pytest.mark.parametrize("path, cin, k, entry", [
+    ("fma", 7, 27, "ir_gather_conv"),
+    ("tensor_core", 32, 8, "ir_gather_conv_tc"),
+    ("stem", 7, 27, "ir_gather_conv_stem"),
+])
+def test_gather_conv_follows_route(monkeypatch, path, cin, k, entry):
+    calls = _fake_entries(monkeypatch, G, path)
+    x = torch.zeros(40, cin, dtype=torch.bfloat16)
+    before = G.gather_conv.launches
+    out = G.gather_conv(x, torch.zeros(50, k, dtype=torch.int32),
+                        torch.zeros(k, cin, 32, dtype=torch.bfloat16))
+    assert out.shape == (50, 32) and G.gather_conv.launches == before + 1
+    assert [name for name, _ in calls] == [entry]
+
+
+def test_stem_route_refuses_other_maps(monkeypatch):
+    """The stem kernels are built for the 27-offset map only: another K on
+    that route raises, with no fallback to another kernel."""
+    for module in (G, conv_bwd):
+        _fake_entries(monkeypatch, module, "stem")
+    x = torch.zeros(40, 7, dtype=torch.bfloat16)
+    nbr = torch.zeros(50, 8, dtype=torch.int32)
+    with pytest.raises(ValueError, match="K = 27"):
+        G.gather_conv(x, nbr, torch.zeros(8, 7, 32, dtype=torch.bfloat16))
+    with pytest.raises(ValueError, match="K = 27"):
+        conv_bwd.conv_dw(x, nbr, torch.zeros(50, 32, dtype=torch.bfloat16))
 
 
 def _card():
@@ -135,6 +238,73 @@ def test_tensor_core_k2_matches_twin_on_card(cin, cout):
     _close(dw, ref_dw, 1e-4)
     assert torch.equal(dx[64:200], torch.zeros_like(dx[64:200]))
     assert torch.equal(dw, conv_bwd.subm_conv_bwd(x, nbr, g, w)[1])  # bit-identical
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("cin, cout", list(itertools.product(WIDTHS, (64, 128))))
+def test_tensor_core_k3_matches_twin_on_card(cin, cout):
+    """K3 at a down conv's shape (K = 8): 1000 rows (not a multiple of the
+    64-row tile), padding tiles, an offset empty everywhere."""
+    dev = _card()
+    gen = torch.Generator(device=dev).manual_seed(cin + 3 * cout)
+    nbr = _map(gen, 1000, 900, 8, dev)
+    x = torch.randn(900, cin, device=dev, generator=gen).bfloat16()
+    g = torch.randn(1000, cout, device=dev, generator=gen).bfloat16()
+    assert G.route(x.dtype, cin, x.device) == "tensor_core"
+    before = conv_bwd.conv_dw.launches
+    dw = conv_bwd.conv_dw(x, nbr, g)
+    assert conv_bwd.conv_dw.launches == before + 1
+    _close(dw, sparse.conv_dw(x, nbr, g), 1e-4)
+    assert torch.equal(dw[5], torch.zeros_like(dw[5]))
+    assert torch.equal(dw, conv_bwd.conv_dw(x, nbr, g))  # bit-identical
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("epilogue", [False, True])
+@pytest.mark.parametrize("cin, cout", [(7, 32), (7, 64), (8, 128), (3, 32)])
+def test_stem_k1_matches_twin_on_card(cin, cout, epilogue):
+    """K1's stem route at K = 27: bf16 out with and without the epilogue,
+    f32 out, padding tiles storing their epilogue of a zero sum."""
+    dev = _card()
+    gen = torch.Generator(device=dev).manual_seed(cin * cout + epilogue)
+    nbr = _map(gen, 1000, 900, 27, dev)
+    x = torch.randn(900, cin, device=dev, generator=gen).bfloat16()
+    w = (torch.randn(27, cin, cout, device=dev, generator=gen) / (27 * cin) ** 0.5).bfloat16()
+    sc = 0.5 + torch.rand(cout, device=dev, generator=gen) if epilogue else None
+    bi = 0.1 * torch.randn(cout, device=dev, generator=gen) if epilogue else None
+    assert G.route(x.dtype, cin, x.device) == "stem"
+    before = G.gather_conv.launches
+    got = G.gather_conv(x, nbr, w, sc, bi, relu=epilogue)
+    assert G.gather_conv.launches == before + 1 and got.dtype == torch.bfloat16
+    _close(got, sparse.gather_conv(x, nbr, w, sc, bi, relu=epilogue), 1e-2)
+    pad = torch.relu(bi).bfloat16().float() if epilogue else torch.zeros(cout, device=dev)
+    assert torch.equal(got[64:192].float(), pad.expand(128, cout))
+    got = G.gather_conv(x, nbr, w, out_dtype=torch.float32)
+    assert got.dtype == torch.float32
+    _close(got, G.stem_im2col(x, nbr) @ G.stem_weight(w), 1e-5)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("cin, cout, v_out", [(7, 32, 1000), (7, 32, 40000), (7, 64, 1000),
+                                              (8, 32, 1000), (3, 128, 1000)])
+def test_stem_k3_matches_twin_on_card(cin, cout, v_out):
+    """K3's stem route at K = 27: one pass over g for all offsets; 40000
+    rows give each split more than one tile, 1000 rows leave splits empty."""
+    dev = _card()
+    gen = torch.Generator(device=dev).manual_seed(cin * cout + v_out)
+    nbr = _map(gen, v_out, 900, 27, dev)
+    x = torch.randn(900, cin, device=dev, generator=gen).bfloat16()
+    g = torch.randn(v_out, cout, device=dev, generator=gen).bfloat16()
+    assert G.route(x.dtype, cin, x.device) == "stem"
+    before = conv_bwd.conv_dw.launches
+    dw = conv_bwd.conv_dw(x, nbr, g)
+    assert conv_bwd.conv_dw.launches == before + 1
+    ref = sparse.conv_dw(x, nbr, g)
+    _close(dw, ref, 1e-4)
+    assert torch.equal(dw[5], torch.zeros_like(dw[5]))
+    width = 27 * cin
+    _close(dw, (G.stem_im2col(x, nbr).T @ g.float())[:width].reshape(27, cin, cout), 1e-4)
+    assert torch.equal(dw, conv_bwd.conv_dw(x, nbr, g))  # bit-identical
 
 
 @pytest.mark.gpu
