@@ -66,9 +66,33 @@ Phases, in order; any failure exits nonzero without the final ``ok`` line:
    end, and the iter reports' means: fetch (split into the wait on the
    loader and ``batch_to_torch``), forward, backward, eval.
 
+9. The multiview input path, with its own wall time (``[phase 9]``):
+   - K1 (f32 and bf16, with and without the epilogue) and K3 at both stems
+     of the 32-scene batch at Cin 10 and 135 against their twins (limits as
+     phases 2 and 5), with route, CUDA-event median, bound and the im2col
+     yardstick (in chunks of rows: 8.5 GB in f32 at the scene stem at
+     Cin 135); bf16 must not take the FMA kernels, and two launches give
+     bit-identical dW (``[stem-width]``).
+   - ENet card vs CPU on 8 random 256x328 frames (random weights, BatchNorm
+     statistics moved off their defaults, f32, TF32 off): features and
+     logits; frames/s at batches of 8 and 32 and the peak memory
+     (``[enet]``).
+   - Projection and maxpool fusion of 64 frames' ENet features onto a room
+     of 100 000 surface points, each frame's 32x41 depth rendered with a
+     z-buffer: card vs CPU, at most 1e-4 of the correspondences may differ,
+     more than half of the points covered (``[projection]``).
+   - ``use_multiview`` (Cin 135) at B = 32 from the port's own dataset on a
+     fake root like phase 8's (``_multiview_feats`` served from the fused
+     features: the card's machine has no h5py): the train step as phase 7
+     and the eval forward as phase 4, with their launch counts and stems on
+     the stem kernels, the batch-build ms, then the B = 2 f32 train parity
+     of phase 6 at Cin 135; one ``use_normal`` (Cin 10) train step.
+
 Then one line ``{"kernels": [...]}`` (launch counts of phase 7; ms,
 plain_ms, bound_ms and im2col_ms of K1 from phase 2, of K2 and K3 from
-phase 5, bf16 summed over the shapes; library_ms is null, since no single
+phase 5, bf16 summed over the shapes; then K1 and K3 at the stems at
+Cin 135 and 10, with their stem-kernel launches in phase 9's train runs
+and the times of phase 9's first part; library_ms is null, since no single
 PyTorch call computes these functions), the ``nvidia-smi`` line and, last,
 ``{"ok": true, "device": ...}``.  Weights are random (``torch.Generator``
 seeds); scenes are synthetic.
@@ -137,6 +161,7 @@ DX_TOL, DW_TOL = 1e-5, 1e-4
 LOSS_RTOL, STATS_RTOL, GRAD_LAYER, GRAD_ALL, ADAM_MEAN = 1e-4, 1e-3, 5e-2, 2e-2, 0.25
 LR, WD = 1e-3, 1e-5  # config/InstanceRefer.yaml's Adam
 TRAIN_LAUNCHES = {"gather_conv": 34, "subm_conv_bwd": 16, "conv_dw": 10}  # per train step
+STEM_LAUNCHES = 2  # of K1's and of K3's per train step: the two stems, on the stem kernels
 # an H100 SXM's dense peaks at 700 W: bf16 on the tensor cores, f32 outside
 # them (TF32 is off), and device memory
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
@@ -357,7 +382,7 @@ def phase_parity(spec, dev):
         raise AssertionError("parity batch has no scored candidates")
 
 
-def phase_full(spec, dev, dds, model):
+def phase_full(spec, dev, dds, model, label="full"):
     from instancerefer_tpu_torch.ops.gather_conv import gather_conv
     from instancerefer_tpu_torch.ops.precision import set_compute_dtype
 
@@ -395,12 +420,13 @@ def phase_full(spec, dev, dds, model):
         raise AssertionError(f"{launches} kernel launches for {n_forward} forwards")
     peak = torch.cuda.max_memory_allocated(dev)
     sps = BATCH * repeats / dt
-    profile_kernels(f"eval forward B={BATCH} bf16", lambda: run_slice(model, dds[0], ms))
-    for i, out in enumerate(outs[-3:]):
-        log(f"[full] batch seed {i}: loss={out['loss'].item():.4f} "
+    profile_kernels(f"{label} eval forward B={BATCH} Cin={spec.feat_dim} bf16",
+                    lambda: run_slice(model, dds[0], ms))
+    for i, out in enumerate(outs[-len(dds):]):
+        log(f"[{label}] batch {i}: loss={out['loss'].item():.4f} "
             f"ref_acc_mean={out['ref_acc_mean'].item():.4f} "
             f"mean_ref_iou={out['ref_iou'].mean().item():.4f} num_missed={int(out['num_missed'])}")
-    log(f"[full] B={BATCH} bf16: {n_forward} forwards, {launches} kernel launches "
+    log(f"[{label}] B={BATCH} Cin={spec.feat_dim} bf16: {n_forward} forwards, {launches} kernel launches "
         f"({launches // n_forward} per forward); eval {sps:.2f} scenes/s "
         f"(forward+get_loss+get_eval, mean over {repeats} repeats, {dt / repeats * 1e3:.2f} ms/batch); "
         f"peak device memory {peak / 2**20:.1f} MiB")
@@ -522,7 +548,9 @@ def phase_bwd_kernels(batch, dev):
     return res
 
 
-def phase_train_parity(spec, dev):
+def phase_train_parity(spec, dev, batch=None):
+    """Train parity, card vs CPU, on ``batch`` (default: 2 synthetic
+    scenes of ``spec``, whose stems take Cin 7)."""
     from instancerefer_tpu_torch.data.host import batch_to_torch
     from instancerefer_tpu_torch.data.synthetic import make_batch
     from instancerefer_tpu_torch.models.instancerefer import InstanceRefer
@@ -531,7 +559,9 @@ def phase_train_parity(spec, dev):
 
     set_compute_dtype(None)
     torch.backends.cudnn.deterministic = True
-    batch = make_batch(2, spec, seed=3, mean_size_arr=MEAN_SIZE, **SCENE_KW)
+    if batch is None:
+        batch = make_batch(2, spec, seed=3, mean_size_arr=MEAN_SIZE, **SCENE_KW)
+    log(f"[train-parity] {len(batch['lang_len'])} scenes, stems Cin={spec.feat_dim}")
     cpu_model = InstanceRefer(spec.feat_dim, spec.num_classes, spec.max_candidates,
                               generator=torch.Generator().manual_seed(4), dropout_override=0.0)
     models = {"cpu": cpu_model, "gpu": copy.deepcopy(cpu_model).to(dev)}
@@ -596,7 +626,7 @@ def phase_train_parity(spec, dev):
         raise AssertionError("card and CPU parameters drift apart over 2 Adam steps")
 
 
-def phase_train(spec, dev, dds):
+def phase_train(spec, dev, dds, label="train", repeats=5, profile=True):
     from instancerefer_tpu_torch.models.instancerefer import InstanceRefer
     from instancerefer_tpu_torch.ops import conv_bwd
     from instancerefer_tpu_torch.ops.gather_conv import gather_conv
@@ -610,7 +640,7 @@ def phase_train(spec, dev, dds):
     ms = torch.tensor(MEAN_SIZE, dtype=torch.float32, device=dev)
     counters = {"gather_conv": gather_conv, "subm_conv_bwd": conv_bwd.subm_conv_bwd,
                 "conv_dw": conv_bwd.conv_dw}
-    repeats = 5
+    stems = {"gather_conv": gather_conv, "conv_dw": conv_bwd.conv_dw}
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(dev)
     results = []
@@ -627,6 +657,8 @@ def phase_train(spec, dev, dds):
 
     for f in counters.values():
         f.launches = 0
+    for f in stems.values():
+        f.stem_launches = 0
     check(*train_step(model, opt, dds[0], ms))  # warm-up
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -640,23 +672,30 @@ def phase_train(spec, dev, dds):
         check(*train_step(model, opt, dd, ms))
     torch.cuda.synchronize()
     launches = {k: f.launches for k, f in counters.items()}
+    stem_launches = {k: f.stem_launches for k, f in stems.items()}
     n_steps = 1 + repeats + len(dds) - 1
     for k, per_step in TRAIN_LAUNCHES.items():
         if launches[k] != per_step * n_steps:
             raise AssertionError(f"{k}: {launches[k]} launches in {n_steps} train steps, "
                                  f"want {per_step} per step")
+    for k, n in stem_launches.items():  # both stems, on the stem kernels
+        if n != STEM_LAUNCHES * n_steps:
+            raise AssertionError(f"{k}: {n} stem-kernel launches in {n_steps} train steps")
     peak = torch.cuda.max_memory_allocated(dev)
-    profile_kernels(f"train step B={BATCH} bf16", lambda: train_step(model, opt, dds[0], ms))
+    if profile:
+        profile_kernels(f"{label} step B={BATCH} Cin={spec.feat_dim} bf16",
+                        lambda: train_step(model, opt, dds[0], ms))
     for i, r in enumerate(results):
-        log(f"[train] step {i}: loss={r['loss']:.4f} ref_loss={r['ref_loss']:.4f} "
+        log(f"[{label}] step {i}: loss={r['loss']:.4f} ref_loss={r['ref_loss']:.4f} "
             f"lang_loss={r['lang_loss']:.4f} seg_loss={r['seg_loss']:.4f} ref_acc={r['ref_acc']:.4f}")
-    log(f"[train] B={BATCH} bf16: {n_steps} train steps, launches per step " + ", ".join(
-        f"{k} {launches[k] // n_steps}" for k in counters) +
-        f"; train {BATCH * repeats / dt:.2f} scenes/s (forward+get_loss+backward+Adam+get_eval, "
+    log(f"[{label}] B={BATCH} Cin={spec.feat_dim} bf16: {n_steps} train steps, launches per "
+        "step " + ", ".join(f"{k} {launches[k] // n_steps}" for k in counters) +
+        " (" + ", ".join(f"{k} {stem_launches[k] // n_steps} at the stems" for k in stems) +
+        f"); train {BATCH * repeats / dt:.2f} scenes/s (forward+get_loss+backward+Adam+get_eval, "
         f"mean over {repeats} steps, {dt / repeats * 1e3:.2f} ms/step); "
         f"peak device memory {peak / 2**20:.1f} MiB")
     set_compute_dtype(None)
-    return launches
+    return launches, stem_launches
 
 
 REPO = os.path.dirname(os.path.abspath(__file__))
@@ -898,6 +937,282 @@ def phase_cli():
         set_compute_dtype(None)
 
 
+# ---------------------------------------------------------------- phase 9
+# the stems' Cin of the two input configs (config.py's channel sum)
+MV_WIDTHS = {"use_multiview": 135, "use_normal": 10}
+# ENet, card vs CPU, f32 with TF32 off: |err| <= ENET_TOL x max|cpu|; the
+# convolutions sum in other orders (cuDNN's algorithms vs the CPU's)
+ENET_TOL = 1e-4
+# projection, card vs CPU: the share of (point, pixel) index entries that
+# may differ (float64 sums in another order can move a point across the
+# frustum test's or a pixel's rounding boundary)
+INDEX_DIFF = 1e-4
+MV_POINTS, MV_FRAMES = 100000, 64  # a ScanNet mesh's vertices; frames around it
+MV_COVERAGE = 0.5  # the least share of the points the frames must cover
+MV_BATCHES = 3  # use_multiview batches of BATCH for the steps
+
+
+def chunked_im2col(rows, nbr, chunk=65536):
+    """The im2col yardstick in chunks of rows (the scene stem's at Cin 135
+    is 8.5 GB in f32): (row spans, cols(c0) -> [span, K * C])."""
+    table = torch.cat([rows, rows.new_zeros(1, rows.shape[1])])
+    safe = torch.where(nbr >= 0, nbr, rows.shape[0]).long()
+    spans = [(c0, min(c0 + chunk, nbr.shape[0])) for c0 in range(0, nbr.shape[0], chunk)]
+
+    def cols(c0, c1):
+        return table.index_select(0, safe[c0:c1].reshape(-1)).view(c1 - c0, -1)
+    return spans, cols
+
+
+def phase_stem_widths(batch, dev):
+    """K1 (with and without its epilogue) and K3 at both stems at Cin 10
+    and 135 against their twins; returns {(wrapper, Cin): Totals} of the
+    bf16 shapes (K1 with its epilogue)."""
+    from instancerefer_tpu_torch.ops import conv_bwd, sparse
+    from instancerefer_tpu_torch.ops.gather_conv import gather_conv, route
+
+    gen = torch.Generator(device=dev).manual_seed(9)
+    res = {}
+    for cin in sorted(MV_WIDTHS.values()):
+        k1 = res["gather_conv", cin] = Totals()
+        k3 = res["conv_dw", cin] = Totals()
+        for enc, p in ENCODERS:
+            nbr = torch.from_numpy(np.ascontiguousarray(batch[f"{p}_nbr3_0"], np.int32)).to(dev)
+            (v, k), cout = nbr.shape, WIDTHS[0]
+            flops = 2 * int((nbr >= 0).sum()) * cin * cout
+            for dt in (torch.float32, torch.bfloat16):
+                path = route(dt, cin, dev)
+                if dt == torch.bfloat16 and path == "fma":
+                    raise AssertionError(f"bf16 at Cin {cin} takes the FMA kernels")
+                x = torch.randn(v, cin, device=dev, generator=gen).to(dt)
+                w = (torch.randn(k, cin, cout, device=dev, generator=gen) / (k * cin) ** 0.5).to(dt)
+                g = torch.randn(v, cout, device=dev, generator=gen).to(dt)
+                spans, cols = chunked_im2col(x, nbr)
+                w2 = w.reshape(k * cin, cout)
+                t_i1 = median_ms(lambda: torch.cat([cols(a, b) @ w2 for a, b in spans]))
+                t_i3 = median_ms(lambda: sum(cols(a, b).t() @ g[a:b] for a, b in spans))
+                tag = f"{enc} stem V_out={v} K={k} {cin}->{cout} {str(dt)[6:]} route={path}"
+                for epi in (False, True):
+                    sc = (0.5 + torch.rand(cout, device=dev, generator=gen)) if epi else None
+                    bi = 0.1 * torch.randn(cout, device=dev, generator=gen) if epi else None
+                    got = gather_conv(x, nbr, w, sc, bi, relu=epi)
+                    ref = sparse.gather_conv(x, nbr, w, sc, bi, relu=epi)
+                    err, scale = _max_err(got, ref)
+                    t_k = median_ms(lambda: gather_conv(x, nbr, w, sc, bi, relu=epi))
+                    t_p = median_ms(lambda: sparse.gather_conv(x, nbr, w, sc, bi, relu=epi))
+                    nb = nbytes(x, nbr, w, got) + (2 * cout * 4 if epi else 0)
+                    b_ms, b_by = bound(flops, nb, dt)
+                    log(f"[stem-width] K1 {tag} epilogue={epi}: max_abs={err:.3e} "
+                        f"(tol {KERNEL_TOL[dt]:g} x max|ref|={scale:.3f}) kernel_ms={t_k:.4f} "
+                        f"plain_ms={t_p:.4f} bound_ms={b_ms:.4f} ({b_by}: {flops / 1e9:.2f} "
+                        f"GFLOP, {nb / 1e6:.1f} MB) library_ms=none im2col_ms={t_i1:.4f}")
+                    if not err <= KERNEL_TOL[dt] * max(scale, 1e-30):
+                        raise AssertionError(f"K1 disagrees with its twin at {tag} epilogue={epi}")
+                    k1.worst = max(k1.worst, err)
+                    if dt == torch.bfloat16 and epi:
+                        k1.add(t_k, t_p, t_i1, flops, nb, dt)
+                dw, again = conv_bwd.conv_dw(x, nbr, g), conv_bwd.conv_dw(x, nbr, g)
+                ref = sparse.conv_dw(x, nbr, g)
+                torch.cuda.synchronize()
+                if not torch.equal(dw, again):
+                    raise AssertionError(f"K3 at {tag}: dW differs between two launches")
+                err, scale = _max_err(dw, ref)
+                t_k = median_ms(lambda: conv_bwd.conv_dw(x, nbr, g))
+                t_p = median_ms(lambda: sparse.conv_dw(x, nbr, g))
+                nb = nbytes(x, nbr, g, dw)
+                b_ms, b_by = bound(flops, nb, dt)
+                log(f"[stem-width] K3 {tag}: max_abs={err:.3e} (tol {DW_TOL:g} x "
+                    f"max|ref|={scale:.3f}) kernel_ms={t_k:.4f} plain_ms={t_p:.4f} "
+                    f"bound_ms={b_ms:.4f} ({b_by}: {flops / 1e9:.2f} GFLOP, {nb / 1e6:.1f} MB) "
+                    f"library_ms=none im2col_ms={t_i3:.4f}; dW bit-identical across two launches")
+                if not err <= DW_TOL * max(scale, 1e-30):
+                    raise AssertionError(f"K3 disagrees with its twin at {tag}")
+                k3.worst = max(k3.worst, err)
+                if dt == torch.bfloat16:
+                    k3.add(t_k, t_p, t_i3, flops, nb, dt)
+                del spans, cols
+    return res
+
+
+def random_enet(gen):
+    """An ``Enet`` whose every tensor is drawn from ``gen``: convs normal at
+    torch's default scale, BatchNorm affine and statistics moved off their
+    defaults, PReLU slopes in [0, 0.5]; eval mode."""
+    from instancerefer_tpu_torch.models.enet import Enet
+
+    model = Enet()
+    with torch.no_grad():
+        for m in model.modules():
+            if isinstance(m, torch.nn.BatchNorm2d):
+                m.weight.uniform_(0.5, 1.5, generator=gen)
+                m.bias.uniform_(-0.5, 0.5, generator=gen)
+                m.running_mean.uniform_(-0.5, 0.5, generator=gen)
+                m.running_var.uniform_(0.5, 1.5, generator=gen)
+            elif isinstance(m, torch.nn.Conv2d):
+                m.weight.normal_(0.0, (3.0 * m.weight[0].numel()) ** -0.5, generator=gen)
+                if m.bias is not None:
+                    m.bias.normal_(0.0, 0.2, generator=gen)
+            elif isinstance(m, torch.nn.PReLU):
+                m.weight.uniform_(0.0, 0.5, generator=gen)
+    return model.eval()
+
+
+def phase_enet(dev):
+    """ENet card vs CPU on 8 frames, frames/s at batches of 8 and 32; returns
+    the features [MV_FRAMES, 128, 32, 41] of MV_FRAMES frames on the card."""
+    from instancerefer_tpu_torch.models.enet import normalize_frame
+
+    model = random_enet(torch.Generator().manual_seed(6))
+    frames = np.random.default_rng(6).uniform(size=(MV_FRAMES, 256, 328, 3)).astype(np.float32)
+    x = normalize_frame(torch.from_numpy(frames)).permute(0, 3, 1, 2).contiguous()
+    gpu, xg = copy.deepcopy(model).to(dev), x.to(dev)
+    with torch.no_grad():
+        want = model(x[:8])
+        got = gpu(xg[:8])
+    torch.cuda.synchronize()
+    for name, g, c, shape in zip(("logits", "features"), got, want,
+                                 ((8, 41, 32, 41), (8, 128, 32, 41))):
+        err, scale = _max_err(g.cpu(), c)
+        log(f"[enet] {name} {tuple(g.shape)} card vs CPU (f32, TF32 off): max_abs={err:.3e} "
+            f"(tol {ENET_TOL:g} x max|cpu|={scale:.3f})")
+        if tuple(g.shape) != shape or not err <= ENET_TOL * scale:
+            raise AssertionError(f"ENet {name}: card and CPU disagree")
+
+    for b in (8, 32):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        ms = median_ms(lambda: _enet_feats(gpu, xg[:b]))
+        log(f"[enet] feature pass B={b} 256x328 f32: {ms:.3f} ms, {b / ms * 1e3:.1f} frames/s "
+            f"(CUDA-event median of 10); peak device memory "
+            f"{torch.cuda.max_memory_allocated(dev) / 2**20:.1f} MiB")
+    return torch.cat([_enet_feats(gpu, xg[i:i + 32]) for i in range(0, MV_FRAMES, 32)])
+
+
+def _enet_feats(model, x):
+    with torch.no_grad():
+        return model.features(x)
+
+
+def _assignment(ind, n):
+    """[n] pixel of each point in a frame's correspondence, -1 for none."""
+    a = torch.full((n,), -1, dtype=torch.long)
+    if ind is not None:
+        c = int(ind[0][0])
+        a[ind[0][1:1 + c].cpu()] = ind[1][1:1 + c].cpu()
+    return a
+
+
+def phase_projection(dev, feats):
+    """A room of MV_POINTS surface points seen from MV_FRAMES poses, each
+    frame's depth rendered with a z-buffer: the correspondences and the
+    maxpool fusion of ``feats`` on the card against the CPU; returns the
+    card's fused [MV_POINTS, 128] features as numpy."""
+    from instancerefer_tpu_torch.data import projection as P
+    from instancerefer_tpu_torch.scripts.project_multiview_features import projector
+
+    rng = np.random.default_rng(7)
+    points = P.room_scene(rng, MV_POINTS)
+    poses = [P.look_at(rng.uniform([1.0, 1.0, 1.2], [5.0, 4.0, 1.8]),
+                       rng.uniform([0.0, 0.0, 0.0], [6.0, 5.0, 1.5])) for _ in range(MV_FRAMES)]
+    cpu_h, gpu_h = projector("cpu"), projector(dev)
+    depths = [P.zbuffer_depth(points, pose, cpu_h).numpy() for pose in poses]
+    n, pts = len(points), torch.from_numpy(points).to(dev)
+    fused = {"cpu": P.FrameFeatureFuser(n, 128, "maxpool", "cpu"),
+             "gpu": P.FrameFeatureFuser(n, 128, "maxpool", dev)}
+    feats_cpu = feats.cpu()
+    covered = torch.zeros(n, dtype=torch.bool)
+    disagree = torch.zeros(n, dtype=torch.bool)
+    differ = entries = 0
+    card_s = 0.0
+    for i, (pose, depth) in enumerate(zip(poses, depths)):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ind_g = gpu_h.compute_projection(pts, torch.from_numpy(depth).to(dev), pose)
+        if ind_g is not None:
+            fused["gpu"].add(gpu_h.project(feats[i], *ind_g, n).T)
+        torch.cuda.synchronize()
+        card_s += time.perf_counter() - t0
+        ind_c = cpu_h.compute_projection(points, depth, pose)
+        if ind_c is not None:
+            fused["cpu"].add(cpu_h.project(feats_cpu[i], *ind_c, n).T)
+        a_g, a_c = _assignment(ind_g, n), _assignment(ind_c, n)
+        diff = a_g != a_c
+        differ += int(diff.sum())
+        entries += int((a_c >= 0).sum())
+        disagree |= diff
+        covered |= a_g >= 0
+    share = covered.float().mean().item()
+    got, want = fused["gpu"].result().cpu(), fused["cpu"].result()
+    same = torch.equal(got[~disagree], want[~disagree])
+    log(f"[projection] {n} points, {MV_FRAMES} z-buffered 32x41 frames: {entries} "
+        f"correspondences, {differ} differ card vs CPU (limit {INDEX_DIFF:g} of them); "
+        f"{share:.1%} of the points covered; maxpool fusion equal on the "
+        f"{int((~disagree).sum())} points whose correspondences agree: {same}; card "
+        f"projection + fusion {card_s * 1e3 / MV_FRAMES:.2f} ms a frame (host clock)")
+    if not differ <= INDEX_DIFF * entries or not share > MV_COVERAGE or not same:
+        raise AssertionError("projection: card and CPU disagree, or the frames cover too little")
+    return got.numpy()
+
+
+def multiview_loader(root, spec, config, fused, batch_size=None):
+    """The port's own loader over the fake root's train split with
+    ``config`` on; ``_multiview_feats`` serves the first rows of the
+    projection phase's fused features (the card's machine has no h5py)."""
+    from instancerefer_tpu_torch.data import dataset as D
+
+    class Served(D.ScannetReferenceDataset):
+        def _multiview_feats(self, scene_id):
+            return fused[:len(self._load_scene(scene_id)[0])]
+
+    ds = Served(D.get_scanrefer(root, "train"), "train", data_root=root,
+                num_points=SCENE_KW["num_points"], **{config: True})
+    return D.PaddedLoader(ds, spec, batch_size or BATCH, shuffle=True, seed=0, num_workers=4)
+
+
+def phase_multiview(dev, fused):
+    """The ``use_multiview`` (Cin 135) train step and eval forward at
+    B = BATCH from the port's dataset, the B = 2 f32 train parity at Cin 135,
+    and one ``use_normal`` (Cin 10) train step; returns {config: (launches,
+    stem launches)} of the train runs."""
+    from instancerefer_tpu_torch.data.host import batch_to_torch
+    from instancerefer_tpu_torch.data.pipeline import BatchSpec
+
+    root = tempfile.mkdtemp(prefix="mv_smoke_")
+    out = {}
+    try:
+        write_fake_scanrefer(root, np.random.default_rng(1))
+        for config, n_batches in (("use_multiview", MV_BATCHES), ("use_normal", 1)):
+            spec = BatchSpec(**SPEC_KW, feat_dim=MV_WIDTHS[config])
+            it = iter(multiview_loader(root, spec, config, fused))
+            batches, times = [], []
+            for _ in range(n_batches):
+                t0 = time.perf_counter()
+                batches.append(next(it))
+                times.append((time.perf_counter() - t0) * 1e3)
+            it.close()
+            feats = batches[0]["scene_feats"]
+            log(f"[{config}] {n_batches} batches of {BATCH} from the port's dataset: scene "
+                f"features {feats.shape}, batch build {times[0]:.1f} ms the first (loader "
+                f"start included)" + (f", {np.mean(times[1:]):.1f} ms the next (mean of "
+                                      f"{len(times) - 1})" if len(times) > 1 else ""))
+            if feats.shape[-1] != MV_WIDTHS[config]:
+                raise AssertionError(f"{config}: the stems take {feats.shape[-1]} channels")
+            dds = [batch_to_torch(b, spec, dev) for b in batches]
+            if config == "use_multiview":
+                out[config] = phase_train(spec, dev, dds, label=config)
+                phase_full(spec, dev, dds, make_model(spec, seed=2).to(dev), label=config)
+                it = iter(multiview_loader(root, spec, config, fused, batch_size=2))
+                pair = next(it)
+                it.close()
+                phase_train_parity(spec, dev, pair)
+            else:
+                out[config] = phase_train(spec, dev, dds, label=config, repeats=1, profile=False)
+            del dds
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return out
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device; this script runs only on a GPU")
@@ -927,8 +1242,12 @@ def main() -> None:
         spills = [line.strip() for line in report.splitlines()
                   if "spill" in line and " 0 bytes spill stores, 0 bytes spill loads" not in line]
         regs = [int(n) for n in re.findall(r"Used (\d+) registers", report)]
+        stem_regs = [f"{m.group(1)}<{m.group(2)}> {r}" for name, r in re.findall(
+            r"Compiling entry function '(\w+)'.*?Used (\d+) registers", report, re.S)
+            for m in [re.search(r"(stem_\w+?kernel)I(\w*?)EEv", name)] if m]
         log(f"[build] {stem}: {len(regs)} kernels, at most {max(regs)} registers, "
-            f"{len(spills)} with spills (-Xptxas -v)")
+            f"{len(spills)} with spills (-Xptxas -v); the stem kernels' registers: "
+            + (", ".join(stem_regs) or "none"))
         if spills:
             raise AssertionError(f"{stem}: ptxas spills registers: {spills}")
 
@@ -944,9 +1263,15 @@ def main() -> None:
     phase_full(spec, dev, dds, make_model(spec, seed=2).to(dev))
     bwd = phase_bwd_kernels(batches[0], dev)
     phase_train_parity(spec, dev)
-    launches = phase_train(spec, dev, dds)
+    launches, _ = phase_train(spec, dev, dds)
     del dds
     phase_cli()
+    t9 = time.perf_counter()
+    stems = phase_stem_widths(batches[0], dev)
+    fused = phase_projection(dev, phase_enet(dev))
+    mv = phase_multiview(dev, fused)
+    log(f"[phase 9] stem widths, ENet, projection and the multiview input path: "
+        f"{time.perf_counter() - t9:.1f} s wall")
 
     k1.worst = max(k1.worst, bwd["gather_conv"].worst)
     entries = (
@@ -954,14 +1279,19 @@ def main() -> None:
         ("subm_conv_bwd", "subm_conv_bwd.cu", 267, bwd["subm_conv_bwd"]),
         ("conv_dw", "conv_dw.cu", 440, bwd["conv_dw"]),
     )
+    rows = [(name, src, line, launches[name], totals) for name, src, line, totals in entries]
+    for config, cin in MV_WIDTHS.items():  # the stems at the other input widths
+        for name, src, line, _ in entries[::2]:
+            rows.append((f"{name} at the stems, Cin {cin} ({config})", src, line,
+                         mv[config][1][name], stems[name, cin]))
     log(json.dumps({"kernels": [{
         "name": name,
         "route": "cuda",
         "source": f"instancerefer_tpu_torch/csrc/{src}",
         "replaces": f"instancerefer_tpu/ops/pallas_conv.py:{line}",
-        "launches": launches[name],
+        "launches": n,
         **totals.entry(),
-    } for name, src, line, totals in entries]}))
+    } for name, src, line, n, totals in rows]}))
     log(smi)
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

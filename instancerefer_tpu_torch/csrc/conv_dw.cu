@@ -14,25 +14,25 @@
 //
 // Call sites: the 2^3 stride-2 down convs' dW (over down, K = 8, 32 -> 64,
 // 64 -> 128, 128 -> 128) and the stems' dW-only backward (over nbr3,
-// K = 27, 7 -> 32).  Three routes, chosen by the wrapper (ops/conv_bwd.py)
-// from the input type and Cin alone, as K1's:
+// K = 27, Cin -> 32 with Cin 7, 10 or 135).  Three routes, chosen by the
+// wrapper (ops/conv_bwd.py) from the input type and Cin alone, as K1's:
 //
-//   ir_conv_dw_tc    bf16 with Cin >= 16 (the downs):
+//   ir_conv_dw_tc    bf16 with Cin in {32, 64, 128} (the downs):
 //     irsc::tc::dw_tc_kernel<GATHER_X> (sparse_conv_tc.cuh), K2's dW
 //     template with the gather moved to the x side.  Block (k, split) walks
 //     its 64-row tiles, gathers the x rows named by nbr[r, k] and stages
 //     the g rows as a contiguous tile, both with 16-byte cp.async in a ring
 //     of 2, and accumulates x^T g with mma.sync.m16n8k16 from ldmatrix.trans;
 //     tiles with no valid index at k are skipped.
-//   ir_conv_dw_stem  bf16 with Cin <= 8 (the two stems):
+//   ir_conv_dw_stem  bf16 at any other Cin (the two stems):
 //     irsc::stem::stem_dw_kernel (sparse_conv_stem.cuh), one pass over g
 //     for all 27 offsets: dW as one product cols^T g, where cols is the
-//     im2col of a 64-row tile (27 x 7 = 189 columns, padded to 192) and
-//     the [192, 32] product stays in registers (56 floats a thread).
-//   ir_conv_dw       f32, and bf16 with 8 < Cin < 16 (the stems' 10
-//     channels with use_normal): the FMA template irsc::dw_partial_kernel
-//     (sparse_conv.cuh) over a (K, split) grid.
-//
+//     im2col of a 64-row tile (27 x Cin columns, padded to a multiple of
+//     16), cut into chunks of 192 columns on the grid; each block's
+//     [192, 32] product stays in registers (48 floats a thread).
+//   ir_conv_dw       f32: the FMA template irsc::dw_partial_kernel
+//     (sparse_conv.cuh) over a (K, split, Cin tile of 128) grid.
+
 // What bounds it on the card.  The downs: the rows staged.  A down map
 // names each input row at most once, so the x side is read about once in
 // all whatever the grid; g is read once per offset (8 passes, from L2).
@@ -42,10 +42,11 @@
 // tested template and spreads the small stages over more blocks.  The
 // stems: the gather.  The FMA kernel this replaces read its split's g rows
 // once per offset (27 passes) and gathered x with scalar loads into f32
-// tiles; here g is read once, each x row (14 bytes, 2-byte aligned) is read
-// 27 times with 2-byte loads, eight lanes a row (from L2: 8 MB of x at the
-// scene stem), and the MMAs, 12 k-steps of 16 a tile at Cin = 7, finish
-// long before the loads.
+// tiles; here g is read once per depth chunk (once at Cin = 7, 19 times at
+// 135), each x row (2-byte aligned) is read 27 times with 2-byte loads,
+// consecutive lanes on consecutive columns (from L2: 8 MB of x at the
+// scene stem at Cin = 7, 157 MB at 135, which the L2 no longer holds), and
+// the MMAs, 12 k-steps of 16 a chunk, finish long before the loads.
 //
 // C interface (bound with ctypes): each entry returns cudaGetLastError()
 // after its launches, or cudaErrorInvalidValue for an unsupported shape.
@@ -62,21 +63,15 @@ bool bad_shape(long long v_out, int k_offsets, int cin, int splits) {
 
 }  // namespace
 
-// The FMA route.  dtype: 0 = float32, 1 = bfloat16 (feats and g share it).
-// partial is f32 scratch of splits * K * cin * cout; dw is f32 [K, cin,
-// cout].
+// The FMA route: float32 feats and g (dtype code 0; bf16 always takes one
+// of the tensor-core routes below).  partial is f32 scratch of splits * K *
+// cin * cout; dw is f32 [K, cin, cout].
 extern "C" int ir_conv_dw(const void* feats, const void* nbr, const void* g, void* partial,
                           void* dw, long long v_out, int k_offsets, int cin, int cout,
                           int splits, int dtype, void* stream) {
-  if (bad_shape(v_out, k_offsets, cin, splits)) return cudaErrorInvalidValue;
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    return irsc::dispatch_dw<float, true>(feats, g, nbr, partial, dw, v_out, k_offsets, cin,
-                                          cout, splits, s);
-  if (dtype == 1)
-    return irsc::dispatch_dw<__nv_bfloat16, true>(feats, g, nbr, partial, dw, v_out, k_offsets,
-                                                  cin, cout, splits, s);
-  return cudaErrorInvalidValue;
+  if (bad_shape(v_out, k_offsets, cin, splits) || dtype != 0) return cudaErrorInvalidValue;
+  return irsc::dispatch_dw<float, true>(feats, g, nbr, partial, dw, v_out, k_offsets, cin, cout,
+                                        splits, static_cast<cudaStream_t>(stream));
 }
 
 // The tensor-core route: bfloat16 feats and g (16-byte aligned), cin and
@@ -89,9 +84,9 @@ extern "C" int ir_conv_dw_tc(const void* feats, const void* nbr, const void* g, 
                                         splits, static_cast<cudaStream_t>(stream));
 }
 
-// The stem route: bfloat16 feats [V_in, cin] with cin <= 8, nbr [v_out, 27],
-// g [v_out, cout] (16-byte aligned) with cout a multiple of 32; partial is
-// f32 scratch of splits * 27 * cin * cout.
+// The stem route: bfloat16 feats [V_in, cin] (any cin up to 65535), nbr
+// [v_out, 27], g [v_out, cout] (16-byte aligned) with cout a multiple of
+// 32; partial is f32 scratch of splits * 27 * cin * cout.
 extern "C" int ir_conv_dw_stem(const void* feats, const void* nbr, const void* g, void* partial,
                                void* dw, long long v_out, int k_offsets, int cin, int cout,
                                int splits, void* stream) {

@@ -17,25 +17,26 @@
 // Three routes, chosen by the wrapper (ops/gather_conv.py) from the input
 // type and Cin alone:
 //
-//   ir_gather_conv_tc  bf16 with Cin >= 16 (every down, residual and up8
-//     call): irsc::tc::gather_gemm_tc_kernel (sparse_conv_tc.cuh).  Tiles of
-//     64 output rows x Cout, 4 warps issuing mma.sync.m16n8k16 (bf16 in, f32
-//     accumulate) from ldmatrix; per offset, the 64 rows are gathered by
-//     index with 16-byte cp.async (a -1 index zero-fills its row) and W[k]
-//     is staged the same way, in a ring of 2 so the next offset's gather
-//     overlaps this one's MMAs.  Offsets with no valid index in the tile are
-//     skipped, and a tile of padding rows only stores its epilogue.
-//   ir_gather_conv_stem  bf16 with Cin <= 8 (the two stems, 7 -> 32):
+//   ir_gather_conv_tc  bf16 with Cin in {32, 64, 128} (every down, residual
+//     and up8 call): irsc::tc::gather_gemm_tc_kernel (sparse_conv_tc.cuh).
+//     Tiles of 64 output rows x Cout, 4 warps issuing mma.sync.m16n8k16
+//     (bf16 in, f32 accumulate) from ldmatrix; per offset, the 64 rows are
+//     gathered by index with 16-byte cp.async (a -1 index zero-fills its
+//     row) and W[k] is staged the same way, in a ring of 2 so the next
+//     offset's gather overlaps this one's MMAs.  Offsets with no valid index
+//     in the tile are skipped, and a tile of padding rows only stores its
+//     epilogue.
+//   ir_gather_conv_stem  bf16 at any other Cin (the two stems, K = 27: 7,
+//     10 with normals, 135 with multiview features -> 32):
 //     irsc::stem::stem_conv_kernel (sparse_conv_stem.cuh).  The tile's depth
 //     comes from its im2col, not from Cin: the 64 rows' 27 neighbours side
-//     by side, 27 x 7 = 189 columns padded to 192 (12 k-steps of 16), times
-//     W [27, 7, Cout] read as stored, [189, Cout], staged once per block;
-//     one MMA loop over the whole depth, the same epilogue.
-//   ir_gather_conv     f32 inputs, and bf16 with 8 < Cin < 16 (the stems'
-//     10 channels with use_normal): the FMA template
-//     irsc::gather_gemm_kernel (sparse_conv.cuh), f32 products and sums in
-//     registers (a tensor-core f32 path would be TF32).
-//
+//     by side, 27 x Cin columns padded to a multiple of 16, times W [27,
+//     Cin, Cout] read as stored, [27 x Cin, Cout]; chunks of 192 columns
+//     staged in turn into one accumulator, the same epilogue.
+//   ir_gather_conv     f32 inputs: the FMA template irsc::gather_gemm_kernel
+//     (sparse_conv.cuh), f32 products and sums in registers (a tensor-core
+//     f32 path would be TF32).
+
 // What bounds the tensor-core route on the card: the bytes it stages, not
 // the MMAs.  Per block and offset it moves 64 gathered rows (Cin x 2 B
 // each) and the whole W[k] slice (Cin x Cout x 2 B, up to 32 KB) from L2
@@ -45,14 +46,14 @@
 // cost of blocks on the small stages; that is the next lever.
 //
 // What bounds the stem route: the staging of gathered rows.  Each 64-row
-// block gathers 64 x 27 rows of 14 bytes with 2-byte loads (1728 L2 reads
-// of a row for 64 output rows, 24 KB of tile) and stages the 12 KB of W
-// once, for 2 x 64 x 192 x 32 flops, which the tensor cores finish long
-// before the loads.  Each thread keeps 27 of its loads in flight (they go
-// to registers first and to shared memory after), and four blocks an SM
-// hide the rest of their latency behind each other.  The FMA kernel it
-// replaces staged W[k] per offset and issued f32 FMAs at ~20 TFLOP/s
-// (PERF.md).
+// block gathers its 64 x 27 x Cin im2col with 2-byte loads (at Cin = 7,
+// 1728 L2 reads of a 14-byte row for 64 output rows; at 135, 64 x 3645
+// elements in 19 chunks) and stages W_flat once over the chunks, for
+// 2 x 64 x depth x 32 flops, which the tensor cores finish long before the
+// loads.  Each thread keeps 32 of its loads in flight (they go to registers
+// first and to shared memory after), and several blocks an SM hide the rest
+// of their latency behind each other.  The FMA kernel it replaced for bf16
+// staged W[k] per offset and issued f32 FMAs at ~20 TFLOP/s (PERF.md).
 //
 // C interface (bound with ctypes): each entry returns cudaGetLastError()
 // after the launch, or cudaErrorInvalidValue for an unsupported shape.
@@ -65,18 +66,17 @@ namespace {
 
 using irsc::launch_gather_gemm;
 
-// BK: input channels per shared tile (8 for Cin <= 8, as f32 stems have,
+// BK: input channels per shared tile (8 for Cin <= 8, as the stems have,
 // 32 otherwise); a ragged Cin is padded with zeros inside the tile.
-template <typename T, typename O>
 cudaError_t dispatch(const void* feats, const void* nbr, const void* w, const void* scale,
                      const void* bias, void* out, long long v_out, int k_offsets, int cin,
                      int cout, int relu, cudaStream_t stream) {
   const bool narrow = cin <= 8;
 #define IR_K1(CO)                                                                              \
-  return narrow ? launch_gather_gemm<T, O, CO, 8, false>(feats, nbr, w, scale, bias, out,     \
-                                                          v_out, k_offsets, cin, relu, stream) \
-                : launch_gather_gemm<T, O, CO, 32, false>(feats, nbr, w, scale, bias, out,    \
-                                                           v_out, k_offsets, cin, relu, stream)
+  return narrow ? launch_gather_gemm<float, float, CO, 8, false>(                              \
+                      feats, nbr, w, scale, bias, out, v_out, k_offsets, cin, relu, stream)    \
+                : launch_gather_gemm<float, float, CO, 32, false>(                             \
+                      feats, nbr, w, scale, bias, out, v_out, k_offsets, cin, relu, stream)
   switch (cout) {
     case 32: IR_K1(32);
     case 64: IR_K1(64);
@@ -92,26 +92,17 @@ bool bad_rows(long long v_out, int k_offsets, int cin, int bm) {
 
 }  // namespace
 
-// The FMA route.  dtype: 0 = float32, 1 = bfloat16 (feats and w share it).
-// out_dtype: the same codes; float32 input takes float32 output, bfloat16
-// input either.  scale and bias are float32 [cout], both null for no affine
-// epilogue.
+// The FMA route: float32 feats, w and out (dtype and out_dtype codes 0 =
+// float32; bf16 always takes one of the tensor-core routes below).  scale
+// and bias are float32 [cout], both null for no affine epilogue.
 extern "C" int ir_gather_conv(const void* feats, const void* nbr, const void* w,
                               const void* scale, const void* bias, void* out,
                               long long v_out, int k_offsets, int cin, int cout, int relu,
                               int dtype, int out_dtype, void* stream) {
-  if (bad_rows(v_out, k_offsets, cin, irsc::GEMM_BM)) return cudaErrorInvalidValue;
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0 && out_dtype == 0)
-    return dispatch<float, float>(feats, nbr, w, scale, bias, out, v_out, k_offsets, cin, cout,
-                                  relu, s);
-  if (dtype == 1 && out_dtype == 1)
-    return dispatch<__nv_bfloat16, __nv_bfloat16>(feats, nbr, w, scale, bias, out, v_out,
-                                                  k_offsets, cin, cout, relu, s);
-  if (dtype == 1 && out_dtype == 0)
-    return dispatch<__nv_bfloat16, float>(feats, nbr, w, scale, bias, out, v_out, k_offsets,
-                                          cin, cout, relu, s);
-  return cudaErrorInvalidValue;
+  if (bad_rows(v_out, k_offsets, cin, irsc::GEMM_BM) || dtype != 0 || out_dtype != 0)
+    return cudaErrorInvalidValue;
+  return dispatch(feats, nbr, w, scale, bias, out, v_out, k_offsets, cin, cout, relu,
+                  static_cast<cudaStream_t>(stream));
 }
 
 // The tensor-core route: bfloat16 feats and w [K, cin, cout] (16-byte
@@ -132,9 +123,9 @@ extern "C" int ir_gather_conv_tc(const void* feats, const void* nbr, const void*
   return cudaErrorInvalidValue;
 }
 
-// The stem route: bfloat16 feats [V_in, cin] with cin <= 8, nbr [v_out, 27],
-// w [27, cin, cout] as stored (16-byte aligned), cout one of 32, 64, 128;
-// out_dtype 0 = float32, 1 = bfloat16.
+// The stem route: bfloat16 feats [V_in, cin] (any cin up to 65535), nbr
+// [v_out, 27], w [27, cin, cout] as stored (16-byte aligned), cout one of
+// 32, 64, 128; out_dtype 0 = float32, 1 = bfloat16.
 extern "C" int ir_gather_conv_stem(const void* feats, const void* nbr, const void* w,
                                    const void* scale, const void* bias, void* out,
                                    long long v_out, int k_offsets, int cin, int cout, int relu,

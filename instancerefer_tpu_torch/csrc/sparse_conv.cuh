@@ -4,9 +4,9 @@
 //   dw_partial_kernel    partial[s, k'] = sum_{rows r of split s} a_r^T b_r  K2's/K3's dW
 //   sum_partials_kernel  dW = sum_s partial[s]        (fixed order; every dW route)
 //
-// The two FMA templates (f32 products) serve f32 inputs, and bf16 inputs
-// with 8 < Cin < 16 (the stems with use_normal's 10 channels); bf16
-// otherwise takes sparse_conv_stem.cuh (Cin <= 8) or sparse_conv_tc.cuh.
+// The two FMA templates (f32 products) serve f32 inputs; bf16 takes
+// sparse_conv_tc.cuh (Cin and Cout in {32, 64, 128}) or, at the stems,
+// sparse_conv_stem.cuh (any other Cin).
 //
 // Every source under csrc/ is compiled on its own into its own library, so
 // each includes this header and instantiates what it launches.
@@ -161,11 +161,12 @@ cudaError_t launch_gather_gemm(const void* feats, const void* nbr, const void* w
 //   GATHER_A (K3):  a_r = A[nbr[r, k]], b_r = B[r],          k' = k
 //   !GATHER_A (K2): a_r = A[r],         b_r = B[nbr[r, k]],  k' = K-1-k
 //
-// Grid (K, S): block (k, s) walks the rows of split s in tiles of DW_BR,
-// stages both operands in shared memory as f32 (zero rows for -1 and past
-// the end; a ragged cin is zero-padded to CIN_P) and keeps its [CIN_P, COUT]
-// product in registers: thread (ty, tx) owns channels ty + TY i and
-// tx + TX j.  No float atomics: each block writes its own partial, and
+// Grid (K, S, C): block (k, s, q) walks the rows of split s in tiles of
+// DW_BR, stages both operands in shared memory as f32 (zero rows for -1 and
+// past the end; channels CIN_P q .. CIN_P q + CIN_P - 1 of a, a ragged tail
+// zero-padded) and keeps its [CIN_P, COUT] product in registers: thread
+// (ty, tx) owns channels CIN_P q + ty + TY i and tx + TX j.  C = 1 unless
+// cin > 128 (a stem with multiview features: 135).  No float atomics: each block writes its own partial, and
 // sum_partials_kernel adds the S partials in a fixed order, so repeated
 // launches on the same inputs give bit-identical dW.
 // ---------------------------------------------------------------------------
@@ -189,6 +190,7 @@ dw_partial_kernel(const T* __restrict__ a, const T* __restrict__ b, const int* _
   const int tx = tid % TX;
   const int ty = tid / TX;
   const int k = blockIdx.x;
+  const int c_base = blockIdx.z * CIN_P;
   const long long r_begin = static_cast<long long>(blockIdx.y) * rows_per_split;
   const long long r_end = min(rows, r_begin + rows_per_split);
 
@@ -208,7 +210,7 @@ dw_partial_kernel(const T* __restrict__ a, const T* __restrict__ b, const int* _
       const int r = e / CIN_P;
       const int c = e % CIN_P;
       const long long src = GATHER_A ? idx_s[r] : (r0 + r < r_end ? r0 + r : -1);
-      a_s[r][c] = src >= 0 && c < cin ? to_f32(a[src * cin + c]) : 0.f;
+      a_s[r][c] = src >= 0 && c_base + c < cin ? to_f32(a[src * cin + c_base + c]) : 0.f;
     }
     for (int e = tid; e < DW_BR * COUT; e += THREADS) {
       const int r = e / COUT;
@@ -237,7 +239,7 @@ dw_partial_kernel(const T* __restrict__ a, const T* __restrict__ b, const int* _
   float* dst = partial + (static_cast<long long>(blockIdx.y) * k_offsets + k_out) * cin * COUT;
 #pragma unroll
   for (int i = 0; i < TM; ++i) {
-    const int c = ty + TY * i;
+    const int c = c_base + ty + TY * i;
     if (c >= cin) continue;
 #pragma unroll
     for (int j = 0; j < TN; ++j) dst[c * COUT + tx + TX * j] = acc[i][j];
@@ -288,7 +290,8 @@ cudaError_t launch_dw(const void* a, const void* b, const void* nbr, void* parti
                       long long rows, int k_offsets, int cin, int splits, cudaStream_t stream) {
   const long long tiles = (rows + DW_BR - 1) / DW_BR;
   const long long rows_per_split = (tiles + splits - 1) / splits * DW_BR;
-  const dim3 grid(static_cast<unsigned>(k_offsets), static_cast<unsigned>(splits));
+  const dim3 grid(static_cast<unsigned>(k_offsets), static_cast<unsigned>(splits),
+                  static_cast<unsigned>((cin + CIN_P - 1) / CIN_P));
   dw_partial_kernel<T, CIN_P, COUT, GATHER_A><<<grid, THREADS, 0, stream>>>(
       static_cast<const T*>(a), static_cast<const T*>(b), static_cast<const int*>(nbr),
       static_cast<float*>(partial), rows, k_offsets, cin, rows_per_split);
@@ -298,7 +301,8 @@ cudaError_t launch_dw(const void* a, const void* b, const void* nbr, void* parti
                              stream);
 }
 
-// CIN_P: the smallest of 8, 32, 64, 128 that holds cin.
+// CIN_P: the smallest of 8, 32, 64, 128 that holds cin; 128 with
+// ceil(cin / 128) channel tiles on the grid beyond that.
 template <typename T, bool GATHER_A>
 cudaError_t dispatch_dw(const void* a, const void* b, const void* nbr, void* partial, void* dw,
                         long long rows, int k_offsets, int cin, int cout, int splits,
@@ -315,10 +319,9 @@ cudaError_t dispatch_dw(const void* a, const void* b, const void* nbr, void* par
   if (cin <= 8) { IRSC_DW_COUT(8) }
   if (cin <= 32) { IRSC_DW_COUT(32) }
   if (cin <= 64) { IRSC_DW_COUT(64) }
-  if (cin <= 128) { IRSC_DW_COUT(128) }
+  IRSC_DW_COUT(128)
 #undef IRSC_DW_COUT
 #undef IRSC_DW
-  return cudaErrorInvalidValue;
 }
 
 }  // namespace irsc

@@ -23,8 +23,9 @@
 // source address is the (valid) base pointer.
 //
 // The FMA templates of sparse_conv.cuh stay for f32 inputs (no TF32 here:
-// the f32 parity runs need f32 products); the 7-channel stems have their
-// own tensor-core kernels in sparse_conv_stem.cuh, built from these parts.
+// the f32 parity runs need f32 products); the stems have their
+// own tensor-core kernels at any other Cin in sparse_conv_stem.cuh, built
+// from these parts.
 
 #pragma once
 

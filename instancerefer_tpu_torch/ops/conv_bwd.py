@@ -9,12 +9,13 @@
 Each runs its plain twin (``ops/sparse.subm_conv_bwd`` / ``conv_dw``) for
 tensors on the CPU; a CUDA tensor launches a kernel or raises, with no
 fallback.  Both take the route ``gather_conv.route`` gives: for bf16 the
-tensor-core kernels at Cin >= 16 and, for ``conv_dw``, the stem kernel at
-Cin <= 8 (K = 27); the FMA kernels for f32.  ``<wrapper>.launches`` counts
-kernel launches and nothing else.  Both outputs are f32.  dW is a split
-reduction: the wrapper picks the split count from the shapes alone, so a
-given shape always sums in the same order and repeated launches give
-bit-identical dW.
+tensor-core kernels at Cin in {32, 64, 128} and, for ``conv_dw``, the stem
+kernel at any other Cin (K = 27: the stems, 7, 10 or 135 channels); the
+FMA kernels for f32.  ``<wrapper>.launches`` counts kernel launches and
+nothing else (``conv_dw.stem_launches`` those of the stem kernel).  Both
+outputs are f32.  dW is a split reduction: the wrapper picks the split
+count from the shapes alone, so a given shape always sums in the same
+order and repeated launches give bit-identical dW.
 """
 
 from __future__ import annotations
@@ -28,7 +29,7 @@ import torch
 from instancerefer_tpu_torch.ops import sparse
 from instancerefer_tpu_torch.ops.gather_conv import (
     COUTS, DTYPES, check_launch, check_map, check_stem, check_tc, check_tensors, cuda_stream,
-    library, route,
+    library, route, stem_chunks,
 )
 
 DW_BLOCKS = 512  # about four blocks per SM of an H100
@@ -37,14 +38,24 @@ DW_BLOCKS = 512  # about four blocks per SM of an H100
 # where a split of fewer rows would write a larger partial ([K, Cin, Cout]
 # f32: 0.5 MB at a 128 -> 128 down) than the rows it reads.
 SPLIT_ROWS = {"fma": 32, "stem": 64, "tensor_core": 512}
+# K3's partial dW buffer, splits x [K, Cin, Cout] f32, holds at most this
+# many bytes (the 7-channel stems' ~500 splits take 12.4 MB): at Cin = 135 a
+# split's partial is 0.47 MB, and 500 of them (233 MB) would cost the sum of
+# the splits more than the dW.
+DW_PARTIAL_BYTES = 1 << 24
 
 
-def dw_splits(rows: int, blocks_per_split: int, path: str) -> int:
+def dw_splits(rows: int, blocks_per_split: int, path: str, split_bytes: int = 0) -> int:
     """Row splits of the dW reduction on route ``path``: about
-    ``DW_BLOCKS`` blocks in all, at least ``SPLIT_ROWS[path]`` rows a split.
-    A split spans K blocks on the (K, split) grids and Cout / 32 on the
-    stem kernel's."""
-    return max(1, min(-(-rows // SPLIT_ROWS[path]), -(-DW_BLOCKS // blocks_per_split)))
+    ``DW_BLOCKS`` blocks in all, at least ``SPLIT_ROWS[path]`` rows a split
+    and, where ``split_bytes`` (one split's partial) is given, at most
+    ``DW_PARTIAL_BYTES`` of partials.  A split spans K blocks on the (K,
+    split) grids, and Cout / 32 x the depth's chunks on the stem kernel's.
+    A function of the shapes alone, so a shape always sums in one order."""
+    splits = min(-(-rows // SPLIT_ROWS[path]), -(-DW_BLOCKS // blocks_per_split))
+    if split_bytes:
+        splits = min(splits, DW_PARTIAL_BYTES // split_bytes)
+    return max(1, splits)
 
 
 @functools.cache
@@ -73,16 +84,15 @@ def conv_dw(feats: torch.Tensor, nbr: torch.Tensor, g: torch.Tensor) -> torch.Te
     """dW[k] = sum_v feats[nbr[v, k]]^T g[v].
 
     Args:
-      feats: [V_in, Cin] f32 or bf16, Cin <= 128; on a card, bf16 with
-        Cin >= 16 needs Cin in {32, 64, 128}, and bf16 with Cin <= 8 needs
-        K = 27.
+      feats: [V_in, Cin] f32 or bf16, any Cin; on a card, bf16 with Cin
+        outside {32, 64, 128} (a stem) needs K = 27.
       nbr:   [V_out, K] int32 rows of ``feats`` (all < V_in), -1 = empty.
       g:     [V_out, Cout] in ``feats.dtype``; Cout in {32, 64, 128}.
     Returns [K, Cin, Cout] f32.
     """
     _check_pair("conv_dw", feats, g)
     check_map("conv_dw", nbr)
-    if nbr.shape[0] != g.shape[0] or feats.shape[1] > 128:
+    if nbr.shape[0] != g.shape[0]:
         raise ValueError(f"conv_dw: feats {tuple(feats.shape)}, nbr {tuple(nbr.shape)}, "
                          f"g {tuple(g.shape)} disagree")
     check_tensors("conv_dw", feats, nbr, g)
@@ -97,7 +107,8 @@ def conv_dw(feats: torch.Tensor, nbr: torch.Tensor, g: torch.Tensor) -> torch.Te
     dw = torch.empty(k, cin, cout, dtype=torch.float32, device=feats.device)
     if v_out == 0:
         return dw.zero_()
-    splits = dw_splits(v_out, cout // 32 if path == "stem" else k, path)
+    per_split = cout // 32 * stem_chunks(cin) if path == "stem" else k
+    splits = dw_splits(v_out, per_split, path, 4 * k * cin * cout)
     partial = torch.empty(splits, k, cin, cout, dtype=torch.float32, device=feats.device)
     args = [feats.data_ptr(), nbr.data_ptr(), g.data_ptr(), partial.data_ptr(), dw.data_ptr(),
             v_out, k, cin, cout, splits]
@@ -108,10 +119,11 @@ def conv_dw(feats: torch.Tensor, nbr: torch.Tensor, g: torch.Tensor) -> torch.Te
                            5, 4), []
     check_launch("conv_dw", fn(*args, *codes, cuda_stream(feats)))
     conv_dw.launches += 1
+    conv_dw.stem_launches += path == "stem"
     return dw
 
 
-conv_dw.launches = 0
+conv_dw.launches = conv_dw.stem_launches = 0
 
 
 def subm_conv_bwd(

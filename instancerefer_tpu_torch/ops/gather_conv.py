@@ -7,13 +7,16 @@ what bounds it on the card and what its design does about that.
 
 ``route`` picks the path of a call from the device, the input type and Cin
 alone: the plain twin (``ops/sparse.gather_conv``) for tensors on the CPU;
-on a card, for bf16, the stem kernel for Cin <= 8 (the 7-channel stems,
-K = 27) and the tensor-core kernel for Cin >= 16; the FMA kernel otherwise
-(f32).  A CUDA tensor launches a kernel or raises; there is no fallback.
-``gather_conv.launches`` counts kernel launches and nothing else.
+on a card, for bf16, the tensor-core kernel for Cin in {32, 64, 128} and
+the stem kernel for any other Cin (the stems, K = 27: 7 channels, 10 with
+``use_normal``, 135 with ``use_multiview``); the FMA kernel for f32.  A
+CUDA tensor launches a kernel or raises; there is no fallback.
+``gather_conv.launches`` counts kernel launches and nothing else, and
+``gather_conv.stem_launches`` those of the stem kernel among them.
 
 The stem kernels (K1 here, K3 in ``ops/conv_bwd.py``) take their depth from
-the im2col of a row: ``stem_im2col`` and ``stem_weight`` write, in
+the im2col of a row, 27 * Cin padded to a multiple of 16, in chunks of
+``STEM_CHUNK`` columns: ``stem_im2col`` and ``stem_weight`` write, in
 PyTorch, the layout they build in shared memory (the tests hold it against
 the plain twins).
 
@@ -50,29 +53,32 @@ NVCC_FLAGS = (
 )
 COUTS = (32, 64, 128)
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-TC_MIN_CIN = 16  # narrower inputs would waste most of an mma's k-depth of 16
 TC_WIDTHS = (32, 64, 128)  # Cin and Cout the tensor-core kernels are built for
 STEM_K = 27  # the stem kernels' map: the 3^3 submanifold conv
-STEM_MAX_CIN = 8  # Cin the stem kernels take (csrc/sparse_conv_stem.cuh)
+STEM_CHUNK = 192  # im2col columns a stem kernel's block stages at once (csrc/sparse_conv_stem.cuh)
 
 
 def route(dtype: torch.dtype, cin: int, device) -> str:
-    """``"twin"`` on the CPU; on a card, for bf16 inputs, ``"stem"`` with
-    ``cin <= STEM_MAX_CIN`` and ``"tensor_core"`` with ``cin >= TC_MIN_CIN``;
-    ``"fma"`` otherwise."""
+    """``"twin"`` on the CPU; on a card, for bf16 inputs,
+    ``"tensor_core"`` with ``cin`` in ``TC_WIDTHS`` and ``"stem"`` with
+    any other ``cin``; ``"fma"`` for f32."""
     if torch.device(device).type == "cpu":
         return "twin"
     if dtype != torch.bfloat16:
         return "fma"
-    if cin <= STEM_MAX_CIN:
-        return "stem"
-    return "tensor_core" if cin >= TC_MIN_CIN else "fma"
+    return "tensor_core" if cin in TC_WIDTHS else "stem"
 
 
 def stem_depth(cin: int) -> int:
     """The stem kernels' depth: ``STEM_K * cin`` rounded up to a k-step
-    of 16 (189 -> 192 at Cin = 7)."""
+    of 16 (189 -> 192 at Cin = 7, 3645 -> 3648 at 135)."""
     return -(-STEM_K * cin // 16) * 16
+
+
+def stem_chunks(cin: int) -> int:
+    """The ``STEM_CHUNK``-column chunks of that depth (1 at Cin = 7, 2 at
+    10, 19 at 135): K1's blocks walk them, K3's grid spans them."""
+    return -(-stem_depth(cin) // STEM_CHUNK)
 
 
 def stem_im2col(feats: torch.Tensor, nbr: torch.Tensor) -> torch.Tensor:
@@ -259,9 +265,8 @@ def gather_conv(
     """out[v] = relu?(sum_k feats[nbr[v, k]] @ weight[k] * scale + bias).
 
     Args:
-      feats:  [V_in, Cin] f32 or bf16, contiguous; on a card, bf16 with
-        Cin >= 16 needs Cin in {32, 64, 128}, and bf16 with Cin <= 8 needs
-        K = 27.
+      feats:  [V_in, Cin] f32 or bf16, contiguous, any Cin; on a card, bf16
+        with Cin outside {32, 64, 128} (a stem) needs K = 27.
       nbr:    [V_out, K] int32 rows of ``feats`` (all < V_in), -1 = empty.
       weight: [K, Cin, Cout] in ``feats.dtype``; Cout in {32, 64, 128}.
       scale/bias: optional [Cout] f32 epilogue (folded eval BatchNorm).
@@ -295,7 +300,8 @@ def gather_conv(
             [DTYPES[out_dtype]]
     check_launch("gather_conv", fn(*args, *codes, cuda_stream(feats)))
     gather_conv.launches += 1
+    gather_conv.stem_launches += path == "stem"
     return out
 
 
-gather_conv.launches = 0
+gather_conv.launches = gather_conv.stem_launches = 0

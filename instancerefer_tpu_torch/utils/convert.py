@@ -25,6 +25,13 @@ JAX gradients (and Adam's moments) have the tree of the params, so
 ``state_dict_from_jax(grads, batch_stats)`` names them as the port's
 parameters, with the same layout changes and kernel permutation; the tests
 hold the port's gradients and trajectories against JAX's that way.
+
+ENet (``models/enet.py``) keeps the reference's module tree, so its
+published weights (``scannetv2_enet.pth``) need no conversion:
+``load_enet`` is a strict ``load_state_dict``.  ``enet_state_dict_from_jax``
+turns the JAX ``Enet``'s variables (the tree that
+``scripts/convert_enet.convert_state_dict`` writes) back into that state
+dict.
 """
 
 from __future__ import annotations
@@ -34,6 +41,7 @@ from typing import Dict, Mapping
 import numpy as np
 import torch
 
+from instancerefer_tpu_torch.models.enet import BOTTLENECK_PLAN, FIRST_BOTTLENECK_INDEX, Enet
 from instancerefer_tpu_torch.ops.voxelize import KERNEL_OFFSETS_2, KERNEL_OFFSETS_3
 
 
@@ -246,3 +254,65 @@ def load_reference_state_dict(model: torch.nn.Module, sd: Mapping):
 def state_dict_from_jax(params, batch_stats) -> Dict[str, torch.Tensor]:
     """flax ``(params, batch_stats)`` as numpy trees -> port state_dict."""
     return from_reference(export_state_dict(params, batch_stats))
+
+
+def enet_state_dict_from_jax(variables: Mapping) -> Dict[str, torch.Tensor]:
+    """The JAX ``Enet``'s ``{"params", "batch_stats"}`` (numpy trees) ->
+    the reference's ENet state_dict, which ``models/enet.Enet`` loads
+    strictly: the inverse of ``scripts/convert_enet.convert_state_dict``
+    (conv HWIO -> OIHW; BatchNorm scale/bias and mean/var -> weight/bias
+    and running statistics; PReLU alpha -> weight)."""
+    enc = variables["params"]["encoder"]
+    stats = variables["batch_stats"]["encoder"]
+    sd: Dict[str, torch.Tensor] = {}
+
+    def put(key, value):
+        sd[key] = torch.from_numpy(np.ascontiguousarray(np.asarray(value, np.float32)))
+
+    def conv(key, p):
+        put(f"{key}.weight", np.asarray(p["kernel"]).transpose(3, 2, 0, 1))
+        if "bias" in p:
+            put(f"{key}.bias", p["bias"])
+
+    def bn(key, p, s):
+        for name, value in (("weight", p["scale"]), ("bias", p["bias"]),
+                            ("running_mean", s["mean"]), ("running_var", s["var"])):
+            put(f"{key}.{name}", value)
+        sd[f"{key}.num_batches_tracked"] = torch.tensor(0)
+
+    def prelu(key, p):
+        put(f"{key}.weight", p["alpha"])
+
+    conv("0.0", enc["initial"]["conv"])
+    bn("2", enc["initial"]["bn"], stats["initial"]["bn"])
+    prelu("3", enc["initial"]["prelu"])
+    for j, (name, kw) in enumerate(BOTTLENECK_PLAN):
+        idx = FIRST_BOTTLENECK_INDEX + j
+        ext, p, s = f"{idx}.0.0", enc[name], stats[name]
+        conv(f"{ext}.0", p["conv_reduce"])
+        bn(f"{ext}.1", p["bn_reduce"], s["bn_reduce"])
+        prelu(f"{ext}.2", p["prelu_reduce"])
+        if kw.get("asymmetric"):
+            conv(f"{ext}.3", p["conv_mid_a"])
+            conv(f"{ext}.4", p["conv_mid_b"])
+            mid = 5
+        else:
+            conv(f"{ext}.3", p["conv_mid"])
+            mid = 4
+        bn(f"{ext}.{mid}", p["bn_mid"], s["bn_mid"])
+        prelu(f"{ext}.{mid + 1}", p["prelu_mid"])
+        conv(f"{ext}.{mid + 2}", p["conv_expand"])
+        bn(f"{ext}.{mid + 3}", p["bn_expand"], s["bn_expand"])
+        prelu(f"{idx}.2", p["prelu_out"])
+    conv(f"{FIRST_BOTTLENECK_INDEX + len(BOTTLENECK_PLAN)}.0",
+         variables["params"]["classifier"]["conv"])
+    return sd
+
+
+def load_enet(path: str) -> Enet:
+    """An ``Enet`` with the weights of the reference state_dict at ``path``
+    (``scannetv2_enet.pth``), loaded strictly; eval mode, on the CPU."""
+    sd = torch.load(path, map_location="cpu", weights_only=True)
+    model = Enet()
+    model.load_state_dict(sd.state_dict() if hasattr(sd, "state_dict") else sd)
+    return model.eval()

@@ -1,6 +1,7 @@
 """The port runs where there is no jax, flax, yaml, orbax or optax and no
-JAX package (an eval forward, one train step, and the train and eval CLIs),
-and ``chip_smoke.py`` refuses to run without a GPU.
+JAX package (an eval forward, one train step, the train and eval CLIs and
+the three multiview scripts), and ``chip_smoke.py`` refuses to run without
+a GPU.
 
 The GPU machine has PyTorch but none of jax, flax, yaml, orbax or optax, so
 the port — host pipeline included — must not import them, even indirectly;
@@ -20,6 +21,7 @@ import pytest
 import torch
 
 from fake_scanrefer import make_fake_root
+from test_torch_multiview_scripts import SCENES, write_fake_frames
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PACKAGE = os.path.join(ROOT, "instancerefer_tpu_torch")
@@ -149,7 +151,18 @@ def cli(tmp_path_factory):
     def runs(log_dir):
         return sorted(glob.glob(str(root / "outputs" / "ScanRefer" / log_dir / "checkpoints" / "*")))
 
-    return dict(run=run, runs=runs, root=root)
+    frames = write_fake_frames(str(tmp / "frames"))
+
+    def script(name, *args, device="cpu"):
+        """``python -m instancerefer_tpu_torch.scripts.<name> ...`` of a
+        multiview script over the fake frames root."""
+        argv = [sys.executable, "-m", f"instancerefer_tpu_torch.scripts.{name}", *args]
+        if device:
+            argv += ["--device", device]
+        return subprocess.run(argv, cwd=str(tmp), env=env, capture_output=True, text=True,
+                              timeout=300)
+
+    return dict(run=run, runs=runs, root=root, script=script, frames=frames)
 
 
 def _ok(res):
@@ -206,7 +219,36 @@ def test_clis_run_without_jax(cli):
     assert "pass 1 done: predicted classes for 6 samples" in out
 
 
-@pytest.mark.parametrize("name", ["train", "eval"])
+MULTIVIEW = ("compute_multiview_features", "project_multiview_features",
+             "project_multiview_labels")
+
+
+def test_multiview_scripts_run_without_jax(cli):
+    """ENet features of every frame, their projection into one HDF5 database
+    and the label PLYs, with random ENet weights."""
+    import h5py
+
+    frames, script = cli["frames"], cli["script"]
+    _ok(script("compute_multiview_features", "--frames", f"{frames}/frames",
+               "--out", f"{frames}/feats", "--batch", "3"))
+    for scene in SCENES:
+        assert len(os.listdir(f"{frames}/feats/{scene}")) == 4
+    common = ["--maxpool", "--scannet_data", f"{frames}/scannet_data", "--frames",
+              f"{frames}/frames"]
+    _ok(script("project_multiview_features", *common, "--features", f"{frames}/feats",
+               "--out", f"{frames}/mv.hdf5"))
+    with h5py.File(f"{frames}/mv.hdf5", "r") as db:
+        assert sorted(db) == list(SCENES)
+        assert all(db[s].shape == (3000, 128) and np.isfinite(db[s][:]).all() for s in SCENES)
+    _ok(script("project_multiview_labels", *common, "--out", f"{frames}/plys"))
+    assert sorted(os.listdir(f"{frames}/plys")) == [f"{s}.ply" for s in SCENES]
+
+
+@pytest.mark.parametrize("name", ["train", "eval", *MULTIVIEW])
 def test_clis_need_a_card_unless_told_cpu(cli, name):
-    res = cli["run"](name, log_dir="nocard", device=None)
+    if name in MULTIVIEW:
+        res = cli["script"](name, "--frames", f"{cli['frames']}/frames", "--out",
+                            f"{cli['frames']}/nocard", device=None)
+    else:
+        res = cli["run"](name, log_dir="nocard", device=None)
     assert res.returncode != 0 and "--device cpu" in res.stderr
