@@ -88,6 +88,28 @@ Phases, in order; any failure exits nonzero without the final ``ok`` line:
      the stem kernels, the batch-build ms, then the B = 2 f32 train parity
      of phase 6 at Cin 135; one ``use_normal`` (Cin 10) train step.
 
+10. Data parallelism on the one card, and the overfit check, with its own
+    wall time (``[phase 10]``):
+    - 10a: two ranks, one process each, on ``cuda:0`` over gloo (NCCL
+      refuses two ranks on one card), meeting through a ``file://`` store;
+      each loads its half of 32 of the bench's scenes with its
+      ``PaddedLoader`` shard (``host_shard_indices``) and trains the
+      ``Solver``'s DDP model.  One f32 step (TF32 off, dropout 0) against
+      one process's step on the 32 scenes in the ranks' order: the loss,
+      the gradients and the running statistics to phase 6's limits.  Then
+      3 bf16 steps: 34 / 16 / 10 launches of K1 / K2 / K3 a step on each
+      rank, the parameters bit-identical across the ranks after the last;
+      ``[ddp]`` lines give each rank's step ms and, from one profiled step,
+      the collectives by profiler event with their host and device time.
+    - 10b: the train CLI's ``main(argv)`` at world size 1 over NCCL
+      (``RANK=0 WORLD_SIZE=1``, ``env://`` on localhost) for one epoch on a
+      fake root like phase 8's with 4 train and 2 val batches: phase 8's
+      launches a step, no DDP wrapper, one run directory, finite losses;
+      then one NCCL all-reduce over that group returns its input, and
+      phase 7's train steps run in the group (their launches and time).
+    - 10c: ``scripts/sanity_train`` (60 bf16 steps at B = 16 on the
+      largest-instance rule) must pass; its early and late ``ref_acc``.
+
 Then one line ``{"kernels": [...]}`` (launch counts of phase 7; ms,
 plain_ms, bound_ms and im2col_ms of K1 from phase 2, of K2 and K3 from
 phase 5, bf16 summed over the shapes; then K1 and K3 at the stems at
@@ -581,9 +603,32 @@ def phase_train_parity(spec, dev, batch=None):
     torch.cuda.synchronize()
     torch.backends.cudnn.deterministic = False
     (c_loss, c_grads, c_stats, c_params), (g_loss, g_grads, g_stats, g_params) = runs["cpu"], runs["gpu"]
-    log(f"[train-parity] loss cpu={c_loss:.6f} gpu={g_loss:.6f} (rtol {LOSS_RTOL:g})")
+    check_step("train-parity", ("cpu", "gpu"), (c_loss, c_grads, c_stats), (g_loss, g_grads, g_stats))
+    total, tight, count = 0.0, 0, 0
+    for n in c_params:
+        diff = (g_params[n] - c_params[n]).abs()
+        if not bool((diff <= 2.5 * 2 * LR + 1e-3 * c_params[n].abs()).all()):
+            raise AssertionError(f"{n} after 2 Adam steps: max |diff| {diff.max().item():.3e}")
+        total += diff.sum().item()
+        tight += int((diff <= 0.1 * LR).sum())
+        count += diff.numel()
+    log(f"[train-parity] parameters after 2 Adam steps: mean |diff| {total / count / LR:.4f} lr "
+        f"(limit {ADAM_MEAN:g}), {tight / count:.4f} of {count} elements within 0.1 lr, "
+        f"all within 2.5 x the summed lr + 1e-3 |p|")
+    if not total <= ADAM_MEAN * LR * count:
+        raise AssertionError("card and CPU parameters drift apart over 2 Adam steps")
+
+
+def check_step(label, names, ref, got):
+    """One train step's (loss, gradients, running statistics) against the
+    reference step's: the loss to LOSS_RTOL, the gradients in L2 per layer
+    and overall (GRAD_LAYER, GRAD_ALL), the statistics to STATS_RTOL.
+    ``names``: (the reference's, the other's)."""
+    (c_loss, c_grads, c_stats), (g_loss, g_grads, g_stats) = ref, got
+    sides = f"{names[1]} and {names[0]}"
+    log(f"[{label}] loss {names[0]}={c_loss:.6f} {names[1]}={g_loss:.6f} (rtol {LOSS_RTOL:g})")
     if not abs(g_loss - c_loss) <= LOSS_RTOL * abs(c_loss):
-        raise AssertionError("card and CPU disagree on the train loss")
+        raise AssertionError(f"{sides} disagree on the train loss")
     layer_norm = {}
     for n, g in c_grads.items():
         layer = n.rsplit(".", 1)[0]
@@ -598,32 +643,19 @@ def phase_train_parity(spec, dev, batch=None):
         worst_abs = max(worst_abs, ((g_grads[n] - c).abs().max().item(), n))
         num, den = num + d * d, den + c.norm().item() ** 2
         if not rel <= GRAD_LAYER:
-            raise AssertionError(f"card and CPU disagree on the gradient of {n}: "
+            raise AssertionError(f"{sides} disagree on the gradient of {n}: "
                                  f"L2 error {rel:.3e} of its layer's gradient norm")
     overall = (num / den) ** 0.5
-    log(f"[train-parity] {len(c_grads)} parameter gradients: L2 error overall {overall:.3e} "
+    log(f"[{label}] {len(c_grads)} parameter gradients: L2 error overall {overall:.3e} "
         f"(limit {GRAD_ALL:g}), largest per layer {worst_rel[0]:.3e} at {worst_rel[1]} "
         f"(limit {GRAD_LAYER:g}); largest |err| {worst_abs[0]:.3e} at {worst_abs[1]}")
     if not overall <= GRAD_ALL:
-        raise AssertionError("card and CPU gradients disagree overall")
+        raise AssertionError(f"{sides} gradients disagree overall")
     for n in c_stats:
         err = (g_stats[n] - c_stats[n]).abs()
         if not bool((err <= STATS_RTOL * c_stats[n].abs() + 1e-5).all()):
-            raise AssertionError(f"card and CPU disagree on {n} (max |err| {err.max().item():.3e})")
-    log(f"[train-parity] {len(c_stats)} running statistics agree (rtol {STATS_RTOL:g}, atol 1e-5)")
-    total, tight, count = 0.0, 0, 0
-    for n in c_params:
-        diff = (g_params[n] - c_params[n]).abs()
-        if not bool((diff <= 2.5 * 2 * LR + 1e-3 * c_params[n].abs()).all()):
-            raise AssertionError(f"{n} after 2 Adam steps: max |diff| {diff.max().item():.3e}")
-        total += diff.sum().item()
-        tight += int((diff <= 0.1 * LR).sum())
-        count += diff.numel()
-    log(f"[train-parity] parameters after 2 Adam steps: mean |diff| {total / count / LR:.4f} lr "
-        f"(limit {ADAM_MEAN:g}), {tight / count:.4f} of {count} elements within 0.1 lr, "
-        f"all within 2.5 x the summed lr + 1e-3 |p|")
-    if not total <= ADAM_MEAN * LR * count:
-        raise AssertionError("card and CPU parameters drift apart over 2 Adam steps")
+            raise AssertionError(f"{sides} disagree on {n} (max |err| {err.max().item():.3e})")
+    log(f"[{label}] {len(c_stats)} running statistics agree (rtol {STATS_RTOL:g}, atol 1e-5)")
 
 
 def phase_train(spec, dev, dds, label="train", repeats=5, profile=True):
@@ -714,10 +746,11 @@ WORDS = ("the", "a", "is", "it", "this", "that", "of", "to", "in", "on", "with",
          "brown", "white", "black", "small", "large", "wooden", "square", "round", "facing")
 
 
-def write_fake_scanrefer(root: str, rng: np.random.Generator) -> None:
+def write_fake_scanrefer(root: str, rng: np.random.Generator, batches=None) -> None:
     """The layout of ``tests/fake_scanrefer.py`` without its multiview file:
     per-scene PointGroup npys, the label tsv of the 18 classes, a GloVe
-    pickle and ``ScanRefer_filtered_{split}.json``.  A scene is drawn as
+    pickle and ``ScanRefer_filtered_{split}.json`` of ``batches`` ({split:
+    batches of BATCH}, default ``CLI_BATCHES``) descriptions.  A scene is drawn as
     ``data/synthetic.py`` draws one: a 4 x 4 x 0.1 m floor of unlabelled
     points and 12 boxes of 256 points, 40 000 points in all; of its 12
     instances three pairs share a class and six are alone in theirs."""
@@ -764,7 +797,7 @@ def write_fake_scanrefer(root: str, rng: np.random.Generator) -> None:
         pickle.dump({w: rng.normal(size=300).astype(np.float32) for w in sorted(vocab)}, f)
     for split, scenes in CLI_SCENES.items():
         anns, seen = [], {}
-        for _ in range(CLI_BATCHES[split] * BATCH):
+        for _ in range((batches or CLI_BATCHES)[split] * BATCH):
             si = int(rng.choice(scenes))
             obj = int(rng.integers(n_inst))
             name = objects[si][obj]
@@ -1213,6 +1246,315 @@ def phase_multiview(dev, fused):
     return out
 
 
+# ---------------------------------------------------------------- phase 10
+DDP_WORLD = 2  # ranks of phase 10a, one process each, sharing the card over gloo
+DDP_BF16_STEPS = 3
+DDP_TIMEOUT = 300  # seconds the ranks of phase 10a may take
+# phase 10b: one epoch of the train CLI on a fake root like phase 8's
+DDP_CLI_BATCHES = {"train": 4, "val": 2}
+# the profiler's names of a collective: the dispatcher's op and the
+# backend's own event
+COLLECTIVE = re.compile(r"^(c10d::|gloo:|nccl:)")
+
+
+def ddp_cores():
+    """The 32 scenes of phase 10a's global batch (the bench's scenes)."""
+    from instancerefer_tpu_torch.data.synthetic import make_core_sample
+
+    rng = np.random.default_rng(10)
+    return [make_core_sample(rng, scan_idx=i, mean_size_arr=MEAN_SIZE, **SCENE_KW)
+            for i in range(BATCH)]
+
+
+class Scenes:
+    """A dataset of ready ``CoreSample``s for ``PaddedLoader``."""
+
+    static_scene_sampling = augment = False
+
+    def __init__(self, samples):
+        self.samples = samples
+
+    def __len__(self):
+        return len(self.samples)
+
+    def get_core(self, idx, rng=None, class_override=None):
+        return self.samples[idx]
+
+
+def _step_state(metrics, model):
+    """(loss, gradients, running statistics) of a step, on the CPU."""
+    return (float(metrics["loss"]),
+            {n: p.grad.detach().cpu() for n, p in model.named_parameters()},
+            {n: b.detach().cpu().clone() for n, b in model.named_buffers() if "running" in n})
+
+
+def ddp_rank(rank: int, workdir: str) -> None:
+    """Rank ``rank`` of phase 10a, in a process of its own.  Both ranks run
+    on card 0 (``LOCAL_RANK`` 0), so they meet over gloo, through a
+    ``file://`` store in ``workdir``; each loads its half of the 32 scenes
+    (``host_shard_indices`` in its ``PaddedLoader``) and writes its results
+    to ``workdir/rank<rank>.pt``."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from instancerefer_tpu_torch.data.dataset import PaddedLoader
+    from instancerefer_tpu_torch.data.host import batch_to_torch
+    from instancerefer_tpu_torch.data.pipeline import BatchSpec
+    from instancerefer_tpu_torch.models.instancerefer import InstanceRefer
+    from instancerefer_tpu_torch.ops import conv_bwd
+    from instancerefer_tpu_torch.ops.gather_conv import gather_conv
+    from instancerefer_tpu_torch.ops.precision import set_compute_dtype
+    from instancerefer_tpu_torch.parallel import distributed
+    from instancerefer_tpu_torch.train.solver import Solver, train_step
+
+    os.environ.update(RANK=str(rank), WORLD_SIZE=str(DDP_WORLD), LOCAL_RANK="0")
+    dev = distributed.init_from_env("cuda", backend="gloo",
+                                    init_method="file://" + os.path.join(workdir, "store"))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.manual_seed(rank)  # the rank's dropout masks
+    spec = BatchSpec(**SPEC_KW)
+    out = {}
+    try:
+        loader = PaddedLoader(Scenes(ddp_cores()), spec, BATCH // DDP_WORLD, shuffle=False,
+                              num_workers=4, process_index=rank, process_count=DDP_WORLD)
+        dd = batch_to_torch(next(iter(loader)), spec, dev)
+        out["valid"] = int(dd["sample_valid"].sum())
+
+        def solver_for(seed, **kw):
+            model = InstanceRefer(spec.feat_dim, spec.num_classes, spec.max_candidates,
+                                  generator=torch.Generator().manual_seed(seed), **kw)
+            return Solver(model, MEAN_SIZE, spec, dev, lr=LR, wd=WD,
+                          output_dir=os.path.join(workdir, "runs"))
+
+        set_compute_dtype(None)  # one f32 step, as the single-process one
+        torch.backends.cudnn.deterministic = True
+        solver = solver_for(4, dropout_override=0.0)
+        metrics, _ = train_step(solver.train_model, solver.optimizer, dd, solver.mean_size)
+        out["wrapped"] = solver.train_model is not solver.model
+        out["f32"] = _step_state(metrics, solver.model)
+        torch.backends.cudnn.deterministic = False
+
+        set_compute_dtype("bfloat16")  # the main path's steps
+        solver = solver_for(5)
+        counters = {"gather_conv": gather_conv, "subm_conv_bwd": conv_bwd.subm_conv_bwd,
+                    "conv_dw": conv_bwd.conv_dw}
+
+        def step():
+            return train_step(solver.train_model, solver.optimizer, dd, solver.mean_size)
+
+        step()  # warm-up
+        for f in counters.values():
+            f.launches = 0
+        ms, losses = [], []
+        for _ in range(DDP_BF16_STEPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            metrics, res = step()
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+            losses.append(float(metrics["loss"]))
+            iou = res["ref_iou"]
+            if not bool(((iou >= 0) & (iou <= 1)).all()):
+                raise AssertionError(f"rank {rank}: ref_iou outside [0, 1]")
+        out["launches"] = {k: f.launches for k, f in counters.items()}
+        out["bf16"] = {"ms": ms, "loss": losses,
+                       "finite": all(bool(torch.isfinite(p.grad).all())
+                                     for p in solver.model.parameters()),
+                       "params": {n: p.detach().cpu() for n, p in solver.model.named_parameters()}}
+        # one more step, under the profiler on rank 0: the collectives
+        if rank == 0:
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                step()
+                torch.cuda.synchronize()
+            out["collectives"] = {
+                ev.key: (ev.count, ev.cpu_time_total / 1e3, ev.device_time_total / 1e3)
+                for ev in prof.key_averages() if COLLECTIVE.search(ev.key)}
+        else:
+            step()
+    finally:
+        set_compute_dtype(None)
+        distributed.shutdown()
+    torch.save(out, os.path.join(workdir, f"rank{rank}.pt"))
+
+
+def phase_ddp(dev):
+    """10a: two gloo ranks on the card against one process on the 32 scenes
+    in the ranks' order (rank 0's half, then rank 1's)."""
+    import multiprocessing
+
+    from instancerefer_tpu_torch.data.host import batch_to_torch
+    from instancerefer_tpu_torch.data.pipeline import BatchSpec, finalize_batch, pad_sample
+    from instancerefer_tpu_torch.models.instancerefer import InstanceRefer
+    from instancerefer_tpu_torch.ops.precision import set_compute_dtype
+    from instancerefer_tpu_torch.parallel.distributed import host_shard_indices
+    from instancerefer_tpu_torch.train.solver import make_optimizer, train_step
+
+    spec = BatchSpec(**SPEC_KW)
+    workdir = tempfile.mkdtemp(prefix="ddp_smoke_")
+    ctx = multiprocessing.get_context("spawn")
+    procs = [ctx.Process(target=ddp_rank, args=(r, workdir)) for r in range(DDP_WORLD)]
+    try:
+        t0 = time.perf_counter()
+        for p in procs:
+            p.start()
+        cores = ddp_cores()
+        order = np.concatenate([host_shard_indices(BATCH, r, DDP_WORLD) for r in range(DDP_WORLD)])
+        batch = finalize_batch([pad_sample(cores[i], spec) for i in order], BATCH, spec)
+        set_compute_dtype(None)
+        torch.backends.cudnn.deterministic = True
+        model = InstanceRefer(spec.feat_dim, spec.num_classes, spec.max_candidates,
+                              generator=torch.Generator().manual_seed(4),
+                              dropout_override=0.0).to(dev)
+        metrics, _ = train_step(model, make_optimizer(model.parameters(), LR, WD),
+                                batch_to_torch(batch, spec, dev),
+                                torch.tensor(MEAN_SIZE, dtype=torch.float32, device=dev))
+        single = _step_state(metrics, model)
+        torch.backends.cudnn.deterministic = False
+        del model, metrics
+        for p in procs:
+            p.join(max(DDP_TIMEOUT - (time.perf_counter() - t0), 1.0))
+        if any(p.exitcode != 0 for p in procs):
+            raise AssertionError(f"phase 10a: the ranks ended with {[p.exitcode for p in procs]}")
+        ranks = [torch.load(os.path.join(workdir, f"rank{r}.pt"), weights_only=False)
+                 for r in range(DDP_WORLD)]
+        wall = time.perf_counter() - t0
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join()
+        shutil.rmtree(workdir, ignore_errors=True)
+
+    if not all(r["wrapped"] for r in ranks) or [r["valid"] for r in ranks] != [BATCH // DDP_WORLD] * DDP_WORLD:
+        raise AssertionError("the ranks did not run DDP on half the batch each")
+    log(f"[ddp] {DDP_WORLD} ranks on cuda:0 over gloo, {BATCH // DDP_WORLD} scenes each; one f32 "
+        f"step (TF32 off, dropout 0) against one process on the {BATCH} scenes in the ranks' "
+        "order:")
+    check_step("ddp", ("one-process", "rank0"), single, ranks[0]["f32"])
+    for k, per_step in TRAIN_LAUNCHES.items():
+        for r, res in enumerate(ranks):
+            if res["launches"][k] != per_step * DDP_BF16_STEPS:
+                raise AssertionError(f"rank {r}: {k} {res['launches'][k]} launches in "
+                                     f"{DDP_BF16_STEPS} steps, want {per_step} a step")
+    same = all(torch.equal(p, ranks[1]["bf16"]["params"][n])
+               for n, p in ranks[0]["bf16"]["params"].items())
+    if not same or not all(r["bf16"]["finite"] and np.isfinite(r["bf16"]["loss"]).all()
+                           for r in ranks):
+        raise AssertionError("the ranks' parameters differ after the bf16 steps, or a loss or "
+                             "gradient is not finite")
+    log(f"[ddp] bf16: {DDP_BF16_STEPS} steps a rank, launches per step and rank " + ", ".join(
+        f"{k} {ranks[0]['launches'][k] // DDP_BF16_STEPS}" for k in TRAIN_LAUNCHES)
+        + f"; parameters bit-identical across the ranks after the last step: {same}; rank 0 "
+        "losses " + ", ".join(f"{x:.4f}" for x in ranks[0]["bf16"]["loss"]))
+    for r, res in enumerate(ranks):
+        log(f"[ddp] rank {r} step ms: " + ", ".join(f"{t:.2f}" for t in res["bf16"]["ms"])
+            + f" (host clock, synchronized; median {statistics.median(res['bf16']['ms']):.2f})")
+    log("[ddp] one profiled bf16 step of rank 0, the collectives (the BatchNorms' statistics "
+        "forward and backward, the loss and metric sums, DDP's gradient buckets) by profiler "
+        "event: " + "; ".join(f"{key} x{n}: host {host:.2f} ms, device {device:.2f} ms"
+                              for key, (n, host, device) in sorted(ranks[0]["collectives"].items()))
+        + f"; phase 10a {wall:.1f} s wall")
+
+
+def phase_ddp_cli(dev, dds):
+    """10b: the train CLI at world size 1 over NCCL (``RANK=0 WORLD_SIZE=1``),
+    then, in that group, one NCCL all-reduce and phase 7's train steps on
+    ``dds`` (their launches and time beside phase 7's)."""
+    import socket
+    import warnings
+
+    import torch.distributed as dist
+
+    from instancerefer_tpu_torch.data.pipeline import BatchSpec
+    from instancerefer_tpu_torch.ops import conv_bwd
+    from instancerefer_tpu_torch.ops.gather_conv import gather_conv
+    from instancerefer_tpu_torch.ops.precision import set_compute_dtype
+    from instancerefer_tpu_torch.parallel import distributed
+    from instancerefer_tpu_torch.scripts import train as train_cli
+
+    counters = {"gather_conv": gather_conv, "subm_conv_bwd": conv_bwd.subm_conv_bwd,
+                "conv_dw": conv_bwd.conv_dw}
+    root = tempfile.mkdtemp(prefix="ddp_cli_smoke_")
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    env = {"RANK": "0", "WORLD_SIZE": "1", "LOCAL_RANK": "0", "MASTER_ADDR": "localhost",
+           "MASTER_PORT": str(port)}
+    os.environ.update(env)
+    try:
+        t0 = time.perf_counter()
+        write_fake_scanrefer(root, np.random.default_rng(3), DDP_CLI_BATCHES)
+        with open(os.path.join(root, "main.yaml"), "w") as f:
+            f.write(cli_config_text().replace("epoch: 2", "epoch: 1"))
+        for f in counters.values():
+            f.launches = 0
+        out = io.StringIO()
+        try:
+            with warnings.catch_warnings(), contextlib.redirect_stdout(out):
+                warnings.simplefilter("ignore")
+                solver = train_cli.main([
+                    "--config", os.path.join(root, "main.yaml"), "--log_dir", "ddp",
+                    "--data_root", root, "--output_root", os.path.join(root, "outputs"),
+                    "--device", "cuda"])
+        except BaseException:
+            log(out.getvalue()[-4000:])
+            raise
+        torch.cuda.synchronize()
+        backend = dist.get_backend()
+        n_train, n_val = solver.steps["train"], solver.steps["val"]
+        got = {k: f.launches for k, f in counters.items()}
+        want = {k: TRAIN_LAUNCHES[k] * n_train + EVAL_LAUNCHES[k] * n_val for k in counters}
+        runs = os.listdir(os.path.join(root, "outputs", "ScanRefer", "ddp", "checkpoints"))
+        run = os.path.join(root, "outputs", "ScanRefer", "ddp", "checkpoints", runs[0])
+        finite = all(np.isfinite(r[k]) for r in _records(run) for k in ("loss", "ref_loss"))
+        with open(os.path.join(run, "info.json")) as f:
+            devices = json.load(f)["num_devices"]
+        if (backend != "nccl" or distributed.world_size() != 1
+                or solver.train_model is not solver.model or got != want
+                or n_train != DDP_CLI_BATCHES["train"] or len(runs) != 1 or devices != 1
+                or not finite):
+            raise AssertionError(f"world-1 train CLI: backend {backend}, launches {got} (want "
+                                 f"{want}), runs {runs}, num_devices {devices}, finite {finite}")
+        for name in ("model_last.pth", "model.pth", "checkpoint.tar", "log.txt", "best.txt"):
+            if not os.path.isfile(os.path.join(run, name)):
+                raise AssertionError(f"the world-1 train CLI wrote no {name}")
+        x = torch.arange(4.0, device=dev) + 1.0
+        y = x.clone()
+        dist.all_reduce(y)  # the one NCCL collective a single card can run
+        torch.cuda.synchronize()
+        if not torch.equal(x, y) or not torch.equal(distributed.all_reduce_sum(x), x):
+            raise AssertionError("an all-reduce over one NCCL rank changed its input")
+        log(f"[ddp] train CLI at world size 1 over {backend}: {n_train} train and {n_val} val "
+            f"steps in {time.perf_counter() - t0:.1f} s, launches "
+            + ", ".join(f"{k} {got[k]}" for k in counters)
+            + f" (per train step {', '.join(f'{k} {v}' for k, v in TRAIN_LAUNCHES.items())}); "
+            "no DDP wrapper, one run directory; all_reduce over the NCCL group returned its input")
+        phase_train(BatchSpec(**SPEC_KW), dev, dds, label="train in a world-1 NCCL group",
+                    profile=False)
+    finally:
+        distributed.shutdown()
+        for k in env:
+            os.environ.pop(k, None)
+        shutil.rmtree(root, ignore_errors=True)
+        set_compute_dtype(None)
+
+
+def phase_sanity(dev):
+    """10c: the overfit check on the card."""
+    from instancerefer_tpu_torch.scripts import sanity_train
+
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        res = sanity_train.run(60, 16, dev)
+    log(f"[sanity] 60 bf16 steps at B=16 (largest-instance rule, chance ~0.33): ref_acc early "
+        f"{res['early']:.3f} -> late {res['late']:.3f}, loss {res['loss'][0]:.3f} -> "
+        f"{res['loss'][-1]:.3f}; {time.perf_counter() - t0:.1f} s")
+    if not res["passed"]:
+        log(out.getvalue()[-3000:])
+        raise AssertionError("the overfit check failed on the card")
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device; this script runs only on a GPU")
@@ -1272,6 +1614,12 @@ def main() -> None:
     mv = phase_multiview(dev, fused)
     log(f"[phase 9] stem widths, ENet, projection and the multiview input path: "
         f"{time.perf_counter() - t9:.1f} s wall")
+    t10 = time.perf_counter()
+    phase_ddp(dev)
+    phase_ddp_cli(dev, [batch_to_torch(b, spec, dev) for b in batches])
+    phase_sanity(dev)
+    log(f"[phase 10] data parallelism on the card (2 gloo ranks; the train CLI at world "
+        f"size 1 over NCCL) and the overfit check: {time.perf_counter() - t10:.1f} s wall")
 
     k1.worst = max(k1.worst, bwd["gather_conv"].worst)
     entries = (

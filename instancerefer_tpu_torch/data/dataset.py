@@ -1,7 +1,7 @@
 """ScanRefer dataset: per-annotation CoreSample assembly from ScanNet artifacts.
 
-The port's copy of ``instancerefer_tpu/data/dataset.py`` (one process; a
-multi-process ``PaddedLoader`` waits for data parallelism), itself a port of
+The port's copy of ``instancerefer_tpu/data/dataset.py`` (each rank of a
+data-parallel run loads its own shard), itself a port of
 reference ``lib/dataset.py`` (``ScannetReferenceDataset``) with the
 augmentation/instance-grouping semantics preserved, emitting ``CoreSample``s
 that the padded pipeline (``pipeline.pad_sample``/``collate``) turns into
@@ -45,6 +45,7 @@ from instancerefer_tpu_torch.data.pipeline import (
     random_sampling,
 )
 from instancerefer_tpu_torch.data.scannet_config import ScannetDatasetConfig
+from instancerefer_tpu_torch.parallel.distributed import host_shard_indices
 
 
 # rotation matrices of utils/pc_utils.py
@@ -349,6 +350,15 @@ class ScannetReferenceDataset:
         (lib/dataset.py:76-92)."""
         return min(len([t for t in tokens if not t.isspace()]), 126)
 
+    def lang_lengths(self) -> np.ndarray:
+        """Every sample's lang_len, from the annotations alone (no GloVe
+        lookups, no scene IO): each rank derives the global batch's language
+        grid from them (``PaddedLoader._global_lang_grids``)."""
+        if getattr(self, "_lang_lens", None) is None:
+            self._lang_lens = np.array(
+                [self._count_lang_len(d["token"]) for d in self.scanrefer], np.int32)
+        return self._lang_lens
+
     def get_lang(self, idx: int):
         """Language-only assembly (lang_feat [T,300], lang_len) — the cheap
         slice of ``get_core`` used by the use_gt_lang=False prediction pass
@@ -575,9 +585,17 @@ class PaddedLoader:
     voxel owners cleared to -1 — so BatchNorm statistics, pools, and every
     loss/metric denominator see exactly the reference's smaller batch.
 
-    One process only: ``process_count > 1`` raises NotImplementedError until
-    the port has data parallelism (the JAX package's ``host_shard_indices``
-    is not ported yet).
+    Data parallelism: pass ``process_index``/``process_count`` (the rank
+    and the world size) and the PER-RANK ``batch_size`` (global batch /
+    world); each rank loads a disjoint 1-in-``process_count`` slice of the
+    same global permutation (``host_shard_indices``).  Per-sample RNG seeds
+    are positional in the global permutation, so the union of the ranks'
+    samples is the single-process epoch, and each rank collates its batch
+    on the global batch's language grid: a rank's batch equals the JAX
+    package's host batch bit for bit.  Every rank yields the same number of
+    batches (from the smallest shard), so the collectives of a step stay in
+    lockstep; at most ``process_count - 1`` samples an epoch land on no rank
+    when the sample count does not divide.
     """
 
     def __init__(
@@ -593,11 +611,9 @@ class PaddedLoader:
         voxel_size_ap: float = 0.02,
         voxel_size_glp: float = 0.05,
         class_overrides: Optional[Dict[int, int]] = None,
+        process_index: int = 0,
         process_count: int = 1,
     ):
-        if process_count > 1:
-            raise NotImplementedError(
-                "PaddedLoader: one process only until the port has data parallelism")
         self.dataset = dataset
         self.spec = spec
         self.batch_size = batch_size
@@ -609,6 +625,8 @@ class PaddedLoader:
         self.voxel_size_glp = voxel_size_glp
         # sample idx -> predicted class for the use_gt_lang=False second pass
         self.class_overrides = class_overrides
+        self.process_index = process_index
+        self.process_count = max(process_count, 1)
         self.epoch = 0
         # scene-block reuse (val/eval): valid only when every annotation of a
         # scene sees the same point cloud (static_scene_sampling, augment
@@ -617,8 +635,9 @@ class PaddedLoader:
         self._scene_block_key = (tuple(spec.scene_caps), spec.feat_dim, float(voxel_size_glp))
 
     def __len__(self):
-        n = len(self.dataset)
-        return n // self.batch_size if self.drop_last else -(-n // self.batch_size)
+        # the smallest rank's shard, so every rank runs the same batch count
+        shard = len(self.dataset) // self.process_count
+        return shard // self.batch_size if self.drop_last else -(-shard // self.batch_size)
 
     def _build_one(self, args):
         idx, sample_seed = args
@@ -636,25 +655,39 @@ class PaddedLoader:
             core, self.spec, self.voxel_size_ap, self.voxel_size_glp, scene_block=scene_block,
         )
 
-    def _finalize(self, batch, pool=None):
-        return finalize_batch(batch, self.batch_size, self.spec, pool=pool)
+    def _finalize(self, batch, lang_grid=None, pool=None):
+        return finalize_batch(batch, self.batch_size, self.spec, lang_grid=lang_grid, pool=pool)
+
+    def _global_lang_grids(self, order, nb):
+        """Each batch's bucketed language grid, from the global batch: the
+        ranks share ``order``, and global batch ``b`` is
+        ``order[b*G:(b+1)*G]`` (rank p holds its positions ``== p (mod
+        process_count)``).  None when bucketing is off."""
+        if not self.spec.lang_bucket:
+            return None
+        glens = np.minimum(self.dataset.lang_lengths(), self.spec.max_tokens)[order]
+        g = self.batch_size * self.process_count
+        return [self.spec.bucketed_tokens(int(glens[b * g:min((b + 1) * g, len(order))].max()))
+                for b in range(nb)]
 
     def _epoch_plan(self):
-        """(order, seeds) of the current epoch, no state change: the sample
-        permutation and each position's RNG seed."""
+        """(order, seeds, mine) of the current epoch, no state change: the
+        global permutation, each position's RNG seed, and the positions this
+        rank loads."""
         n = len(self.dataset)
         order = np.arange(n)
         rng = np.random.default_rng(self.seed + self.epoch)
         if self.shuffle:
             rng.shuffle(order)
         seeds = rng.integers(2**31, size=n) if n else np.zeros(0, np.int64)
-        return order, seeds
+        return order, seeds, host_shard_indices(n, self.process_index, self.process_count)
 
     def __iter__(self):
-        order, seeds = self._epoch_plan()
+        order, seeds, mine = self._epoch_plan()
         self.epoch += 1
-        tasks = [(int(i), int(sd)) for i, sd in zip(order, seeds)]
+        tasks = [(int(order[j]), int(seeds[j])) for j in mine]
         nb = len(self)
+        lang_grids = self._global_lang_grids(order, nb)
 
         def gen_padded():
             if self.num_workers > 0:
@@ -685,17 +718,17 @@ class PaddedLoader:
             for padded in gen_padded():
                 batch.append(padded)
                 if len(batch) == self.batch_size:
-                    yield batch
+                    yield batch, (lang_grids[done] if lang_grids else None)
                     batch = []
                     done += 1
                     if done >= nb:
                         return
             if batch and done < nb and not self.drop_last:
-                yield batch
+                yield batch, (lang_grids[done] if lang_grids else None)
 
         if self.num_workers <= 0:
-            for bl in gen_batches():
-                yield self._finalize(bl)
+            for bl, grid in gen_batches():
+                yield self._finalize(bl, grid)
             return
 
         # Collate off the consumer thread, double-buffered (batch b collates
@@ -707,8 +740,8 @@ class PaddedLoader:
         with ThreadPoolExecutor(1) as fpool, \
                 ThreadPoolExecutor(min(4, self.num_workers)) as cpool:
             fin = None
-            for bl in gen_batches():
-                nxt = fpool.submit(self._finalize, bl, cpool)
+            for bl, grid in gen_batches():
+                nxt = fpool.submit(self._finalize, bl, grid, cpool)
                 if fin is not None:
                     yield fin.result()
                 fin = nxt
@@ -762,9 +795,11 @@ class PredictedClassLoader:
             )
         )
 
-    def _predict_overrides(self):
-        """The predicted class of every sample, with the current weights."""
-        all_idxs = list(range(len(self.dataset)))
+    def _predict_overrides(self, sample_idxs=None):
+        """The predicted class of each of ``sample_idxs`` (default: every
+        sample), with the current weights."""
+        all_idxs = list(range(len(self.dataset))) if sample_idxs is None else [
+            int(i) for i in sample_idxs]
         overrides = {}
         for lo in range(0, len(all_idxs), self.predict_batch):
             idxs = all_idxs[lo : lo + self.predict_batch]
@@ -795,5 +830,10 @@ class PredictedClassLoader:
         )
         inner.epoch = self.epoch
         self.epoch += 1
-        inner.class_overrides = self._predict_overrides()
+        # a rank predicts only the samples of its own shard this epoch
+        shard = None
+        if inner.process_count > 1:
+            order, _, mine = inner._epoch_plan()
+            shard = sorted(int(order[j]) for j in mine)
+        inner.class_overrides = self._predict_overrides(shard)
         yield from inner

@@ -257,7 +257,8 @@ def _pack_pyramid(
 
 
 def collate(
-    samples: List[Dict[str, np.ndarray]], spec: BatchSpec, pool=None
+    samples: List[Dict[str, np.ndarray]], spec: BatchSpec, lang_grid: Optional[int] = None,
+    pool=None,
 ) -> Dict[str, np.ndarray]:
     """Stack per-sample arrays; flatten voxel blocks with index offsets.
 
@@ -265,6 +266,10 @@ def collate(
     sample ``b`` owning rows ``[b*cap, (b+1)*cap)``; neighbor maps get the
     same offset (padding -1 preserved); owners become global ids
     (scene: batch index, instance: ``b * max_candidates + local_candidate``).
+
+    ``lang_grid`` overrides the bucketed language-grid length (a rank's
+    loader takes it from the global batch, so every rank collates the same
+    T); None derives it from this batch.
 
     ``pool``: optional ThreadPoolExecutor for the per-key memory passes
     (``np.copyto`` releases the GIL, so keys concatenate in parallel).  It
@@ -285,7 +290,8 @@ def collate(
     if spec.lang_bucket:
         # GRU outputs past each sample's length are zeros either way, so
         # slicing the grid to the batch's bucket is exact
-        t_b = spec.bucketed_tokens(int(out["lang_len"].max()))
+        t_b = lang_grid if lang_grid is not None else spec.bucketed_tokens(
+            int(out["lang_len"].max()))
         out["lang_feat"] = np.ascontiguousarray(out["lang_feat"][:, :t_b])
 
     def cat_off(key, off_per_sample, signed=True):
@@ -349,7 +355,8 @@ def collate(
 
 
 def finalize_batch(
-    samples: List[Dict[str, np.ndarray]], batch_size: int, spec: BatchSpec, pool=None
+    samples: List[Dict[str, np.ndarray]], batch_size: int, spec: BatchSpec,
+    lang_grid: Optional[int] = None, pool=None,
 ) -> Dict[str, np.ndarray]:
     """Collate, padding a partial batch to the static ``batch_size`` by
     repeating the last sample.
@@ -366,7 +373,7 @@ def finalize_batch(
     assert 0 < valid <= batch_size, (valid, batch_size)
     while len(samples) < batch_size:
         samples.append(samples[-1])
-    out = collate(samples, spec, pool=pool)
+    out = collate(samples, spec, lang_grid=lang_grid, pool=pool)
     mask = np.zeros(batch_size, bool)
     mask[:valid] = True
     out["sample_valid"] = mask

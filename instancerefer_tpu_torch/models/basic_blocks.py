@@ -27,6 +27,7 @@ from instancerefer_tpu_torch.data.host import SparseStage
 from instancerefer_tpu_torch.ops.gather_conv import gather_conv
 from instancerefer_tpu_torch.ops.precision import cast_in
 from instancerefer_tpu_torch.ops.sparse_conv import down_conv, subm_conv
+from instancerefer_tpu_torch.parallel.distributed import all_reduce_sum, world_size
 
 
 class MaskedBatchNorm(nn.Module):
@@ -40,6 +41,14 @@ class MaskedBatchNorm(nn.Module):
     ``running_var``, and ``momentum`` weighs the new batch as torch's BN
     does (the BN-momentum schedule sets it).  Eval mode normalizes with the
     running statistics.  The output keeps the input dtype.
+
+    Data-parallel (world size > 1): the statistics are those of the global
+    batch, as JAX's BN over the global array.  Each rank sums [sum x,
+    sum x^2, n] over its valid rows, one ``all_reduce_sum`` of that
+    [2C + 1] vector adds the ranks', and mean, variance and the running
+    statistics follow from the global sums, equal on every rank.  The
+    all-reduce is differentiable, so the backward adds the ranks' gradients
+    of the sums and dX is that of one BN over the union of the rows.
     """
 
     def __init__(self, features: int, eps: float = 1e-5):
@@ -67,7 +76,9 @@ class MaskedBatchNorm(nn.Module):
             y = (x.float() - self.running_mean.view(shape)) * sc.view(shape) + self.bias.view(shape)
             return y.to(x.dtype)
         flat = x.float().movedim(channel_dim, -1).reshape(-1, x.shape[channel_dim])
-        if mask is None:
+        if world_size() > 1:
+            mean, var, n = _global_moments(flat, mask)
+        elif mask is None:
             n = torch.tensor(float(flat.shape[0]), device=x.device)
             mean = flat.mean(0)
             var = flat.square().mean(0) - mean.square()
@@ -86,6 +97,21 @@ class MaskedBatchNorm(nn.Module):
         inv = torch.rsqrt(var + self.eps) * self.weight
         y = (x.float() - mean.view(shape)) * inv.view(shape) + self.bias.view(shape)
         return y.to(x.dtype)
+
+
+def _global_moments(flat: torch.Tensor, mask: Optional[torch.Tensor]):
+    """(mean, biased variance, row count) of ``flat``'s masked rows over
+    every rank, from one all-reduce of their sums."""
+    c = flat.shape[1]
+    if mask is None:
+        rows = flat.new_ones(flat.shape[0], 1)
+    else:
+        rows = mask.reshape(-1, 1).float()
+    sums = all_reduce_sum(torch.cat([(flat * rows).sum(0), (flat.square() * rows).sum(0),
+                                     rows.sum().view(1)]))
+    n = sums[2 * c].clamp(min=1.0)
+    mean = sums[:c] / n
+    return mean, sums[c:2 * c] / n - mean.square(), n
 
 
 class SparseConv(nn.Module):

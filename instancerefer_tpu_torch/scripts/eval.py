@@ -68,8 +68,9 @@ def check_eval_overflow(overflow_max: dict, allow: bool):
     msg = (
         "capacity overflow at eval — padded caps truncated data the "
         f"reference would keep (max per-sample overflow fraction: {bad}). "
-        "Fit the caps to this dataset (scripts/calibrate_bands.py --fit-caps "
-        "--emit-yaml <profile>, then point the config's band_profile at it), "
+        "Fit the caps to this dataset (python -m instancerefer_tpu_torch.scripts.fit_caps "
+        "--config <config> --data_root <root> --fit-caps --emit-yaml <profile>, then point "
+        "the config's band_profile at it), "
         "or re-run with --allow_overflow to accept the deviation."
     )
     if allow:

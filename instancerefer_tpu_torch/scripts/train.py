@@ -10,8 +10,20 @@ into the run directory, the port's ``ScannetReferenceDataset``/
 a ``.pth``/``.tar``, ``use_pretrained`` copies the submodules of a run's
 ``model_last.pth``), predicted-class candidate filtering when
 ``use_gt_lang`` is off, ``info.json``, then the ``Solver``'s epoch loop.
-One process, one device: ``--device cuda`` (the default; it needs a card)
-or ``--device cpu``.
+``--device cuda`` (the default; it needs a card) or ``--device cpu``.
+
+Data-parallel under ``torchrun`` (one process a card):
+
+    torchrun --nproc_per_node N -m instancerefer_tpu_torch.scripts.train --config ...
+
+Rank r takes ``cuda:LOCAL_RANK`` (nccl; gloo with ``--device cpu``) and
+loads ``batch_size // N`` samples a step, its shard of both splits
+(``batch_size`` is the global batch and must divide by N).  The weights are
+built from ``manual_seed`` on every rank (DDP broadcasts rank 0's anyway);
+then the default generator is seeded with ``manual_seed + rank``, so the
+ranks draw different dropout masks, as JAX's positional masks differ over
+the global array.  Rank 0 alone writes the run directory.  Without
+``WORLD_SIZE`` in the environment (``python -m ...``) it runs one process.
 """
 
 from __future__ import annotations
@@ -26,6 +38,7 @@ import numpy as np
 import torch
 
 from instancerefer_tpu_torch.config import Config, load_config
+from instancerefer_tpu_torch.parallel import distributed
 
 _PORT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 # the port's sources a run backs up
@@ -65,8 +78,17 @@ def lang_predictor(model, device):
 
 
 def train(cfg: Config):
-    """Train as ``cfg`` says; returns the ``Solver`` after its last epoch."""
-    device = cfg.torch_device()
+    """Train as ``cfg`` says; returns the ``Solver`` after its last epoch.
+    Joins the process group of ``torchrun``'s environment, if any; the
+    process that runs ``main`` as a script ends it."""
+    device = distributed.init_from_env(cfg.torch_device())
+    world, rank = distributed.world_size(), distributed.rank()
+    if cfg.batch_size % world:
+        raise ValueError(f"batch_size {cfg.batch_size} does not divide over {world} ranks")
+
+    def say(msg: str) -> None:  # rank 0 speaks for the run
+        if rank == 0:
+            print(msg)
 
     from instancerefer_tpu_torch.ops.precision import set_compute_dtype
 
@@ -88,11 +110,11 @@ def train(cfg: Config):
     stamp = time.strftime("%Y-%m-%d_%H-%M-%S", time.gmtime())
     if cfg.log_dir:
         stamp += "_" + cfg.log_dir.upper()
-    root = init_experiment(cfg, stamp)
+    root = init_experiment(cfg, stamp) if rank == 0 else None
 
     scanrefer_train = get_scanrefer(cfg.data_root, "train", cfg.num_scenes)
     scanrefer_val = get_scanrefer(cfg.data_root, "val", cfg.num_scenes)
-    print(f"train on {len(scanrefer_train)} samples, val on {len(scanrefer_val)} samples")
+    say(f"train on {len(scanrefer_train)} samples, val on {len(scanrefer_val)} samples")
 
     dc = ScannetDatasetConfig(meta_dir=cfg.path_scannet_meta)
     spec = cfg.batch_spec()
@@ -106,15 +128,19 @@ def train(cfg: Config):
 
     # one dataset per split, shared by the plain and predicted-class loaders
     datasets = {"train": make_ds(scanrefer_train, "train"), "val": make_ds(scanrefer_val, "val")}
+    # each rank loads its shard of both splits, batch_size // world a step
+    local_bs = cfg.batch_size // world
     loader_kw = dict(seed=cfg.manual_seed, num_workers=cfg.num_workers,
-                     voxel_size_ap=cfg.voxel_size_ap, voxel_size_glp=cfg.voxel_size_glp)
+                     voxel_size_ap=cfg.voxel_size_ap, voxel_size_glp=cfg.voxel_size_glp,
+                     process_index=rank, process_count=world)
     split_kw = {"train": dict(shuffle=True), "val": dict(shuffle=False, drop_last=False)}
     loaders = {
-        phase: PaddedLoader(datasets[phase], spec, cfg.batch_size, **split_kw[phase], **loader_kw)
+        phase: PaddedLoader(datasets[phase], spec, local_bs, **split_kw[phase], **loader_kw)
         for phase in ("train", "val")
     }
 
     model = build_model(cfg, generator=torch.Generator().manual_seed(cfg.manual_seed))
+    torch.manual_seed(cfg.manual_seed + rank)  # the rank's dropout masks
     solver = Solver(
         model, dc.mean_size_arr, spec, device,
         lr=cfg.lr, wd=cfg.wd, lr_decay_step=cfg.lr_decay_step, lr_decay_rate=cfg.lr_decay_rate,
@@ -123,12 +149,12 @@ def train(cfg: Config):
     )
 
     if cfg.use_checkpoint:
-        print(f"loading checkpoint {cfg.use_checkpoint}...")
+        say(f"loading checkpoint {cfg.use_checkpoint}...")
         solver.load_checkpoint(
             os.path.join(cfg.path_output, cfg.use_checkpoint, "checkpoint.tar"), with_opt=True
         )
     elif cfg.pretrain:
-        print(f"loading pretrained model {cfg.pretrain}...")
+        say(f"loading pretrained model {cfg.pretrain}...")
         solver.load_checkpoint(cfg.pretrain)
     elif cfg.use_pretrained:
         # the reference option is a run's name or path: `use_pretrained: True`
@@ -139,7 +165,7 @@ def train(cfg: Config):
                 "use_pretrained must be the pretrained run's name/path "
                 f"(a string), got {cfg.use_pretrained!r}"
             )
-        print(f"warm-starting submodules from {cfg.use_pretrained}...")
+        say(f"warm-starting submodules from {cfg.use_pretrained}...")
         solver.load_pretrained_modules(os.path.join(cfg.use_pretrained, "model_last.pth"))
 
     if not cfg.use_gt_lang:
@@ -148,19 +174,20 @@ def train(cfg: Config):
         # language weights at the start of every epoch
         predict_fn = lang_predictor(solver.model, device)
         loaders = {
-            phase: PredictedClassLoader(datasets[phase], spec, cfg.batch_size, predict_fn,
+            phase: PredictedClassLoader(datasets[phase], spec, local_bs, predict_fn,
                                         **split_kw[phase], **loader_kw)
             for phase in ("train", "val")
         }
 
-    info = {k: v for k, v in vars(cfg).items() if isinstance(v, (str, int, float, bool, list))}
-    info["num_train"] = len(scanrefer_train)
-    info["num_val"] = len(scanrefer_val)
-    info["num_devices"] = 1
-    with open(os.path.join(root, "info.json"), "w") as f:
-        json.dump(info, f, indent=4)
+    if rank == 0:
+        info = {k: v for k, v in vars(cfg).items() if isinstance(v, (str, int, float, bool, list))}
+        info["num_train"] = len(scanrefer_train)
+        info["num_val"] = len(scanrefer_val)
+        info["num_devices"] = world
+        with open(os.path.join(root, "info.json"), "w") as f:
+            json.dump(info, f, indent=4)
 
-    print("start training...\n")
+    say("start training...\n")
     solver(loaders, cfg.epoch, cfg.verbose)
     return solver
 
@@ -170,4 +197,7 @@ def main(argv: Optional[List[str]] = None):
 
 
 if __name__ == "__main__":
-    main()
+    try:
+        main()
+    finally:
+        distributed.shutdown()

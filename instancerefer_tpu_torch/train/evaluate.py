@@ -2,7 +2,9 @@
 0 candidates -> zero box (a miss), 1 -> that candidate, >= 2 -> argmax of
 the summed scores; ``ref_acc`` and Acc@IoU per sample.  ``get_loss`` runs
 first (it produces ``cluster_label`` and ``ref_gt_obb``).  ``aggregate_scores``
-is the eval CLI's host-side table, in numpy."""
+is the eval CLI's host-side table, in numpy.  Data-parallel, the means and
+``num_missed`` are those of the global batch (``train/losses.global_sums``);
+the per-sample outputs stay the rank's own."""
 
 from __future__ import annotations
 
@@ -10,6 +12,8 @@ import numpy as np
 import torch
 
 from instancerefer_tpu_torch.ops.boxes import box3d_iou_aabb, get_3d_box_corners
+from instancerefer_tpu_torch.parallel.distributed import world_size
+from instancerefer_tpu_torch.train.losses import global_sums
 
 
 def get_eval(data_dict: dict) -> dict:
@@ -22,7 +26,6 @@ def get_eval(data_dict: dict) -> dict:
     n_valid = vf.sum().clamp(min=1.0)
     lang_correct = (lang_scores.argmax(1) == data_dict["object_cat"]).float()
     out["lang_correct"] = lang_correct
-    out["lang_acc"] = (lang_correct * vf).sum() / n_valid
 
     scores = (data_dict["attribute_scores"] + data_dict["relation_scores"]
               + data_dict["scene_scores"])
@@ -41,15 +44,23 @@ def get_eval(data_dict: dict) -> dict:
     iou = box3d_iou_aabb(pred_obb, ref_gt_obb)
     ref_acc = torch.where(num_cand >= 2, (cluster_pred == target).float(), (iou > 0.25).float())
     out["ref_acc"] = ref_acc
-    out["ref_acc_mean"] = (ref_acc * vf).sum() / n_valid
     out["ref_iou"] = iou
-    out["ref_iou_rate_0.25"] = ((iou >= 0.25) * vf).sum() / n_valid
-    out["ref_iou_rate_0.5"] = ((iou >= 0.5) * vf).sum() / n_valid
+    missed = (num_cand == 0) & valid
+    hits = (lang_correct, ref_acc, iou >= 0.25, iou >= 0.5)
+    if world_size() > 1:
+        *sums, n_missed, n = global_sums([h * vf for h in hits] + [missed.float(), vf])
+        means = [t / n.clamp(min=1.0) for t in sums]
+        out["num_missed"] = n_missed.long()
+    else:
+        means = [(h * vf).sum() / n_valid for h in hits]
+        out["num_missed"] = missed.sum()
+    for key, mean in zip(("lang_acc", "ref_acc_mean", "ref_iou_rate_0.25", "ref_iou_rate_0.5"),
+                         means):
+        out[key] = mean
     out["ref_multiple_mask"] = data_dict["unique_multiple"]
     out["ref_others_mask"] = (data_dict["object_cat"] == 17).long()
     out["pred_bboxes"] = get_3d_box_corners(pred_obb)
     out["gt_bboxes"] = get_3d_box_corners(ref_gt_obb)
-    out["num_missed"] = ((num_cand == 0) & valid).sum()
     out["sample_valid"] = valid
     return out
 

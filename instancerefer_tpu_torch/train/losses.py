@@ -2,7 +2,16 @@
 reaches: the masked ContrastiveLoss (margin 0.2, gamma 5, the positive enters
 the negatives' logsumexp as a zero logit), the skip rules (>= 2 candidates
 and max IoU >= 0.2), the 9-region scene CE and the language CE;
-total = 10 * ref + lang + seg."""
+total = 10 * ref + lang + seg.
+
+Every mean is over the valid samples of the global batch: data-parallel
+(world size > 1), the ranks' masked sums and valid counts are added in one
+differentiable ``all_reduce_sum``, so each rank holds the global loss, and
+the backward of that all-reduce gives each rank ``world`` times its share of
+the gradient, which ``DistributedDataParallel``'s average turns into the
+gradient of the global-batch mean (``parallel/distributed``).  A mean of the
+ranks' local means would be wrong wherever their valid counts differ (a
+partial last batch)."""
 
 from __future__ import annotations
 
@@ -10,6 +19,7 @@ import torch
 import torch.nn.functional as F
 
 from instancerefer_tpu_torch.ops.boxes import box3d_iou_aabb, param2obb
+from instancerefer_tpu_torch.parallel.distributed import all_reduce_sum, world_size
 
 NEG_INF = -1e30
 
@@ -45,6 +55,12 @@ def _masked_mean(values, valid):
     return (values * vf).sum() / vf.sum().clamp(min=1.0)
 
 
+def global_sums(terms):
+    """The sum of each per-sample term over the global batch: every rank's
+    sums in one all-reduce, differentiable."""
+    return all_reduce_sum(torch.stack([t.sum() for t in terms]))
+
+
 def get_loss(data_dict: dict, mean_size_arr: torch.Tensor) -> dict:
     """Returns the dict plus loss keys, ``cluster_label`` ([B, C] one-hot of
     the IoU argmax over valid candidates), ``cluster_label_mask`` and
@@ -54,14 +70,13 @@ def get_loss(data_dict: dict, mean_size_arr: torch.Tensor) -> dict:
     valid = data_dict.get("sample_valid")
     if valid is None:
         valid = torch.ones(lang_scores.shape[0], dtype=torch.bool, device=lang_scores.device)
-    lang_loss = _masked_mean(F.cross_entropy(lang_scores, data_dict["object_cat"],
-                                             reduction="none"), valid)
+    lang_ce = F.cross_entropy(lang_scores, data_dict["object_cat"], reduction="none")
     pred = data_dict["seg_scores"]
     region = scene_region_label(
         data_dict["ref_center_label"], data_dict["point_min"], data_dict["point_max"]
     )
-    seg_loss = _masked_mean(F.cross_entropy(pred, region, reduction="none"), valid)
-    seg_acc = _masked_mean((pred.argmax(1) == region).float(), valid)
+    seg_ce = F.cross_entropy(pred, region, reduction="none")
+    seg_hit = (pred.argmax(1) == region).float()
 
     ref_gt_obb = param2obb(
         data_dict["ref_center_label"], data_dict["ref_heading_class_label"],
@@ -83,7 +98,16 @@ def get_loss(data_dict: dict, mean_size_arr: torch.Tensor) -> dict:
         cluster_label, cand_mask,
     )
     use = (num_cand >= 2) & (max_iou >= 0.2) & valid
-    ref_loss = torch.where(use, per_sample, 0.0).sum() / valid.float().sum().clamp(min=1.0)
+    ref_terms = torch.where(use, per_sample, 0.0)
+    if world_size() > 1:
+        vf = valid.float()
+        *sums, n = global_sums((lang_ce * vf, seg_ce * vf, seg_hit * vf, ref_terms, vf))
+        lang_loss, seg_loss, seg_acc, ref_loss = (t / n.clamp(min=1.0) for t in sums)
+    else:
+        lang_loss = _masked_mean(lang_ce, valid)
+        seg_loss = _masked_mean(seg_ce, valid)
+        seg_acc = _masked_mean(seg_hit, valid)
+        ref_loss = ref_terms.sum() / valid.float().sum().clamp(min=1.0)
 
     out["ref_loss"] = ref_loss
     out["lang_loss"] = lang_loss

@@ -24,6 +24,16 @@ the reference's reports and checkpoints.
   metrics are on the host.  Fetch time is the host clock; each iter report
   is followed by its split into the wait on the loader and the time in
   ``batch_to_torch``.
+
+Data-parallel (a process group of world size > 1, ``parallel/distributed``):
+the ``Solver`` wraps the model in ``DistributedDataParallel``; each rank
+feeds its own loader shard, and every scalar that the logs, ``best.txt`` and
+the best-model choice read is that of the global batch, equal on every rank
+(the means of ``get_loss``/``get_eval``, the Acc@IoU hit and valid counts
+summed in ``train_metrics``), so every rank picks the same best epoch.  Only
+rank 0 makes the run directory and writes logs, tensorboard and
+checkpoints; every rank loads them.  At world size 1 nothing is wrapped and
+no collective runs.
 """
 
 from __future__ import annotations
@@ -39,6 +49,12 @@ import numpy as np
 import torch
 
 from instancerefer_tpu_torch.data.host import batch_to_torch
+from instancerefer_tpu_torch.parallel.distributed import (
+    all_reduce_max,
+    all_reduce_sum,
+    is_main,
+    world_size,
+)
 from instancerefer_tpu_torch.train.evaluate import get_eval
 from instancerefer_tpu_torch.train.losses import get_loss
 from instancerefer_tpu_torch.utils.convert import (
@@ -135,13 +151,15 @@ def bn_momentum_for_epoch(epoch: int, bn_decay_step, bn_decay_rate) -> float:
 
 def train_metrics(out: dict) -> Dict[str, torch.Tensor]:
     """Scalar metrics of one step: masked means, and the Acc@IoU hit and
-    valid counts that the epoch pools."""
+    valid counts that the epoch pools (summed over the ranks)."""
     metrics = {k: out[k].detach() for k in METRIC_KEYS if k != "ref_acc"}
     metrics["ref_acc"] = out["ref_acc_mean"].detach()
     valid, iou = out["sample_valid"], out["ref_iou"].detach()
-    metrics["iou25_hits"] = ((iou >= 0.25) & valid).sum()
-    metrics["iou5_hits"] = ((iou >= 0.5) & valid).sum()
-    metrics["iou_count"] = valid.sum()
+    counts = {"iou25_hits": ((iou >= 0.25) & valid).sum(), "iou5_hits": ((iou >= 0.5) & valid).sum(),
+              "iou_count": valid.sum()}
+    if world_size() > 1:
+        counts = dict(zip(counts, all_reduce_sum(torch.stack(list(counts.values())))))
+    metrics.update(counts)
     return metrics
 
 
@@ -184,10 +202,11 @@ def train_step(model: torch.nn.Module, optimizer: torch.optim.Optimizer, dd: dic
     """Train-mode forward -> ``get_loss`` -> backward -> ``optimizer.step()``
     -> ``get_eval``.  Returns (metrics, the step's outputs).  The gradients
     stay in ``.grad`` until the next step.  ``timer`` marks the bounds of
-    forward (with the loss), backward (with Adam) and eval."""
+    forward (with the loss), backward (with Adam) and eval.  ``model`` may
+    be a ``DistributedDataParallel`` wrapper."""
     mark = timer.mark if timer is not None else (lambda: None)
     model.train()
-    model.set_bn_momentum(bn_momentum)
+    getattr(model, "module", model).set_bn_momentum(bn_momentum)
     optimizer.zero_grad(set_to_none=True)
     mark()
     out = get_loss(model(dd), mean_size)
@@ -236,6 +255,18 @@ class Solver:
     ):
         self.device = torch.device(device)
         self.model = model.to(self.device)
+        # the module a train step runs: DDP's wrapper when data-parallel
+        self.train_model = self.model
+        if world_size() > 1:
+            from torch.nn.parallel import DistributedDataParallel
+
+            # every parameter takes a gradient in every config the port
+            # builds; the running statistics come from global sums, equal on
+            # every rank, so no buffer is broadcast
+            self.train_model = DistributedDataParallel(
+                self.model, device_ids=[self.device] if self.device.type == "cuda" else None,
+                broadcast_buffers=False)
+        self.main = is_main()
         self.spec = spec
         self.mean_size = torch.tensor(np.asarray(mean_size_arr), dtype=torch.float32,
                                       device=self.device)
@@ -248,7 +279,8 @@ class Solver:
         # validation (and best-model selection) starts at epoch start_val
         self.start_val = start_val
         self.root = os.path.join(output_dir, stamp)
-        os.makedirs(self.root, exist_ok=True)
+        if self.main:
+            os.makedirs(self.root, exist_ok=True)
         self.log_path = os.path.join(self.root, "log.txt")
         self.scalars_path = os.path.join(self.root, "scalars.jsonl")
         self.timer = PhaseTimer(self.device)
@@ -258,7 +290,7 @@ class Solver:
         try:
             from tensorboardX import SummaryWriter
 
-            for phase in ("train", "val"):
+            for phase in ("train", "val") if self.main else ():
                 d = os.path.join(self.root, "tensorboard", phase)
                 os.makedirs(d, exist_ok=True)
                 self._log_writer[phase] = SummaryWriter(d)
@@ -350,13 +382,22 @@ class Solver:
 
     def _report_overflow(self, phase, overflow_log):
         """Epoch-wide capacity-overflow fractions (every batch, not just the
-        first): a capacity bust anywhere in the epoch is surfaced here."""
-        if not overflow_log["scene"]:
+        first): a capacity bust anywhere in the epoch is surfaced here.
+        Data-parallel, over every rank's batches: the sums and counts are
+        added and the maxima taken over the ranks first."""
+        keys = ("scene", "inst", "cand")
+        sums = [float(np.sum(overflow_log.get(k, []))) for k in keys]
+        counts = [float(len(overflow_log.get(k, []))) for k in keys]
+        maxes = [float(np.max(overflow_log[k])) if overflow_log.get(k) else 0.0 for k in keys]
+        if world_size() > 1:
+            def reduce(fn, values):
+                return fn(torch.tensor(values, dtype=torch.float64, device=self.device)).tolist()
+            sums, counts = reduce(all_reduce_sum, [sums, counts])
+            maxes = reduce(all_reduce_max, maxes)
+        if not counts[0]:
             return
-        so = float(np.mean(overflow_log["scene"]))
-        io_ = float(np.mean(overflow_log["inst"]))
-        so_max = float(np.max(overflow_log["scene"]))
-        io_max = float(np.max(overflow_log["inst"]))
+        (so, io_, cand_mean), (so_max, io_max, cand_max) = (
+            [s / max(n, 1.0) for s, n in zip(sums, counts)], maxes)
         if max(so, io_, so_max, io_max) > 0.01:
             self._log(
                 f"WARNING: [{phase}] voxel capacity overflow over the epoch "
@@ -364,12 +405,11 @@ class Solver:
                 f"{io_:.1%} / max {io_max:.1%}) — raise scene_caps/inst_caps "
                 f"in the TPU config section to avoid dropped voxels"
             )
-        cand = overflow_log.get("cand", [])
-        if cand and max(cand) > 0:
+        if counts[2] and cand_max > 0:
             self._log(
                 f"WARNING: [{phase}] candidate capacity overflow over the "
-                f"epoch (mean {float(np.mean(cand)):.2%} / max "
-                f"{float(np.max(cand)):.2%} of filtered instances dropped) — "
+                f"epoch (mean {cand_mean:.2%} / max "
+                f"{cand_max:.2%} of filtered instances dropped) — "
                 f"the reference keeps every filtered candidate; raise "
                 f"max_candidates in the TPU config section"
             )
@@ -393,7 +433,7 @@ class Solver:
             self.log[phase]["fetch_copy"].append(copy)
             start = time.perf_counter()
             if phase == "train":
-                metrics, _ = train_step(self.model, self.optimizer, dd, self.mean_size,
+                metrics, _ = train_step(self.train_model, self.optimizer, dd, self.mean_size,
                                         bn_momentum, self.timer)
             else:
                 metrics = self._eval_step(dd)
@@ -445,7 +485,10 @@ class Solver:
     def save_checkpoint(self, name: str, with_opt: bool = False) -> str:
         """``<name>.pth`` (the model's state_dict) or, ``with_opt``,
         ``<name>.tar`` (epoch, state_dict, optimizer state, best), in the
-        reference's layout; written whole or not at all."""
+        reference's layout; written whole or not at all, by rank 0 only."""
+        path = os.path.join(self.root, name + (".tar" if with_opt else ".pth"))
+        if not self.main:
+            return path
         payload = to_reference_state_dict(self.model)
         if with_opt:
             payload = {
@@ -455,7 +498,6 @@ class Solver:
                     self.optimizer.state_dict(), self._param_names(), to_reference),
                 "best": dict(self.best),
             }
-        path = os.path.join(self.root, name + (".tar" if with_opt else ".pth"))
         torch.save(payload, path + ".tmp")
         os.replace(path + ".tmp", path)
         return path
@@ -502,17 +544,18 @@ class Solver:
         from torch.profiler import ProfilerActivity, profile
 
         it = (dd for dd, _, _ in self._prefetch(loader))
-        train_step(self.model, self.optimizer, next(it), self.mean_size)
+        train_step(self.train_model, self.optimizer, next(it), self.mean_size)
         activities = [ProfilerActivity.CPU]
         if self.device.type == "cuda":
             activities.append(ProfilerActivity.CUDA)
         with profile(activities=activities) as prof:
             for _, dd in zip(range(num_steps), it):
-                metrics, _ = train_step(self.model, self.optimizer, dd, self.mean_size)
+                metrics, _ = train_step(self.train_model, self.optimizer, dd, self.mean_size)
                 metrics_to_host(metrics)
-        os.makedirs(out_dir, exist_ok=True)
         path = os.path.join(out_dir, "trace.json")
-        prof.export_chrome_trace(path)
+        if self.main:
+            os.makedirs(out_dir, exist_ok=True)
+            prof.export_chrome_trace(path)
         self._log(f"profiler trace written to {path}")
         return path
 
@@ -543,11 +586,15 @@ class Solver:
         }
 
     def _log(self, msg: str):
+        if not self.main:
+            return
         with open(self.log_path, "a") as f:
             f.write(msg + "\n")
         print(msg, flush=True)
 
     def _dump_log(self, phase):
+        if not self.main:
+            return
         rec = {"iter": self._global_iter_id, "phase": phase}
         for key in METRIC_KEYS:
             vals = self.log[phase][key]
@@ -634,5 +681,6 @@ class Solver:
             iou_rate_5=round(self.best["iou_rate_0.5"], 5),
         )
         self._log(report)
-        with open(os.path.join(self.root, "best.txt"), "w") as f:
-            f.write(report)
+        if self.main:
+            with open(os.path.join(self.root, "best.txt"), "w") as f:
+                f.write(report)

@@ -8,7 +8,8 @@
   fitted caps, over several seeds.
 * Both ``ScannetReferenceDataset``s and ``PaddedLoader``s on a
   ``tests/fake_scanrefer`` root, augmentation on (train) and off with the
-  scene-block cache (val): the same batches, bit for bit.
+  scene-block cache (val): the same batches, bit for bit; and each rank's
+  loader of 2 against the JAX package's host loader of 2.
 * The port's native voxelizer against its numpy path.
 * ``export_state_dict`` against ``convert_torch.export_state_dict``, key for
   key and value for value.
@@ -110,11 +111,27 @@ def test_loaders_equal_jax_on_a_fake_root(fake_root, split):
         assert_same_batch(got, want)
 
 
-def test_loader_is_one_process_only(fake_root):
-    ds = dataset.ScannetReferenceDataset(dataset.get_scanrefer(fake_root, "val"), "val",
-                                         data_root=fake_root, num_points=500)
-    with pytest.raises(NotImplementedError):
-        dataset.PaddedLoader(ds, synthetic.TEST_SPEC, 4, process_count=2)
+@pytest.mark.parametrize("split", ["train", "val"])
+@pytest.mark.parametrize("process_index", [0, 1])
+def test_rank_loader_equals_jax_host_loader(fake_root, split, process_index):
+    """Rank ``process_index`` of 2: its shard of the global permutation,
+    collated on the global batch's language grid, equals the JAX package's
+    host batch bit for bit, over two epochs, its length too."""
+    # descriptions of 2 and 6 tokens: a rank's own batch can need a shorter
+    # grid than the global batch's
+    spec = dataclasses.replace(synthetic.TEST_SPEC, lang_bucket=2)
+    batches, lengths = [], []
+    for mod, s in ((dataset, spec), (jdataset, jax_spec(spec))):
+        ds = mod.ScannetReferenceDataset(
+            mod.get_scanrefer(fake_root, split), split, data_root=fake_root,
+            num_points=500, use_augment=True, seed=7)
+        loader = mod.PaddedLoader(ds, s, 2, shuffle=True, seed=3, num_workers=2,
+                                  process_index=process_index, process_count=2)
+        lengths.append(len(loader))
+        batches.append([b for _ in range(2) for b in loader])  # two epochs
+    assert lengths[0] == lengths[1] and len(batches[0]) == len(batches[1]) == 2 * lengths[0] > 0
+    for got, want in zip(*batches):
+        assert_same_batch(got, want)
 
 
 def test_native_library_is_the_ports_own():

@@ -1,7 +1,7 @@
 """The port runs where there is no jax, flax, yaml, orbax or optax and no
-JAX package (an eval forward, one train step, the train and eval CLIs and
-the three multiview scripts), and ``chip_smoke.py`` refuses to run without
-a GPU.
+JAX package (an eval forward, one train step, the train and eval CLIs, the
+three multiview scripts, the caps fitter and a 2-rank data-parallel step
+over gloo), and ``chip_smoke.py`` refuses to run without a GPU.
 
 The GPU machine has PyTorch but none of jax, flax, yaml, orbax or optax, so
 the port — host pipeline included — must not import them, even indirectly;
@@ -68,9 +68,10 @@ def test_slice_runs_without_jax_flax_yaml():
 
 
 def test_no_module_imports_jax_flax_or_yaml():
-    """No module of the port, and not ``chip_smoke.py``, imports any of
-    ``BANNED``, the JAX package among them."""
-    files = [os.path.join(ROOT, "chip_smoke.py")]
+    """No module of the port, not ``chip_smoke.py`` and not the rank
+    script of the data-parallel tests imports any of ``BANNED``, the JAX
+    package among them."""
+    files = [os.path.join(ROOT, "chip_smoke.py"), os.path.join(ROOT, "tests", "torch_ddp_rank.py")]
     for d, _, names in os.walk(PACKAGE):
         files += [os.path.join(d, n) for n in names if n.endswith(".py")]
     for path in files:
@@ -162,7 +163,7 @@ def cli(tmp_path_factory):
         return subprocess.run(argv, cwd=str(tmp), env=env, capture_output=True, text=True,
                               timeout=300)
 
-    return dict(run=run, runs=runs, root=root, script=script, frames=frames)
+    return dict(run=run, runs=runs, root=root, script=script, frames=frames, env=env, tmp=tmp)
 
 
 def _ok(res):
@@ -193,6 +194,7 @@ def test_clis_run_without_jax(cli):
     # the tiny caps overflow: eval refuses to score, and caches nothing
     res = run("eval")
     assert res.returncode != 0 and "capacity overflow" in res.stderr
+    assert "python -m instancerefer_tpu_torch.scripts.fit_caps" in res.stderr
     assert not os.path.exists(os.path.join(first, "scores.npz"))
     cold = _ok(run("eval", "--allow_overflow"))
     scores = dict(np.load(os.path.join(first, "scores.npz")))
@@ -252,3 +254,49 @@ def test_clis_need_a_card_unless_told_cpu(cli, name):
     else:
         res = cli["run"](name, log_dir="nocard", device=None)
     assert res.returncode != 0 and "--device cpu" in res.stderr
+
+
+def test_fit_caps_runs_without_jax(cli, tmp_path):
+    """The overflow gate's fitter, where jax cannot be imported; a config
+    whose ``band_profile`` is its profile loads the fitted caps."""
+    from instancerefer_tpu_torch.config import load_config
+
+    profile = tmp_path / "caps.yaml"
+    res = subprocess.run([sys.executable, "-m", "instancerefer_tpu_torch.scripts.fit_caps",
+                          "--synthetic", "--fit-caps", "--emit-yaml", str(profile)],
+                         cwd=str(cli["tmp"]), env=cli["env"], capture_output=True, text=True,
+                         timeout=300)
+    out = _ok(res)
+    fitted = [line.strip().split(": ", 1) for line in out.splitlines() if line.startswith("  ")]
+    assert [k for k, _ in fitted] == ["scene_caps", "inst_caps", "max_candidates",
+                                      "max_instances"]
+    (tmp_path / "run.yaml").write_text(f"TPU:\n  band_profile: {profile}\n")
+    cfg = load_config(["--config", str(tmp_path / "run.yaml")])
+    assert [str(list(cfg.scene_caps)), str(list(cfg.inst_caps)), str(cfg.max_candidates),
+            str(cfg.max_instances)] == [v for _, v in fitted]
+
+
+def test_two_rank_step_runs_without_jax(cli, tmp_path):
+    """``tests/torch_ddp_rank.py`` on 2 gloo ranks, where jax cannot be
+    imported: the ranks agree on the loss and the gradients."""
+    from instancerefer_tpu_torch.data.synthetic import TEST_SPEC
+    from instancerefer_tpu_torch.models.instancerefer import InstanceRefer
+
+    model = InstanceRefer(TEST_SPEC.feat_dim, TEST_SPEC.num_classes, TEST_SPEC.max_candidates,
+                          generator=torch.Generator().manual_seed(0), dropout_override=0.0)
+    torch.save(model.state_dict(), tmp_path / "init.pt")
+    env = dict(cli["env"], OMP_NUM_THREADS="1")
+    procs = [subprocess.Popen([sys.executable, os.path.join(ROOT, "tests", "torch_ddp_rank.py"),
+                               str(r), "2", str(tmp_path)], env=env, stdout=subprocess.PIPE,
+                              stderr=subprocess.PIPE, text=True) for r in range(2)]
+    try:
+        errs = [p.communicate(timeout=300)[1] for p in procs]
+    finally:
+        for p in procs:
+            p.kill()
+    assert [p.returncode for p in procs] == [0, 0], errs[0][-2000:] + errs[1][-2000:]
+    for case in ("full", "partial"):
+        ranks = [torch.load(tmp_path / f"{case}_rank{r}.pt", weights_only=False) for r in (0, 1)]
+        assert ranks[0]["wrapped"] and ranks[0]["loss"] == ranks[1]["loss"]
+        assert np.isfinite(ranks[0]["loss"])
+        assert all(torch.equal(g, ranks[1]["grads"][k]) for k, g in ranks[0]["grads"].items())
