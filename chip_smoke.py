@@ -110,6 +110,25 @@ Phases, in order; any failure exits nonzero without the final ``ok`` line:
     - 10c: ``scripts/sanity_train`` (60 bf16 steps at B = 16 on the
       largest-instance rule) must pass; its early and late ``ref_acc``.
 
+11. Raw ScanNet scans to a step, with its own wall time (``[phase 11]``):
+    - 11a: two synthetic scans in ScanNet's raw layouts
+      (``data/synthetic_scans``: a 150 000-vertex, 300 000-face binary PLY
+      room of floor, walls and 12-20 furniture boxes, its segments,
+      aggregation and a non-identity axis alignment, 12 PointGroup masks).
+    - 11b: the port's exporter (``data/prepare.batch_export``) on the card
+      and on the CPU; the files agree (normals within NORMAL_TOL, aligned
+      xyz and boxes within COORD_ULP, the rest equal); per scan the ms of
+      parsing, device work and saving, card beside CPU.
+    - 11c: 32 descriptions over the kept objects, the caps fitted to the
+      prepared root (``scripts/fit_caps``, on the eval split), one batch of
+      32 from the port's dataset for train (augmented) and eval (the eval
+      CLI's overflow gate must pass); a bf16 train step (34 / 16 / 10
+      launches) and the eval forward (26), as phases 7 and 4.
+    - 11d: the reference's unused loss variants and the named loss pieces
+      at B = 32, C = 4 and 32, card vs CPU (values and input gradients).
+    - 11e: ``scripts/visualize --boxes`` on a prepared scene: the OBJ files
+      hold the prepared vertex and box counts.
+
 Then one line ``{"kernels": [...]}`` (launch counts of phase 7; ms,
 plain_ms, bound_ms and im2col_ms of K1 from phase 2, of K2 and K3 from
 phase 5, bf16 summed over the shapes; then K1 and K3 at the stems at
@@ -735,25 +754,38 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 CLI_SCENES = {"train": range(0, 8), "val": range(8, 12)}
 CLI_BATCHES = {"train": 16, "val": 8}  # batches of BATCH a split
 EVAL_LAUNCHES = {"gather_conv": CONVS_PER_FORWARD, "subm_conv_bwd": 0, "conv_dw": 0}
-# (nyu40 id, nyu40 class) of the 18 classes: the tsv's columns 4 and 7; the
-# last is not a class name and maps to "others"
-NYU40 = ((3, "cabinet"), (4, "bed"), (5, "chair"), (6, "sofa"), (7, "table"), (8, "door"),
-         (9, "window"), (10, "bookshelf"), (11, "picture"), (12, "counter"), (14, "desk"),
-         (16, "curtain"), (24, "refrigerator"), (28, "shower curtain"), (33, "toilet"),
-         (34, "sink"), (36, "bathtub"), (35, "lamp"))
 WORDS = ("the", "a", "is", "it", "this", "that", "of", "to", "in", "on", "with", "and",
          "next", "near", "left", "right", "front", "behind", "corner", "room", "wall",
          "brown", "white", "black", "small", "large", "wooden", "square", "round", "facing")
 
 
+def write_glove(root: str, rng: np.random.Generator) -> None:
+    """A GloVe pickle of ``WORDS``, the class names' words and ``unk``."""
+    from instancerefer_tpu_torch.data.synthetic_scans import NYU40
+
+    vocab = set(WORDS) | {w for _, name in NYU40 for w in name.split()} | {"unk"}
+    with open(os.path.join(root, "glove.p"), "wb") as f:
+        pickle.dump({w: rng.normal(size=300).astype(np.float32) for w in sorted(vocab)}, f)
+
+
+def description(rng: np.random.Generator, scene_id: str, obj: int, name: str, ann_id: int):
+    """A ScanRefer entry: 6-39 random ``WORDS`` with the object's name."""
+    tokens = [str(w) for w in rng.choice(WORDS, size=int(rng.integers(6, 40)))]
+    tokens[1:1] = name.split()
+    return {"scene_id": scene_id, "object_id": str(obj), "object_name": name.replace(" ", "_"),
+            "ann_id": str(ann_id), "token": tokens, "description": " ".join(tokens)}
+
+
 def write_fake_scanrefer(root: str, rng: np.random.Generator, batches=None) -> None:
     """The layout of ``tests/fake_scanrefer.py`` without its multiview file:
-    per-scene PointGroup npys, the label tsv of the 18 classes, a GloVe
+    per-scene PointGroup npys, the label tsv (``synthetic_scans``), a GloVe
     pickle and ``ScanRefer_filtered_{split}.json`` of ``batches`` ({split:
     batches of BATCH}, default ``CLI_BATCHES``) descriptions.  A scene is drawn as
     ``data/synthetic.py`` draws one: a 4 x 4 x 0.1 m floor of unlabelled
     points and 12 boxes of 256 points, 40 000 points in all; of its 12
     instances three pairs share a class and six are alone in theirs."""
+    from instancerefer_tpu_torch.data.synthetic_scans import NYU40, write_label_tsv
+
     pg = os.path.join(root, "scannet", "pointgroup_data")
     meta = os.path.join(root, "scannet", "meta_data")
     os.makedirs(pg)
@@ -788,33 +820,24 @@ def write_fake_scanrefer(root: str, rng: np.random.Generator, batches=None) -> N
         np.save(os.path.join(pg, f"{scene_id}_aligned_bbox.npy"), np.stack(boxes))
         objects[si] = [NYU40[classes[slot]][1] for slot in slots]
 
-    with open(os.path.join(meta, "scannetv2-labels.combined.tsv"), "w") as f:
-        f.write("id\traw_category\tcategory\tcount\tnyu40id\teigen13id\tnyuClass\tnyu40class\n")
-        for i, (nyu, name) in enumerate(NYU40):
-            f.write(f"{i + 1}\t{name}\t{name}\t1\t{nyu}\t0\t{name}\t{name}\n")
-    vocab = set(WORDS) | {w for _, name in NYU40 for w in name.split()} | {"unk"}
-    with open(os.path.join(root, "glove.p"), "wb") as f:
-        pickle.dump({w: rng.normal(size=300).astype(np.float32) for w in sorted(vocab)}, f)
+    write_label_tsv(os.path.join(meta, "scannetv2-labels.combined.tsv"))
+    write_glove(root, rng)
     for split, scenes in CLI_SCENES.items():
         anns, seen = [], {}
         for _ in range((batches or CLI_BATCHES)[split] * BATCH):
             si = int(rng.choice(scenes))
             obj = int(rng.integers(n_inst))
-            name = objects[si][obj]
             ann_id = seen[si, obj] = seen.get((si, obj), -1) + 1
-            tokens = [str(w) for w in rng.choice(WORDS, size=int(rng.integers(6, 40)))]
-            tokens[1:1] = name.split()
-            anns.append({"scene_id": f"scene{si:04d}_00", "object_id": str(obj),
-                         "object_name": name.replace(" ", "_"), "ann_id": str(ann_id),
-                         "token": tokens, "description": " ".join(tokens)})
+            anns.append(description(rng, f"scene{si:04d}_00", obj, objects[si][obj], ann_id))
         with open(os.path.join(root, f"ScanRefer_filtered_{split}.json"), "w") as f:
             json.dump(anns, f)
 
 
-def cli_config_text() -> str:
+def cli_config_text(profile: str = os.path.join(REPO, "config", "band_profile.synthetic.yaml")
+                    ) -> str:
     """``config/InstanceRefer.yaml`` with batch 32, 2 epochs, the lr milestone
-    after epoch 1, an iter report every step, and the synthetic band
-    profile's fitted caps."""
+    after epoch 1, an iter report every step, and the fitted caps of
+    ``profile`` (default: the synthetic band profile's)."""
     text = open(os.path.join(REPO, "config", "InstanceRefer.yaml")).read()
     for old, new in (("batch_size: 64", f"batch_size: {BATCH}"), ("epoch: 25", "epoch: 2"),
                      ("lr_decay_step: [15, 20]", "lr_decay_step: [1]"), ("verbose: 20", "verbose: 1")):
@@ -823,7 +846,7 @@ def cli_config_text() -> str:
         text = text.replace(old, new)
     if not text.rstrip().splitlines()[-1].startswith("  "):
         raise AssertionError("config/InstanceRefer.yaml no longer ends in its TPU section")
-    return text + f"  band_profile: {os.path.join(REPO, 'config', 'band_profile.synthetic.yaml')}\n"
+    return text + f"  band_profile: {profile}\n"
 
 
 def _records(run: str):
@@ -1555,6 +1578,240 @@ def phase_sanity(dev):
         raise AssertionError("the overfit check failed on the card")
 
 
+# ---------------------------------------------------------------- phase 11
+PREP_SCANS = ("scene0000_00", "scene0001_00")
+# a ScanNet _vh_clean_2 mesh's order of size, above the exporter's 50 000
+PREP_VERTS, PREP_FACES, PREP_MASKS = 150000, 300000, 12
+# card vs CPU export: the normals sum in float64 with atomics in another
+# order (|diff| <= NORMAL_TOL); the aligned xyz and the boxes come from a
+# float64 product in cuBLAS's order (1 float32 ulp); the rest is equal
+NORMAL_TOL, COORD_ULP = 1e-6, 1
+# the loss variants, card vs CPU: |diff| <= VARIANT_RTOL x max|cpu| of each
+# value and input gradient (float32 sums in another order)
+VARIANT_RTOL = 1e-5
+VARIANT_CANDIDATES = (4, 32)  # the bench's candidates; > 20 negatives for ranking_loss
+
+
+def _same_export(got_dir: str, want_dir: str) -> str:
+    """The card's files against the CPU's, within the limits above; returns
+    a summary of the differences."""
+    from instancerefer_tpu_torch.data.prepare import ARTIFACTS
+
+    worst = {"normal": 0.0, "ulp": 0}
+    for scan in PREP_SCANS:
+        for key in ARTIFACTS:
+            got = np.load(os.path.join(got_dir, f"{scan}_{key}.npy"))
+            want = np.load(os.path.join(want_dir, f"{scan}_{key}.npy"))
+            if (got.dtype, got.shape) != (want.dtype, want.shape):
+                raise AssertionError(f"{scan} {key}: {got.dtype} {got.shape} on the card, "
+                                     f"{want.dtype} {want.shape} on the CPU")
+            if key.endswith("vert"):
+                normal = float(np.abs(got[:, 6:] - want[:, 6:]).max())
+                exact, coords = got[:, 3:6], got[:, :3]
+                want_exact, want_coords = want[:, 3:6], want[:, :3]
+                worst["normal"] = max(worst["normal"], normal)
+                if normal > NORMAL_TOL:
+                    raise AssertionError(f"{scan} {key}: normals differ by {normal:.3e}")
+            elif key.endswith("bbox"):
+                exact, coords = got[:, 6:], got[:, :6].astype(np.float32)
+                want_exact, want_coords = want[:, 6:], want[:, :6].astype(np.float32)
+            else:
+                exact, want_exact, coords = got, want, None
+            if not np.array_equal(exact, want_exact):
+                raise AssertionError(f"{scan} {key}: card and CPU files differ")
+            if coords is not None:  # raises beyond COORD_ULP
+                ulp = np.testing.assert_array_max_ulp(coords, want_coords, maxulp=COORD_ULP)
+                worst["ulp"] = max(worst["ulp"], int(ulp.max()))
+    return (f"normals within {worst['normal']:.3e} (limit {NORMAL_TOL:g}), coordinates and "
+            f"boxes within {worst['ulp']} float32 ulp (limit {COORD_ULP}), labels, colors and "
+            "ids equal")
+
+
+def phase_prepare(dev) -> None:
+    """11a-c and 11e: two raw scans exported on the card and on the CPU, the
+    caps fitted to the prepared root, one train step and eval forward from
+    it, and the visualize dumps."""
+    from instancerefer_tpu_torch.config import load_config
+    from instancerefer_tpu_torch.data import dataset as D
+    from instancerefer_tpu_torch.data.host import batch_to_torch
+    from instancerefer_tpu_torch.data.prepare import MAX_NUM_POINT, batch_export
+    from instancerefer_tpu_torch.data.synthetic_scans import write_scannet_scans
+    from instancerefer_tpu_torch.scripts import fit_caps, visualize
+    from instancerefer_tpu_torch.scripts.eval import check_eval_overflow
+    import warnings
+
+    root = tempfile.mkdtemp(prefix="prep_smoke_")
+    scannet = os.path.join(root, "scannet")
+    try:
+        # 11a
+        t0 = time.perf_counter()
+        boxes = write_scannet_scans(scannet, PREP_SCANS, np.random.default_rng(11),
+                                    num_verts=PREP_VERTS, num_faces=PREP_FACES,
+                                    num_masks=PREP_MASKS)
+        log(f"[prepare] {len(PREP_SCANS)} raw scans of {PREP_VERTS} vertices and {PREP_FACES} "
+            f"faces ({', '.join(f'{len(b)} boxes' for b in boxes.values())}, {PREP_MASKS} "
+            f"PointGroup masks each) written in {time.perf_counter() - t0:.1f} s")
+
+        # 11b
+        dirs = {"cuda": os.path.join(scannet, "pointgroup_data"),
+                "cpu": os.path.join(root, "pointgroup_data_cpu")}
+        times = {}
+        for side, device in (("cuda", dev), ("cpu", "cpu")):
+            with contextlib.redirect_stdout(io.StringIO()):
+                times[side] = batch_export("train", os.path.join(scannet, "scans"),
+                                           os.path.join(scannet, "PointGroupInst"), dirs[side],
+                                           os.path.join(scannet, "meta_data"), device=device)
+        summary = _same_export(dirs["cuda"], dirs["cpu"])
+        for scan in PREP_SCANS:
+            log(f"[prepare] {scan} export ms (parse / device work / save): card " + " / ".join(
+                f"{times['cuda'][scan][k]:.1f}" for k in ("parse", "device", "save"))
+                + "; CPU " + " / ".join(f"{times['cpu'][scan][k]:.1f}"
+                                        for k in ("parse", "device", "save")))
+        log(f"[prepare] card vs CPU export: 8 files a scan, {summary}")
+
+        # 11c
+        rng = np.random.default_rng(12)
+        kept = {scan: np.load(os.path.join(dirs["cuda"], f"{scan}_aligned_bbox.npy"))[:, 7]
+                for scan in PREP_SCANS}
+        names = {scan: dict(objs) for scan, objs in boxes.items()}
+        anns, seen = [], {}
+        for _ in range(BATCH):
+            scan = PREP_SCANS[int(rng.integers(len(PREP_SCANS)))]
+            obj = int(rng.choice(kept[scan]))
+            ann_id = seen[scan, obj] = seen.get((scan, obj), -1) + 1
+            anns.append(description(rng, scan, obj, names[scan][obj], ann_id))
+        for split in ("train", "val"):
+            with open(os.path.join(root, f"ScanRefer_filtered_{split}.json"), "w") as f:
+                json.dump(anns, f)
+        write_glove(root, rng)
+        profile = os.path.join(root, "caps.yaml")
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()):
+            fitted = fit_caps.main(["--config", os.path.join(REPO, "config", "InstanceRefer.yaml"),
+                                    "--data_root", root, "--split", "val", "--batches", "4",
+                                    "--batch_size", str(BATCH // 4), "--fit-caps",
+                                    "--emit-yaml", profile])
+        log(f"[prepare] caps fitted to the prepared root's {BATCH} descriptions in "
+            f"{time.perf_counter() - t0:.1f} s: {fitted}")
+        with open(os.path.join(root, "prepared.yaml"), "w") as f:
+            f.write(cli_config_text(profile))
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")  # the profile overrides the yaml's caps, on purpose
+            cfg = load_config(["--config", os.path.join(root, "prepared.yaml"), "--data_root", root])
+        spec = cfg.batch_spec()
+        dds = {}
+        for split in ("train", "val"):
+            t0 = time.perf_counter()
+            ds = D.ScannetReferenceDataset(D.get_scanrefer(root, split), split, data_root=root,
+                                           num_points=cfg.num_points, use_augment=cfg.use_augment)
+            it = iter(D.PaddedLoader(ds, spec, BATCH, shuffle=split == "train", seed=0,
+                                     num_workers=4))
+            batch = next(it)
+            it.close()
+            ov = {k: float(np.asarray(batch[f"{k}_overflow"]).max()) for k in ("scene", "inst", "cand")}
+            log(f"[prepare] {split} batch of {BATCH} from the prepared scans in "
+                f"{(time.perf_counter() - t0) * 1e3:.1f} ms; largest overflow {ov}")
+            if split == "val":
+                check_eval_overflow(ov, allow=False)  # the eval CLI's gate
+            dds[split] = batch_to_torch(batch, spec, dev)
+        phase_train(spec, dev, [dds["train"]], label="prepared", repeats=1)
+        phase_full(spec, dev, [dds["val"]], make_model(spec, seed=2).to(dev), label="prepared eval")
+
+        # 11e
+        out = os.path.join(root, "viz")
+        with contextlib.redirect_stdout(io.StringIO()):
+            written = visualize.main(["--scene", PREP_SCANS[0], "--data", dirs["cuda"], "--out", out,
+                                      "--boxes"])
+        n_boxes = len(kept[PREP_SCANS[0]])
+        counts = []
+        for path in written:
+            with open(path) as f:
+                counts.append(sum(line.startswith("v ") for line in f))
+        n_verts = min(PREP_VERTS, MAX_NUM_POINT)
+        want = [n_verts, n_verts, 8 * n_boxes]
+        log(f"[prepare] visualize --boxes: {[os.path.basename(p) for p in written]} with "
+            f"{counts} vertices")
+        if counts != want:
+            raise AssertionError(f"visualize wrote {counts} vertices, want {want}")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def loss_variant_cases(rng: np.random.Generator, c: int):
+    """name -> (port function, numpy arguments, indices of the
+    differentiated ones) at B = BATCH and ``c`` candidates, with padded
+    slots and rows without a positive."""
+    from instancerefer_tpu_torch.train import losses as L
+
+    b = BATCH
+    sim = rng.uniform(-1, 1, size=(b, c)).astype(np.float32)
+    label = np.zeros((b, c), np.float32)
+    label[np.arange(b), rng.integers(0, c, size=b)] = 1.0
+    label[::5] = 0.0
+    mask = rng.random((b, c)) < 0.8
+    mask[np.arange(b), label.argmax(1)] = True
+    mask[:, 0] = True
+    preds = (3 * rng.normal(size=b * c)).astype(np.float32)
+    seg_labels = (rng.random(b * c) < 0.3).astype(np.float32)
+    box = [(1.5 * rng.normal(size=(b, 3))).astype(np.float32) for _ in range(4)]
+    box_mask = (rng.random(b) < 0.7).astype(np.float32)
+    seg_scores = rng.normal(size=(b, 9)).astype(np.float32)
+    center = rng.uniform(0, 4, size=(b, 3)).astype(np.float32)
+    lang = rng.normal(size=(b, 18)).astype(np.float32)
+    cat = rng.integers(0, 18, size=b)
+    valid = rng.random(b) < 0.8
+    lo, hi = np.zeros((b, 3), np.float32), np.full((b, 3), 4.0, np.float32)
+
+    def scene_mask(scores, ctr, vld):
+        return L.compute_scene_mask_loss({"seg_scores": scores, "ref_center_label": ctr,
+                                          "point_min": ctr.new_tensor(lo),
+                                          "point_max": ctr.new_tensor(hi)}, vld)
+
+    return {
+        "softmax_ranking_loss": (L.softmax_ranking_loss, (sim, label, mask), (0,)),
+        "simclr_loss": (L.simclr_loss, (sim, label, mask), (0,)),
+        "ranking_loss": (L.ranking_loss, (sim, label, mask), (0,)),
+        "seg_focal_loss": (L.seg_focal_loss, (preds, seg_labels, rng.random(b * c) < 0.8), (0,)),
+        "compute_box_loss": (L.compute_box_loss, (*box, box_mask), (0, 1)),
+        "cross_entropy": (L.cross_entropy, (lang, cat), (0,)),
+        "compute_scene_mask_loss": (scene_mask, (seg_scores, center, valid), (0,)),
+        "compute_lang_classification_loss": (
+            lambda x, y, v: L.compute_lang_classification_loss({"lang_scores": x, "object_cat": y}, v),
+            (lang, cat, valid), (0,)),
+    }
+
+
+def phase_loss_variants(dev) -> None:
+    """11d: the loss variants and the named loss pieces, card vs CPU: each
+    value and input gradient (autograd of the sum of the float outputs)."""
+    worst = 0.0
+    for c in VARIANT_CANDIDATES:
+        for name, (fn, args, diff) in loss_variant_cases(np.random.default_rng(13 + c), c).items():
+            sides = {}
+            for side in ("cpu", dev):
+                xs = [torch.from_numpy(np.asarray(a)).to(side) for a in args]
+                for i in diff:
+                    xs[i].requires_grad_(True)
+                out = fn(*xs)
+                outs = out if isinstance(out, tuple) else (out,)
+                total = sum((k + 1) * o.sum() for k, o in enumerate(outs) if o.is_floating_point())
+                grads = torch.autograd.grad(total, [xs[i] for i in diff])
+                sides[str(side)] = [o.detach().cpu() for o in (*outs, *grads)]
+            for k, (g, w) in enumerate(zip(sides[str(dev)], sides["cpu"])):
+                if w.is_floating_point():
+                    err = float((g - w).abs().max()) / max(float(w.abs().max()), 1e-30)
+                    ok = bool(torch.isfinite(w).all()) and err <= VARIANT_RTOL
+                else:  # the region labels
+                    err, ok = 0.0, torch.equal(g, w)
+                if not ok:
+                    raise AssertionError(f"{name} at C={c}, output {k}: card and CPU differ "
+                                         f"({err:.3e} of the largest)")
+                worst = max(worst, err)
+    log(f"[loss-variants] {len(loss_variant_cases(np.random.default_rng(0), 4))} functions at B="
+        f"{BATCH}, C={VARIANT_CANDIDATES}: values and input gradients card vs CPU within "
+        f"{worst:.3e} of the largest (limit {VARIANT_RTOL:g})")
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device; this script runs only on a GPU")
@@ -1620,6 +1877,11 @@ def main() -> None:
     phase_sanity(dev)
     log(f"[phase 10] data parallelism on the card (2 gloo ranks; the train CLI at world "
         f"size 1 over NCCL) and the overfit check: {time.perf_counter() - t10:.1f} s wall")
+    t11 = time.perf_counter()
+    phase_prepare(dev)
+    phase_loss_variants(dev)
+    log(f"[phase 11] raw ScanNet scans to a train step and eval forward, the loss variants "
+        f"and visualize: {time.perf_counter() - t11:.1f} s wall")
 
     k1.worst = max(k1.worst, bwd["gather_conv"].worst)
     entries = (

@@ -46,22 +46,7 @@ from instancerefer_tpu_torch.data.pipeline import (
 )
 from instancerefer_tpu_torch.data.scannet_config import ScannetDatasetConfig
 from instancerefer_tpu_torch.parallel.distributed import host_shard_indices
-
-
-# rotation matrices of utils/pc_utils.py
-def rotx(t: float) -> np.ndarray:
-    c, s = np.cos(t), np.sin(t)
-    return np.array([[1, 0, 0], [0, c, -s], [0, s, c]])
-
-
-def roty(t: float) -> np.ndarray:
-    c, s = np.cos(t), np.sin(t)
-    return np.array([[c, 0, s], [0, 1, 0], [-s, 0, c]])
-
-
-def rotz(t: float) -> np.ndarray:
-    c, s = np.cos(t), np.sin(t)
-    return np.array([[c, -s, 0], [s, c, 0], [0, 0, 1]])
+from instancerefer_tpu_torch.utils.pc_utils import rotx, roty, rotz
 
 
 def rotate_aligned_boxes_along_axis(boxes, rot_mat, axis):

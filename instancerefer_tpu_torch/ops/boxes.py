@@ -3,6 +3,7 @@
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 # corner order of the reference's construct_bbox_corners
@@ -43,3 +44,15 @@ def param2obb(center, heading_class, heading_residual, size_class, size_residual
     size = mean_size_arr[size_class] + size_residual
     heading = center.new_zeros(center.shape[:-1] + (1,))
     return torch.cat([center, size.to(center.dtype), heading], dim=-1)
+
+
+def np_box3d_iou_aabb(obb1, obb2, eps: float = 1e-8):
+    """``box3d_iou_aabb`` in numpy, for host tools."""
+    mn1 = obb1[..., 0:3] - obb1[..., 3:6] * 0.5
+    mx1 = obb1[..., 0:3] + obb1[..., 3:6] * 0.5
+    mn2 = obb2[..., 0:3] - obb2[..., 3:6] * 0.5
+    mx2 = obb2[..., 0:3] + obb2[..., 3:6] * 0.5
+    inter = np.prod(np.maximum(np.minimum(mx1, mx2) - np.maximum(mn1, mn2), 0.0), axis=-1)
+    vol1 = np.prod(mx1 - mn1, axis=-1)
+    vol2 = np.prod(mx2 - mn2, axis=-1)
+    return inter / (vol1 + vol2 - inter + eps)

@@ -93,3 +93,12 @@ def masked_global_max_pool(
     out = out.scatter_reduce(0, seg[:, None].expand(-1, c), feats, "amax")
     count = torch.bincount(seg, minlength=num_segments + 1)[:num_segments]
     return torch.where(count[:, None] > 0, out[:num_segments], 0.0)
+
+
+def masked_mean(feats: torch.Tensor, mask: torch.Tensor, axis=0, eps: float = 1e-12) -> torch.Tensor:
+    """Mean of ``feats`` over ``axis`` counting only rows where ``mask``
+    (broadcast over the trailing dims); 0 where no row counts."""
+    m = mask.to(feats.dtype)
+    while m.ndim < feats.ndim:
+        m = m[..., None]
+    return (feats * m).sum(axis) / m.sum(axis).clamp(min=eps)

@@ -527,15 +527,15 @@ class Solver:
         for k, v in (blob.get("best") or {}).items():
             self.best[k] = int(v) if k == "epoch" else float(v)
 
-    def load_pretrained_modules(self, path: str):
-        """Partial warm start: the weights of ``PRETRAINED_MODULES`` that the
-        file holds; the rest stay as they are (reference ``use_pretrained``,
-        ``scripts/train.py:83-96``)."""
+    def load_pretrained_modules(self, path: str, modules: Sequence[str] = PRETRAINED_MODULES):
+        """Partial warm start: the weights of the top-level submodules
+        ``modules`` that the file holds; the rest stay as they are
+        (reference ``use_pretrained``, ``scripts/train.py:83-96``, which
+        copies the four of ``PRETRAINED_MODULES``)."""
         blob = torch.load(path, map_location="cpu", weights_only=True)
         sd = from_reference(blob.get("model_state_dict", blob))
         current = self.model.state_dict()
-        current.update({k: v for k, v in sd.items()
-                        if k.split(".", 1)[0] in PRETRAINED_MODULES})
+        current.update({k: v for k, v in sd.items() if k.split(".", 1)[0] in modules})
         self.model.load_state_dict(current)
 
     def profile_steps(self, loader, out_dir: str, num_steps: int = 3) -> str:

@@ -1,7 +1,8 @@
 """The port runs where there is no jax, flax, yaml, orbax or optax and no
 JAX package (an eval forward, one train step, the train and eval CLIs, the
-three multiview scripts, the caps fitter and a 2-rank data-parallel step
-over gloo), and ``chip_smoke.py`` refuses to run without a GPU.
+three multiview scripts, the caps fitter, the ScanNet exporter feeding the
+train CLI and a 2-rank data-parallel step over gloo), and ``chip_smoke.py``
+refuses to run without a GPU.
 
 The GPU machine has PyTorch but none of jax, flax, yaml, orbax or optax, so
 the port — host pipeline included — must not import them, even indirectly;
@@ -12,6 +13,7 @@ import ast
 import glob
 import json
 import os
+import pickle
 import shutil
 import subprocess
 import sys
@@ -22,6 +24,8 @@ import torch
 
 from fake_scanrefer import make_fake_root
 from test_torch_multiview_scripts import SCENES, write_fake_frames
+
+from instancerefer_tpu_torch.data.synthetic_scans import write_scannet_scans
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PACKAGE = os.path.join(ROOT, "instancerefer_tpu_torch")
@@ -246,14 +250,57 @@ def test_multiview_scripts_run_without_jax(cli):
     assert sorted(os.listdir(f"{frames}/plys")) == [f"{s}.ply" for s in SCENES]
 
 
-@pytest.mark.parametrize("name", ["train", "eval", *MULTIVIEW])
+@pytest.mark.parametrize("name", ["train", "eval", "prepare_data", *MULTIVIEW])
 def test_clis_need_a_card_unless_told_cpu(cli, name):
-    if name in MULTIVIEW:
+    if name == "prepare_data":
+        res = cli["script"](name, "--scannet_path", str(cli["tmp"] / "none"), "--output_path",
+                            str(cli["tmp"] / "nocard"), device=None)
+    elif name in MULTIVIEW:
         res = cli["script"](name, "--frames", f"{cli['frames']}/frames", "--out",
                             f"{cli['frames']}/nocard", device=None)
     else:
         res = cli["run"](name, log_dir="nocard", device=None)
     assert res.returncode != 0 and "--device cpu" in res.stderr
+
+
+def test_prepared_scans_train_without_jax(cli, tmp_path):
+    """``prepare_data --device cpu`` turns raw scans into a dataset, and the
+    train CLI trains on it, both where jax cannot be imported."""
+    root = tmp_path / "data"
+    scannet = root / "scannet"
+    boxes = write_scannet_scans(str(scannet), ("scene0000_00", "scene0001_00"),
+                                np.random.default_rng(2), num_verts=4000, num_faces=8000,
+                                num_objects=(4, 6), num_masks=6)
+    out = _ok(cli["script"]("prepare_data", "--split", "train", "--scannet_path",
+                            str(scannet / "scans"), "--pointgroupinst_path",
+                            str(scannet / "PointGroupInst"), "--output_path",
+                            str(scannet / "pointgroup_data"), "--meta_path",
+                            str(scannet / "meta_data")))
+    assert "scene0001_00: parse" in out
+    anns, words = [], {"the", "in", "room", "unk"}
+    for scan, objs in boxes.items():
+        for k, (obj_id, name) in enumerate(objs[:3]):
+            tokens = ["the", *name.split(), "in", "the", "room"]
+            words |= set(tokens)
+            anns.append({"scene_id": scan, "object_id": str(obj_id),
+                         "object_name": name.replace(" ", "_"), "ann_id": "0",
+                         "token": tokens, "description": " ".join(tokens)})
+    for split in ("train", "val"):
+        (root / f"ScanRefer_filtered_{split}.json").write_text(json.dumps(anns))
+    rng = np.random.default_rng(3)
+    with open(root / "glove.p", "wb") as f:
+        pickle.dump({w: rng.normal(size=300).astype(np.float32) for w in sorted(words)}, f)
+    (root / "tiny.yaml").write_text(TINY.replace("epoch: 2", "epoch: 1"))
+    argv = [sys.executable, "-m", "instancerefer_tpu_torch.scripts.train", "--config",
+            str(root / "tiny.yaml"), "--log_dir", "prep", "--data_root", str(root),
+            "--output_root", str(root / "outputs"), "--device", "cpu"]
+    out = _ok(subprocess.run(argv, cwd=str(cli["tmp"]), env=cli["env"], capture_output=True,
+                             text=True, timeout=300))
+    assert "epoch 1 starting" in out
+    (run,) = glob.glob(str(root / "outputs" / "ScanRefer" / "prep" / "checkpoints" / "*"))
+    records = [json.loads(line) for line in open(os.path.join(run, "scalars.jsonl"))]
+    assert records and all(np.isfinite(r["loss"]) for r in records)
+    assert os.path.isfile(os.path.join(run, "model_last.pth"))
 
 
 def test_fit_caps_runs_without_jax(cli, tmp_path):

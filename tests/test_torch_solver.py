@@ -210,6 +210,22 @@ def test_pretrained_modules_copy_what_the_file_holds(runs, tmp_path):
             assert torch.equal(v, want), k
 
 
+@pytest.mark.parametrize("modules", [("lang",), ("attribute", "scene")])
+def test_pretrained_modules_subset_leaves_the_others(runs, tmp_path, modules):
+    """``modules`` names the submodules copied, as the JAX solver's
+    argument does; every other submodule keeps its own weights."""
+    trained = runs["port"].model.state_dict()
+    model = InstanceRefer(SPEC.feat_dim, SPEC.num_classes, SPEC.max_candidates,
+                          generator=torch.Generator().manual_seed(7))
+    fresh = {k: v.clone() for k, v in model.state_dict().items()}
+    s = solver.Solver(model, MEAN_SIZE, SPEC, "cpu", stamp="subset", output_dir=str(tmp_path))
+    s.load_pretrained_modules(os.path.join(runs["port"].root, "model_last.pth"), modules=modules)
+    for k, v in s.model.state_dict().items():
+        copied = k.split(".", 1)[0] in modules
+        assert torch.equal(v, trained[k] if copied else fresh[k]), k
+    assert any(not torch.equal(fresh[k], trained[k]) for k in fresh if k.split(".", 1)[0] in modules)
+
+
 def test_interrupt_saves_a_checkpoint(tmp_path):
     """Ctrl-C inside an epoch ends the run through the finish path: the best
     report and ``checkpoint.tar`` at the last completed epoch.  The prefetch
