@@ -273,11 +273,15 @@ class Totals:
 # sum_partials_kernel serves K2 and K3
 KERNEL_FAMILIES = (
     ("K1 dX over up8", re.compile(r"gather_gemm_tc_kernel<float, \d+, \d+, false>")),
-    ("K1 forward", re.compile(r"gather_gemm(_tc)?_kernel<.*false>|stem_conv_kernel")),
+    ("K1 forward", re.compile(r"gather_gemm(_tc)?_kernel<.*false>|stem_wide_conv_kernel")),
     ("K2", re.compile(r"gather_gemm(_tc)?_kernel<.*true>|dw_(tc|partial)_kernel<.*false>")),
-    ("K3", re.compile(r"dw_(tc|partial)_kernel<.*true>|stem_dw_kernel")),
+    ("K3", re.compile(r"dw_(tc|partial)_kernel<.*true>|stem_wide_dw_kernel")),
     ("K2/K3 sum of splits", re.compile(r"sum_partials_kernel")),
 )
+
+
+# a stem kernel's mangled name (template arguments, if any)
+STEM_KERNEL = re.compile(r"(stem_\w*?kernel)(I\w*?E)?E")
 
 
 def profile_kernels(label: str, fn) -> None:
@@ -338,7 +342,7 @@ def run_slice(model, dd, mean_size):
 
 def phase_kernel(batch, dev):
     from instancerefer_tpu_torch.ops import sparse
-    from instancerefer_tpu_torch.ops.gather_conv import gather_conv, route
+    from instancerefer_tpu_torch.ops.gather_conv import gather_conv, pad_channels, route
 
     gen = torch.Generator(device=dev).manual_seed(0)
     shapes = (
@@ -356,6 +360,9 @@ def phase_kernel(batch, dev):
         nnz = int((nbr >= 0).sum())
         for dt in (torch.float32, torch.bfloat16):
             feats = torch.randn(v_in, cin, device=dev, generator=gen).to(dt)
+            # the kernel takes the rows the main path gives it: on the stem
+            # route padded to 16 bytes (as ops/sparse_conv.stem_input does)
+            fk = pad_channels(feats) if route(dt, cin, dev) == "stem_wide" else feats
             w = (torch.randn(k, cin, cout, device=dev, generator=gen) / (k * cin) ** 0.5).to(dt)
             gather = im2col(feats, nbr)
             w2 = w.reshape(k * cin, cout)
@@ -363,13 +370,13 @@ def phase_kernel(batch, dev):
             for epi in (False, True):
                 sc = (0.5 + torch.rand(cout, device=dev, generator=gen)) if epi else None
                 bi = 0.1 * torch.randn(cout, device=dev, generator=gen) if epi else None
-                got = gather_conv(feats, nbr, w, sc, bi, relu=epi)
+                got = gather_conv(fk, nbr, w, sc, bi, relu=epi)
                 ref = sparse.gather_conv(feats, nbr, w, sc, bi, relu=epi)
                 torch.cuda.synchronize()
                 err = (got.float() - ref.float()).abs().max().item()
                 scale = ref.float().abs().max().item()
                 tol = KERNEL_TOL[dt] * max(scale, 1e-30)
-                t_k = median_ms(lambda: gather_conv(feats, nbr, w, sc, bi, relu=epi))
+                t_k = median_ms(lambda: gather_conv(fk, nbr, w, sc, bi, relu=epi))
                 t_p = median_ms(lambda: sparse.gather_conv(feats, nbr, w, sc, bi, relu=epi))
                 flops = 2 * nnz * cin * cout
                 nb = nbytes(feats, nbr, w, got) + (2 * cout * 4 if epi else 0)
@@ -484,7 +491,7 @@ def phase_bwd_kernels(batch, dev):
     """K3, K2 and K1's f32 output against their twins; returns per kernel
     the ``Totals`` of its bf16 shapes (the worst |err| of all)."""
     from instancerefer_tpu_torch.ops import conv_bwd, sparse, voxelize
-    from instancerefer_tpu_torch.ops.gather_conv import gather_conv, route
+    from instancerefer_tpu_torch.ops.gather_conv import gather_conv, pad_channels, route
 
     def imap(a):
         return torch.from_numpy(np.ascontiguousarray(a, np.int32)).to(dev)
@@ -556,16 +563,22 @@ def phase_bwd_kernels(batch, dev):
                 def yardstick():
                     return torch.mm(gather(), w2)
 
-            def run(fn):
-                out = fn(*args)
+            # the kernel takes the rows the main path gives it: on the stem
+            # route padded to 16 bytes (as ops/sparse_conv.stem_input does)
+            kargs, kw = args, {}
+            if route(dt, cin, dev) == "stem_wide":
+                kargs, kw = (pad_channels(args[0]), *args[1:]), {"cin": cin}
+
+            def run(fn, a, kw):
+                out = fn(*a, **kw)
                 return out if isinstance(out, tuple) else (out,)
 
-            got, ref = run(kern), run(twin)
-            again = run(kern) if outs[-1] == "dW" else None
+            got, ref = run(kern, kargs, kw), run(twin, args, {})
+            again = run(kern, kargs, kw) if outs[-1] == "dW" else None
             torch.cuda.synchronize()
             if again is not None and not torch.equal(got[-1], again[-1]):
                 raise AssertionError(f"{name} at {label} {dt}: dW differs between two launches")
-            t_k = median_ms(lambda: kern(*args))
+            t_k = median_ms(lambda: kern(*kargs, **kw))
             t_p = median_ms(lambda: twin(*args))
             t_i = median_ms(yardstick)
             nb = nbytes(*args, *got)
@@ -1023,9 +1036,12 @@ def chunked_im2col(rows, nbr, chunk=65536):
 def phase_stem_widths(batch, dev):
     """K1 (with and without its epilogue) and K3 at both stems at Cin 10
     and 135 against their twins; returns {(wrapper, Cin): Totals} of the
-    bf16 shapes (K1 with its epilogue)."""
+    bf16 shapes (K1 with its epilogue).  The kernels take the rows the
+    stems' main path gives them: on the stem route, padded to 16 bytes by
+    ``pad_channels`` (as ``ops/sparse_conv.stem_input`` does, outside the
+    timing); the twins and the bound take the [V, Cin] rows."""
     from instancerefer_tpu_torch.ops import conv_bwd, sparse
-    from instancerefer_tpu_torch.ops.gather_conv import gather_conv, route
+    from instancerefer_tpu_torch.ops.gather_conv import gather_conv, pad_channels, route
 
     gen = torch.Generator(device=dev).manual_seed(9)
     res = {}
@@ -1041,6 +1057,7 @@ def phase_stem_widths(batch, dev):
                 if dt == torch.bfloat16 and path == "fma":
                     raise AssertionError(f"bf16 at Cin {cin} takes the FMA kernels")
                 x = torch.randn(v, cin, device=dev, generator=gen).to(dt)
+                xk = pad_channels(x) if path == "stem_wide" else x
                 w = (torch.randn(k, cin, cout, device=dev, generator=gen) / (k * cin) ** 0.5).to(dt)
                 g = torch.randn(v, cout, device=dev, generator=gen).to(dt)
                 spans, cols = chunked_im2col(x, nbr)
@@ -1051,10 +1068,10 @@ def phase_stem_widths(batch, dev):
                 for epi in (False, True):
                     sc = (0.5 + torch.rand(cout, device=dev, generator=gen)) if epi else None
                     bi = 0.1 * torch.randn(cout, device=dev, generator=gen) if epi else None
-                    got = gather_conv(x, nbr, w, sc, bi, relu=epi)
+                    got = gather_conv(xk, nbr, w, sc, bi, relu=epi)
                     ref = sparse.gather_conv(x, nbr, w, sc, bi, relu=epi)
                     err, scale = _max_err(got, ref)
-                    t_k = median_ms(lambda: gather_conv(x, nbr, w, sc, bi, relu=epi))
+                    t_k = median_ms(lambda: gather_conv(xk, nbr, w, sc, bi, relu=epi))
                     t_p = median_ms(lambda: sparse.gather_conv(x, nbr, w, sc, bi, relu=epi))
                     nb = nbytes(x, nbr, w, got) + (2 * cout * 4 if epi else 0)
                     b_ms, b_by = bound(flops, nb, dt)
@@ -1067,13 +1084,14 @@ def phase_stem_widths(batch, dev):
                     k1.worst = max(k1.worst, err)
                     if dt == torch.bfloat16 and epi:
                         k1.add(t_k, t_p, t_i1, flops, nb, dt)
-                dw, again = conv_bwd.conv_dw(x, nbr, g), conv_bwd.conv_dw(x, nbr, g)
+                dw = conv_bwd.conv_dw(xk, nbr, g, cin=cin)
+                again = conv_bwd.conv_dw(xk, nbr, g, cin=cin)
                 ref = sparse.conv_dw(x, nbr, g)
                 torch.cuda.synchronize()
                 if not torch.equal(dw, again):
                     raise AssertionError(f"K3 at {tag}: dW differs between two launches")
                 err, scale = _max_err(dw, ref)
-                t_k = median_ms(lambda: conv_bwd.conv_dw(x, nbr, g))
+                t_k = median_ms(lambda: conv_bwd.conv_dw(xk, nbr, g, cin=cin))
                 t_p = median_ms(lambda: sparse.conv_dw(x, nbr, g))
                 nb = nbytes(x, nbr, g, dw)
                 b_ms, b_by = bound(flops, nb, dt)
@@ -1841,9 +1859,9 @@ def main() -> None:
         spills = [line.strip() for line in report.splitlines()
                   if "spill" in line and " 0 bytes spill stores, 0 bytes spill loads" not in line]
         regs = [int(n) for n in re.findall(r"Used (\d+) registers", report)]
-        stem_regs = [f"{m.group(1)}<{m.group(2)}> {r}" for name, r in re.findall(
+        stem_regs = [f"{m.group(1)}{m.group(2) or ''} {r}" for name, r in re.findall(
             r"Compiling entry function '(\w+)'.*?Used (\d+) registers", report, re.S)
-            for m in [re.search(r"(stem_\w+?kernel)I(\w*?)EEv", name)] if m]
+            for m in [re.search(STEM_KERNEL, name)] if m]
         log(f"[build] {stem}: {len(regs)} kernels, at most {max(regs)} registers, "
             f"{len(spills)} with spills (-Xptxas -v); the stem kernels' registers: "
             + (", ".join(stem_regs) or "none"))

@@ -24,12 +24,12 @@
 //     the g rows as a contiguous tile, both with 16-byte cp.async in a ring
 //     of 2, and accumulates x^T g with mma.sync.m16n8k16 from ldmatrix.trans;
 //     tiles with no valid index at k are skipped.
-//   ir_conv_dw_stem  bf16 at any other Cin (the two stems):
-//     irsc::stem::stem_dw_kernel (sparse_conv_stem.cuh), one pass over g
-//     for all 27 offsets: dW as one product cols^T g, where cols is the
-//     im2col of a 64-row tile (27 x Cin columns, padded to a multiple of
-//     16), cut into chunks of 192 columns on the grid; each block's
-//     [192, 32] product stays in registers (48 floats a thread).
+//   ir_conv_dw_stem_wide  bf16 at any other Cin (the stems: 7, 10, 135):
+//     irsc::stem::stem_wide_dw_kernel (sparse_conv_stem.cuh), one product
+//     cols^T g over the rows' im2col, each neighbour's row zero-padded to
+//     16 bytes, the depth in blocks of 768 columns on the grid (48
+//     accumulators a thread, 16 warps), so g and the map are read once per
+//     block; 64-row tiles gathered by 16-byte cp.async in a ring of 2.
 //   ir_conv_dw       f32: the FMA template irsc::dw_partial_kernel
 //     (sparse_conv.cuh) over a (K, split, Cin tile of 128) grid.
 
@@ -40,13 +40,11 @@
 // a block (64 a thread at 32 -> 64 with 8 warps, more at the wider stages),
 // a second kernel design for one shape; the (k, split) grid keeps K2's
 // tested template and spreads the small stages over more blocks.  The
-// stems: the gather.  The FMA kernel this replaces read its split's g rows
+// stems: the gather.  The FMA kernel this replaced read its split's g rows
 // once per offset (27 passes) and gathered x with scalar loads into f32
-// tiles; here g is read once per depth chunk (once at Cin = 7, 19 times at
-// 135), each x row (2-byte aligned) is read 27 times with 2-byte loads,
-// consecutive lanes on consecutive columns (from L2: 8 MB of x at the
-// scene stem at Cin = 7, 157 MB at 135, which the L2 no longer holds), and
-// the MMAs, 12 k-steps of 16 a chunk, finish long before the loads.
+// tiles.  Here g and the map are read once per 768 depth columns (5 times
+// at Cin 135, once at 7 and 10), and the 16-byte gathers of x, 27 x 272
+// bytes a row at Cin 135 (4.3 GB from L2 at the scene stem), bound it.
 //
 // C interface (bound with ctypes): each entry returns cudaGetLastError()
 // after its launches, or cudaErrorInvalidValue for an unsupported shape.
@@ -84,12 +82,12 @@ extern "C" int ir_conv_dw_tc(const void* feats, const void* nbr, const void* g, 
                                         splits, static_cast<cudaStream_t>(stream));
 }
 
-// The stem route: bfloat16 feats [V_in, cin] (any cin up to 65535), nbr
-// [v_out, 27], g [v_out, cout] (16-byte aligned) with cout a multiple of
-// 32; partial is f32 scratch of splits * 27 * cin * cout.
-extern "C" int ir_conv_dw_stem(const void* feats, const void* nbr, const void* g, void* partial,
-                               void* dw, long long v_out, int k_offsets, int cin, int cout,
-                               int splits, void* stream) {
+// The stem route: bfloat16 feats [V_in, channels(cin)] (cin up to
+// MAX_CIN, rows zero-padded to a multiple of 8 channels) and g as above,
+// both 16-byte aligned; dw is [27, cin, cout], with no padding rows.
+extern "C" int ir_conv_dw_stem_wide(const void* feats, const void* nbr, const void* g,
+                                    void* partial, void* dw, long long v_out, int k_offsets,
+                                    int cin, int cout, int splits, void* stream) {
   if (bad_shape(v_out, k_offsets, cin, splits) || k_offsets != irsc::stem::K ||
       cin > irsc::stem::MAX_CIN)
     return cudaErrorInvalidValue;

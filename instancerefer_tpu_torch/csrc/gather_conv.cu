@@ -26,13 +26,13 @@
 //     offset's gather overlaps this one's MMAs.  Offsets with no valid index
 //     in the tile are skipped, and a tile of padding rows only stores its
 //     epilogue.
-//   ir_gather_conv_stem  bf16 at any other Cin (the two stems, K = 27: 7,
-//     10 with normals, 135 with multiview features -> 32):
-//     irsc::stem::stem_conv_kernel (sparse_conv_stem.cuh).  The tile's depth
-//     comes from its im2col, not from Cin: the 64 rows' 27 neighbours side
-//     by side, 27 x Cin columns padded to a multiple of 16, times W [27,
-//     Cin, Cout] read as stored, [27 x Cin, Cout]; chunks of 192 columns
-//     staged in turn into one accumulator, the same epilogue.
+//   ir_gather_conv_stem_wide  bf16 at any other Cin (the stems, K = 27: 7,
+//     10 with normals, 135 with multiview features -> 32): irsc::stem::
+//     stem_wide_conv_kernel (sparse_conv_stem.cuh).  The tile's depth comes
+//     from its im2col, not from Cin: the rows' 27 neighbours side by side,
+//     each zero-padded to 16 bytes (cp = Cin rounded up to 8 channels),
+//     times W [27, Cin, Cout] read as stored, gathered by 16-byte cp.async
+//     in a ring of 4 stages of 64 columns, 128-row tiles; the same epilogue.
 //   ir_gather_conv     f32 inputs: the FMA template irsc::gather_gemm_kernel
 //     (sparse_conv.cuh), f32 products and sums in registers (a tensor-core
 //     f32 path would be TF32).
@@ -45,15 +45,11 @@
 // cores consume it.  Taller tiles would share W[k] across more rows at the
 // cost of blocks on the small stages; that is the next lever.
 //
-// What bounds the stem route: the staging of gathered rows.  Each 64-row
-// block gathers its 64 x 27 x Cin im2col with 2-byte loads (at Cin = 7,
-// 1728 L2 reads of a 14-byte row for 64 output rows; at 135, 64 x 3645
-// elements in 19 chunks) and stages W_flat once over the chunks, for
-// 2 x 64 x depth x 32 flops, which the tensor cores finish long before the
-// loads.  Each thread keeps 32 of its loads in flight (they go to registers
-// first and to shared memory after), and several blocks an SM hide the rest
-// of their latency behind each other.  The FMA kernel it replaced for bf16
-// staged W[k] per offset and issued f32 FMAs at ~20 TFLOP/s (PERF.md).
+// What bounds the stem route: the bytes from L2 into shared memory, 27 x
+// 272 bytes per output row at Cin 135 (4.3 GB at the scene stem, ~27 x
+// the x it reads) and W_flat once per 128 rows; the ring keeps three
+// stages of it in flight per block, two blocks an SM (the header's note
+// has the details).
 //
 // C interface (bound with ctypes): each entry returns cudaGetLastError()
 // after the launch, or cudaErrorInvalidValue for an unsupported shape.
@@ -123,22 +119,23 @@ extern "C" int ir_gather_conv_tc(const void* feats, const void* nbr, const void*
   return cudaErrorInvalidValue;
 }
 
-// The stem route: bfloat16 feats [V_in, cin] (any cin up to 65535), nbr
-// [v_out, 27], w [27, cin, cout] as stored (16-byte aligned), cout one of
-// 32, 64, 128; out_dtype 0 = float32, 1 = bfloat16.
-extern "C" int ir_gather_conv_stem(const void* feats, const void* nbr, const void* w,
-                                   const void* scale, const void* bias, void* out,
-                                   long long v_out, int k_offsets, int cin, int cout, int relu,
-                                   int out_dtype, void* stream) {
-  if (bad_rows(v_out, k_offsets, cin, irsc::stem::BM) || k_offsets != irsc::stem::K ||
-      cin > irsc::stem::MAX_CIN)
+// The stem route: bfloat16 feats [V_in, channels(cin)] (cin up to
+// MAX_CIN, rows zero-padded to a multiple of 8 channels), nbr [v_out, 27],
+// w [27, cin, cout] as stored, both 16-byte aligned, cout a multiple of
+// 32; out_dtype 0 = float32, 1 = bfloat16.
+extern "C" int ir_gather_conv_stem_wide(const void* feats, const void* nbr, const void* w,
+                                        const void* scale, const void* bias, void* out,
+                                        long long v_out, int k_offsets, int cin, int cout,
+                                        int relu, int out_dtype, void* stream) {
+  namespace stem = irsc::stem;
+  if (bad_rows(v_out, k_offsets, cin, stem::BM) || k_offsets != stem::K ||
+      cin > stem::MAX_CIN)
     return cudaErrorInvalidValue;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (out_dtype == 1)
-    return irsc::stem::dispatch_conv<__nv_bfloat16>(feats, nbr, w, scale, bias, out, v_out, cin,
-                                                    cout, relu, s);
+    return stem::launch_conv<__nv_bfloat16>(feats, nbr, w, scale, bias, out, v_out, cin, cout,
+                                             relu, s);
   if (out_dtype == 0)
-    return irsc::stem::dispatch_conv<float>(feats, nbr, w, scale, bias, out, v_out, cin, cout,
-                                            relu, s);
+    return stem::launch_conv<float>(feats, nbr, w, scale, bias, out, v_out, cin, cout, relu, s);
   return cudaErrorInvalidValue;
 }

@@ -4,41 +4,54 @@
 // repo's configs give 7: xyz, rgb and height; 10 with normals; 135 with the
 // 128 multiview channels):
 //
-//   stem_conv_kernel  out[v] = epilogue(cols(v) @ W_flat)              K1 at a stem
-//   stem_dw_kernel    partial[s] = sum_{rows r of split s} cols(r)^T g_r   K3 at a stem
+//   K1 at a stem  out[v] = epilogue(cols(v) @ W_flat)
+//   K3 at a stem  partial[s] = sum_{rows r of split s} cols(r)^T g_r
 //
-// Per offset, 7 or 10 channels would fill less than an mma's k-depth of 16,
-// and 135 is no multiple of it, so both kernels take their depth from the
+// Per offset, 7 or 10 channels fill less than an mma's k-depth of 16 and
+// 135 is no multiple of it, so both kernels take their depth from the
 // im2col of a row instead: cols(v) holds the row's 27 neighbours side by
-// side,
+// side, channel c of neighbour k in column k * cp + c (zero for -1), and
+// W_flat holds W [27, cin, Cout] in the same order, zero rows for c >= cin;
+// cp is cin rounded up to 8 channels (7 -> 8, 10 -> 16, 135 -> 136), and
+// the depth 27 * cp is padded to a k-step of 16 (3672 -> 3680 at 135).
+// dW[k, c] is row k * cp + c of cols^T g, and the kernels write it at
+// [k, c] of the [27, cin, Cout] layout as stored.  ops/gather_conv.
+// stem_im2col and stem_weight write the same layouts in PyTorch, for the
+// tests.
 //
-//   cols(v)[k * cin + c] = x[nbr[v, k], c]      (zero for -1),
+// x comes zero-padded to cp channels (ops/gather_conv.pad_channels, one
+// pass that takes the place of the cast to bf16), so every 16-byte piece
+// of an im2col row is 8 channels of one neighbour, and the gather is one
+// 16-byte cp.async a piece, zero-filled for -1, from a (k, c) the thread
+// computes once per stage.  What bounds the kernels: each row of x is
+// gathered 27 times (4.3 GB from L2 into shared memory at the Cin-135
+// scene stem, against 158 MB of x, which the L2 mostly serves), and the
+// 137 GFLOP of MMAs there, which share the shared memory's bandwidth with
+// the gathers' writes.  Neither alone accounts for the time, so the design
+// keeps both in flight:
+//   K1 (stem_wide_conv_kernel): 128-row tiles (W_flat is staged once per
+//   128 rows, half the traffic of 64-row tiles), 8 warps as 4 row groups
+//   of 32 x 2 k-groups of each stage's k-steps, and a ring of 4 stages of
+//   64 columns (x tile and W rows), so three stages' gathers are in flight
+//   while the warps multiply the fourth; two blocks an SM.  The k-groups'
+//   sums meet in shared memory at the end (a fixed order), then the BN/ReLU
+//   epilogue.
+//   K3 (stem_wide_dw_kernel): a block covers DB = 768 columns of the depth
+//   (16 warps x 3 16-column tiles, 48 accumulators a thread), so g and the
+//   map are read once per 768 columns (5 times at Cin 135, once at 7 and
+//   10); one block an SM, 64-row tiles in a ring of 2, the next tile's
+//   gather in flight over this one's MMAs and the map of the tile after it
+//   fetched into registers meanwhile.  16 warps and not 8: the chain of a
+//   gathered piece (its table entry, its index, then the copy) needs the
+//   warps to hide its latency.  The splits are summed in a fixed order by
+//   sum_partials_kernel, so dW is bit-identical across launches.
+// Both feed mma.sync.m16n8k16 through ldmatrix as the tensor-core
+// templates of sparse_conv_tc.cuh do; shared rows are padded by 16 bytes
+// so the 8 rows of an ldmatrix phase fall in distinct banks.
 //
-// and W_flat is W [27, cin, Cout] as it is stored, read as [27 * cin,
-// Cout].  The depth 27 * cin is padded to a k-step of 16 (189 -> 192 at
-// Cin = 7, 270 -> 272 at 10, 3645 -> 3648 at 135; padding Cin to 8 would
-// take 224 at 7).  The dense packing also makes dW[k, c] row k * cin + c of
-// cols^T g, which is the [27, cin, Cout] layout as stored.
-// ops/gather_conv.stem_im2col and stem_weight write the same layout in
-// PyTorch, for the tests.
-//
-// The depth is cut into chunks of CHUNK = 192 columns, the tile a block
-// stages at once (one chunk at Cin = 7, two at 10, 19 at 135).  K1 walks
-// the chunks of its 64-row tile in order and keeps its [64, Cout]
-// accumulator in registers across them; K3 puts the chunks on its grid, and
-// each block keeps its [192, 32] product in registers.
-//
-// A bf16 row of 7, 10 or 135 channels (14, 20, 270 bytes) starts 2-byte
-// aligned, so the 16-byte cp.async of the other kernels cannot gather it.
-// The gather reads it with 2-byte loads, consecutive lanes on consecutive
-// columns of the chunk, so a warp instruction reads 32 adjacent columns: a
-// run of one neighbour's channels, or ~4.6 neighbours' at Cin = 7.  A
-// per-chunk table (map_columns) turns a column into its (offset, channel),
-// so no thread divides by Cin in the gather.  The rows stay in L2 across
-// their 27 uses.  W_flat's rows (Cout x 2 bytes) and g's rows are 64-byte
-// aligned and go by 16-byte cp.async.  Both kernels stage 64-row tiles
-// [64][CHUNK + 8] and feed mma.sync.m16n8k16 through ldmatrix as the
-// tensor-core templates of sparse_conv_tc.cuh do.
+// DB is also the wrapper's (ops/gather_conv.STEM_DW_BLOCK, which sizes the
+// split count by the grid): the build passes it as IRSC_STEM_DW_BLOCK, and
+// a static_assert holds it to the warps and tiles above.
 
 #pragma once
 
@@ -49,111 +62,60 @@ namespace stem {
 
 using tc::bf16;
 
-constexpr int K = 27;                      // the stems' 3^3 map
-constexpr int CHUNK = 192;                 // im2col columns a block stages at once
-constexpr int MAX_CIN = 0xffff;            // a channel fits the 16 bits map_columns gives it
-constexpr int THREADS = 128;               // 4 warps
-constexpr int BM = 64;                     // rows of a tile
-constexpr int X_STRIDE = CHUNK + tc::PAD;  // 400 bytes: ldmatrix rows hit distinct banks
-
-// The im2col depth of a row: K * cin rounded up to a k-step of 16.
-__host__ __device__ constexpr int depth(int cin) { return (K * cin + 15) / 16 * 16; }
-// The chunks of that depth.
-__host__ __device__ constexpr int chunks(int cin) { return (depth(cin) + CHUNK - 1) / CHUNK; }
-
-// The loops below read global memory in batches of U elements a thread into
-// registers and only then store them to shared memory: a shared store may
-// alias the next shared index read (x_s and idx_s share one buffer in K1),
-// so a loop that stores as it loads keeps one global load in flight a
-// thread.
+constexpr int K = 27;       // the stems' 3^3 map
+constexpr int MAX_CIN = 0xfff8;  // a channel offset fits the 16 bits of a piece entry
 
 // idx_s[r * K + k] = nbr[(row0 + r) * K + k] for the tile's first `rows`
-// rows, -1 after them (a coalesced read of the tile's map).  Returns to
-// every thread whether any index is valid; its barrier publishes idx_s.
+// rows, -1 after them (a coalesced read of the tile's map).  The global
+// loads go to registers first; the barrier between them and the stores
+// lets the caller reuse idx_s (and what it staged from it) tile after
+// tile.  Returns to every thread whether any index is valid; its barrier
+// publishes idx_s.
+template <int ROWS, int NT>
 __device__ __forceinline__ bool load_indices(int* idx_s, const int* __restrict__ nbr,
                                              long long row0, int rows) {
-  constexpr int U = (BM * K + THREADS - 1) / THREADS;  // 14: all of a thread's indices
+  constexpr int U = (ROWS * K + NT - 1) / NT;  // all of a thread's indices
   int v[U];
   bool any = false;
 #pragma unroll
   for (int u = 0; u < U; ++u) {
-    const int e = threadIdx.x + u * THREADS;
+    const int e = threadIdx.x + u * NT;
     v[u] = e < rows * K ? nbr[row0 * K + e] : -1;
     any |= v[u] >= 0;
   }
+  __syncthreads();
 #pragma unroll
   for (int u = 0; u < U; ++u) {
-    const int e = threadIdx.x + u * THREADS;
-    if (e < BM * K) idx_s[e] = v[u];
+    const int e = threadIdx.x + u * NT;
+    if (e < ROWS * K) idx_s[e] = v[u];
   }
   return __syncthreads_or(any);
 }
 
-// col_s[jj] = (k << 16) | c for column j = j0 + jj = k * cin + c of the
-// im2col, -1 for a column past 27 * cin (zero padding).  The caller's next
-// barrier publishes it.
-__device__ __forceinline__ void map_columns(int* col_s, int j0, int cin) {
-  const int width = K * cin;
-  for (int jj = threadIdx.x; jj < CHUNK; jj += THREADS) {
-    const int j = j0 + jj;
-    col_s[jj] = j < width ? ((j / cin) << 16) | (j % cin) : -1;
-  }
-}
-
-// x_s[r][jj] = x[idx_s[r * K + k], c] for column jj = (k, c) of col_s, zero
-// for an index of -1 or a padding column: the tile's cols over one chunk.
-// Element e = r * CHUNK + jj goes to thread e % THREADS, so consecutive
-// lanes read consecutive columns.
-template <int U>
-__device__ __forceinline__ void gather(bf16* x_s, const bf16* __restrict__ x, const int* idx_s,
-                                       const int* col_s, int cin) {
-  constexpr int N = BM * CHUNK;  // elements of a tile
-  static_assert(N % (U * THREADS) == 0, "whole batches");
-  const bf16 zero = __float2bfloat16(0.f);
-  for (int e0 = threadIdx.x; e0 < N; e0 += U * THREADS) {
-    bf16 v[U];
-#pragma unroll
-    for (int u = 0; u < U; ++u) {
-      const int e = e0 + u * THREADS;
-      const int r = e / CHUNK;
-      const int col = col_s[e - r * CHUNK];
-      const int src = col >= 0 ? idx_s[r * K + (col >> 16)] : -1;
-      v[u] = src >= 0 ? x[static_cast<long long>(src) * cin + (col & 0xffff)] : zero;
-    }
-#pragma unroll
-    for (int u = 0; u < U; ++u) {
-      const int e = e0 + u * THREADS;
-      const int r = e / CHUNK;
-      x_s[r * X_STRIDE + e - r * CHUNK] = v[u];
-    }
-  }
-}
-
-// The epilogue of a 64-row output tile of NOUT channels whose warp w holds
-// rows 16w..16w+15 in acc: relu?(acc * scale + bias) (scale and bias
-// optional), stored in O for the tile's first `rows` rows; the same as
-// gather_gemm_tc_kernel's.  The accumulator fragment holds rows lane/4 and
-// lane/4 + 8 of the warp's 16, columns 8j + 2(lane%4) + {0, 1}.
-template <typename O, int NOUT>
-__device__ __forceinline__ void store_tile(const float (&acc)[NOUT / 8][4], O* __restrict__ out,
-                                           long long row0, int rows,
+// relu?(acc * scale + bias) (scale and bias optional) of a warp's 16-row
+// accumulator tile of NT 8-column tiles, rows r16.. of the block's tile at
+// row0, columns col0.. of an output of `ld` columns; rows from `rows` on
+// are not stored.  The fragment holds rows lane/4 and lane/4 + 8, columns
+// 8j + 2(lane%4) + {0, 1}; the same epilogue as gather_gemm_tc_kernel's.
+template <typename O, int NT>
+__device__ __forceinline__ void store_rows(const float (&acc)[NT][4], O* __restrict__ out, int ld,
+                                           long long row0, int r16, int rows, int col0,
                                            const float* __restrict__ scale,
                                            const float* __restrict__ bias, int relu) {
   const int lane = threadIdx.x % 32;
-  const int warp = threadIdx.x / 32;
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
-    const int r = warp * 16 + lane / 4 + h * 8;
+    const int r = r16 + lane / 4 + h * 8;
     if (r >= rows) continue;
-    O* dst = out + (row0 + r) * NOUT;
+    O* dst = out + (row0 + r) * ld + col0;
 #pragma unroll
-    for (int j = 0; j < NOUT / 8; ++j) {
+    for (int j = 0; j < NT; ++j) {
       const int n = j * 8 + (lane % 4) * 2;
       float v0 = acc[j][2 * h];
       float v1 = acc[j][2 * h + 1];
       if (scale != nullptr) {
-        v0 = v0 * scale[n] + bias[n];
-        v1 = v1 * scale[n + 1] + bias[n + 1];
+        v0 = v0 * scale[col0 + n] + bias[col0 + n];
+        v1 = v1 * scale[col0 + n + 1] + bias[col0 + n + 1];
       }
       if (relu) {
         v0 = fmaxf(v0, 0.f);
@@ -164,220 +126,369 @@ __device__ __forceinline__ void store_tile(const float (&acc)[NOUT / 8][4], O* _
   }
 }
 
-// ---------------------------------------------------------------------------
-// K1 at a stem.  Block = 64 output rows x COUT, warp w owns rows 16w..16w+15
-// and every channel.  The block reads its [64, 27] indices; a tile of
-// padding rows (all -1) goes straight to the epilogue of a zero sum.
-// Otherwise, chunk by chunk of the depth, it stages that chunk's rows of
-// W_flat (cp.async, in flight during the gather), gathers the chunk's
-// columns of its cols and runs the MMAs of the chunk into one accumulator;
-// the epilogue (scale, bias, ReLU) acts on the f32 accumulators at the end.
-// ---------------------------------------------------------------------------
-template <int COUT>
-struct ConvShape {
-  static constexpr int W_STRIDE = COUT + tc::PAD;
-  static constexpr size_t SMEM_BYTES =
-      (BM * X_STRIDE + CHUNK * W_STRIDE) * sizeof(bf16) + (BM * K + CHUNK) * sizeof(int);
-};
+constexpr int THREADS = 256;              // 8 warps
+constexpr int N = 32;                     // output (K1) or g (K3) columns of a block
+constexpr int N_STRIDE = N + tc::PAD;     // 80 bytes: W_flat's and g's staged rows
+// K1
+constexpr int BM = 128;                   // rows of a tile
+constexpr int CH = 64;                    // depth columns of a stage: 4 k-steps
+constexpr int STAGES = 4;
+constexpr int WR = 4;                     // warps along the rows (row groups)
+constexpr int WK = THREADS / 32 / WR;     // warps along a stage's k-steps
+constexpr int MI = BM / WR / 16;          // 16-row tiles a warp
+constexpr int KS = CH / 16 / WK;          // k-steps of a stage a warp
+constexpr int XS = CH + tc::PAD;          // 144 bytes
+constexpr int STAGE = BM * XS + CH * N_STRIDE;  // bf16 elements of a stage
+constexpr size_t CONV_SMEM = STAGES * STAGE * sizeof(bf16) + BM * K * sizeof(int);
+// K3
+constexpr int DW_THREADS = 512;           // 16 warps
+constexpr int BR = 64;                    // rows of a tile
+constexpr int DW_STAGES = 2;
+constexpr int MT = 3;                     // 16-column tiles of the depth a warp
+#ifndef IRSC_STEM_DW_BLOCK
+#error "IRSC_STEM_DW_BLOCK: K3's block depth, passed by ops/gather_conv.build()"
+#endif
+constexpr int DB = IRSC_STEM_DW_BLOCK;    // 768 depth columns a block
+constexpr int DXS = DB + tc::PAD;         // 1552 bytes
+constexpr int DW_STAGE = BR * DXS + BR * N_STRIDE;  // bf16 elements of a stage
+constexpr int IDX_U = (BR * K + DW_THREADS - 1) / DW_THREADS;  // a tile's indices a thread
+constexpr size_t DW_SMEM =
+    DW_STAGES * (DW_STAGE * sizeof(bf16) + BR * K * sizeof(int)) + DB / 8 * sizeof(int);
 
-template <typename O, int COUT>
-__global__ void __launch_bounds__(THREADS)
-stem_conv_kernel(const bf16* __restrict__ x, const int* __restrict__ nbr,
-                 const bf16* __restrict__ w, const float* __restrict__ scale,
-                 const float* __restrict__ bias, O* __restrict__ out, long long v_out, int cin,
-                 int relu) {
-  using S = ConvShape<COUT>;
-  constexpr int NT = COUT / 8;
+static_assert(THREADS == CH / 8 * 32 && BM % 32 == 0, "K1: a thread's piece of every 32nd row");
+static_assert(THREADS == CH * N / 8, "K1: one 16-byte piece of W_flat a thread a stage");
+static_assert(DW_THREADS >= BR * N / 8, "K3: at most one 16-byte piece of g a thread a tile");
+static_assert(WR * WK * 32 == THREADS && MI * WR * 16 == BM && KS * WK * 16 == CH, "K1: warps");
+static_assert((WK - 1) * BM * N * sizeof(float) <= STAGES * STAGE * sizeof(bf16),
+              "K1: the k-groups' sums");
+static_assert(DB == DW_THREADS / 32 * MT * 16, "K3: a block's depth is its warps' tiles");
+static_assert(DW_STAGES <= 32, "K3: a tile's bit in `live` is its index mod 32");
+
+// The channels of a staged row: cin rounded up to 8, 16 bytes.
+__host__ __device__ constexpr int channels(int cin) { return (cin + 7) / 8 * 8; }
+// The im2col depth: K * channels(cin) rounded up to a k-step of 16.
+__host__ __device__ constexpr int depth(int cin) { return (K * channels(cin) + 15) / 16 * 16; }
+// K3's blocks along the depth.
+__host__ __device__ constexpr int depth_blocks(int cin) { return (depth(cin) + DB - 1) / DB; }
+
+// ---------------------------------------------------------------------------
+// K1.  Block (t, nb) = 128 output rows x 32 channels (32 nb ..).
+// Warp w owns rows BM / WR x (w % WR) .. and, of every stage's k-steps,
+// those of k-group w / WR.  Stage j holds the tile's cols over depth
+// columns 64 j .. 64 j + 63 and the same rows of W_flat; thread t gathers
+// piece t % 8 of rows t / 8 + 32 u.  A tile of padding rows goes straight
+// to the epilogue of a zero sum.
+// ---------------------------------------------------------------------------
+template <typename O>
+__global__ void __launch_bounds__(THREADS, 2)
+stem_wide_conv_kernel(const bf16* __restrict__ x, const int* __restrict__ nbr,
+                      const bf16* __restrict__ w, const float* __restrict__ scale,
+                      const float* __restrict__ bias, O* __restrict__ out, long long v_out,
+                      int cin, int cout, int relu) {
   extern __shared__ __align__(16) unsigned char smem[];
-  bf16* x_s = reinterpret_cast<bf16*>(smem);                       // [BM][X_STRIDE]
-  bf16* w_s = x_s + BM * X_STRIDE;                                 // [CHUNK][W_STRIDE]
-  int* idx_s = reinterpret_cast<int*>(w_s + CHUNK * S::W_STRIDE);  // [BM * K]
-  int* col_s = idx_s + BM * K;                                     // [CHUNK]
+  bf16* stages = reinterpret_cast<bf16*>(smem);                         // STAGES x STAGE
+  int* idx_s = reinterpret_cast<int*>(stages + STAGES * STAGE);         // [BM * K]
 
   const int tid = threadIdx.x;
   const int lane = tid % 32;
   const int warp = tid / 32;
+  const int rg = warp % WR;  // row group
+  const int kg = warp / WR;  // k-group
   const long long row0 = static_cast<long long>(blockIdx.x) * BM;
   const int rows = static_cast<int>(min(static_cast<long long>(BM), v_out - row0));
-  const int width = K * cin;  // rows of W_flat, filled columns of cols
+  const int col0 = blockIdx.y * N;
+  const int cp = channels(cin);
+  const int q = cp / 8;  // pieces a neighbour
   const int d = depth(cin);
+  const int n_stages = (d + CH - 1) / CH;
 
-  float acc[NT][4] = {};
-  if (load_indices(idx_s, nbr, row0, rows)) {
-    constexpr int CPW = COUT / 8;  // 16-byte chunks in a row of W_flat
-    for (int j0 = 0; j0 < d; j0 += CHUNK) {
-      if (j0 > 0) __syncthreads();  // the last chunk's MMAs are done with x_s, w_s, col_s
-      const int n = min(CHUNK, d - j0);  // this chunk's depth, a multiple of 16
-      for (int e = tid; e < n * CPW; e += THREADS) {
-        const int j = j0 + e / CPW;
-        const bool ok = j < width;  // rows past 27 * cin are zero
-        tc::cp_async16(w_s + (e / CPW) * S::W_STRIDE + (e % CPW) * 8,
-                       ok ? w + static_cast<long long>(j) * COUT + (e % CPW) * 8 : w, ok ? 16 : 0);
-      }
-      tc::cp_async_commit();
-      map_columns(col_s, j0, cin);
-      __syncthreads();
-      gather<32>(x_s, x, idx_s, col_s, cin);
-      tc::cp_async_wait<0>();
-      __syncthreads();
-#pragma unroll 2
-      for (int kk = 0; kk < n; kk += 16) {
-        unsigned a[4];
-        tc::ldsm_x4(a, x_s + (warp * 16 + lane % 16) * X_STRIDE + kk + (lane / 16) * 8);
+  float acc[MI][N / 8][4] = {};
+  if (load_indices<BM, THREADS>(idx_s, nbr, row0, rows)) {
+    const int pp = tid % (CH / 8);  // this thread's piece of a staged row
+    const int r1 = tid / (CH / 8);  // and its first row
+    const int wr = tid / (N / 8);   // its row of the staged W_flat
+    const int wc = tid % (N / 8);   // and piece of that row
+
+    auto load = [&](int buf, int j) {
+      bf16* xs = stages + buf * STAGE;
+      bf16* ws = xs + BM * XS;
+      const int p = j * (CH / 8) + pp;  // the piece of an im2col row
+      const int k = p / q;
+      const int c = (p - k * q) * 8;
 #pragma unroll
-        for (int j = 0; j < NT; j += 2) {
+      for (int u = 0; u < BM / 32; ++u) {
+        const int r = r1 + u * 32;
+        const int src = k < K ? idx_s[r * K + k] : -1;  // pieces past 27 x cp are zero
+        tc::cp_async16(xs + r * XS + pp * 8,
+                       src >= 0 ? x + static_cast<long long>(src) * cp + c : x, src >= 0 ? 16 : 0);
+      }
+      const int jw = j * CH + wr;  // the row of W_flat
+      const int kw = jw / cp;
+      const int cw = jw - kw * cp;
+      const bool ok = kw < K && cw < cin;  // zero rows for padding channels and depth
+      tc::cp_async16(ws + wr * N_STRIDE + wc * 8,
+                     ok ? w + static_cast<long long>(kw * cin + cw) * cout + col0 + wc * 8 : w,
+                     ok ? 16 : 0);
+    };
+
+#pragma unroll
+    for (int s = 0; s < STAGES - 1; ++s) {
+      if (s < n_stages) load(s, s);
+      tc::cp_async_commit();
+    }
+    for (int j = 0; j < n_stages; ++j) {
+      tc::cp_async_wait<STAGES - 2>();
+      __syncthreads();  // stage j is in; every warp is done with stage j - 1's buffer
+      if (j + STAGES - 1 < n_stages) load((j + STAGES - 1) % STAGES, j + STAGES - 1);
+      tc::cp_async_commit();  // an empty group near the end keeps the count
+      const bf16* xs = stages + (j % STAGES) * STAGE;
+      const bf16* ws = xs + BM * XS;
+      const int steps = min(CH, d - j * CH) / 16;
+#pragma unroll
+      for (int s = KS * kg; s < KS * kg + KS; ++s) {
+        if (s >= steps) break;
+        const int kk = s * 16;
+        unsigned a[MI][4];
+#pragma unroll
+        for (int mi = 0; mi < MI; ++mi)
+          tc::ldsm_x4(a[mi], xs + (rg * MI * 16 + mi * 16 + lane % 16) * XS + kk + (lane / 16) * 8);
+#pragma unroll
+        for (int n = 0; n < N / 8; n += 2) {
           unsigned b[4];
-          tc::ldsm_x4_trans(b, w_s + (kk + lane % 8 + ((lane / 8) % 2) * 8) * S::W_STRIDE +
-                                   j * 8 + (lane / 16) * 8);
-          tc::mma_bf16(acc[j], a, b[0], b[1]);
-          tc::mma_bf16(acc[j + 1], a, b[2], b[3]);
+          tc::ldsm_x4_trans(b, ws + (kk + lane % 8 + ((lane / 8) % 2) * 8) * N_STRIDE + n * 8 +
+                                   (lane / 16) * 8);
+#pragma unroll
+          for (int mi = 0; mi < MI; ++mi) {
+            tc::mma_bf16(acc[mi][n], a[mi], b[0], b[1]);
+            tc::mma_bf16(acc[mi][n + 1], a[mi], b[2], b[3]);
+          }
         }
       }
     }
+    tc::cp_async_wait<0>();
   }
-  store_tile<O, COUT>(acc, out, row0, rows, scale, bias, relu);
+
+  // the k-groups' sums join the first's through the stages' memory, in
+  // the order of the k-groups
+  float* red = reinterpret_cast<float*>(smem);  // [WK - 1][WR][PER][32 lanes]
+  constexpr int PER = MI * (N / 8) * 4;         // accumulators a thread
+  __syncthreads();  // every warp is done with the stages
+  if (kg > 0) {
+#pragma unroll
+    for (int i = 0; i < PER; ++i)
+      red[(((kg - 1) * WR + rg) * PER + i) * 32 + lane] = (&acc[0][0][0])[i];
+  }
+  __syncthreads();
+  if (kg == 0) {
+    for (int h = 0; h < WK - 1; ++h)
+#pragma unroll
+      for (int i = 0; i < PER; ++i)
+        (&acc[0][0][0])[i] += red[((h * WR + rg) * PER + i) * 32 + lane];
+#pragma unroll
+    for (int mi = 0; mi < MI; ++mi)
+      store_rows<O, N / 8>(acc[mi], out, cout, row0, rg * MI * 16 + mi * 16, rows, col0, scale,
+                           bias, relu);
+  }
 }
 
-template <typename O, int COUT>
+// K1 over a (tiles, cout / 32) grid.
+template <typename O>
 cudaError_t launch_conv(const void* x, const void* nbr, const void* w, const void* scale,
-                        const void* bias, void* out, long long v_out, int cin, int relu,
-                        cudaStream_t stream) {
-  auto kernel = stem_conv_kernel<O, COUT>;
-  constexpr size_t smem = ConvShape<COUT>::SMEM_BYTES;
+                        const void* bias, void* out, long long v_out, int cin, int cout,
+                        int relu, cudaStream_t stream) {
+  if (cout % N != 0) return cudaErrorInvalidValue;
+  auto kernel = stem_wide_conv_kernel<O>;
   static std::atomic<int> smem_set{0};
-  const cudaError_t err = tc::reserve_smem(kernel, smem_set, smem);
+  const cudaError_t err = tc::reserve_smem(kernel, smem_set, CONV_SMEM);
   if (err != cudaSuccess) return err;
-  const long long blocks = (v_out + BM - 1) / BM;
-  kernel<<<static_cast<unsigned>(blocks), THREADS, smem, stream>>>(
+  const dim3 grid(static_cast<unsigned>((v_out + BM - 1) / BM), static_cast<unsigned>(cout / N));
+  kernel<<<grid, THREADS, CONV_SMEM, stream>>>(
       static_cast<const bf16*>(x), static_cast<const int*>(nbr), static_cast<const bf16*>(w),
       static_cast<const float*>(scale), static_cast<const float*>(bias), static_cast<O*>(out),
-      v_out, cin, relu);
+      v_out, cin, cout, relu);
   return cudaGetLastError();
 }
 
-// COUT one of 32, 64, 128.
-template <typename O>
-cudaError_t dispatch_conv(const void* x, const void* nbr, const void* w, const void* scale,
-                          const void* bias, void* out, long long v_out, int cin, int cout,
-                          int relu, cudaStream_t stream) {
-  switch (cout) {
-    case 32: return launch_conv<O, 32>(x, nbr, w, scale, bias, out, v_out, cin, relu, stream);
-    case 64: return launch_conv<O, 64>(x, nbr, w, scale, bias, out, v_out, cin, relu, stream);
-    case 128: return launch_conv<O, 128>(x, nbr, w, scale, bias, out, v_out, cin, relu, stream);
-    default: return cudaErrorInvalidValue;
-  }
-}
-
 // ---------------------------------------------------------------------------
-// K3 at a stem: one pass over g for all 27 offsets.  Block (s, nb, q) walks
-// the 64-row tiles of split s in order; per tile it stages g's rows
-// (columns N nb .. N nb + N - 1, N = DW_N = 32) with cp.async, in flight
-// while it gathers chunk q of the tile's cols, and accumulates cols^T g: a
-// [CHUNK, N] product held in registers, warps 2 x 2 over it (6 16-row tiles
-// x 16 columns a warp, the tiles past depth(cin) skipped).  A tile whose
-// 64 x 27 indices are all -1 is neither loaded nor multiplied.  The block
-// writes rows k * cin + c of its product into partial[s] ([27 * cin, Cout],
-// i.e. [27, cin, Cout]); sum_partials_kernel adds the splits in a fixed
-// order, so dW is bit-identical across launches.
+// K3.  Block (s, nb, z) walks the 64-row tiles of split s in order
+// and accumulates its 768 depth columns (768 z ..) of cols^T g, g's
+// columns 32 nb .. 32 nb + 31: warp w owns the MT 16-column tiles MT w ..
+// of them, all 32 columns (4 MMAs per tile and k-step of 16 rows).  The
+// piece table piece_s maps a staged piece to its (offset k, channel c)
+// once per block.  The tiles go through a ring of DW_STAGES stages: while
+// the warps multiply tile t, the gathers of the next tiles (x over the
+// block's columns, g's rows) are in flight, and the map of the tile after
+// them is on its way into registers; a tile with no valid index is
+// neither gathered nor multiplied.  The block writes row k * cin + c of dW
+// for each of its columns k * cp + c with c < cin into partial[s] ([27,
+// cin, Cout]); padding channels and depth are never written.
 // ---------------------------------------------------------------------------
-constexpr int DW_N = 32;  // g columns of a block
-
-template <int N>
-__global__ void __launch_bounds__(THREADS)
-stem_dw_kernel(const bf16* __restrict__ x, const bf16* __restrict__ g,
-               const int* __restrict__ nbr, float* __restrict__ partial, long long rows, int cin,
-               int cout, long long rows_per_split) {
-  constexpr int WM = 2;                // warps along the depth
-  constexpr int WN = 2;                // warps along the 32 columns
-  constexpr int MT = CHUNK / WM / 16;  // 16-row tiles of the chunk a warp
-  constexpr int NT = N / WN / 8;       // 8-column tiles a warp
-  constexpr int G_STRIDE = N + tc::PAD;
-  __shared__ __align__(16) bf16 x_s[BM * X_STRIDE];
-  __shared__ __align__(16) bf16 g_s[BM * G_STRIDE];
-  __shared__ int idx_s[BM * K];
-  __shared__ int col_s[CHUNK];
+__global__ void __launch_bounds__(DW_THREADS, 1)
+stem_wide_dw_kernel(const bf16* __restrict__ x, const bf16* __restrict__ g,
+                    const int* __restrict__ nbr, float* __restrict__ partial, long long rows,
+                    int cin, int cout, long long rows_per_split) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  bf16* stages = reinterpret_cast<bf16*>(smem);                        // DW_STAGES x DW_STAGE
+  int* idx_s = reinterpret_cast<int*>(stages + DW_STAGES * DW_STAGE);  // DW_STAGES x [BR * K]
+  int* piece_s = idx_s + DW_STAGES * BR * K;                           // [DB / 8]: (k << 16) | c
 
   const int tid = threadIdx.x;
   const int lane = tid % 32;
   const int warp = tid / 32;
-  const int mt0 = (warp % WM) * MT;
-  const int n0 = (warp / WM) * (N / WN);
+  const int mt0 = warp * MT;
   const int col0 = blockIdx.y * N;
-  const int j0 = blockIdx.z * CHUNK;
-  const int width = K * cin;
-  const int m_tiles = min(CHUNK, depth(cin) - j0) / 16;
+  const int j0 = blockIdx.z * DB;
+  const int cp = channels(cin);
+  const int q = cp / 8;
+  const int m_tiles = min(DB, depth(cin) - j0) / 16;
+  const int n_pieces = 2 * m_tiles;
   const long long r_begin = static_cast<long long>(blockIdx.x) * rows_per_split;
   const long long r_end = min(rows, r_begin + rows_per_split);
+  const int n_tiles = static_cast<int>(max(0LL, (r_end - r_begin + BR - 1) / BR));
 
-  float acc[MT][NT][4] = {};
-  map_columns(col_s, j0, cin);  // published by the first tile's barriers
-  for (long long r0 = r_begin; r0 < r_end; r0 += BM) {
-    const int n_rows = static_cast<int>(min(static_cast<long long>(BM), r_end - r0));
-    if (!load_indices(idx_s, nbr, r0, n_rows)) continue;
-    constexpr int CPG = N / 8;
-    for (int e = tid; e < BM * CPG; e += THREADS) {
-      const int r = e / CPG;
-      const int c = e % CPG;
-      const bool ok = r < n_rows;
-      tc::cp_async16(g_s + r * G_STRIDE + c * 8, ok ? g + (r0 + r) * cout + col0 + c * 8 : g,
+  for (int i = tid; i < DB / 8; i += DW_THREADS) {
+    const int p = j0 / 8 + i;
+    const int k = p / q;
+    piece_s[i] = k < K ? (k << 16) | ((p - k * q) * 8) : -1;
+  }  // published by the prologue's barriers
+
+  // tile t's map: fetch() starts its loads into v (-1 past the split),
+  // stash() stores v into the tile's stage once they have landed and
+  // returns whether this thread saw a valid index
+  int v[IDX_U];
+  auto fetch = [&](int t) {
+    const long long r0 = r_begin + static_cast<long long>(t) * BR;
+    const int n = t < n_tiles ? static_cast<int>(min(static_cast<long long>(BR), r_end - r0)) * K : 0;
+#pragma unroll
+    for (int u = 0; u < IDX_U; ++u) {
+      const int e = tid + u * DW_THREADS;
+      v[u] = e < n ? nbr[r0 * K + e] : -1;
+    }
+  };
+  auto stash = [&](int t) {
+    int* dst = idx_s + (t % DW_STAGES) * BR * K;
+    bool any = false;
+#pragma unroll
+    for (int u = 0; u < IDX_U; ++u) {
+      const int e = tid + u * DW_THREADS;
+      if (e < BR * K) dst[e] = v[u];
+      any |= v[u] >= 0;
+    }
+    return any;
+  };
+  auto issue = [&](int t) {  // tile t's gathers into its stage
+    bf16* xs = stages + (t % DW_STAGES) * DW_STAGE;
+    bf16* gs = xs + BR * DXS;
+    const int* is = idx_s + (t % DW_STAGES) * BR * K;
+    const long long r0 = r_begin + static_cast<long long>(t) * BR;
+#pragma unroll 4
+    for (int e = tid; e < BR * (DB / 8); e += DW_THREADS) {
+      const int r = e / (DB / 8);
+      const int i = e - r * (DB / 8);
+      if (i >= n_pieces) continue;  // past the depth: never multiplied
+      const int piece = piece_s[i];
+      const int src = piece >= 0 ? is[r * K + (piece >> 16)] : -1;
+      tc::cp_async16(xs + r * DXS + i * 8,
+                     src >= 0 ? x + static_cast<long long>(src) * cp + (piece & 0xffff) : x,
+                     src >= 0 ? 16 : 0);
+    }
+    if (tid < BR * N / 8) {
+      const int r = tid / (N / 8);
+      const int c = tid % (N / 8);
+      const bool ok = r0 + r < r_end;
+      tc::cp_async16(gs + r * N_STRIDE + c * 8, ok ? g + (r0 + r) * cout + col0 + c * 8 : g,
                      ok ? 16 : 0);
     }
+  };
+  unsigned live = 0;  // bit t % 32: tile t has a valid index, so it is gathered and multiplied
+  auto set_live = [&](int t, bool any) {
+    live = (live & ~(1u << (t % 32))) | (static_cast<unsigned>(any) << (t % 32));
+  };
+
+  // prologue: tiles 0 .. DW_STAGES - 2 in flight, tile DW_STAGES - 1's map
+  // stashed (its barrier comes at the top of the loop), the next in v
+  for (int t = 0; t < DW_STAGES - 1; ++t) {
+    fetch(t);
+    set_live(t, __syncthreads_or(stash(t)));  // (publishes piece_s on the first)
+    if (live >> (t % 32) & 1) issue(t);
     tc::cp_async_commit();
-    gather<16>(x_s, x, idx_s, col_s, cin);
-    tc::cp_async_wait<0>();
-    __syncthreads();
+  }
+  fetch(DW_STAGES - 1);
+  bool any = stash(DW_STAGES - 1);
+  fetch(DW_STAGES);
+
+  float acc[MT][N / 8][4] = {};
+  for (int t = 0; t < n_tiles; ++t) {
+    const int t_new = t + DW_STAGES - 1;
+    tc::cp_async_wait<DW_STAGES - 2>();
+    // tile t is in; every warp is done with tile t - 1's stage, which
+    // tile t_new takes; t_new's stashed map is published
+    set_live(t_new, __syncthreads_or(any));
+    if (live >> (t_new % 32) & 1) issue(t_new);
+    tc::cp_async_commit();  // an empty group for a skipped tile keeps the count
+    if (live >> (t % 32) & 1) {
+      const bf16* xs = stages + (t % DW_STAGES) * DW_STAGE;
+      const bf16* gs = xs + BR * DXS;
 #pragma unroll
-    for (int kk = 0; kk < BM; kk += 16) {
-      unsigned a[MT][4];
+      for (int kk = 0; kk < BR; kk += 16) {
+        unsigned b[2][4];
 #pragma unroll
-      for (int i = 0; i < MT; ++i)
-        if (mt0 + i < m_tiles)
-          tc::ldsm_x4_trans(a[i], x_s + (kk + lane % 8 + (lane / 16) * 8) * X_STRIDE +
-                                      (mt0 + i) * 16 + ((lane / 8) % 2) * 8);
+        for (int n = 0; n < 2; ++n)
+          tc::ldsm_x4_trans(b[n], gs + (kk + lane % 8 + ((lane / 8) % 2) * 8) * N_STRIDE +
+                                      n * 16 + (lane / 16) * 8);
 #pragma unroll
-      for (int j = 0; j < NT; j += 2) {
-        unsigned b[4];
-        tc::ldsm_x4_trans(b, g_s + (kk + lane % 8 + ((lane / 8) % 2) * 8) * G_STRIDE + n0 +
-                                 j * 8 + (lane / 16) * 8);
-#pragma unroll
-        for (int i = 0; i < MT; ++i)
-          if (mt0 + i < m_tiles) {
-            tc::mma_bf16(acc[i][j], a[i], b[0], b[1]);
-            tc::mma_bf16(acc[i][j + 1], a[i], b[2], b[3]);
-          }
+        for (int i = 0; i < MT; ++i) {
+          if (mt0 + i >= m_tiles) break;
+          unsigned a[4];
+          tc::ldsm_x4_trans(a, xs + (kk + lane % 8 + (lane / 16) * 8) * DXS + (mt0 + i) * 16 +
+                                   ((lane / 8) % 2) * 8);
+          tc::mma_bf16(acc[i][0], a, b[0][0], b[0][1]);
+          tc::mma_bf16(acc[i][1], a, b[0][2], b[0][3]);
+          tc::mma_bf16(acc[i][2], a, b[1][0], b[1][1]);
+          tc::mma_bf16(acc[i][3], a, b[1][2], b[1][3]);
+        }
       }
     }
-    __syncthreads();  // the next tile overwrites idx_s, x_s and g_s
+    // tile t + DW_STAGES takes tile t's map slot, read by nobody since
+    // tile t was issued; its loads were in flight over this tile's MMAs
+    any = stash(t + DW_STAGES);
+    fetch(t + DW_STAGES + 1);
   }
+  tc::cp_async_wait<0>();
 
-  float* dst = partial + static_cast<long long>(blockIdx.x) * width * cout + col0 + n0 +
+  float* dst = partial + static_cast<long long>(blockIdx.x) * K * cin * cout + col0 +
                (lane % 4) * 2;
 #pragma unroll
   for (int i = 0; i < MT; ++i)
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
       const int m = j0 + (mt0 + i) * 16 + lane / 4 + h * 8;
-      if (m >= width) continue;
+      const int k = m / cp;
+      const int c = m - k * cp;
+      if (k >= K || c >= cin) continue;
 #pragma unroll
-      for (int j = 0; j < NT; ++j)
-        tc::store2<float>(dst + static_cast<long long>(m) * cout + j * 8, acc[i][j][2 * h],
-                          acc[i][j][2 * h + 1]);
+      for (int n = 0; n < N / 8; ++n)
+        tc::store2<float>(dst + static_cast<long long>(k * cin + c) * cout + n * 8,
+                          acc[i][n][2 * h], acc[i][n][2 * h + 1]);
     }
 }
 
-// stem_dw_kernel over a (splits, cout / 32, chunks(cin)) grid, then the
-// fixed-order sum into dw [27, cin, cout].
+// stem_wide_dw_kernel over a (splits, cout / 32, depth_blocks(cin)) grid,
+// then the fixed-order sum into dw [27, cin, cout].
 inline cudaError_t launch_dw(const void* x, const void* g, const void* nbr, void* partial, void* dw,
                              long long rows, int cin, int cout, int splits, cudaStream_t stream) {
-  if (cout % DW_N != 0) return cudaErrorInvalidValue;
-  const long long tiles = (rows + BM - 1) / BM;
-  const long long rows_per_split = (tiles + splits - 1) / splits * BM;
-  const dim3 grid(static_cast<unsigned>(splits), static_cast<unsigned>(cout / DW_N),
-                  static_cast<unsigned>(chunks(cin)));
-  stem_dw_kernel<DW_N><<<grid, THREADS, 0, stream>>>(
+  if (cout % N != 0) return cudaErrorInvalidValue;
+  static std::atomic<int> smem_set{0};
+  cudaError_t err = tc::reserve_smem(stem_wide_dw_kernel, smem_set, DW_SMEM);
+  if (err != cudaSuccess) return err;
+  const long long tiles = (rows + BR - 1) / BR;
+  const long long rows_per_split = (tiles + splits - 1) / splits * BR;
+  const dim3 grid(static_cast<unsigned>(splits), static_cast<unsigned>(cout / N),
+                  static_cast<unsigned>(depth_blocks(cin)));
+  stem_wide_dw_kernel<<<grid, DW_THREADS, DW_SMEM, stream>>>(
       static_cast<const bf16*>(x), static_cast<const bf16*>(g), static_cast<const int*>(nbr),
       static_cast<float*>(partial), rows, cin, cout, rows_per_split);
-  const cudaError_t err = cudaGetLastError();
+  err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   return launch_sum_partials(partial, dw, static_cast<long long>(K) * cin * cout, splits, stream);
 }

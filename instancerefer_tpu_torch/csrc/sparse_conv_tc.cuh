@@ -51,6 +51,10 @@ constexpr int STAGES = 2;
 // runtime only when `bytes` exceeds what this instantiation already set
 // (`set`, a static of its launcher): the train step is bound by host time,
 // and an attribute call on every launch adds to it.  One device per process.
+// A launcher's static is one per process, not one per library (the dynamic
+// linker unifies an inline function's statics across the libraries it
+// loads), so each launcher instantiation is called from one library only;
+// a second library's copy of the kernel would launch without its limit.
 template <typename Kernel>
 cudaError_t reserve_smem(Kernel kernel, std::atomic<int>& set, size_t bytes) {
   const int want = static_cast<int>(bytes);

@@ -26,7 +26,7 @@ from torch import nn
 from instancerefer_tpu_torch.data.host import SparseStage
 from instancerefer_tpu_torch.ops.gather_conv import gather_conv
 from instancerefer_tpu_torch.ops.precision import cast_in
-from instancerefer_tpu_torch.ops.sparse_conv import down_conv, subm_conv
+from instancerefer_tpu_torch.ops.sparse_conv import down_conv, stem_input, subm_conv
 from instancerefer_tpu_torch.parallel.distributed import all_reduce_sum, world_size
 
 
@@ -181,7 +181,8 @@ class ResidualBlock(nn.Module):
 class SparseConvEncoder(nn.Module):
     """Stem + 4 x [stride-2 conv, residual block]; channels
     in -> 32 -> 64 -> 128 -> 128 -> 128.  Returns the stride-16 stage's
-    features in f32 (the stem takes Cin = 7 as it is, no lane padding).  The
+    features in f32 (the stem takes Cin as it is; ``stem_input`` pads it to
+    16-byte rows only for the card's stem kernels).  The
     stem input is raw point features, a leaf: it is detached and the stem's
     backward computes dW only (``models/basic_blocks.py:366-372``)."""
 
@@ -196,7 +197,7 @@ class SparseConvEncoder(nn.Module):
             ))
 
     def forward(self, feats: torch.Tensor, pyramid: Sequence[SparseStage]) -> torch.Tensor:
-        x = self.stem[0](cast_in(feats.detach()).contiguous(), pyramid[0])
+        x = self.stem[0](stem_input(feats), pyramid[0])
         for i in range(1, 5):
             stage = getattr(self, f"stage{i}")
             x = stage[0](x, pyramid[i])

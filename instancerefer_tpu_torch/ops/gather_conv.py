@@ -8,17 +8,20 @@ what bounds it on the card and what its design does about that.
 ``route`` picks the path of a call from the device, the input type and Cin
 alone: the plain twin (``ops/sparse.gather_conv``) for tensors on the CPU;
 on a card, for bf16, the tensor-core kernel for Cin in {32, 64, 128} and
-the stem kernel for any other Cin (the stems, K = 27: 7 channels, 10 with
-``use_normal``, 135 with ``use_multiview``); the FMA kernel for f32.  A
-CUDA tensor launches a kernel or raises; there is no fallback.
-``gather_conv.launches`` counts kernel launches and nothing else, and
-``gather_conv.stem_launches`` those of the stem kernel among them.
+the stem kernel for any other Cin (the stems, K = 27: 7 by default, 10 with
+``use_normal``, 135 with ``use_multiview``); the FMA kernel for f32.  A CUDA tensor launches a
+kernel or raises; there is no fallback.  ``gather_conv.launches`` counts
+kernel launches and nothing else, and ``gather_conv.stem_launches`` those
+of the stem kernel among them.
 
 The stem kernels (K1 here, K3 in ``ops/conv_bwd.py``) take their depth from
-the im2col of a row, 27 * Cin padded to a multiple of 16, in chunks of
-``STEM_CHUNK`` columns: ``stem_im2col`` and ``stem_weight`` write, in
-PyTorch, the layout they build in shared memory (the tests hold it against
-the plain twins).
+the im2col of a row: 27 neighbours of ``stem_channels(Cin)`` channels each
+(Cin rounded up to 8, a 16-byte row), padded to a multiple of 16.  They
+read x zero-padded to those channels: ``pad_channels`` makes that copy in
+one pass, and the stems' input takes it in place of the cast to bf16
+(``ops/sparse_conv.stem_input``).  ``stem_im2col`` and ``stem_weight``
+write the kernels' layout in PyTorch, and ``stem_dw`` reads dW out of it
+(the tests hold them against the plain twins).
 
 ``build()`` compiles every ``.cu`` source under ``csrc/`` with ``nvcc``, one
 process per source and all at once, into ``instancerefer_tpu_torch/build/``
@@ -26,7 +29,8 @@ process per source and all at once, into ``instancerefer_tpu_torch/build/``
 by a hash of everything under ``csrc/`` and the flags, so an edited source or
 header rebuilds; each is written to a temporary file and moved into place.
 ``nvcc`` is found on ``PATH`` or under ``$CUDA_HOME/bin`` (default
-``/usr/local/cuda``).
+``/usr/local/cuda``).  The build passes ``STEM_DW_BLOCK`` to the stem K3's
+source, which holds it to its warps and tiles at compile time.
 """
 
 from __future__ import annotations
@@ -47,56 +51,88 @@ from instancerefer_tpu_torch.ops import sparse
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "build")
+STEM_DW_BLOCK = 768  # depth columns of a stem K3 block (csrc/sparse_conv_stem.cuh's DB)
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v", f"-DIRSC_STEM_DW_BLOCK={STEM_DW_BLOCK}",
 )
 COUTS = (32, 64, 128)
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 TC_WIDTHS = (32, 64, 128)  # Cin and Cout the tensor-core kernels are built for
 STEM_K = 27  # the stem kernels' map: the 3^3 submanifold conv
-STEM_CHUNK = 192  # im2col columns a stem kernel's block stages at once (csrc/sparse_conv_stem.cuh)
+ENTRY = {"tensor_core": "tc", "stem_wide": "stem_wide"}  # C entries' suffixes
 
 
 def route(dtype: torch.dtype, cin: int, device) -> str:
     """``"twin"`` on the CPU; on a card, for bf16 inputs,
-    ``"tensor_core"`` with ``cin`` in ``TC_WIDTHS`` and ``"stem"`` with
-    any other ``cin``; ``"fma"`` for f32."""
+    ``"tensor_core"`` with ``cin`` in ``TC_WIDTHS`` and ``"stem_wide"``
+    with any other ``cin``; ``"fma"`` for f32."""
     if torch.device(device).type == "cpu":
         return "twin"
     if dtype != torch.bfloat16:
         return "fma"
-    return "tensor_core" if cin in TC_WIDTHS else "stem"
+    return "tensor_core" if cin in TC_WIDTHS else "stem_wide"
+
+
+def stem_channels(cin: int) -> int:
+    """The channels of a row in the stem kernels' im2col: ``cin`` rounded
+    up to 8, 16 bytes (7 -> 8, 10 -> 16, 135 -> 136)."""
+    return -(-cin // 8) * 8
 
 
 def stem_depth(cin: int) -> int:
-    """The stem kernels' depth: ``STEM_K * cin`` rounded up to a k-step
-    of 16 (189 -> 192 at Cin = 7, 3645 -> 3648 at 135)."""
-    return -(-STEM_K * cin // 16) * 16
+    """The stem kernels' depth: ``STEM_K * stem_channels(cin)`` rounded up
+    to a k-step of 16 (27 x 8 = 216 -> 224 at Cin = 7, 27 x 136 = 3672 ->
+    3680 at 135)."""
+    return -(-STEM_K * stem_channels(cin) // 16) * 16
 
 
-def stem_chunks(cin: int) -> int:
-    """The ``STEM_CHUNK``-column chunks of that depth (1 at Cin = 7, 2 at
-    10, 19 at 135): K1's blocks walk them, K3's grid spans them."""
-    return -(-stem_depth(cin) // STEM_CHUNK)
+def stem_depth_blocks(cin: int) -> int:
+    """The stem K3's blocks along that depth (1 at Cin = 7 and 10, 5 at
+    135): g and the map are read once per block."""
+    return -(-stem_depth(cin) // STEM_DW_BLOCK)
+
+
+def pad_channels(x: torch.Tensor, dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """x [V, Cin] as the stem kernels read it, in one pass: a
+    contiguous [V, stem_channels(Cin)] copy in ``dtype`` (default
+    ``x.dtype``) whose channels past Cin are zero."""
+    v, cin = x.shape
+    out = torch.empty(v, stem_channels(cin), dtype=dtype or x.dtype, device=x.device)
+    out[:, :cin] = x
+    out[:, cin:] = 0
+    return out
 
 
 def stem_im2col(feats: torch.Tensor, nbr: torch.Tensor) -> torch.Tensor:
     """[V_out, stem_depth(Cin)] f32: row v holds feats[nbr[v, k]] for
-    k = 0..26 side by side (column k * Cin + c; zeros for -1), then zero
-    columns: the stem kernels' tile, for every row."""
+    k = 0..26 side by side, each padded to ``stem_channels(Cin)``
+    (column k * cp + c; zeros for -1 and past Cin), then zero columns: the
+    stem kernels' tile, for every row."""
+    cin = feats.shape[1]
     table, safe = sparse.gather_table(feats, nbr)
-    cols = table[safe].reshape(nbr.shape[0], -1)
-    return torch.nn.functional.pad(cols, (0, stem_depth(feats.shape[1]) - cols.shape[1]))
+    rows = torch.nn.functional.pad(table, (0, stem_channels(cin) - cin))
+    cols = rows[safe].reshape(nbr.shape[0], -1)
+    return torch.nn.functional.pad(cols, (0, stem_depth(cin) - cols.shape[1]))
 
 
 def stem_weight(weight: torch.Tensor) -> torch.Tensor:
     """[stem_depth(Cin), Cout] f32: W [27, Cin, Cout] as stored, row
-    k * Cin + c, then zero rows.  ``stem_im2col(x, nbr) @ stem_weight(w)`` is
-    the conv, and ``stem_im2col(x, nbr).T @ g`` is dW in this layout."""
-    k, cin, cout = weight.shape
-    flat = weight.float().reshape(k * cin, cout)
-    return torch.nn.functional.pad(flat, (0, 0, 0, stem_depth(cin) - k * cin))
+    k * cp + c (cp = ``stem_channels(Cin)``), zero rows for c >= Cin and
+    past the 27 offsets.  ``stem_im2col(x, nbr) @ stem_weight(w)`` is the
+    conv."""
+    cin, cout = weight.shape[1:]
+    rows = torch.nn.functional.pad(weight.float(), (0, 0, 0, stem_channels(cin) - cin))
+    flat = rows.reshape(-1, cout)
+    return torch.nn.functional.pad(flat, (0, 0, 0, stem_depth(cin) - flat.shape[0]))
+
+
+def stem_dw(product: torch.Tensor, cin: int) -> torch.Tensor:
+    """dW [27, Cin, Cout] from ``stem_im2col(x, nbr).T @ g`` [stem_depth(Cin),
+    Cout]: row k * cp + c is dW[k, c]; the rows of padding channels and
+    depth are dropped, as the kernels never write them."""
+    cp = stem_channels(cin)
+    return product[:STEM_K * cp].reshape(STEM_K, cp, -1)[:, :cin]
 
 
 def check_stem(name: str, k: int, *tensors: torch.Tensor) -> None:
@@ -106,6 +142,20 @@ def check_stem(name: str, k: int, *tensors: torch.Tensor) -> None:
         raise ValueError(f"{name}: the stem kernel takes K = {STEM_K} offsets, got {k}")
     if any(t.data_ptr() % 16 for t in tensors):
         raise ValueError(f"{name}: the stem kernel needs 16-byte aligned inputs")
+
+
+def stem_rows(name: str, feats: torch.Tensor, cin: int, path: str) -> torch.Tensor:
+    """``feats`` as route ``path`` reads it, given the conv's ``cin``:
+    [V, Cin] as it is, or, already padded by ``pad_channels``, [V,
+    stem_channels(Cin)], which the stem kernels read as it is, the twin
+    through a view of its first Cin channels, and the other kernels not
+    at all.  The stem kernels pad [V, Cin] themselves (one more copy)."""
+    if feats.shape[1] == cin:
+        return pad_channels(feats) if path == "stem_wide" and stem_channels(cin) != cin else feats
+    if feats.shape[1] != stem_channels(cin) or path not in ("twin", "stem_wide"):
+        raise ValueError(f"{name}: feats of {feats.shape[1]} channels for a conv of Cin {cin} "
+                         f"on route {path!r}")
+    return feats[:, :cin] if path == "twin" else feats
 
 
 def cuda_stream(t: torch.Tensor) -> int:
@@ -192,7 +242,7 @@ def library(stem: str) -> ctypes.CDLL:
 @functools.cache
 def _entry(name: str, n_codes: int):
     """``ir_gather_conv`` (FMA, dtype and out_dtype codes), or
-    ``ir_gather_conv_tc`` / ``ir_gather_conv_stem`` (out_dtype code only)."""
+    ``ir_gather_conv_{tc,stem_wide}`` (out_dtype code only)."""
     fn = getattr(library("gather_conv"), name)
     p = ctypes.c_void_p
     fn.restype = ctypes.c_int
@@ -236,7 +286,7 @@ def _check(feats, nbr, weight, scale, bias, out_dtype):
         raise ValueError("gather_conv: want feats [V_in, Cin], nbr [V_out, K], weight [K, Cin, Cout]")
     k, cin, cout = weight.shape
     check_map("gather_conv", nbr, k)
-    if feats.shape[1] != cin:
+    if feats.shape[1] not in (cin, stem_channels(cin)):
         raise ValueError(
             f"gather_conv: feats {tuple(feats.shape)}, weight {tuple(weight.shape)} disagree"
         )
@@ -266,7 +316,8 @@ def gather_conv(
 
     Args:
       feats:  [V_in, Cin] f32 or bf16, contiguous, any Cin; on a card, bf16
-        with Cin outside {32, 64, 128} (a stem) needs K = 27.
+        with Cin outside {32, 64, 128} (a stem) needs K = 27.  Or [V_in,
+        stem_channels(Cin)] from ``pad_channels`` (a stem's input).
       nbr:    [V_out, K] int32 rows of ``feats`` (all < V_in), -1 = empty.
       weight: [K, Cin, Cout] in ``feats.dtype``; Cout in {32, 64, 128}.
       scale/bias: optional [Cout] f32 epilogue (folded eval BatchNorm).
@@ -277,12 +328,13 @@ def gather_conv(
     _check(feats, nbr, weight, scale, bias, out_dtype)
     k, cin, cout = weight.shape
     path = route(feats.dtype, cin, feats.device)
+    feats = stem_rows("gather_conv", feats, cin, path)
     if path == "twin":
         return sparse.gather_conv(feats, nbr, weight, scale, bias, relu, out_dtype)
     if path == "tensor_core":
         check_tc("gather_conv", (cin, cout), feats, weight)
-    elif path == "stem":
-        check_stem("gather_conv", k, weight)
+    elif path == "stem_wide":
+        check_stem("gather_conv", k, feats, weight)
     v_out = nbr.shape[0]
     out = torch.empty(v_out, cout, dtype=out_dtype, device=feats.device)
     if v_out == 0:
@@ -296,11 +348,10 @@ def gather_conv(
     if path == "fma":
         fn, codes = _entry("ir_gather_conv", 2), [DTYPES[feats.dtype], DTYPES[out_dtype]]
     else:
-        fn, codes = _entry(f"ir_gather_conv_{'tc' if path == 'tensor_core' else 'stem'}", 1), \
-            [DTYPES[out_dtype]]
+        fn, codes = _entry(f"ir_gather_conv_{ENTRY[path]}", 1), [DTYPES[out_dtype]]
     check_launch("gather_conv", fn(*args, *codes, cuda_stream(feats)))
     gather_conv.launches += 1
-    gather_conv.stem_launches += path == "stem"
+    gather_conv.stem_launches += path == "stem_wide"
     return out
 
 

@@ -32,8 +32,12 @@ def get_compute_dtype() -> Optional[torch.dtype]:
     return _COMPUTE_DTYPE
 
 
+def cast_dtype(dtype: torch.dtype) -> torch.dtype:
+    """The dtype ``cast_in`` gives an input of ``dtype``."""
+    return _COMPUTE_DTYPE if _COMPUTE_DTYPE is not None and dtype == torch.float32 else dtype
+
+
 def cast_in(x: torch.Tensor) -> torch.Tensor:
     """Cast an f32 conv input to the compute dtype (no-op in f32 mode)."""
-    if _COMPUTE_DTYPE is not None and x.dtype == torch.float32:
-        return x.to(_COMPUTE_DTYPE)
-    return x
+    dtype = cast_dtype(x.dtype)
+    return x if dtype == x.dtype else x.to(dtype)

@@ -7,7 +7,9 @@ Counterparts of the JAX package's custom VJPs ``pallas_conv.banded_subm_conv``
 
 * ``subm_conv``: forward K1 with no epilogue, stored in the compute dtype;
   backward K2 (dX and dW), or with ``grad_input=False`` (the stems, whose
-  input is a detached leaf) K3 and a zero dX.
+  input is a detached leaf) K3 and a zero dX.  A stem's input comes from
+  ``stem_input``: on the card's stem route the same copy that casts it is
+  zero-padded to 16-byte rows, and K1 and K3 read that copy.
 * ``down_conv``: forward K1 over ``down``; dX is K1 over the inverse map
   ``up8`` with W^T and an f32 output, dW is K3 over ``down``.
 
@@ -27,8 +29,8 @@ from __future__ import annotations
 import torch
 
 from instancerefer_tpu_torch.ops.conv_bwd import conv_dw, subm_conv_bwd
-from instancerefer_tpu_torch.ops.gather_conv import gather_conv
-from instancerefer_tpu_torch.ops.precision import cast_in
+from instancerefer_tpu_torch.ops.gather_conv import gather_conv, pad_channels, route
+from instancerefer_tpu_torch.ops.precision import cast_dtype, cast_in
 
 
 def _cotangent(g: torch.Tensor) -> torch.Tensor:
@@ -50,7 +52,7 @@ class SubmConv(torch.autograd.Function):
             dx, dw = subm_conv_bwd(feats, nbr, gc, weight)
             dx = dx.to(feats.dtype)
         else:
-            dw = conv_dw(feats, nbr, gc)
+            dw = conv_dw(feats, nbr, gc, cin=weight.shape[1])
             dx = torch.zeros_like(feats) if ctx.needs_input_grad[0] else None
         return dx, None, dw.to(weight.dtype), None
 
@@ -71,6 +73,17 @@ class DownConv(torch.autograd.Function):
         dx = gather_conv(gc, up8, wc.transpose(1, 2).contiguous(), out_dtype=torch.float32)
         dw = conv_dw(xc, down, gc)
         return dx.to(feats_dtype), None, None, dw.to(weight_dtype)
+
+
+def stem_input(feats: torch.Tensor) -> torch.Tensor:
+    """A stem's input, detached, in one copy: cast to the compute dtype
+    and, where the stem takes the stem kernels (bf16 on a card, Cin not
+    in {32, 64, 128}), zero-padded to 16-byte rows
+    (``gather_conv.pad_channels``)."""
+    x, dtype = feats.detach(), cast_dtype(feats.dtype)
+    if route(dtype, x.shape[1], x.device) == "stem_wide":
+        return pad_channels(x, dtype)
+    return cast_in(x).contiguous()
 
 
 def subm_conv(feats: torch.Tensor, nbr: torch.Tensor, weight: torch.Tensor,

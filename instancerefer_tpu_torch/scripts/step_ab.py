@@ -26,8 +26,12 @@ falls on every root alike.  Each run prints one line ``STEP_AB {...}``:
   ``chip_smoke.KERNEL_FAMILIES``), the host's self CPU ms over all ops, its
   busiest ops, and the CUDA runtime calls (count, self CPU ms);
 - ``kernels_ms``: CUDA-event medians of 10 launches of ROOT's wrappers on
-  the same batch's maps, bf16: K1 with its BN/ReLU epilogue at both stems,
-  and K3 at both stems and every down conv of both encoders (``SHAPES``).
+  the same batch's maps, bf16 (ROOT's ``chip_smoke.median_ms``, the timer
+  of the smoke's ``kernels`` line): K1 with its BN/ReLU epilogue at both
+  stems, and K3 at both stems and every down conv of both encoders
+  (``SHAPES``); the stems at Cin 7, 10 and 135, each fed the rows its main
+  path gives it (a root with ``gather_conv.pad_channels`` pads the stems'
+  rows before the timing, as ``ops/sparse_conv.stem_input`` does).
 
 Then a table of the runs, per root the median of its runs' medians, and
 per shape the median of each root's kernel times.
@@ -45,15 +49,20 @@ import time
 
 PREFIX = "STEP_AB "
 WIDTHS = (32, 64, 128, 128, 128)  # the encoders' channels by stage
+STEM_CINS = (7, 10, 135)  # the stems' Cin: the default config, use_normal, use_multiview
 
 
 def _shapes():
     """(label, wrapper, map key, key of the map whose rows are the input,
-    Cin, Cout) of the K1 stems and of every K3 launch of a train step."""
+    Cin, Cout) of the K1 stems and of every K3 launch of a train step, and
+    of the stems at the other input widths."""
     shapes = []
     for enc, p in (("scene", "scene"), ("instance", "inst")):
-        stem = (f"{p}_nbr3_0", f"{p}_nbr3_0", 7, WIDTHS[0])
-        shapes += [(f"K1 {enc} stem", "gather_conv", *stem), (f"K3 {enc} stem", "conv_dw", *stem)]
+        for cin in STEM_CINS:
+            stem = (f"{p}_nbr3_0", f"{p}_nbr3_0", cin, WIDTHS[0])
+            tag = "" if cin == 7 else f" Cin {cin}"
+            shapes += [(f"K1 {enc} stem{tag}", "gather_conv", *stem),
+                       (f"K3 {enc} stem{tag}", "conv_dw", *stem)]
         shapes += [(f"K3 {enc} stage{s} down", "conv_dw", f"{p}_down_{s}", f"{p}_nbr3_{s - 1}",
                     WIDTHS[s - 1], WIDTHS[s]) for s in range(1, 5)]
     return shapes
@@ -119,10 +128,11 @@ def _time_kernels(batch, dev, median_ms) -> dict:
     import numpy as np
     import torch
 
-    from instancerefer_tpu_torch.ops.conv_bwd import conv_dw
-    from instancerefer_tpu_torch.ops.gather_conv import gather_conv
+    from instancerefer_tpu_torch.ops import conv_bwd
+    from instancerefer_tpu_torch.ops import gather_conv as G
 
     gen = torch.Generator(device=dev).manual_seed(7)
+    pad = getattr(G, "pad_channels", None)
 
     def rnd(*shape):
         return torch.randn(*shape, device=dev, generator=gen)
@@ -131,13 +141,16 @@ def _time_kernels(batch, dev, median_ms) -> dict:
     for label, wrapper, key, in_key, cin, cout in SHAPES:
         nbr = torch.from_numpy(np.ascontiguousarray(batch[key], np.int32)).to(dev)
         x = rnd(batch[in_key].shape[0], cin).bfloat16()
+        if pad is not None and "stem" in label:
+            x = pad(x)  # the rows the stem's main path gives it
         if wrapper == "gather_conv":
             w = (rnd(nbr.shape[1], cin, cout) / (nbr.shape[1] * cin) ** 0.5).bfloat16()
             sc, bi = 0.5 + torch.rand(cout, device=dev, generator=gen), 0.1 * rnd(cout)
-            out[label] = median_ms(lambda: gather_conv(x, nbr, w, sc, bi, relu=True))
+            out[label] = median_ms(lambda: G.gather_conv(x, nbr, w, sc, bi, relu=True))
         else:
             g = rnd(nbr.shape[0], cout).bfloat16()
-            out[label] = median_ms(lambda: conv_dw(x, nbr, g))
+            kw = {"cin": cin} if pad is not None else {}
+            out[label] = median_ms(lambda: conv_bwd.conv_dw(x, nbr, g, **kw))
     return out
 
 

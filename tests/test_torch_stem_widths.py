@@ -8,9 +8,12 @@ ENet channels), against the JAX package, on the CPU.
   and 135 against the JAX package's XLA gather path
   (``instancerefer_tpu/ops/sparse.gather_conv`` and its VJP), f32: 1e-5 of
   the largest value for K1, 1e-4 for dW (a sum over every row).
-* ``route`` on a ``"cuda"`` device object (no card needed), and the split
-  rule of K3's dW: at most ``DW_PARTIAL_BYTES`` of partials, from the
-  shapes alone.
+* ``route`` on a ``"cuda"`` device object (no card needed): the stem
+  kernels at Cin 7, 10 and 135; the stem route's rows (``stem_channels``,
+  ``stem_depth``, K3's depth blocks), the stems' input padded to 16-byte
+  rows only there (``stem_input``), and the split rule of K3's dW: at most
+  ``DW_PARTIAL_BYTES`` of partials, from the shapes and the card's SMs
+  alone.
 * One train step of a ``use_normal`` and of a ``use_multiview`` config on a
   ``tests/fake_scanrefer.make_fake_root`` root, the batch built by the JAX
   package's loader with the config's features: the port's
@@ -38,7 +41,7 @@ from instancerefer_tpu_torch.data import dataset
 from instancerefer_tpu_torch.data.host import batch_to_torch
 from instancerefer_tpu_torch.data.synthetic import TEST_SPEC
 from instancerefer_tpu_torch.models.instancerefer import InstanceRefer
-from instancerefer_tpu_torch.ops import conv_bwd, gather_conv, sparse, sparse_conv
+from instancerefer_tpu_torch.ops import conv_bwd, gather_conv, precision, sparse, sparse_conv
 from instancerefer_tpu_torch.train import solver
 from instancerefer_tpu_torch.utils.convert import state_dict_from_jax
 
@@ -101,8 +104,8 @@ def test_k3_twin_matches_jax_gather_path(cin):
     _close(got.numpy(), np.asarray(want), 1e-4)
 
 
-@pytest.mark.parametrize("cin, want", [(7, "stem"), (10, "stem"), (32, "tensor_core"),
-                                       (135, "stem")])
+@pytest.mark.parametrize("cin, want", [(7, "stem_wide"), (10, "stem_wide"), (32, "tensor_core"),
+                                       (135, "stem_wide")])
 def test_route_of_the_stem_widths(cin, want):
     cuda = torch.device("cuda")
     assert gather_conv.route(torch.bfloat16, cin, cuda) == want
@@ -110,27 +113,47 @@ def test_route_of_the_stem_widths(cin, want):
     assert gather_conv.route(torch.bfloat16, cin, torch.device("cpu")) == "twin"
 
 
-@pytest.mark.parametrize("cin, chunks", [(7, 1), (8, 2), (10, 2), (135, 19)])
-def test_stem_depth_chunks(cin, chunks):
-    assert gather_conv.stem_chunks(cin) == chunks
-    depth = gather_conv.stem_depth(cin)
-    assert depth % 16 == 0 and 27 * cin <= depth < 27 * cin + 16
-    assert (chunks - 1) * gather_conv.STEM_CHUNK < depth <= chunks * gather_conv.STEM_CHUNK
+@pytest.mark.parametrize("cin, channels, depth, blocks", [
+    (7, 8, 224, 1), (8, 8, 224, 1), (10, 16, 432, 1), (135, 136, 3680, 5), (200, 200, 5408, 8)])
+def test_stem_depth_chunks(cin, channels, depth, blocks):
+    """The stem kernels' rows and depth: rows padded to 16 bytes, and K3
+    puts the depth on its grid in blocks of 768, which the build passes to
+    the kernel's source (``NVCC_FLAGS``), where a static_assert holds it to
+    the kernel's warps."""
+    assert gather_conv.stem_channels(cin) == channels
+    assert gather_conv.stem_depth(cin) == depth
+    assert depth % 16 == 0 and 27 * channels <= depth < 27 * channels + 16
+    assert gather_conv.stem_depth_blocks(cin) == blocks
+    block = gather_conv.STEM_DW_BLOCK
+    assert (blocks - 1) * block < depth <= blocks * block
+    assert f"-DIRSC_STEM_DW_BLOCK={block}" in gather_conv.NVCC_FLAGS
+
+
+SMS = 132  # an H100's SMs
 
 
 def _k3_splits(rows, cin, cout, path):
-    """The split count ``conv_dw`` takes on ``path``, as it computes it."""
-    per_split = cout // 32 * gather_conv.stem_chunks(cin) if path == "stem" else 27
-    return conv_bwd.dw_splits(rows, per_split, path, 4 * 27 * cin * cout)
+    """The split count ``conv_dw`` takes on ``path`` on an H100, as it
+    computes it."""
+    if path == "stem_wide":
+        per_split = cout // 32 * gather_conv.stem_depth_blocks(cin)
+        return conv_bwd.dw_splits(rows, per_split, path, 4 * 27 * cin * cout, SMS)
+    return conv_bwd.dw_splits(rows, 27, path, 4 * 27 * cin * cout)
 
 
 def test_dw_split_rule_caps_the_partials():
-    """The scene stem's 581632 rows: ~500 splits at Cin 7 as before, fewer
-    as Cin grows, and never more than DW_PARTIAL_BYTES of partials, on
-    every route; a function of the shapes alone."""
+    """The scene stem's 581632 rows: fewer splits as Cin grows, and never
+    more than DW_PARTIAL_BYTES of partials, on every route; on the stem
+    route one block an SM in one wave, and the route refuses to split
+    without the card's SM count; a function of the shapes and the card
+    alone."""
     cap = conv_bwd.DW_PARTIAL_BYTES
-    assert _k3_splits(581632, 7, 32, "stem") == 512
-    for path in ("stem", "fma"):
+    assert _k3_splits(581632, 7, 32, "stem_wide") == SMS
+    assert _k3_splits(581632, 10, 32, "stem_wide") == SMS
+    assert _k3_splits(581632, 135, 32, "stem_wide") * 5 <= SMS
+    with pytest.raises(ValueError, match="SM count"):
+        conv_bwd.dw_splits(581632, 1, "stem_wide")
+    for path in ("stem_wide", "fma"):
         prev = None
         for cin in (7, 10, 64, 135, 300, 1000):
             s = _k3_splits(581632, cin, 32, path)
@@ -138,7 +161,7 @@ def test_dw_split_rule_caps_the_partials():
             assert prev is None or s <= prev
             assert s == _k3_splits(581632, cin, 32, path)
             prev = s
-    assert _k3_splits(581632, 135, 32, "stem") * 4 * 27 * 135 * 32 < 16e6  # not 233 MB
+    assert _k3_splits(581632, 135, 32, "stem_wide") * 4 * 27 * 135 * 32 < 16e6  # not 233 MB
     # a partial larger than the cap alone still gets one split
     assert conv_bwd.dw_splits(10 ** 6, 1, "fma", cap + 1) == 1
     # the downs' and the residuals' splits are the rows' and blocks' rule
@@ -154,6 +177,34 @@ def test_k3_wrapper_takes_any_width_on_the_cpu(cin):
             for a in (x, nbr, g)]
     got = conv_bwd.conv_dw(*args)
     assert torch.equal(got, sparse.conv_dw(*args)) and conv_bwd.conv_dw.launches == before
+
+
+@pytest.mark.parametrize("cin", [7, 10, 135])
+def test_stem_input_pads_only_for_the_wide_kernels(monkeypatch, cin):
+    """``stem_input``: the cast copy as before on the CPU (the twin) and in
+    f32; where the route is the stem kernels', one bf16 copy of 16-byte
+    rows whose padding channels are zero.  A dW-only stem backward from
+    those rows gives dW [27, Cin, 32], the twin's."""
+    nbr, x, w, g = _stem_inputs(cin, 3 * cin, v_in=80, v_out=80)
+    xt, nbr, g = torch.from_numpy(x), torch.from_numpy(nbr), torch.from_numpy(g)
+    assert torch.equal(sparse_conv.stem_input(xt), xt)  # f32: no copy
+    precision.set_compute_dtype("bfloat16")
+    try:
+        got = sparse_conv.stem_input(xt)
+        assert got.dtype == torch.bfloat16 and torch.equal(got, xt.bfloat16())
+        monkeypatch.setattr(sparse_conv, "route", lambda dtype, c, device: gather_conv.route(
+            dtype, c, "cuda"))
+        got = sparse_conv.stem_input(xt)
+        cp = {7: 8, 10: 16, 135: 136}[cin]
+        assert got.shape == (80, cp) and got.dtype == torch.bfloat16 and got.is_contiguous()
+        assert torch.equal(got[:, :cin], xt.bfloat16()) and not got[:, cin:].any()
+        wt = torch.from_numpy(w).requires_grad_(True)
+        out = sparse_conv.subm_conv(got, nbr, wt, grad_input=False)
+        out.float().backward(g)
+    finally:
+        precision.set_compute_dtype(None)
+    want = sparse.conv_dw(xt.bfloat16(), nbr, g.bfloat16()).bfloat16().float()
+    assert wt.grad.shape == (27, cin, 32) and torch.equal(wt.grad, want)
 
 
 # ----------------------------------------------------------------- train steps
