@@ -2,7 +2,11 @@
 
     python3 chip_smoke.py
 
-Phases, in order; any failure exits nonzero without the final ``ok`` line:
+The main path's steps run as the solver runs them on one card: as CUDA
+graphs (``train/step_graph.StepGraphs``), a key's first batch eagerly and
+the rest as replays (phases 4, 7, 8, 9, 11); phase 12 puts the graphs
+beside the eager steps.  Phases, in order; any failure exits nonzero
+without the final ``ok`` line:
 
 1. Device: the card's name and power limit (``nvidia-smi``) and the port's
    own native voxelizer library (built with ``g++`` from
@@ -26,11 +30,14 @@ Phases, in order; any failure exits nonzero without the final ``ok`` line:
    a 2-scene batch at the full-size spec, f32 with TF32 off, BN running
    statistics moved off their defaults.
 4. Eval at full size: 32-scene batches (the bench's synthetic scenes) in the
-   bf16 policy, three batches from distinct seeds, the first repeated;
+   bf16 policy, three batches from distinct seeds, the first repeated (the
+   eval step's graph: a warm-up that captures, then replays);
    outputs finite, ``ref_iou`` in [0, 1], 26 kernel launches per forward;
-   eval scenes/s and peak device memory; then one forward under
+   eval scenes/s and peak device memory; then one replay under
    ``torch.profiler``: the sparse-conv kernels' device time by wrapper, the
-   device's busy time and idle share (``[profile]``).
+   device's busy time and idle share, and the launches the profiler saw,
+   which must equal what the counters added (a replay runs no Python: the
+   counters add what the capture counted) (``[profile]``).
 5. K2, K3 and K1's f32 output vs their plain twins on the maps of the
    32-scene batch: K3 at every shape a train step launches it at (both
    stems, K = 27, 7 -> 32, and the four down convs of both encoders, K = 8,
@@ -44,7 +51,8 @@ Phases, in order; any failure exits nonzero without the final ``ok`` line:
    weights: loss, every parameter gradient, the running statistics, then
    the parameters after a second Adam step.
 7. Train at full size: 32-scene batches in the bf16 policy, one warm-up
-   step, 5 timed steps, then one step on each of 2 more batches; loss and
+   step (which captures the train step's graph), 5 timed replays, then one
+   step on each of 2 more batches; loss and
    every gradient finite, ``ref_iou`` in [0, 1], 34 / 16 / 10 launches of
    K1 / K2 / K3 per step; train scenes/s and peak device memory; then one
    step under ``torch.profiler``, as in phase 4.
@@ -58,8 +66,10 @@ Phases, in order; any failure exits nonzero without the final ``ok`` line:
    epoch with ``use_gt_lang: False``, each with the launch counters set to 0
    just before and read just after: 34 / 16 / 10 launches of K1 / K2 / K3
    per train step, 26 of K1 per eval forward, none from the cache.  The
-   artifacts exist, every logged loss is finite, the lr is 1e-4 after the
-   milestone and a resumed run goes on from epoch 3.  ``[cli]`` lines give
+   artifacts exist, every logged loss is finite, the logged lr (Adam's own
+   float32 tensor) equals the float32 schedule exactly (``LR_F32``: 1e-3,
+   then 1e-3 x 0.1 after the milestone), and a resumed run goes on from
+   epoch 3 at that lr.  ``[cli]`` lines give
    the train CLI's scenes/s per iteration (fetch + step) in the steady
    state (every iteration but an epoch's first) and over its whole run
    (validation and checkpoints included), the eval CLI's scenes/s end to
@@ -129,7 +139,35 @@ Phases, in order; any failure exits nonzero without the final ``ok`` line:
     - 11e: ``scripts/visualize --boxes`` on a prepared scene: the OBJ files
       hold the prepared vertex and box counts.
 
-Then one line ``{"kernels": [...]}`` (launch counts of phase 7; ms,
+12. The steps' CUDA graphs beside the eager steps, with its own wall time
+    (``[phase 12]``):
+    - 12a: f32, TF32 off, deterministic cuDNN, dropout 0, the same
+      weights, two 2-scene batches of one language grid with other
+      description lengths (A, B): the train graph captured on A replays B
+      and then A against eager steps on the same batches from one state
+      (loss, gradients and running statistics to phase 6's limits, the
+      parameters after the 2 steps), beside a second eager model's steps
+      (the floor of eager against eager on the card); the eval graph
+      captured on A replays B against the eager eval step on B (phase 3's
+      limits), beside that eager step run twice.
+    - 12b: bf16 at B = 32 through the ``Solver``: batches of two language
+      grids (126 and 64: two keys), a checkpoint load that drops every
+      graph, the recaptures; 34 / 16 / 10 launches a step throughout.
+    - 12c: at lr 0 two replays of one batch draw new dropout masks (their
+      losses differ), while with dropout 0 the loss repeats.
+    - 12d: train and eval scenes/s of both paths at B = 32 (the same
+      weights and batch), in runs alternated eager, graph, graph, eager,
+      with each path's peak device memory; a graph step and an eager step
+      of each kind under the profiler (the device's idle share).
+    - 12e: every launch of a train step and an eval step, recorded at the
+      capture by shape, against the profiler over 10 replays: each shape's
+      launches in each step, its bound and the device's own ms a launch
+      (``[shape]``).
+    - 12f: the train and eval step bodies run eagerly under
+      ``torch.cuda.set_sync_debug_mode("error")``.
+
+Then one line ``{"kernels": [...]}`` (launch counts of phase 7, whose
+profiled replay showed the profiler's launches equal to the counters'; ms,
 plain_ms, bound_ms and im2col_ms of K1 from phase 2, of K2 and K3 from
 phase 5, bf16 summed over the shapes; then K1 and K3 at the stems at
 Cin 135 and 10, with their stem-kernel launches in phase 9's train runs
@@ -287,11 +325,15 @@ STEM_KERNEL = re.compile(r"(stem_\w*?kernel)(I\w*?E)?E")
 def profile_kernels(label: str, fn) -> None:
     """One call of ``fn`` under ``torch.profiler``: the device time of the
     sparse-conv kernels by wrapper, of all device work, and the wall time
-    (the profiler's own cost included), logged as a ``[profile]`` line."""
+    (the profiler's own cost included), logged as a ``[profile]`` line.
+    The launches the profiler saw (``launch_groups``) must equal what the
+    wrappers' counters added over the call: under a graph's replay, which
+    runs no Python, the counters add what the capture counted."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
+    before = _launch_counts()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         fn()
@@ -300,7 +342,9 @@ def profile_kernels(label: str, fn) -> None:
     by_family = {name: 0.0 for name, _ in KERNEL_FAMILIES}
     device = 0.0
     for ev in prof.key_averages():
-        if ev.device_type != DeviceType.CUDA:  # an op's row repeats its kernels' time
+        # an op's row repeats its kernels' time; an annotation's (Adam's
+        # step, eagerly) spans the kernels inside it, gaps included
+        if ev.device_type != DeviceType.CUDA or getattr(ev, "is_user_annotation", False):
             continue
         t = ev.self_device_time_total / 1e3
         device += t
@@ -308,11 +352,18 @@ def profile_kernels(label: str, fn) -> None:
         if family is not None:
             by_family[family] += t
     sparse = sum(by_family.values())
+    counted = {k: n - before[k] for k, n in _launch_counts().items()}
+    seen = [kernel for kernel, _ in launch_groups(prof)]
+    seen = {k: seen.count(kernel) for k, kernel in zip(counted, ("K1", "K2", "K3"))}
     log(f"[profile] {label}: sparse-conv kernels {sparse:.2f} ms (" + ", ".join(
         f"{k} {v:.2f}" for k, v in by_family.items()) + f"); device busy {device:.2f} ms of "
-        f"{wall:.2f} ms wall under the profiler, idle {1 - device / wall:.1%}")
+        f"{wall:.2f} ms wall under the profiler, idle {1 - device / wall:.1%}; launches seen "
+        "by the profiler " + ", ".join(f"{k} {n}" for k, n in seen.items()) + ", counted "
+        + ("the same" if seen == counted else str(counted)))
     if sparse == 0:
         raise AssertionError(f"{label}: the profiler saw no sparse-conv kernel")
+    if seen != counted:
+        raise AssertionError(f"{label}: the counters added {counted}, the profiler saw {seen}")
 
 
 def make_model(spec, seed: int):
@@ -430,25 +481,38 @@ def phase_parity(spec, dev):
         raise AssertionError("parity batch has no scored candidates")
 
 
+def static_inputs(graphs, phase, dd):
+    """The static inputs of the graph that ``dd``'s key replays (which hold
+    ``dd``'s values once it has been stepped): repeats of the same batch
+    replay with no copy, as the solver's ``load`` does."""
+    return graphs.graphs[graphs.key(phase, dd["lang_feat"].shape[1])].inputs
+
+
 def phase_full(spec, dev, dds, model, label="full"):
+    """The eval step at B = BATCH through its CUDA graph (``StepGraphs``,
+    the eval CLI's path): the first batch warms up and captures, the
+    repeats replay it, each later batch is copied into its inputs."""
     from instancerefer_tpu_torch.ops.gather_conv import gather_conv
     from instancerefer_tpu_torch.ops.precision import set_compute_dtype
+    from instancerefer_tpu_torch.train.step_graph import StepGraphs
 
     set_compute_dtype("bfloat16")
     ms = torch.tensor(MEAN_SIZE, dtype=torch.float32, device=dev)
+    graphs = StepGraphs(model, None, ms)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(dev)
     repeats = 5
 
     gather_conv.launches = 0
-    outs = [run_slice(model, dds[0], ms)]  # warm
+    outs = [graphs.eval_step(dds[0])[1]]  # warm-up and capture
+    static = static_inputs(graphs, "eval", dds[0])
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     for _ in range(repeats):
-        outs.append(run_slice(model, dds[0], ms))
+        outs.append(graphs.eval_step(static)[1])
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
-    outs += [run_slice(model, dd, ms) for dd in dds[1:]]
+    outs += [graphs.eval_step(dd)[1] for dd in dds[1:]]
     torch.cuda.synchronize()
     launches = gather_conv.launches
     n_forward = len(outs)
@@ -468,15 +532,16 @@ def phase_full(spec, dev, dds, model, label="full"):
         raise AssertionError(f"{launches} kernel launches for {n_forward} forwards")
     peak = torch.cuda.max_memory_allocated(dev)
     sps = BATCH * repeats / dt
-    profile_kernels(f"{label} eval forward B={BATCH} Cin={spec.feat_dim} bf16",
-                    lambda: run_slice(model, dds[0], ms))
+    profile_kernels(f"{label} eval step B={BATCH} Cin={spec.feat_dim} bf16, graph replay",
+                    lambda: graphs.eval_step(static))
     for i, out in enumerate(outs[-len(dds):]):
         log(f"[{label}] batch {i}: loss={out['loss'].item():.4f} "
             f"ref_acc_mean={out['ref_acc_mean'].item():.4f} "
             f"mean_ref_iou={out['ref_iou'].mean().item():.4f} num_missed={int(out['num_missed'])}")
     log(f"[{label}] B={BATCH} Cin={spec.feat_dim} bf16: {n_forward} forwards, {launches} kernel launches "
         f"({launches // n_forward} per forward); eval {sps:.2f} scenes/s "
-        f"(forward+get_loss+get_eval, mean over {repeats} repeats, {dt / repeats * 1e3:.2f} ms/batch); "
+        f"(forward+get_loss+get_eval, graph replays, mean over {repeats} repeats, "
+        f"{dt / repeats * 1e3:.2f} ms/batch); {graphs.captures} capture; "
         f"peak device memory {peak / 2**20:.1f} MiB")
     set_compute_dtype(None)
     return launches
@@ -691,17 +756,23 @@ def check_step(label, names, ref, got):
 
 
 def phase_train(spec, dev, dds, label="train", repeats=5, profile=True):
+    """The train step at B = BATCH through its CUDA graph (``StepGraphs``,
+    the solver's path on one card): a warm-up that also captures, the timed
+    replays of the same batch, then each later batch copied into the
+    graph's inputs."""
     from instancerefer_tpu_torch.models.instancerefer import InstanceRefer
     from instancerefer_tpu_torch.ops import conv_bwd
     from instancerefer_tpu_torch.ops.gather_conv import gather_conv
     from instancerefer_tpu_torch.ops.precision import set_compute_dtype
-    from instancerefer_tpu_torch.train.solver import make_optimizer, train_step
+    from instancerefer_tpu_torch.train.solver import make_optimizer
+    from instancerefer_tpu_torch.train.step_graph import StepGraphs
 
     set_compute_dtype("bfloat16")
     model = InstanceRefer(spec.feat_dim, spec.num_classes, spec.max_candidates,
                           generator=torch.Generator().manual_seed(5)).to(dev)
     opt = make_optimizer(model.parameters(), LR, WD)
     ms = torch.tensor(MEAN_SIZE, dtype=torch.float32, device=dev)
+    graphs = StepGraphs(model, opt, ms)
     counters = {"gather_conv": gather_conv, "subm_conv_bwd": conv_bwd.subm_conv_bwd,
                 "conv_dw": conv_bwd.conv_dw}
     stems = {"gather_conv": gather_conv, "conv_dw": conv_bwd.conv_dw}
@@ -723,17 +794,18 @@ def phase_train(spec, dev, dds, label="train", repeats=5, profile=True):
         f.launches = 0
     for f in stems.values():
         f.stem_launches = 0
-    check(*train_step(model, opt, dds[0], ms))  # warm-up
+    check(*graphs.train_step(dds[0]))  # warm-up and capture
+    static = static_inputs(graphs, "train", dds[0])
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    timed = [train_step(model, opt, dds[0], ms) for _ in range(repeats)]
+    timed = [graphs.train_step(static) for _ in range(repeats)]
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
     for i, (metrics, out) in enumerate(timed):  # the gradients are the last step's
         check(metrics, out, grads=i == repeats - 1)
     del timed
     for dd in dds[1:]:
-        check(*train_step(model, opt, dd, ms))
+        check(*graphs.train_step(dd))
     torch.cuda.synchronize()
     launches = {k: f.launches for k, f in counters.items()}
     stem_launches = {k: f.stem_launches for k, f in stems.items()}
@@ -747,8 +819,8 @@ def phase_train(spec, dev, dds, label="train", repeats=5, profile=True):
             raise AssertionError(f"{k}: {n} stem-kernel launches in {n_steps} train steps")
     peak = torch.cuda.max_memory_allocated(dev)
     if profile:
-        profile_kernels(f"{label} step B={BATCH} Cin={spec.feat_dim} bf16",
-                        lambda: train_step(model, opt, dds[0], ms))
+        profile_kernels(f"{label} step B={BATCH} Cin={spec.feat_dim} bf16, graph replay",
+                        lambda: graphs.train_step(static))
     for i, r in enumerate(results):
         log(f"[{label}] step {i}: loss={r['loss']:.4f} ref_loss={r['ref_loss']:.4f} "
             f"lang_loss={r['lang_loss']:.4f} seg_loss={r['seg_loss']:.4f} ref_acc={r['ref_acc']:.4f}")
@@ -756,8 +828,8 @@ def phase_train(spec, dev, dds, label="train", repeats=5, profile=True):
         "step " + ", ".join(f"{k} {launches[k] // n_steps}" for k in counters) +
         " (" + ", ".join(f"{k} {stem_launches[k] // n_steps} at the stems" for k in stems) +
         f"); train {BATCH * repeats / dt:.2f} scenes/s (forward+get_loss+backward+Adam+get_eval, "
-        f"mean over {repeats} steps, {dt / repeats * 1e3:.2f} ms/step); "
-        f"peak device memory {peak / 2**20:.1f} MiB")
+        f"graph replays, mean over {repeats} steps, {dt / repeats * 1e3:.2f} ms/step); "
+        f"{graphs.captures} capture; peak device memory {peak / 2**20:.1f} MiB")
     set_compute_dtype(None)
     return launches, stem_launches
 
@@ -767,6 +839,11 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 CLI_SCENES = {"train": range(0, 8), "val": range(8, 12)}
 CLI_BATCHES = {"train": 16, "val": 8}  # batches of BATCH a split
 EVAL_LAUNCHES = {"gather_conv": CONVS_PER_FORWARD, "subm_conv_bwd": 0, "conv_dw": 0}
+# the lr Adam applies in the CLI runs' epochs 1 and 2 (the milestone after
+# epoch 1, rate 0.1): on a card a float32 tensor that the schedule
+# multiplies by the rate in float32, as the JAX package's optax schedule
+# does; the solver logs it as Adam holds it
+LR_F32 = np.array([LR, np.float32(LR) * np.float32(0.1)], np.float32)
 WORDS = ("the", "a", "is", "it", "this", "that", "of", "to", "in", "on", "with", "and",
          "next", "near", "left", "right", "front", "behind", "corner", "room", "wall",
          "brown", "white", "black", "small", "large", "wooden", "square", "round", "facing")
@@ -953,8 +1030,8 @@ def phase_cli():
         if bad or len(records) != 2 * (per_epoch + 1):
             raise AssertionError(f"{len(records)} records, non-finite losses in {bad[:2]}")
         lrs = [r["lr"] for r in records if r["phase"] == "train"]
-        if not np.allclose(lrs, [1e-3] * per_epoch + [1e-4] * per_epoch, rtol=1e-9, atol=0):
-            raise AssertionError(f"lr per train step {lrs}")
+        if lrs != [float(LR_F32[0])] * per_epoch + [float(LR_F32[1])] * per_epoch:
+            raise AssertionError(f"lr per train step {lrs}, want {LR_F32.tolist()} exactly")
 
         n_val = CLI_BATCHES["val"] * BATCH
         _, eval_wall = drive("eval (cold)", eval_cli.main, argv("main", "cli"),
@@ -975,7 +1052,7 @@ def phase_cli():
         text = open(os.path.join(resumed.root, "log.txt")).read()
         first = _records(resumed.root)[0]
         if resumed.root == run or "epoch 3 starting" not in text or "epoch 2 starting" in text \
-                or first["iter"] != 2 * per_epoch or abs(first["lr"] - 1e-4) > 1e-12:
+                or first["iter"] != 2 * per_epoch or first["lr"] != float(LR_F32[1]):
             raise AssertionError("the resumed run does not go on from epoch 3")
         drive("train use_gt_lang False", train_cli.main, argv("predicted", "clipred"),
               train_launches(1))
@@ -1325,7 +1402,7 @@ class Scenes:
 def _step_state(metrics, model):
     """(loss, gradients, running statistics) of a step, on the CPU."""
     return (float(metrics["loss"]),
-            {n: p.grad.detach().cpu() for n, p in model.named_parameters()},
+            {n: p.grad.detach().cpu().clone() for n, p in model.named_parameters()},
             {n: b.detach().cpu().clone() for n, b in model.named_buffers() if "running" in n})
 
 
@@ -1830,6 +1907,473 @@ def phase_loss_variants(dev) -> None:
         f"{worst:.3e} of the largest (limit {VARIANT_RTOL:g})")
 
 
+# ---------------------------------------------------------------- phase 12
+GRAPH_RUNS = 2  # rounds of eager, graph, graph, eager in the timing of 12d
+GRAPH_STEPS = 5  # steps a timed run
+SHAPE_REPLAYS = 10  # replays of each step under the profiler in 12e
+# a wrapper's launch as the profiler names its kernels: the first kernel of
+# each launch (K1 and the down convs' dX over up8; K2's dX; K3), then the
+# kernels that finish it (K2's dW, the sum of the splits)
+LAUNCH_FIRST = {
+    "K1": re.compile(r"gather_gemm(_tc)?_kernel<.*false>|stem_wide_conv_kernel"),
+    "K2": re.compile(r"gather_gemm(_tc)?_kernel<.*true>"),
+    "K3": re.compile(r"dw_(tc|partial)_kernel<.*true>|stem_wide_dw_kernel"),
+}
+LAUNCH_REST = re.compile(r"dw_(tc|partial)_kernel<.*false>|sum_partials_kernel")
+
+
+@contextlib.contextmanager
+def record_launches():
+    """The sparse-conv wrappers' calls made inside, in order, as dicts
+    (kernel, route, V_out, K, Cin, Cout, the output, the map and the
+    bytes the function must move): the names the model's modules call the
+    wrappers by are wrapped, and restored after."""
+    from instancerefer_tpu_torch.models import basic_blocks
+    from instancerefer_tpu_torch.ops import sparse_conv
+    from instancerefer_tpu_torch.ops.gather_conv import route
+
+    calls = []
+
+    def describe(kernel, args, kw):
+        feats, nbr = args[0], args[1]
+        if kernel == "K1":
+            w = args[2]
+            (k, cin, cout), out = w.shape, kw.get("out_dtype") or feats.dtype
+            epi = len(args) > 3 and args[3] is not None
+            what = "f32 out" if out == torch.float32 and feats.dtype != out else \
+                ("epilogue" if epi else "no epilogue")
+            nb = feats.shape[0] * cin * feats.element_size() + nbytes(nbr, w) \
+                + nbr.shape[0] * cout * torch.finfo(out).bits // 8 + (2 * cout * 4 if epi else 0)
+            mults = 2
+        elif kernel == "K2":
+            g, w = args[2], args[3]
+            k, cin, cout = w.shape
+            what, mults = "dX and dW", 4
+            nb = nbytes(feats, nbr, g, w) + feats.shape[0] * cin * 4 + w.numel() * 4
+        else:
+            g = args[2]
+            k, cin, cout = nbr.shape[1], kw.get("cin") or feats.shape[1], g.shape[1]
+            what, mults = "dW", 2
+            nb = feats.shape[0] * cin * feats.element_size() + nbytes(nbr, g) + k * cin * cout * 4
+        return {"kernel": kernel, "route": route(feats.dtype, cin, feats.device),
+                "v_out": nbr.shape[0], "k": k, "cin": cin, "cout": cout, "what": what,
+                "nbr": nbr, "bytes": nb, "mults": mults, "dtype": feats.dtype}
+
+    patched = []
+    for module, name, kernel in ((basic_blocks, "gather_conv", "K1"),
+                                 (sparse_conv, "gather_conv", "K1"),
+                                 (sparse_conv, "subm_conv_bwd", "K2"),
+                                 (sparse_conv, "conv_dw", "K3")):
+        real = getattr(module, name)
+
+        def call(*args, _real=real, _kernel=kernel, **kw):
+            calls.append(describe(_kernel, args, kw))
+            return _real(*args, **kw)
+
+        setattr(module, name, call)
+        patched.append((module, name, real))
+    try:
+        yield calls
+    finally:
+        for module, name, real in patched:
+            setattr(module, name, real)
+
+
+def launch_groups(prof):
+    """The profiler's sparse-conv kernels, in the order they ran, grouped
+    by launch: [(kernel, device ms)]."""
+    from torch.autograd import DeviceType
+
+    events = sorted((ev for ev in prof.events() if ev.device_type == DeviceType.CUDA),
+                    key=lambda ev: ev.time_range.start)
+    groups = []
+    for ev in events:
+        first = next((k for k, pat in LAUNCH_FIRST.items() if pat.search(ev.name)), None)
+        ms = ev.time_range.elapsed_us() / 1e3
+        if first is not None:
+            groups.append([first, ms])
+        elif LAUNCH_REST.search(ev.name):
+            if not groups:
+                raise AssertionError(f"the profiler shows {ev.name} before any launch")
+            groups[-1][1] += ms
+    return groups
+
+
+def shape_table(label, graphs_steps, replays=SHAPE_REPLAYS):
+    """Per launch of each captured step (``graphs_steps``: [(name, launches
+    recorded at its capture, replay function)]), the device's own ms from
+    the profiler over ``replays`` replays, merged by shape: one ``[shape]``
+    line per (kernel, shape, map) with its launches in each step, the
+    device's ms a launch in each (the mean over its launches and replays)
+    and its bound.  K1's forward is one shape in both steps (no epilogue in
+    the train step, the folded BN and ReLU in the eval step)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    rows = {}
+    for name, calls, replay in graphs_steps:
+        replay()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(replays):
+                replay()
+            torch.cuda.synchronize()
+        groups = launch_groups(prof)
+        if [g[0] for g in groups] != [c["kernel"] for c in calls] * replays:
+            raise AssertionError(f"{label} {name}: the profiler's {len(groups)} launches do not "
+                                 f"follow the {len(calls)} captured ones {replays} times")
+        for i, c in enumerate(calls):
+            nnz = int((c["nbr"] >= 0).sum())
+            what = "forward" if c["what"] in ("epilogue", "no epilogue") else c["what"]
+            key = (c["kernel"], what, c["v_out"], c["k"], c["cin"], c["cout"], nnz, c["route"])
+            row = rows.setdefault(key, {"launches": {}, "ms": {}, "call": c})
+            row["launches"][name] = row["launches"].get(name, 0) + 1
+            row["ms"].setdefault(name, []).extend(
+                groups[r * len(calls) + i][1] for r in range(replays))
+    names = [n for n, _, _ in graphs_steps]
+    totals = {n: 0.0 for n in names}
+    for key, row in sorted(rows.items(), key=lambda kv: (kv[0][0], kv[0][1], -kv[0][2], kv[0][6])):
+        kernel, what, v_out, k, cin, cout, nnz, path = key
+        c = row["call"]
+        flops = c["mults"] * nnz * cin * cout
+        b_ms, b_by = bound(flops, c["bytes"], c["dtype"])
+        ms = {n: statistics.mean(t) for n, t in row["ms"].items()}
+        for n, t in ms.items():
+            totals[n] += t * row["launches"][n]
+        log(f"[shape] {label} {kernel} {what} V_out={v_out} K={k} {cin}->{cout} "
+            f"valid={nnz} route={path}: launches " + " / ".join(
+                f"{row['launches'].get(n, 0)} {n}" for n in names)
+            + "; device ms a launch under graph replays " + " / ".join(
+                f"{ms[n]:.4f} {n}" for n in names if n in ms)
+            + f"; bound {b_ms:.4f} ms ({b_by}: {flops / 1e9:.2f} GFLOP, "
+            f"{c['bytes'] / 1e6:.1f} MB)")
+    log(f"[shape] {label}: sparse-conv device ms a step under graph replays: " + ", ".join(
+        f"{n} {t:.3f}" for n, t in totals.items()) + f" ({len(rows)} shapes)")
+
+
+def _with_grid(batch, grid):
+    """A host batch cut to the language grid ``grid`` (lengths clamped)."""
+    out = dict(batch)
+    out["lang_feat"] = np.ascontiguousarray(batch["lang_feat"][:, :grid])
+    out["lang_len"] = np.minimum(batch["lang_len"], grid)
+    return out
+
+
+def _steps_launches(before, after, n_steps, per_step, label):
+    got = {k: after[k] - before[k] for k in per_step}
+    if got != {k: v * n_steps for k, v in per_step.items()}:
+        raise AssertionError(f"{label}: launches {got} in {n_steps} steps, want "
+                             f"{per_step} a step")
+    return got
+
+
+def _graph_model(spec, dev, seed, **kw):
+    from instancerefer_tpu_torch.models.instancerefer import InstanceRefer
+
+    return InstanceRefer(spec.feat_dim, spec.num_classes, spec.max_candidates,
+                         generator=torch.Generator().manual_seed(seed), **kw).to(dev)
+
+
+def _launch_counts():
+    from instancerefer_tpu_torch.ops import conv_bwd
+    from instancerefer_tpu_torch.ops.gather_conv import gather_conv
+
+    return {"gather_conv": gather_conv.launches, "subm_conv_bwd": conv_bwd.subm_conv_bwd.launches,
+            "conv_dw": conv_bwd.conv_dw.launches}
+
+
+@torch.no_grad()
+def copy_train_state(src_model, src_opt, dst_model, dst_opt):
+    """``dst`` takes ``src``'s parameters, buffers and Adam state in place
+    (the tensors a captured step reads)."""
+    for d, s in zip(dst_model.state_dict().values(), src_model.state_dict().values()):
+        d.copy_(s)
+    for dp, sp in zip(dst_model.parameters(), src_model.parameters()):
+        for k, v in src_opt.state[sp].items():
+            dst_opt.state[dp][k].copy_(v)
+
+
+def _param_drift(ref_model, model, steps):
+    """Mean |diff| of all parameters in lr, after ``steps`` Adam steps from
+    one state; raises if an element lies beyond 2.5 x the summed lr +
+    1e-3 |p|."""
+    ref = {n: p.detach().cpu() for n, p in ref_model.named_parameters()}
+    total, count = 0.0, 0
+    for n, p in model.named_parameters():
+        diff = (p.detach().cpu() - ref[n]).abs()
+        if not bool((diff <= 2.5 * steps * LR + 1e-3 * ref[n].abs()).all()):
+            raise AssertionError(f"{n} after {steps} Adam steps: max |diff| "
+                                 f"{diff.max().item():.3e}")
+        total += diff.sum().item()
+        count += diff.numel()
+    return total / count / LR
+
+
+def _eval_diff(got, want):
+    """The largest |got - want| over the eval step's scores and loss;
+    raises beyond phase 3's limits."""
+    worst = 0.0
+    for key in ("loss", "lang_scores", "attribute_scores", "relation_scores", "scene_scores",
+                "seg_scores"):
+        a, b = got[key].cpu(), want[key].cpu()
+        err = (a - b).abs()
+        worst = max(worst, err.max().item())
+        if not bool((err <= SLICE_ATOL + SLICE_RTOL * b.abs()).all()):
+            raise AssertionError(f"eval steps disagree on {key}")
+    return worst
+
+
+def graphs_parity(spec, dev, ms):
+    """12a: f32, TF32 off, deterministic cuDNN, dropout 0, two 2-scene
+    batches of one language grid (A and B: other scenes, other description
+    lengths), the same weights on three models: an eager one, its eager
+    twin and a graphed one.  Each takes one step on A (the graphed one's
+    warm-up and capture), the eager model's state is copied into the other
+    two, then each steps on B and on A: the graph replays B (written into
+    the inputs captured from A) against the eager step on B, held as phase
+    6 holds the card against the CPU, beside the twin's eager step on B
+    against it (eager against eager on the card: the floor that the BEV
+    scatter's atomics leave).  The parameters after the 2 steps likewise.
+    Then the eval graph captured on A and replayed on B against the eager
+    eval step on B (phase 3's limits), beside that eager eval step run
+    twice.  Returns the losses of two replays at lr 0 (dropout 0: the same
+    loss twice)."""
+    from instancerefer_tpu_torch.data.host import batch_to_torch
+    from instancerefer_tpu_torch.data.synthetic import make_batch
+    from instancerefer_tpu_torch.ops.precision import set_compute_dtype
+    from instancerefer_tpu_torch.train.solver import make_optimizer, train_step
+    from instancerefer_tpu_torch.train.step_graph import StepGraphs, eval_body
+
+    set_compute_dtype(None)
+    torch.backends.cudnn.deterministic = True
+    host = [make_batch(2, spec, seed=s, mean_size_arr=MEAN_SIZE, **SCENE_KW) for s in (3, 9)]
+    if host[0]["lang_feat"].shape != host[1]["lang_feat"].shape \
+            or np.array_equal(host[0]["lang_len"], host[1]["lang_len"]):
+        raise AssertionError("12a wants two batches of one grid with other lengths")
+    d_a, d_b = (batch_to_torch(b, spec, dev) for b in host)
+    eager, twin, graphed = (_graph_model(spec, dev, 4, dropout_override=0.0) for _ in range(3))
+    opts = [make_optimizer(m.parameters(), LR, WD) for m in (eager, twin, graphed)]
+    graphs = StepGraphs(graphed, opts[2], ms)
+    train_step(eager, opts[0], d_a, ms)
+    train_step(twin, opts[1], d_a, ms)
+    graphs.train_step(d_a)  # the warm-up, then the capture on A
+    copy_train_state(eager, opts[0], twin, opts[1])
+    copy_train_state(eager, opts[0], graphed, opts[2])
+    states = []
+    for dd in (d_b, d_a):
+        e_metrics, _ = train_step(eager, opts[0], dd, ms)
+        t_metrics, _ = train_step(twin, opts[1], dd, ms)
+        g_metrics, _ = graphs.train_step(dd)
+        if not states:
+            states = [_step_state(m, model) for m, model in
+                      ((e_metrics, eager), (t_metrics, twin), (g_metrics, graphed))]
+    torch.cuda.synchronize()
+    if graphs.captures != 1:
+        raise AssertionError(f"12a: {graphs.captures} captures of one key")
+    log(f"[graph] 12a f32 B=2, lengths A {host[0]['lang_len'].tolist()} B "
+        f"{host[1]['lang_len'].tolist()}, from one state; the floor, eager against eager on B:")
+    check_step("graph", ("eager", "eager again"), states[0], states[1])
+    log("[graph] 12a the graph captured on A, its replay on B against the eager step on B:")
+    check_step("graph", ("eager", "graph"), *states[::2])
+    floor, drift = _param_drift(eager, twin, 2), _param_drift(eager, graphed, 2)
+    if not drift <= ADAM_MEAN:
+        raise AssertionError("graph and eager parameters drift apart")
+
+    graphed.eval()  # the eval graph, captured on A, replayed on B
+    graphs.eval_step(d_a)
+    want = eval_body(graphed, d_b, ms)[1]
+    again = eval_body(graphed, d_b, ms)[1]
+    got = graphs.eval_step(d_b)[1]
+    e_floor, e_diff = _eval_diff(again, want), _eval_diff(got, want)
+    log(f"[graph] 12a parameters after 2 Adam steps (B, then A): mean |diff| against the "
+        f"eager model's {drift:.4f} lr replayed, {floor:.4f} lr eager again (limit "
+        f"{ADAM_MEAN:g}); the eval graph captured on A, replayed on B, against the eager eval "
+        f"step on B: max |diff| {e_diff:.3e}, eager again {e_floor:.3e} (atol {SLICE_ATOL:g} + "
+        f"rtol {SLICE_RTOL:g})")
+    # a replay at lr 0 keeps the weights, so with dropout 0 the loss repeats
+    opts[2].param_groups[0]["lr"].fill_(0.0)
+    control = [float(graphs.train_step(d_a)[0]["loss"]) for _ in range(2)]
+    torch.backends.cudnn.deterministic = False
+    return control
+
+
+def graphs_keys(spec, dev, batches, control):
+    """12b: bf16 at B = BATCH through the solver: two language grids (two
+    keys), a checkpoint load that drops the graphs, the recaptures, the
+    launches a step.  12c: dropout on (the model's own rates) at lr 0, two
+    replays of one batch draw different masks, so their losses differ
+    (``control``: the same with dropout 0)."""
+    from instancerefer_tpu_torch.ops.precision import set_compute_dtype
+    from instancerefer_tpu_torch.train.solver import Solver
+
+    set_compute_dtype("bfloat16")
+    grids = [batches[0]["lang_feat"].shape[1], 64]
+    host = [batches[0], _with_grid(batches[1], grids[1]), batches[2],
+            _with_grid(batches[0], grids[1])]
+    workdir = tempfile.mkdtemp(prefix="graph_smoke_")
+    try:
+        with contextlib.redirect_stdout(io.StringIO()):
+            solver = Solver(_graph_model(spec, dev, 5), MEAN_SIZE, spec, dev, lr=LR, wd=WD,
+                            output_dir=workdir)
+        graphs = solver.graphs
+        if graphs is None:
+            raise AssertionError("the solver on one card does not step through graphs")
+        before = _launch_counts()
+        losses = []
+        for batch in host + host[:1]:
+            losses.append(float(graphs.train_step(graphs.load(batch, spec, "train"))[0]["loss"]))
+        keys = sorted(graphs.graphs)
+        with contextlib.redirect_stdout(io.StringIO()):
+            solver.load_checkpoint(solver.save_checkpoint("checkpoint", with_opt=True),
+                                   with_opt=True)
+        dropped = len(graphs.graphs)
+        for batch in host[:2] * 2:
+            losses.append(float(graphs.train_step(graphs.load(batch, spec, "train"))[0]["loss"]))
+        n_steps = len(host) + 1 + 4
+        got = _steps_launches(before, _launch_counts(), n_steps, TRAIN_LAUNCHES, "12b")
+        if keys != [("train", g, "torch.bfloat16") for g in sorted(grids)] or dropped \
+                or graphs.captures != 4 or not np.isfinite(losses).all():
+            raise AssertionError(f"12b: keys {keys}, {dropped} graphs after the load, "
+                                 f"{graphs.captures} captures, losses {losses}")
+        log(f"[graph] 12b bf16 B={BATCH}: language grids {grids} (keys {keys}); a checkpoint "
+            f"load dropped every graph, {graphs.captures} captures in all; {n_steps} steps, "
+            "launches per step " + ", ".join(f"{k} {v // n_steps}" for k, v in got.items())
+            + "; losses " + ", ".join(f"{x:.4f}" for x in losses))
+
+        solver.optimizer.param_groups[0]["lr"].fill_(0.0)
+        static = graphs.load(host[0], spec, "train")
+        drawn = [float(graphs.train_step(static)[0]["loss"]) for _ in range(2)]
+        log(f"[graph] 12c two replays of one batch at lr 0: dropout on, losses {drawn[0]:.6f} "
+            f"and {drawn[1]:.6f}; dropout 0 (12a, f32), {control[0]:.6f} and {control[1]:.6f}")
+        if drawn[0] == drawn[1] or abs(control[0] - control[1]) > 1e-5 * abs(control[0]):
+            raise AssertionError("12c: replays do not draw new dropout masks, or a replay with "
+                                 "dropout 0 does not repeat its loss")
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+
+
+def graphs_timing(spec, dev, ms, dd):
+    """12d: eager and graph side by side at B = BATCH, bf16, the same
+    weights and batch: each path's peak memory over its first train and
+    eval steps (the graphs' warm-ups and captures included), then scenes/s
+    in runs of GRAPH_STEPS steps, alternated eager, graph, graph, eager;
+    then a graph train and eval step under the profiler."""
+    from instancerefer_tpu_torch.train.solver import make_optimizer, train_step
+    from instancerefer_tpu_torch.train.step_graph import StepGraphs, eval_body
+
+    paths = {}
+    for name in ("eager", "graph"):
+        model = _graph_model(spec, dev, 6)
+        opt = make_optimizer(model.parameters(), LR, WD)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        if name == "eager":
+            def train(model=model, opt=opt):
+                return train_step(model, opt, dd, ms)
+
+            def evaluate(model=model):
+                model.eval()
+                return eval_body(model, dd, ms)
+        else:
+            g = StepGraphs(model, opt, ms)
+            g.train_step(dd)
+            g.eval_step(dd)
+            t_in, e_in = static_inputs(g, "train", dd), static_inputs(g, "eval", dd)
+
+            def train(g=g, t_in=t_in):
+                return g.train_step(t_in)
+
+            def evaluate(g=g, e_in=e_in):
+                return g.eval_step(e_in)
+        train()
+        evaluate()
+        torch.cuda.synchronize()
+        paths[name] = {"train": train, "eval": evaluate, "ms": {"train": [], "eval": []},
+                       "peak": torch.cuda.max_memory_allocated(dev),
+                       "reserved": torch.cuda.memory_reserved(dev)}
+    for _ in range(GRAPH_RUNS):
+        for name in ("eager", "graph", "graph", "eager"):
+            for kind in ("train", "eval"):
+                fn = paths[name][kind]
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                for _ in range(GRAPH_STEPS):
+                    metrics, _ = fn()
+                float(metrics["loss"])
+                torch.cuda.synchronize()
+                paths[name]["ms"][kind].append((time.perf_counter() - t0) / GRAPH_STEPS * 1e3)
+    for name, p in paths.items():
+        log(f"[graph] 12d {name} B={BATCH} bf16: " + "; ".join(
+            f"{kind} {BATCH / statistics.median(t) * 1e3:.2f} scenes/s (ms a step, runs of "
+            f"{GRAPH_STEPS}: " + ", ".join(f"{x:.2f}" for x in t) + ")"
+            for kind, t in p["ms"].items())
+            + f"; peak device memory {p['peak'] / 2**20:.1f} MiB over its first train and eval "
+              f"steps, {p['reserved'] / 2**20:.1f} MiB reserved after them")
+    for kind in ("train", "eval"):
+        e, g = (statistics.median(paths[n]["ms"][kind]) for n in ("eager", "graph"))
+        log(f"[graph] 12d {kind} step: graph {g:.2f} ms, eager {e:.2f} ms ({e / g:.2f}x)")
+    for kind in ("train", "eval"):
+        profile_kernels(f"graph {kind} step B={BATCH} Cin={spec.feat_dim} bf16 (12d)",
+                        paths["graph"][kind])
+        profile_kernels(f"eager {kind} step B={BATCH} Cin={spec.feat_dim} bf16 (12d)",
+                        paths["eager"][kind])
+
+
+def graphs_shapes(spec, dev, ms, dd):
+    """12e: every launch of the main path by shape, the device's own ms a
+    launch under graph replays beside its bound (``shape_table``); 12f: the
+    train and eval step bodies, eagerly, under
+    ``torch.cuda.set_sync_debug_mode("error")``."""
+    from instancerefer_tpu_torch.train.solver import make_optimizer
+    from instancerefer_tpu_torch.train.step_graph import StepGraphs, eval_body, train_body
+
+    model = _graph_model(spec, dev, 7)
+    g = StepGraphs(model, make_optimizer(model.parameters(), LR, WD), ms)
+    steps = []
+    for kind, step in (("train", g.train_step), ("eval", g.eval_step)):
+        with record_launches() as calls:
+            step(dd)  # the warm-up, then the capture: the same launches twice
+        half = len(calls) // 2
+        if [c["kernel"] for c in calls[:half]] != [c["kernel"] for c in calls[half:]]:
+            raise AssertionError(f"12e {kind}: the capture launched otherwise than the warm-up")
+        kernels = [c["kernel"] for c in calls[half:]]
+        per_step = {"train": TRAIN_LAUNCHES, "eval": EVAL_LAUNCHES}[kind]
+        want = {k: n for k, n in zip(("K1", "K2", "K3"), per_step.values()) if n}
+        if {k: kernels.count(k) for k in set(kernels)} != want:
+            raise AssertionError(f"12e {kind}: {len(kernels)} launches recorded, want {want}")
+        inputs = static_inputs(g, kind, dd)
+        steps.append((kind, calls[half:], lambda step=step, inputs=inputs: step(inputs)))
+    shape_table(f"B={BATCH} Cin={spec.feat_dim} bf16", steps)
+
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        model.train()
+        train_body(model, g.optimizer, dd, ms)
+        model.eval()
+        eval_body(model, dd, ms)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    log("[graph] 12f the train and eval step bodies ran eagerly under "
+        "torch.cuda.set_sync_debug_mode('error'): no synchronizing call")
+
+
+def phase_graphs(spec, dev, batches):
+    """12: the steps' CUDA graphs beside the eager steps on the card."""
+    from instancerefer_tpu_torch.data.host import batch_to_torch
+    from instancerefer_tpu_torch.ops.precision import set_compute_dtype
+
+    ms = torch.tensor(MEAN_SIZE, dtype=torch.float32, device=dev)
+    try:
+        control = graphs_parity(spec, dev, ms)
+        graphs_keys(spec, dev, batches, control)
+        dd = batch_to_torch(batches[0], spec, dev)
+        graphs_timing(spec, dev, ms, dd)
+        graphs_shapes(spec, dev, ms, dd)
+    finally:
+        set_compute_dtype(None)
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device; this script runs only on a GPU")
@@ -1900,6 +2444,10 @@ def main() -> None:
     phase_loss_variants(dev)
     log(f"[phase 11] raw ScanNet scans to a train step and eval forward, the loss variants "
         f"and visualize: {time.perf_counter() - t11:.1f} s wall")
+    t12 = time.perf_counter()
+    phase_graphs(spec, dev, batches)
+    log(f"[phase 12] the steps' CUDA graphs beside the eager steps: "
+        f"{time.perf_counter() - t12:.1f} s wall")
 
     k1.worst = max(k1.worst, bwd["gather_conv"].worst)
     entries = (

@@ -11,7 +11,7 @@ map the down conv's dX gathers over.
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Tuple
+from typing import Dict, Iterator, Optional, Tuple
 
 import numpy as np
 import torch
@@ -53,6 +53,49 @@ class SparseStage:
     down: torch.Tensor
     up8: torch.Tensor
     stride: int
+
+
+STAGE_FIELDS = ("coords", "owner", "mask", "nbr3", "down", "up8")  # a SparseStage's tensors
+
+
+def _named_tensors(dd: Dict) -> Iterator[Tuple[str, torch.Tensor]]:
+    """(name, tensor) of every tensor of a data dict, the pyramids' stages
+    field by field (``"scene_pyramid[0].nbr3"``)."""
+    for k, v in dd.items():
+        if isinstance(v, torch.Tensor):
+            yield k, v
+        elif isinstance(v, tuple) and v and isinstance(v[0], SparseStage):
+            for i, stage in enumerate(v):
+                for f in STAGE_FIELDS:
+                    yield f"{k}[{i}].{f}", getattr(stage, f)
+
+
+def clone_data(dd: Dict) -> Dict:
+    """A data dict whose tensors are copies of ``dd``'s."""
+    def clone(v):
+        if isinstance(v, torch.Tensor):
+            return v.clone()
+        if isinstance(v, tuple) and v and isinstance(v[0], SparseStage):
+            return tuple(dataclasses.replace(s, **{f: getattr(s, f).clone() for f in STAGE_FIELDS})
+                         for s in v)
+        return v
+    return {k: clone(v) for k, v in dd.items()}
+
+
+def copy_data(src: Dict, dst: Dict) -> Dict:
+    """Write data dict ``src`` into ``dst``'s tensors, which must have the
+    same names, shapes and types; returns ``dst``."""
+    want = dict(_named_tensors(dst))
+    got = dict(_named_tensors(src))
+    if got.keys() != want.keys():
+        raise ValueError(f"the batch's tensors {sorted(got)} are not {sorted(want)}")
+    for name, t in got.items():
+        d = want[name]
+        if d.shape != t.shape or d.dtype != t.dtype:
+            raise ValueError(f"{name}: {tuple(t.shape)} {t.dtype}, where {tuple(d.shape)} "
+                             f"{d.dtype} is wanted")
+        d.copy_(t)
+    return dst
 
 
 def _dense(value: np.ndarray, device) -> torch.Tensor:
@@ -103,14 +146,19 @@ def _pyramid(batch, prefix: str, num_stages: int, device) -> Tuple[SparseStage, 
     return tuple(stages)
 
 
-def batch_to_torch(batch: Dict[str, np.ndarray], spec: BatchSpec, device) -> Dict:
+def batch_to_torch(batch: Dict[str, np.ndarray], spec: BatchSpec, device,
+                   out: Optional[Dict] = None) -> Dict:
     """Flat numpy batch (``collate`` output) -> the data dict of tensors.
 
     Dense keys keep their names: integer arrays become int64, floats f32,
     bools stay bool.  ``scene_pyramid`` / ``inst_pyramid`` are tuples of
     ``SparseStage``.  Raises ``ValueError`` if a neighbour map points past
-    its input stage, since the kernel trusts its indices.
+    its input stage, since the kernel trusts its indices.  ``out``: a data
+    dict of the same keys, shapes and types (a captured step's static
+    inputs) that the batch is written into (``copy_data``) and returned.
     """
+    if out is not None:
+        return copy_data(batch_to_torch(batch, spec, "cpu"), out)
     drop = tuple(f"{p}_{s}" for p in ("scene", "inst") for s in _PYRAMID_STEMS)
     dd = {
         k: _dense(v, device)

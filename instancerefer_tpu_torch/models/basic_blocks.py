@@ -42,6 +42,12 @@ class MaskedBatchNorm(nn.Module):
     does (the BN-momentum schedule sets it).  Eval mode normalizes with the
     running statistics.  The output keeps the input dtype.
 
+    ``momentum`` reads and sets a float; the update reads it from
+    ``batch_momentum``, a 0-d buffer on the module's device (not in the
+    state_dict) that a new value fills in place, so a step captured as a
+    CUDA graph follows the schedule without a recapture.  Nothing in
+    ``forward`` reads a value back to the host.
+
     Data-parallel (world size > 1): the statistics are those of the global
     batch, as JAX's BN over the global array.  Each rank sums [sum x,
     sum x^2, n] over its valid rows, one ``all_reduce_sum`` of that
@@ -54,12 +60,23 @@ class MaskedBatchNorm(nn.Module):
     def __init__(self, features: int, eps: float = 1e-5):
         super().__init__()
         self.eps = eps
-        self.momentum = 0.1
+        self._momentum = 0.1
+        self.register_buffer("batch_momentum", torch.tensor(0.1), persistent=False)
         self.weight = nn.Parameter(torch.ones(features))
         self.bias = nn.Parameter(torch.zeros(features))
         self.register_buffer("running_mean", torch.zeros(features))
         self.register_buffer("running_var", torch.ones(features))
         self.register_buffer("num_batches_tracked", torch.tensor(0, dtype=torch.long))
+
+    @property
+    def momentum(self) -> float:
+        return self._momentum
+
+    @momentum.setter
+    def momentum(self, value: float) -> None:
+        if value != self._momentum:
+            self._momentum = float(value)
+            self.batch_momentum.fill_(value)
 
     def fold_eval(self) -> Tuple[torch.Tensor, torch.Tensor]:
         """(scale', bias') with y = x * scale' + bias':
@@ -79,7 +96,7 @@ class MaskedBatchNorm(nn.Module):
         if world_size() > 1:
             mean, var, n = _global_moments(flat, mask)
         elif mask is None:
-            n = torch.tensor(float(flat.shape[0]), device=x.device)
+            n = flat.new_full((), float(flat.shape[0]))
             mean = flat.mean(0)
             var = flat.square().mean(0) - mean.square()
         else:
@@ -89,7 +106,7 @@ class MaskedBatchNorm(nn.Module):
             var = (flat.square() * rows).sum(0) / n - mean.square()
         var = var.clamp(min=0.0)
         with torch.no_grad():
-            m = self.momentum
+            m = self.batch_momentum
             unbiased = var * n / (n - 1.0).clamp(min=1.0)
             self.running_mean.copy_((1.0 - m) * self.running_mean + m * mean)
             self.running_var.copy_((1.0 - m) * self.running_var + m * unbiased)
@@ -209,10 +226,12 @@ BEVEncoder = SparseConvEncoder  # same topology (reference :136-171)
 
 
 def sparse_crop_mask(sv: SparseStage, loc_min, loc_max) -> torch.Tensor:
-    """Rows whose coords lie in [loc_min, loc_max) — reference ``spcrop`` as a mask."""
-    lo = torch.tensor(loc_min, dtype=sv.coords.dtype, device=sv.coords.device)
-    hi = torch.tensor(loc_max, dtype=sv.coords.dtype, device=sv.coords.device)
-    return ((sv.coords >= lo) & (sv.coords < hi)).all(-1) & sv.mask
+    """Rows whose coords lie in [loc_min, loc_max) — reference ``spcrop`` as a
+    mask (the bounds compared one axis at a time, as Python numbers)."""
+    inside = sv.mask
+    for axis, (lo, hi) in enumerate(zip(loc_min, loc_max)):
+        inside = inside & (sv.coords[:, axis] >= lo) & (sv.coords[:, axis] < hi)
+    return inside
 
 
 class ToDenseBEVConvolution(nn.Module):

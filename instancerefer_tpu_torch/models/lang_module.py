@@ -1,6 +1,7 @@
 """Language encoder, counterpart of ``instancerefer_tpu/models/lang_module.py``:
-GloVe projection, 2-layer GRU over the packed sequence (bidirectional unless
-``use_bidir=False``, as the config's ``use_bidir``), four attention heads that
+GloVe projection, 2-layer GRU masked to each description's length
+(``ops/gru.static_gru``; bidirectional unless ``use_bidir=False``, as the
+config's ``use_bidir``), four attention heads that
 pool the *projected embeddings* (not the GRU states, a reference quirk) and
 the 18-way text classifier.  The word dropout is live
 in train mode; the GRU's backward is cuDNN's on the card."""
@@ -10,7 +11,7 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from instancerefer_tpu_torch.ops.gru import length_mask, packed_gru
+from instancerefer_tpu_torch.ops.gru import length_mask, static_gru
 
 
 def masked_softmax(logits: torch.Tensor, mask: torch.Tensor, dim: int = -1) -> torch.Tensor:
@@ -40,7 +41,7 @@ class LangModule(nn.Module):
         lengths = data_dict["lang_len"]  # [B]
         t = feats.shape[1]
         embed = self.word_projection(feats)
-        gru_out = packed_gru(self.gru, embed, lengths)  # [B, T, 128 * (1 + bidir)]
+        gru_out = static_gru(self.gru, embed, lengths)  # [B, T, 128 * (1 + bidir)]
         mask = length_mask(lengths, t)
 
         out = dict(data_dict)

@@ -77,9 +77,9 @@ class RelationModule(nn.Module):
     def forward(self, data_dict: dict) -> dict:
         out = dict(data_dict)
         inst_mask = data_dict["instance_mask"]
-        onehot = nn.functional.one_hot(
-            data_dict["instance_class"].clamp(0, self.num_classes - 1), self.num_classes
-        ).float() * inst_mask[..., None]
+        classes = torch.arange(self.num_classes, device=inst_mask.device)
+        onehot = (data_dict["instance_class"].clamp(0, self.num_classes - 1)[..., None]
+                  == classes).float() * inst_mask[..., None]
         node_feats = torch.cat([data_dict["instance_node_feat"], onehot], -1)  # [B, M, 25]
         feats = self.gcn(
             node_feats, data_dict["instance_obbs"][..., 0:3], inst_mask,

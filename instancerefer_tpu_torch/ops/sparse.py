@@ -86,13 +86,15 @@ def masked_global_max_pool(
     feats: torch.Tensor, owner: torch.Tensor, num_segments: int
 ) -> torch.Tensor:
     """Per-owner max over rows (owner -1 = padding); owners with no rows
-    pool to 0."""
+    pool to 0.  Every shape is fixed by the arguments (no ``bincount``,
+    whose length follows the data)."""
     c = feats.shape[1]
     seg = torch.where(owner >= 0, owner, num_segments).long()
     out = feats.new_full((num_segments + 1, c), float("-inf"))
     out = out.scatter_reduce(0, seg[:, None].expand(-1, c), feats, "amax")
-    count = torch.bincount(seg, minlength=num_segments + 1)[:num_segments]
-    return torch.where(count[:, None] > 0, out[:num_segments], 0.0)
+    has_rows = torch.zeros(num_segments + 1, dtype=torch.bool, device=feats.device)
+    has_rows = has_rows.index_fill(0, seg, True)[:num_segments]
+    return torch.where(has_rows[:, None], out[:num_segments], 0.0)
 
 
 def masked_mean(feats: torch.Tensor, mask: torch.Tensor, axis=0, eps: float = 1e-12) -> torch.Tensor:

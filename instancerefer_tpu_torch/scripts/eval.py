@@ -8,7 +8,9 @@ Scores the val split with a run's ``model_last.pth`` (the reference's
 (``scores.npz``), and prints the unique/multiple x others Acc@0.25/0.5 table.
 A cached run prints its table without touching the model.  Capacity overflow
 at eval fails the run before anything is cached, unless
-``--allow_overflow`` is given.
+``--allow_overflow`` is given.  On a card each batch replays the eval step's
+CUDA graph of its language grid (``train/step_graph.StepGraphs``); on the
+CPU the step runs eagerly.
 """
 
 from __future__ import annotations
@@ -92,8 +94,7 @@ def score(cfg: Config, root: str, device: torch.device) -> dict:
     from instancerefer_tpu_torch.models.instancerefer import build_model
     from instancerefer_tpu_torch.ops.precision import set_compute_dtype
     from instancerefer_tpu_torch.scripts.train import lang_predictor
-    from instancerefer_tpu_torch.train.evaluate import get_eval
-    from instancerefer_tpu_torch.train.losses import get_loss
+    from instancerefer_tpu_torch.train.step_graph import choose, eval_body
     from instancerefer_tpu_torch.utils.convert import load_reference_state_dict
 
     set_compute_dtype(cfg.compute_dtype)
@@ -127,6 +128,8 @@ def score(cfg: Config, root: str, device: torch.device) -> dict:
         overrides = pcl._predict_overrides()
         print(f"pass 1 done: predicted classes for {len(overrides)} samples")
     loader = PaddedLoader(dataset, spec, cfg.batch_size, class_overrides=overrides, **loader_kw)
+    graphs, path = choose(model, None, mean_size)
+    print("eval steps: " + path)
 
     results = {k: [] for k in SCORE_KEYS}
     overflow_max = {"scene": 0.0, "inst": 0.0, "cand": 0.0}
@@ -136,8 +139,10 @@ def score(cfg: Config, root: str, device: torch.device) -> dict:
             ov = batch.get(f"{key}_overflow")
             if ov is not None:
                 overflow_max[key] = max(overflow_max[key], float(np.asarray(ov)[valid].max()))
-        with torch.no_grad():
-            out = get_eval(get_loss(model(batch_to_torch(batch, spec, device)), mean_size))
+        if graphs is not None:
+            _, out = graphs.eval_step(graphs.load(batch, spec, "eval"))
+        else:
+            out = eval_body(model, batch_to_torch(batch, spec, device), mean_size)[1]
         res = {"ref_iou": out["ref_iou"], "ref_acc": out["ref_acc"],
                "multiple": out["ref_multiple_mask"], "others": out["ref_others_mask"],
                "lang_correct": out["lang_correct"], "pred_bboxes": out["pred_bboxes"],

@@ -1,6 +1,8 @@
-"""Time the bf16 train step of several checkouts of the port, alternated in
-one call on one GPU, profile the host side of one step of each, and time
-each checkout's sparse-conv wrappers at the stems' and down convs' shapes.
+"""Time the bf16 train and eval steps of several checkouts of the port,
+alternated in one call on one GPU (eagerly, and as CUDA graphs where the
+checkout has them), profile the host side of one step and the language
+module of each, and time each checkout's sparse-conv wrappers at the stems'
+and down convs' shapes.
 
     python -m instancerefer_tpu_torch.scripts.step_ab ROOT [ROOT ...] \\
         [--rounds 2] [--steps 20] [--out FILE]
@@ -21,10 +23,22 @@ falls on every root alike.  Each run prints one line ``STEP_AB {...}``:
   pure-Python loop, and ``op_us``, one small torch CPU op (the dispatch the
   step's launches go through); the best of 5 each;
 - ``load1``: the host's 1-minute load average before the run;
-- ``profile``: one step under ``torch.profiler``: device busy ms, the
+- ``profile``: one step under ``torch.profiler``: device busy ms (the
+  kernels, memcpys and memsets; not the device-side spans of annotated
+  ranges such as Adam's step, ``annotated_ms``, which hold kernels counted
+  on their own), the
   sparse-conv kernels' device ms by wrapper (ROOT's own
-  ``chip_smoke.KERNEL_FAMILIES``), the host's self CPU ms over all ops, its
-  busiest ops, and the CUDA runtime calls (count, self CPU ms);
+  ``chip_smoke.KERNEL_FAMILIES``), the busiest kernels (name, count,
+  device ms), the host's self CPU ms over all ops, its busiest ops, and
+  the CUDA runtime calls (count, self CPU ms);
+- ``lang``: the language module's forward and backward alone (``ms``, a
+  CUDA-event median; ``device_ms`` and ``gru_device_ms``, cuDNN's GRU ops,
+  from one call under the profiler);
+- ``eval_wall_ms``: each eager eval step (``chip_smoke.run_slice``: the
+  eval forward, ``get_loss``, ``get_eval``), timed as ``wall_ms``;
+- ``graph``: where ROOT has ``train/step_graph.py``, the same model's train
+  and eval steps as CUDA graph replays (``train_wall_ms``,
+  ``eval_wall_ms``), timed as ``wall_ms``; empty otherwise;
 - ``kernels_ms``: CUDA-event medians of 10 launches of ROOT's wrappers on
   the same batch's maps, bf16 (ROOT's ``chip_smoke.median_ms``, the timer
   of the smoke's ``kernels`` line): K1 with its BN/ReLU epilogue at both
@@ -102,12 +116,17 @@ def _profile(fn, families=()) -> dict:
         fn()
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
-    device = host = 0.0
-    ops, runtime = [], {}
+    device = host = annotated = 0.0
+    ops, kernels, runtime = [], [], {}
     by_family = {name: 0.0 for name, _ in families}
     for ev in prof.key_averages():
+        if ev.device_type == DeviceType.CUDA and getattr(ev, "is_user_annotation", False):
+            # a range (Adam's step) that spans kernels counted on their own
+            annotated += ev.self_device_time_total / 1e3
+            continue
         if ev.device_type == DeviceType.CUDA:
             device += ev.self_device_time_total / 1e3
+            kernels.append([ev.key[:120], ev.count, round(ev.self_device_time_total / 1e3, 3)])
             family = next((name for name, pat in families if pat.search(ev.key)), None)
             if family is not None:
                 by_family[family] += ev.self_device_time_total / 1e3
@@ -119,8 +138,11 @@ def _profile(fn, families=()) -> dict:
         else:
             ops.append([ev.key, ev.count, round(ms, 3)])
     ops.sort(key=lambda r: -r[2])
-    return {"wall_ms": wall, "device_busy_ms": device, "kernels_by_wrapper_ms": by_family,
-            "host_self_cpu_ms": host, "top_ops": ops[:12], "runtime": runtime}
+    kernels.sort(key=lambda r: -r[2])
+    return {"wall_ms": wall, "device_busy_ms": device, "annotated_ms": annotated,
+            "kernels_by_wrapper_ms": by_family,
+            "host_self_cpu_ms": host, "top_ops": ops[:12], "top_kernels": kernels[:25],
+            "runtime": runtime}
 
 
 def _time_kernels(batch, dev, median_ms) -> dict:
@@ -152,6 +174,53 @@ def _time_kernels(batch, dev, median_ms) -> dict:
             kw = {"cin": cin} if pad is not None else {}
             out[label] = median_ms(lambda: conv_bwd.conv_dw(x, nbr, g, **kw))
     return out
+
+
+def _walls(fn, steps: int):
+    """Each of ``steps`` calls of ``fn`` in ms, host clock around
+    ``torch.cuda.synchronize()``, after 2 warm-up calls."""
+    import torch
+
+    for _ in range(2):
+        fn()
+    out = []
+    for _ in range(steps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        out.append((time.perf_counter() - t0) * 1e3)
+    return out
+
+
+def _lang_profile(model, dd, median_ms) -> dict:
+    """The language module's forward and backward alone (train mode, the
+    sum of its outputs as the loss): its CUDA-event median, and one call
+    under ``torch.profiler``: all its device ms, and those of cuDNN's GRU
+    ops (``_cudnn_rnn`` and its backward, the kernels they launch)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    def lang_step():
+        out = model.lang(dd)
+        sum(v.float().sum() for k, v in out.items()
+            if isinstance(v, torch.Tensor) and v.requires_grad).backward()
+
+    ms = median_ms(lang_step)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        lang_step()
+        torch.cuda.synchronize()
+    device = gru = 0.0
+    for ev in prof.key_averages():
+        if ev.device_type == DeviceType.CUDA:
+            if not getattr(ev, "is_user_annotation", False):
+                device += ev.self_device_time_total / 1e3
+        elif "_cudnn_rnn" in ev.key:
+            gru += ev.device_time_total / 1e3
+    model.zero_grad(set_to_none=True)
+    return {"ms": ms, "device_ms": device, "gru_device_ms": gru}
 
 
 def child(steps: int) -> dict:
@@ -210,7 +279,10 @@ def child(steps: int) -> dict:
         for _ in range(steps):
             torch.cuda.synchronize()
             t0, c0 = time.perf_counter(), time.process_time()
-            metrics, _out = step()
+            # only the metrics (detached) are kept: outputs held past the
+            # step keep its autograd graph, whose gradient accumulators
+            # would run on this stream inside the graph capture below
+            metrics = step()[0]
             t1 = time.perf_counter()
             torch.cuda.synchronize()
             t2, c1 = time.perf_counter(), time.process_time()
@@ -224,11 +296,28 @@ def child(steps: int) -> dict:
         raise AssertionError("non-finite loss")
     probe_after = _probe()
     prof = _profile(step, getattr(cs, "KERNEL_FAMILIES", ()))
+    lang = _lang_profile(model.train(), dd, cs.median_ms)
+    eval_wall = _walls(lambda: cs.run_slice(model.eval(), dd, mean_size), steps)
+    graph = {}
+    try:
+        from instancerefer_tpu_torch.train.step_graph import StepGraphs
+    except ImportError:  # a checkout whose steps run only eagerly
+        StepGraphs = None
+    if StepGraphs is not None:  # the same model and batch, replayed
+        graphs = StepGraphs(model, opt, mean_size)
+        graphs.train_step(dd)
+        graphs.eval_step(dd)
+        key = dd["lang_feat"].shape[1]
+        t_in = graphs.graphs[graphs.key("train", key)].inputs
+        e_in = graphs.graphs[graphs.key("eval", key)].inputs
+        graph = {"train_wall_ms": _walls(lambda: graphs.train_step(t_in), steps),
+                 "eval_wall_ms": _walls(lambda: graphs.eval_step(e_in), steps)}
     set_compute_dtype(None)
     kernels = _time_kernels(batch, dev, cs.median_ms)
     return {"wall_ms": wall, "host_ms": host, "cpu_ms": cpu, "gc_ms": in_gc[0] * 1e3,
             "probe_before": probe_before, "probe_after": probe_after, "load1": load1,
-            "profile": prof, "kernels_ms": kernels}
+            "profile": prof, "lang": lang, "eval_wall_ms": eval_wall, "graph": graph,
+            "kernels_ms": kernels}
 
 
 def _order(roots, rounds: int):
@@ -290,6 +379,22 @@ def main(argv=None) -> None:
                 for key in ("py_ms", "op_us"))
         print(line)
     roots = list(dict.fromkeys(r["root"] for r in runs))
+    print("root: median over its runs of each run's median ms: eager train, eager eval, graph "
+          "train, graph eval; the language module's forward+backward (CUDA events), its device "
+          "ms and cuDNN's GRU ops' device ms (profiler)")
+    for root in roots:
+        mine = [r for r in runs if r["root"] == root]
+
+        def mm(get, mine=mine):
+            vals = [get(r) for r in mine]
+            return "-" if None in vals else f"{med(vals):.2f}"
+
+        print(f"  {os.path.basename(root)}: " + ", ".join((
+            mm(lambda r: med(r["wall_ms"])), mm(lambda r: med(r["eval_wall_ms"])),
+            mm(lambda r: med(r["graph"]["train_wall_ms"]) if r["graph"] else None),
+            mm(lambda r: med(r["graph"]["eval_wall_ms"]) if r["graph"] else None),
+            mm(lambda r: r["lang"]["ms"]), mm(lambda r: r["lang"]["device_ms"]),
+            mm(lambda r: r["lang"]["gru_device_ms"]))))
     print("kernel ms, bf16, median of each root's runs: " + ", ".join(
         os.path.basename(root) for root in roots))
     for label, *_ in SHAPES:

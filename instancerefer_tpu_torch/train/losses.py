@@ -123,7 +123,8 @@ def get_loss(data_dict: dict, mean_size_arr: torch.Tensor) -> dict:
     ious = torch.where(cand_mask, ious, -1.0)
     max_iou = ious.amax(1)
     best = ious.argmax(1)  # first maximum, as jnp.argmax
-    cluster_label = F.one_hot(best, cand_mask.shape[1]).float() * cand_mask
+    slots = torch.arange(cand_mask.shape[1], device=best.device)
+    cluster_label = (best[:, None] == slots).float() * cand_mask
 
     per_sample = contrastive_loss_masked(
         data_dict["attribute_scores"] + data_dict["relation_scores"]

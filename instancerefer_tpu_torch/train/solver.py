@@ -4,12 +4,14 @@ the reference's reports and checkpoints.
 
 * ``make_optimizer``: ``torch.optim.Adam`` with L2 weight decay folded into
   the gradient — the optax chain ``add_decayed_weights -> scale_by_adam ->
-  lr`` of the JAX package, with the same defaults (betas 0.9/0.999, eps 1e-8).
+  lr`` of the JAX package, with the same defaults (betas 0.9/0.999, eps 1e-8);
+  on a card capturable, its lr a tensor on the card.
 * ``make_scheduler``: ``MultiStepLR`` over epochs, stepped once per epoch;
   JAX's per-step boundaries at ``epoch * steps_per_epoch`` give the same lr.
+  A tensor lr is written in place.
 * ``bn_momentum_for_epoch``: the reference's BNMomentumScheduler.
 * ``train_step``: train-mode forward -> ``get_loss`` -> backward -> Adam ->
-  ``get_eval``.
+  ``get_eval``, eagerly (``step_graph.train_body``).
 * ``Solver``: the epoch loop (resumable from its epoch counter), a prefetch
   of depth 2 with the host-side capacity-overflow log, the iter / epoch /
   best report templates of the reference (``lib/solver.py:23-60``),
@@ -19,11 +21,21 @@ the reference's reports and checkpoints.
   ``model_last.pth`` every epoch, ``model.pth`` on a new best, and
   ``checkpoint.tar`` = {epoch, model_state_dict, optimizer_state_dict, best}
   at the end and on Ctrl-C.  Every file holds the reference's layout
-  (``utils/convert``).  Forward, backward and eval are timed per step with
-  CUDA events on a card (the host clock on the CPU), read once the step's
-  metrics are on the host.  Fetch time is the host clock; each iter report
-  is followed by its split into the wait on the loader and the time in
+  (``utils/convert``).  Fetch time is the host clock; each iter report is
+  followed by its split into the wait on the loader and the time in
   ``batch_to_torch``.
+
+How a step runs is chosen once, from the device and the world size
+(``step_graph.choose``), and logged: on a card at world size 1 the train and
+eval steps replay CUDA graphs (``step_graph.StepGraphs``, one per language
+grid, as the JAX package compiles one program per grid), and batches are
+written straight into the graphs' inputs at the step; on the CPU, and
+data-parallel, they run eagerly.
+A graph's step is timed as a whole with CUDA events, and the iter report
+splits it as the JAX solver splits its fused step: forward 1/3, backward
+2/3, eval 0 (a val step's time is all forward).  An eager step is timed per
+phase, with CUDA events on a card and the host clock on the CPU.  Every
+time is read once the step's metrics are on the host.
 
 Data-parallel (a process group of world size > 1, ``parallel/distributed``):
 the ``Solver`` wraps the model in ``DistributedDataParallel``; each rank
@@ -57,6 +69,8 @@ from instancerefer_tpu_torch.parallel.distributed import (
 )
 from instancerefer_tpu_torch.train.evaluate import get_eval
 from instancerefer_tpu_torch.train.losses import get_loss
+from instancerefer_tpu_torch.train.step_graph import METRIC_KEYS, train_body, train_metrics
+from instancerefer_tpu_torch.train.step_graph import choose as choose_steps
 from instancerefer_tpu_torch.utils.convert import (
     from_reference,
     load_reference_state_dict,
@@ -112,22 +126,40 @@ BEST_REPORT_TEMPLATE = """
 PREFETCH = 2
 # the top-level submodules a ``use_pretrained`` warm start copies
 PRETRAINED_MODULES = ("lang", "attribute", "relation", "scene")
-METRIC_KEYS = ("loss", "ref_loss", "lang_loss", "seg_loss", "lang_acc", "ref_acc", "seg_acc")
 MOMENTS = ("exp_avg", "exp_avg_sq")
+# how an Adam runs rather than what it computes: a loaded state keeps the
+# optimizer's own
+ADAM_RUN_KEYS = ("capturable", "foreach", "fused", "differentiable")
 
 
 def make_optimizer(params: Iterable[torch.nn.Parameter], lr: float, wd: float) -> torch.optim.Adam:
-    return torch.optim.Adam(params, lr=lr, weight_decay=wd)
+    """Adam over ``params``.  On a card (``params`` on a CUDA device) it is
+    ``capturable`` and its lr a 0-d tensor there, which ``make_scheduler``
+    writes in place, so a captured step reads the current lr; on the CPU
+    the lr is a float."""
+    params = list(params)
+    if not (params and params[0].is_cuda):
+        return torch.optim.Adam(params, lr=lr, weight_decay=wd)
+    optimizer = torch.optim.Adam(params, lr=torch.tensor(float(lr), device=params[0].device),
+                                 weight_decay=wd, capturable=True)
+    for group in optimizer.param_groups:  # the schedule's base, not the float32 tensor's value
+        group["initial_lr"] = float(lr)
+    return optimizer
 
 
 def make_scheduler(optimizer: torch.optim.Optimizer, lr_decay_step: Optional[Sequence[int]],
                    lr_decay_rate: Optional[float], start_epoch: int = 0
                    ) -> torch.optim.lr_scheduler.MultiStepLR:
     """lr x rate at each milestone epoch; constant without both.  The lr is
-    set to that of epoch ``start_epoch`` from each group's initial lr, so a
-    resumed run rebuilds its schedule from the epoch alone."""
+    set to that of epoch ``start_epoch`` from each group's initial lr (a
+    float), so a resumed run rebuilds its schedule from the epoch alone; a
+    tensor lr keeps its tensor and takes each value in place."""
     for group in optimizer.param_groups:
-        group["lr"] = group.setdefault("initial_lr", group["lr"])
+        initial = float(group.setdefault("initial_lr", float(group["lr"])))
+        if isinstance(group["lr"], torch.Tensor):
+            group["lr"].fill_(initial)
+        else:
+            group["lr"] = initial
     if lr_decay_step and lr_decay_rate:
         steps = lr_decay_step if isinstance(lr_decay_step, (list, tuple)) else [lr_decay_step]
         sched = torch.optim.lr_scheduler.MultiStepLR(optimizer, [int(e) for e in steps],
@@ -147,20 +179,6 @@ def bn_momentum_for_epoch(epoch: int, bn_decay_step, bn_decay_rate) -> float:
     if not (bn_decay_step and bn_decay_rate):
         return 0.1
     return max(0.5 * bn_decay_rate ** (epoch // bn_decay_step), 0.001)
-
-
-def train_metrics(out: dict) -> Dict[str, torch.Tensor]:
-    """Scalar metrics of one step: masked means, and the Acc@IoU hit and
-    valid counts that the epoch pools (summed over the ranks)."""
-    metrics = {k: out[k].detach() for k in METRIC_KEYS if k != "ref_acc"}
-    metrics["ref_acc"] = out["ref_acc_mean"].detach()
-    valid, iou = out["sample_valid"], out["ref_iou"].detach()
-    counts = {"iou25_hits": ((iou >= 0.25) & valid).sum(), "iou5_hits": ((iou >= 0.5) & valid).sum(),
-              "iou_count": valid.sum()}
-    if world_size() > 1:
-        counts = dict(zip(counts, all_reduce_sum(torch.stack(list(counts.values())))))
-    metrics.update(counts)
-    return metrics
 
 
 def metrics_to_host(metrics: Dict[str, torch.Tensor]) -> Dict[str, float]:
@@ -200,25 +218,24 @@ def train_step(model: torch.nn.Module, optimizer: torch.optim.Optimizer, dd: dic
                mean_size: torch.Tensor, bn_momentum: float = 0.1,
                timer: Optional[PhaseTimer] = None) -> Tuple[Dict[str, torch.Tensor], dict]:
     """Train-mode forward -> ``get_loss`` -> backward -> ``optimizer.step()``
-    -> ``get_eval``.  Returns (metrics, the step's outputs).  The gradients
-    stay in ``.grad`` until the next step.  ``timer`` marks the bounds of
-    forward (with the loss), backward (with Adam) and eval.  ``model`` may
-    be a ``DistributedDataParallel`` wrapper."""
-    mark = timer.mark if timer is not None else (lambda: None)
+    -> ``get_eval``, eagerly (``step_graph.train_body``).  Returns (metrics,
+    the step's outputs).  The gradients stay in ``.grad`` until the next
+    step.  ``timer`` marks the bounds of forward (with the loss), backward
+    (with Adam) and eval.  ``model`` may be a ``DistributedDataParallel``
+    wrapper."""
     model.train()
     getattr(model, "module", model).set_bn_momentum(bn_momentum)
-    optimizer.zero_grad(set_to_none=True)
-    mark()
-    out = get_loss(model(dd), mean_size)
-    mark()
-    out["loss"].backward()
-    optimizer.step()
-    mark()
-    with torch.no_grad():
-        out = get_eval(out)
-        metrics = train_metrics(out)
-    mark()
-    return metrics, out
+    return train_body(model, optimizer, dd, mean_size, timer.mark if timer is not None else None)
+
+
+def _portable(optimizer_state: dict) -> dict:
+    """An optimizer state_dict as a CPU Adam holds it: every tensor on the
+    CPU, the param groups' tensors (a card's lr) as floats."""
+    state = {idx: {k: v.detach().cpu() if isinstance(v, torch.Tensor) else v
+                   for k, v in st.items()} for idx, st in optimizer_state["state"].items()}
+    groups = [{k: float(v) if isinstance(v, torch.Tensor) else v for k, v in g.items()}
+              for g in optimizer_state["param_groups"]]
+    return {"state": state, "param_groups": groups}
 
 
 def _named_moments(optimizer_state: dict, names: List[str], convert) -> dict:
@@ -271,6 +288,7 @@ class Solver:
         self.mean_size = torch.tensor(np.asarray(mean_size_arr), dtype=torch.float32,
                                       device=self.device)
         self.optimizer = make_optimizer(self.model.parameters(), lr, wd)
+        self.graphs, self._step_path = choose_steps(self.model, self.optimizer, self.mean_size)
         self.lr_decay_step = lr_decay_step
         self.lr_decay_rate = lr_decay_rate
         self.bn_decay_step = bn_decay_step
@@ -311,6 +329,7 @@ class Solver:
         self._iters_per_epoch = 1
         self._val_len = 0
         self.init_log()
+        self._log("steps: " + self._step_path)
 
     # ------------------------------------------------------------------- loop
     def __call__(self, dataloader: Dict[str, Iterable], epoch: int, verbose: int):
@@ -346,16 +365,18 @@ class Solver:
                 return
         self._finish(epoch_id)
 
-    def _prefetch(self, loader, overflow_log=None):
+    def _prefetch(self, loader, overflow_log=None, to_device: bool = True):
         """Batches on the device, ``PREFETCH`` ahead of the step, each with
         the host seconds its fetch spent waiting on the loader (whose threads
         build the batches) and in ``batch_to_torch``.  The depth is JAX's,
         whose ``device_put`` is asynchronous.  Here the copies are
         synchronous on this thread, so the depth overlaps nothing with the
         step: it only moves the waits (an epoch's first fetch waits for two
-        batches).  ``overflow_log`` ({"scene": [], "inst": []}) gathers each
-        batch's capacity-overflow fractions from the host arrays, before
-        they are copied."""
+        batches).  ``to_device=False`` keeps the host batches (copy time 0):
+        a graph's batch is copied into its inputs at the step, as a batch
+        held ahead would overwrite the one before.  ``overflow_log``
+        ({"scene": [], "inst": []}) gathers each batch's capacity-overflow
+        fractions from the host arrays, before they are copied."""
         queue = collections.deque()
         it = iter(loader)
         while True:
@@ -374,7 +395,7 @@ class Solver:
                     if isinstance(co, np.ndarray):
                         overflow_log.setdefault("cand", []).append(float(co.mean()))
                 start = time.perf_counter()
-                queue.append(batch_to_torch(nxt, self.spec, self.device))
+                queue.append(batch_to_torch(nxt, self.spec, self.device) if to_device else nxt)
                 copy += time.perf_counter() - start
             if not queue:
                 return
@@ -424,15 +445,33 @@ class Solver:
             self.timer.mark()
         return metrics
 
+    def _graph_step(self, batch, phase, bn_momentum: float) -> Tuple[dict, float]:
+        """A host batch through the graph of its key: (metrics, the seconds
+        of the copy into the graph's inputs)."""
+        start = time.perf_counter()
+        dd = self.graphs.load(batch, self.spec, "train" if phase == "train" else "eval")
+        copy = time.perf_counter() - start
+        self.timer.mark()
+        if phase == "train":
+            metrics, _ = self.graphs.train_step(dd, bn_momentum)
+        else:
+            metrics, _ = self.graphs.eval_step(dd)
+        self.timer.mark()
+        return metrics, copy
+
     def _feed(self, loader, phase, epoch_id, bn_momentum: float = 0.1):
         fetch_start = time.perf_counter()
         overflow_log = {"scene": [], "inst": []}
-        for dd, load, copy in self._prefetch(loader, overflow_log=overflow_log):
-            self.log[phase]["fetch"].append(time.perf_counter() - fetch_start)
-            self.log[phase]["fetch_load"].append(load)
-            self.log[phase]["fetch_copy"].append(copy)
+        graphs = self.graphs is not None
+        for dd, load, copy in self._prefetch(loader, overflow_log=overflow_log,
+                                             to_device=not graphs):
+            fetch = time.perf_counter() - fetch_start
             start = time.perf_counter()
-            if phase == "train":
+            if graphs:
+                metrics, copy = self._graph_step(dd, phase, bn_momentum)
+                fetch += copy
+                start += copy
+            elif phase == "train":
                 metrics, _ = train_step(self.train_model, self.optimizer, dd, self.mean_size,
                                         bn_momentum, self.timer)
             else:
@@ -441,6 +480,12 @@ class Solver:
             phases = self.timer.seconds()
             step_time = time.perf_counter() - start
             self.steps[phase] += 1
+            self.log[phase]["fetch"].append(fetch)
+            self.log[phase]["fetch_load"].append(load)
+            self.log[phase]["fetch_copy"].append(copy)
+            if graphs:  # one span for the step, split as the JAX solver splits its own
+                train = phase == "train"
+                phases = [phases[0] / 3, 2 * phases[0] / 3, 0.0] if train else [phases[0], 0.0]
             self.log[phase]["forward"].append(phases[0])
             self.log[phase]["backward"].append(phases[1] if phase == "train" else 0.0)
             self.log[phase]["eval"].append(phases[-1])
@@ -495,7 +540,7 @@ class Solver:
                 "epoch": self.epochs_done,
                 "model_state_dict": payload,
                 "optimizer_state_dict": _named_moments(
-                    self.optimizer.state_dict(), self._param_names(), to_reference),
+                    _portable(self.optimizer.state_dict()), self._param_names(), to_reference),
                 "best": dict(self.best),
             }
         torch.save(payload, path + ".tmp")
@@ -505,7 +550,9 @@ class Solver:
     def load_checkpoint(self, path: str, with_opt: bool = False):
         """A ``.pth`` state_dict or a ``.tar`` checkpoint; ``with_opt`` also
         restores the optimizer, the epoch counter and the best metrics (a
-        ``.tar`` only)."""
+        ``.tar`` only).  The optimizer keeps how it runs (``ADAM_RUN_KEYS``,
+        the lr's kind), and as its state tensors are new ones, every
+        captured step graph is dropped."""
         blob = torch.load(path, map_location="cpu", weights_only=True)
         is_tar = isinstance(blob, dict) and "model_state_dict" in blob
         load_reference_state_dict(self.model, blob["model_state_dict"] if is_tar else blob)
@@ -522,7 +569,15 @@ class Solver:
                 if m in st and st[m].shape != p.shape:
                     raise ValueError(f"{path}: {m} of {names[int(idx)]} has shape "
                                      f"{tuple(st[m].shape)}, the parameter {tuple(p.shape)}")
-        self.optimizer.load_state_dict(opt)
+        groups = []
+        for saved, own in zip(opt["param_groups"], self.optimizer.param_groups):
+            group = {**saved, **{k: own[k] for k in ADAM_RUN_KEYS if k in own}}
+            if isinstance(own["lr"], torch.Tensor):
+                group["lr"] = torch.tensor(float(saved["lr"]), device=own["lr"].device)
+            groups.append(group)
+        self.optimizer.load_state_dict({**opt, "param_groups": groups})
+        if self.graphs is not None:
+            self.graphs.reset()
         self.epochs_done = int(blob.get("epoch", 0))
         for k, v in (blob.get("best") or {}).items():
             self.best[k] = int(v) if k == "epoch" else float(v)
@@ -540,18 +595,26 @@ class Solver:
 
     def profile_steps(self, loader, out_dir: str, num_steps: int = 3) -> str:
         """A ``torch.profiler`` trace (CPU and, on a card, CUDA activity) over
-        a few train steps after one warm-up step; returns the trace's path."""
+        a few train steps after one warm-up step, each step as the solver
+        runs it (a graph's replay, or eagerly); returns the trace's path.
+        A batch whose language grid the warm-up did not see is captured
+        inside the trace."""
         from torch.profiler import ProfilerActivity, profile
 
-        it = (dd for dd, _, _ in self._prefetch(loader))
-        train_step(self.train_model, self.optimizer, next(it), self.mean_size)
+        if self.graphs is not None:
+            def step(batch):
+                return self.graphs.train_step(self.graphs.load(batch, self.spec, "train"))[0]
+        else:
+            def step(dd):
+                return train_step(self.train_model, self.optimizer, dd, self.mean_size)[0]
+        it = (dd for dd, _, _ in self._prefetch(loader, to_device=self.graphs is None))
+        step(next(it))
         activities = [ProfilerActivity.CPU]
         if self.device.type == "cuda":
             activities.append(ProfilerActivity.CUDA)
         with profile(activities=activities) as prof:
             for _, dd in zip(range(num_steps), it):
-                metrics, _ = train_step(self.train_model, self.optimizer, dd, self.mean_size)
-                metrics_to_host(metrics)
+                metrics_to_host(step(dd))
         path = os.path.join(out_dir, "trace.json")
         if self.main:
             os.makedirs(out_dir, exist_ok=True)
@@ -602,7 +665,8 @@ class Solver:
         rec["iou_rate_0.25"] = self.log[phase]["iou_rate_0.25"]
         rec["iou_rate_0.5"] = self.log[phase]["iou_rate_0.5"]
         if phase == "train":
-            rec["lr"] = self.optimizer.param_groups[0]["lr"]
+            # the lr Adam applies: a card's is a float32 tensor
+            rec["lr"] = float(self.optimizer.param_groups[0]["lr"])
         with open(self.scalars_path, "a") as f:
             f.write(json.dumps(rec) + "\n")
         if phase in self._log_writer:
