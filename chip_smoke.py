@@ -166,6 +166,28 @@ without the final ``ok`` line:
     - 12f: the train and eval step bodies run eagerly under
       ``torch.cuda.set_sync_debug_mode("error")``.
 
+13. The bench and one batch stepped on, with its own wall time
+    (``[phase 13]``):
+    - 13a: ``python -m instancerefer_tpu_torch.scripts.bench --mode eval``,
+      then ``--mode train``, at B = 32 with 5 timed replays and 10 fed
+      iterations, each in a process of its own: platform gpu, the bench's
+      correctness gate true (the first replay against an eager step of a
+      copy from one state, that step's kernels against their plain twins,
+      finite outputs, no overflow), 26 and 34 / 16 / 10 launches a step in
+      its timed replays and in its fed run; ``[bench]`` lines give its
+      readings.
+    - 13b: f32, TF32 off, deterministic cuDNN, dropout 0, 5 runs of their
+      own weights and 2-scene batch: the batch stepped 3 times by an eager
+      model, its eager twin and a graphed one from the same weights,
+      free-running and from one state copied before each step: the loss
+      and gradients of the graph against eager read beside eager against
+      eager after each step, as distributions over the runs (Adam turns
+      the atomics' last bits into ~lr in the weights, and later steps are
+      ill-conditioned); the first step held to phase 6's limits; from one
+      state, the later steps' loss and gradients to phase 6's limits or 4x
+      the floor's largest, the running statistics to phase 6's limits and
+      the parameters after every step (``[drift]``).
+
 Then one line ``{"kernels": [...]}`` (launch counts of phase 7, whose
 profiled replay showed the profiler's launches equal to the counters'; ms,
 plain_ms, bound_ms and im2col_ms of K1 from phase 2, of K2 and K3 from
@@ -184,7 +206,6 @@ import copy
 import io
 import json
 import os
-import pickle
 import re
 import shutil
 import statistics
@@ -194,6 +215,14 @@ import time
 
 import numpy as np
 import torch
+
+from instancerefer_tpu_torch.data.synthetic_scans import SCANREFER_SCENES as CLI_SCENES
+from instancerefer_tpu_torch.data.synthetic_scans import (
+    description,
+    write_fake_scanrefer,
+    write_glove,
+)
+from instancerefer_tpu_torch.utils.profiling import KERNEL_FAMILIES
 
 # the capacities of config/band_profile.synthetic.yaml, as literals (no yaml
 # here); the port ignores its band geometry
@@ -303,19 +332,6 @@ class Totals:
                 "bound_ms": max(self.ops_ms, self.bytes_ms),
                 "bound_by": "operations" if self.ops_ms >= self.bytes_ms else "bytes",
                 "library_ms": None, "im2col_ms": self.im2col_ms}
-
-
-# the sparse-conv kernels' names as the profiler reports them, by wrapper:
-# the gather-GEMM templates end in MIRROR_T (true: K2's dX), the dW ones in
-# GATHER_A / GATHER_X (true: K3); the stem kernels are K1's and K3's;
-# sum_partials_kernel serves K2 and K3
-KERNEL_FAMILIES = (
-    ("K1 dX over up8", re.compile(r"gather_gemm_tc_kernel<float, \d+, \d+, false>")),
-    ("K1 forward", re.compile(r"gather_gemm(_tc)?_kernel<.*false>|stem_wide_conv_kernel")),
-    ("K2", re.compile(r"gather_gemm(_tc)?_kernel<.*true>|dw_(tc|partial)_kernel<.*false>")),
-    ("K3", re.compile(r"dw_(tc|partial)_kernel<.*true>|stem_wide_dw_kernel")),
-    ("K2/K3 sum of splits", re.compile(r"sum_partials_kernel")),
-)
 
 
 # a stem kernel's mangled name (template arguments, if any)
@@ -836,7 +852,6 @@ def phase_train(spec, dev, dds, label="train", repeats=5, profile=True):
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 # ScanRefer has 65-67 descriptions a scene in each split; the fake root has 64
-CLI_SCENES = {"train": range(0, 8), "val": range(8, 12)}
 CLI_BATCHES = {"train": 16, "val": 8}  # batches of BATCH a split
 EVAL_LAUNCHES = {"gather_conv": CONVS_PER_FORWARD, "subm_conv_bwd": 0, "conv_dw": 0}
 # the lr Adam applies in the CLI runs' epochs 1 and 2 (the milestone after
@@ -844,85 +859,6 @@ EVAL_LAUNCHES = {"gather_conv": CONVS_PER_FORWARD, "subm_conv_bwd": 0, "conv_dw"
 # multiplies by the rate in float32, as the JAX package's optax schedule
 # does; the solver logs it as Adam holds it
 LR_F32 = np.array([LR, np.float32(LR) * np.float32(0.1)], np.float32)
-WORDS = ("the", "a", "is", "it", "this", "that", "of", "to", "in", "on", "with", "and",
-         "next", "near", "left", "right", "front", "behind", "corner", "room", "wall",
-         "brown", "white", "black", "small", "large", "wooden", "square", "round", "facing")
-
-
-def write_glove(root: str, rng: np.random.Generator) -> None:
-    """A GloVe pickle of ``WORDS``, the class names' words and ``unk``."""
-    from instancerefer_tpu_torch.data.synthetic_scans import NYU40
-
-    vocab = set(WORDS) | {w for _, name in NYU40 for w in name.split()} | {"unk"}
-    with open(os.path.join(root, "glove.p"), "wb") as f:
-        pickle.dump({w: rng.normal(size=300).astype(np.float32) for w in sorted(vocab)}, f)
-
-
-def description(rng: np.random.Generator, scene_id: str, obj: int, name: str, ann_id: int):
-    """A ScanRefer entry: 6-39 random ``WORDS`` with the object's name."""
-    tokens = [str(w) for w in rng.choice(WORDS, size=int(rng.integers(6, 40)))]
-    tokens[1:1] = name.split()
-    return {"scene_id": scene_id, "object_id": str(obj), "object_name": name.replace(" ", "_"),
-            "ann_id": str(ann_id), "token": tokens, "description": " ".join(tokens)}
-
-
-def write_fake_scanrefer(root: str, rng: np.random.Generator, batches=None) -> None:
-    """The layout of ``tests/fake_scanrefer.py`` without its multiview file:
-    per-scene PointGroup npys, the label tsv (``synthetic_scans``), a GloVe
-    pickle and ``ScanRefer_filtered_{split}.json`` of ``batches`` ({split:
-    batches of BATCH}, default ``CLI_BATCHES``) descriptions.  A scene is drawn as
-    ``data/synthetic.py`` draws one: a 4 x 4 x 0.1 m floor of unlabelled
-    points and 12 boxes of 256 points, 40 000 points in all; of its 12
-    instances three pairs share a class and six are alone in theirs."""
-    from instancerefer_tpu_torch.data.synthetic_scans import NYU40, write_label_tsv
-
-    pg = os.path.join(root, "scannet", "pointgroup_data")
-    meta = os.path.join(root, "scannet", "meta_data")
-    os.makedirs(pg)
-    os.makedirs(meta)
-    n_inst, per_inst = SCENE_KW["num_instances"], 256
-    n_floor = SCENE_KW["num_points"] - n_inst * per_inst
-    slots = (0, 0, 1, 1, 2, 2, 3, 4, 5, 6, 7, 8)  # instance -> class slot of its scene
-    objects = {}
-    for si in range(max(CLI_SCENES["val"]) + 1):
-        scene_id = f"scene{si:04d}_00"
-        classes = rng.permutation(len(NYU40))[:max(slots) + 1]
-        xyz = [rng.uniform([0, 0, 0], [4, 4, 0.1], size=(n_floor, 3))]
-        ins, sem = [np.zeros(n_floor, np.int64)], [np.ones(n_floor, np.int64)]  # nyu40 1: wall
-        boxes = []
-        for i, slot in enumerate(slots):
-            nyu = NYU40[classes[slot]][0]
-            center = rng.uniform(0.5, 3.5, size=3)
-            center[2] = rng.uniform(0.2, 1.5)
-            pts = center + rng.uniform(-0.5, 0.5, size=(per_inst, 3)) * rng.uniform(0.2, 0.9, size=3)
-            xyz.append(pts)
-            ins.append(np.full(per_inst, i + 1, np.int64))
-            sem.append(np.full(per_inst, nyu, np.int64))
-            mn, mx = pts.min(0), pts.max(0)
-            boxes.append(np.concatenate([(mn + mx) / 2, mx - mn, [nyu, i]]))
-        xyz = np.concatenate(xyz)
-        nrm = rng.normal(size=xyz.shape)
-        nrm /= np.linalg.norm(nrm, axis=1, keepdims=True)
-        verts = np.concatenate([xyz, rng.uniform(0, 255, size=xyz.shape), nrm], 1)
-        np.save(os.path.join(pg, f"{scene_id}_aligned_vert.npy"), verts.astype(np.float32))
-        np.save(os.path.join(pg, f"{scene_id}_ins_label_pg.npy"), np.concatenate(ins))
-        np.save(os.path.join(pg, f"{scene_id}_sem_label_pg.npy"), np.concatenate(sem))
-        np.save(os.path.join(pg, f"{scene_id}_aligned_bbox.npy"), np.stack(boxes))
-        objects[si] = [NYU40[classes[slot]][1] for slot in slots]
-
-    write_label_tsv(os.path.join(meta, "scannetv2-labels.combined.tsv"))
-    write_glove(root, rng)
-    for split, scenes in CLI_SCENES.items():
-        anns, seen = [], {}
-        for _ in range((batches or CLI_BATCHES)[split] * BATCH):
-            si = int(rng.choice(scenes))
-            obj = int(rng.integers(n_inst))
-            ann_id = seen[si, obj] = seen.get((si, obj), -1) + 1
-            anns.append(description(rng, f"scene{si:04d}_00", obj, objects[si][obj], ann_id))
-        with open(os.path.join(root, f"ScanRefer_filtered_{split}.json"), "w") as f:
-            json.dump(anns, f)
-
-
 def cli_config_text(profile: str = os.path.join(REPO, "config", "band_profile.synthetic.yaml")
                     ) -> str:
     """``config/InstanceRefer.yaml`` with batch 32, 2 epochs, the lr milestone
@@ -959,7 +895,7 @@ def phase_cli():
     root = tempfile.mkdtemp(prefix="cli_smoke_")
     try:
         t0 = time.perf_counter()
-        write_fake_scanrefer(root, np.random.default_rng(0))
+        write_fake_scanrefer(root, np.random.default_rng(0), CLI_BATCHES, BATCH)
         configs = {"main": cli_config_text()}
         configs["predicted"] = configs["main"].replace("use_gt_lang: True", "use_gt_lang: False") \
             .replace("epoch: 2", "epoch: 1")
@@ -1331,7 +1267,7 @@ def phase_multiview(dev, fused):
     root = tempfile.mkdtemp(prefix="mv_smoke_")
     out = {}
     try:
-        write_fake_scanrefer(root, np.random.default_rng(1))
+        write_fake_scanrefer(root, np.random.default_rng(1), CLI_BATCHES, BATCH)
         for config, n_batches in (("use_multiview", MV_BATCHES), ("use_normal", 1)):
             spec = BatchSpec(**SPEC_KW, feat_dim=MV_WIDTHS[config])
             it = iter(multiview_loader(root, spec, config, fused))
@@ -1601,7 +1537,7 @@ def phase_ddp_cli(dev, dds):
     os.environ.update(env)
     try:
         t0 = time.perf_counter()
-        write_fake_scanrefer(root, np.random.default_rng(3), DDP_CLI_BATCHES)
+        write_fake_scanrefer(root, np.random.default_rng(3), DDP_CLI_BATCHES, BATCH)
         with open(os.path.join(root, "main.yaml"), "w") as f:
             f.write(cli_config_text().replace("epoch: 2", "epoch: 1"))
         for f in counters.values():
@@ -2374,6 +2310,212 @@ def phase_graphs(spec, dev, batches):
         set_compute_dtype(None)
 
 
+# ---------------------------------------------------------------- phase 13
+BENCH_ITERS = 5  # timed replays of each bench run in 13a
+BENCH_FED_ITERS = 10  # fed iterations of each bench run in 13a
+BENCH_TIMEOUT = 600  # seconds a bench run may take
+DRIFT_STEPS = 3  # 13b: steps on one batch
+DRIFT_SEEDS = 5  # 13b: runs, each of its own weights and batch
+# 13b, from one state: at each later step the graph's largest reading over
+# the runs (loss, gradients overall and per layer) stays within phase 6's
+# limit or DRIFT_K x the floor's largest (eager against eager, the same
+# runs).  Three single runs on an H100 read the graph at up to 1.55x the
+# floor; a fault that reads stale inputs or a value baked in at the
+# capture reads O(1)
+DRIFT_K = 4.0
+
+
+def phase_bench():
+    """13a: the port's bench (``scripts/bench.py``) at B = BATCH, eval then
+    train, each in a process of its own, as a user runs it: its JSON says
+    the card, the correctness gate true (the first replay against an eager
+    step of a copy from one state, the kernels of that step against their
+    plain twins, finite outputs, no overflow) and the launches a step of
+    the timed replays and of the fed run (34 / 16 / 10 and 26)."""
+    import sys
+
+    from instancerefer_tpu_torch.scripts import bench
+
+    torch.cuda.empty_cache()
+    for mode in ("eval", "train"):
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "instancerefer_tpu_torch.scripts.bench", "--mode", mode,
+             "--batch", str(BATCH), "--iters", str(BENCH_ITERS), "--fed-iters",
+             str(BENCH_FED_ITERS)],
+            cwd=REPO, capture_output=True, text=True, timeout=BENCH_TIMEOUT)
+        lines = proc.stdout.strip().splitlines()
+        if proc.returncode or not lines:
+            log(proc.stdout[-2000:] + proc.stderr[-4000:])
+            raise AssertionError(f"13a: the {mode} bench failed (rc {proc.returncode})")
+        r = json.loads(lines[-1])
+        checks = r["checks"]
+        want = dict(zip(bench.COUNTER_NAMES, bench.LAUNCHES[mode]))
+        if r["device"]["platform"] != "gpu" or not r["correct"] \
+                or not checks["replay_vs_eager"]["ok"] or not checks["kernels_vs_twins_ok"] \
+                or checks["launches_per_step"] != want or checks["fed_launches_per_step"] != want:
+            raise AssertionError(f"13a: the {mode} bench's result: {r['device']}, correct "
+                                 f"{r['correct']}, {checks}")
+        prof, fed, agree = r["profile"], r["fed"], checks["replay_vs_eager"]
+        if mode == "train":
+            gate = (f"loss {agree['loss_rel_diff']:.3e}, gradients L2 "
+                    f"{agree['grad_l2_overall']:.3e} (a layer's at most {agree['grad_l2_layer_max']:.3e}), parameters "
+                    f"{agree['param_mean_diff_lr']:.4f} lr")
+        else:
+            gate = "max |diff| " + ", ".join(f"{k[:-len('_max_abs_diff')]} {v:.3e}"
+                                             for k, v in agree.items() if k.endswith("_abs_diff"))
+        twins = "; ".join(f"{k} x{e['calls']} " + ", ".join(
+            f"{n[:-len('_max_rel_err')]} {v:.3e}" for n, v in e.items() if n != "calls")
+            for k, e in checks["kernels_vs_twins"].items())
+        log(f"[bench] 13a {mode} B={BATCH}: {r['value']:.2f} scenes/s (step median "
+            f"{r['step_ms']['median']:.3f} ms, p90 {r['step_ms']['p90']:.3f}, "
+            f"{r['step_ms']['n']} replays), {mode}_mfu {r[f'{mode}_mfu']:.4f} "
+            f"({r['step_gflop_valid']:.1f} GFLOP a step; padded count "
+            f"{r['model_gflop_padded']:.1f} GFLOP a forward); the first replay against the "
+            f"copy's eager step: {gate}; that step's kernels against their twins (|err| / "
+            f"max|twin|): {twins}; device busy {prof['device_busy_ms']:.3f} ms a replay, idle "
+            f"{prof['idle_share']:.1%}, sparse "
+            + ", ".join(f"{k} {v:.3f}" for k, v in prof["sparse_ms"].items())
+            + ", dense " + ", ".join(f"{k} {v:.3f}" for k, v in prof["dense_ms"].items())
+            + f"; peak {r['peak_memory_mib']:.1f} MiB; fed "
+            f"{fed['split']} {fed['scenes_s']:.2f} scenes/s ({fed['iterations']} iterations, "
+            f"fetch_load {fed['fetch_load_ms']:.1f} ms, fetch_copy {fed['fetch_copy_ms']:.1f}, "
+            f"step {fed['step_ms']:.1f}; {fed['workers']} workers, nproc {r['nproc']}; overflow "
+            f"{fed['overflow_max']:.4f}); "
+            + "".join(f"occupancy {c['points']} points (live {c['live_voxel_frac']:.3f}) "
+                      f"{c['eval_scenes_s']:.2f} scenes/s; " for c in r["occupancy_curve"])
+            + "launches a step " + ", ".join(f"{k} {v:g}" for k, v in
+                                               checks["launches_per_step"].items())
+            + f"; {time.perf_counter() - t0:.1f} s wall")
+
+
+def _step_gap(ref, got):
+    """How far one step's (loss, gradients) lie from the reference's: the
+    loss's relative difference, the gradients' L2 error overall and the
+    largest of a parameter's L2 error over its layer's largest gradient
+    norm (``check_step``'s readings)."""
+    (r_loss, r_grads, _), (g_loss, g_grads, _) = ref, got
+    layer_norm = {}
+    for n, r in r_grads.items():
+        layer = n.rsplit(".", 1)[0]
+        layer_norm[layer] = max(layer_norm.get(layer, 0.0), r.norm().item())
+    num = sum((g_grads[n] - r).norm().item() ** 2 for n, r in r_grads.items())
+    den = sum(r.norm().item() ** 2 for r in r_grads.values())
+    layer = max((g_grads[n] - r).norm().item() / max(layer_norm[n.rsplit(".", 1)[0]], 1e-30)
+                for n, r in r_grads.items())
+    return abs(g_loss - r_loss) / abs(r_loss), (num / den) ** 0.5, layer
+
+
+def _stats_gap(ref, got):
+    """The running statistics' largest |diff| over STATS_RTOL |ref| + 1e-5
+    (at most 1 within phase 6's limit)."""
+    return max(((got[2][n] - r).abs() / (STATS_RTOL * r.abs() + 1e-5)).max().item()
+               for n, r in ref[2].items())
+
+
+def _drift_run(spec, dev, ms, seed, aligned):
+    """One run of 13b: the readings of each step, eager again and graph
+    against the eager model, ``[(floor gap, graph gap)]``; from one state
+    also the statistics' and the parameters' (``[(floor, graph)]``)."""
+    from instancerefer_tpu_torch.data.host import batch_to_torch
+    from instancerefer_tpu_torch.data.synthetic import make_batch
+    from instancerefer_tpu_torch.train.solver import make_optimizer, train_step
+    from instancerefer_tpu_torch.train.step_graph import StepGraphs
+
+    dd = batch_to_torch(make_batch(2, spec, seed=3 + 10 * seed, mean_size_arr=MEAN_SIZE,
+                                   **SCENE_KW), spec, dev)
+    models = [_graph_model(spec, dev, 4 + seed, dropout_override=0.0) for _ in range(3)]
+    opts = [make_optimizer(m.parameters(), LR, WD) for m in models]
+    graphs = StepGraphs(models[2], opts[2], ms)
+    gaps, stats, drifts = [], [], []
+    for step in range(DRIFT_STEPS):
+        if aligned and step:
+            for m, o in zip(models[1:], opts[1:]):
+                copy_train_state(models[0], opts[0], m, o)
+        metrics = [train_step(m, o, dd, ms)[0] for m, o in zip(models[:2], opts[:2])]
+        metrics.append(graphs.train_step(dd)[0])
+        torch.cuda.synchronize()
+        states = [_step_state(m, model) for m, model in zip(metrics, models)]
+        if aligned and not step:
+            check_step("drift", ("eager", "eager again"), states[0], states[1])
+            check_step("drift", ("eager", "graph"), states[0], states[2])
+        gaps.append([_step_gap(states[0], s) for s in states[1:]])
+        if aligned:
+            stats.append([_stats_gap(states[0], s) for s in states[1:]])
+            drifts.append([_param_drift(models[0], m, 1) for m in models[1:]])
+    if graphs.captures != 1:
+        raise AssertionError(f"13b: {graphs.captures} captures of one key")
+    if not aligned:
+        drifts = [[_param_drift(models[0], m, DRIFT_STEPS) for m in models[1:]]]
+    return gaps, stats, drifts
+
+
+def phase_drift(spec, dev):
+    """13b: DRIFT_SEEDS runs, each of its own weights and 2-scene batch:
+    the batch stepped DRIFT_STEPS times by an eager model, its eager twin
+    and a graphed one (whose first step is the warm-up that captures), f32,
+    TF32 off, deterministic cuDNN, dropout 0, from the same weights.  The
+    BEV scatter's atomics differ in the last bits, and Adam, which moves an
+    element by about lr whatever its gradient's size, turns that into ~lr
+    in the weights the next step runs on, where a 2-scene step's gradients
+    are ill-conditioned.  So the graph against eager is read beside eager
+    against eager (the floor) in two designs, free-running and from one
+    state (the eager model's state copied into the other two before each
+    step), and their distributions over the runs are logged.  The first
+    step, from the initial weights, is held to phase 6's limits.  From one
+    state, at each later step the graph's largest loss and gradient
+    readings over the runs are held to phase 6's limits or DRIFT_K x the
+    floor's largest, the running statistics to phase 6's limits, and the
+    parameters after every step, where a value baked in at the capture
+    (Adam's step, its lr) would move every element by a share of lr, to
+    ``_param_drift``'s limits and ``ADAM_MEAN``."""
+    from instancerefer_tpu_torch.ops.precision import set_compute_dtype
+
+    set_compute_dtype(None)
+    torch.backends.cudnn.deterministic = True
+    ms = torch.tensor(MEAN_SIZE, dtype=torch.float32, device=dev)
+    names = ("loss rel. diff", "gradients' L2 error", "a layer's L2 error at most")
+    limits = (LOSS_RTOL, GRAD_ALL, GRAD_LAYER)
+    try:
+        for aligned in (False, True):
+            runs = [_drift_run(spec, dev, ms, seed, aligned) for seed in range(DRIFT_SEEDS)]
+            design = "from one state copied before each step" if aligned else "free-running"
+            for step in range(DRIFT_STEPS):
+                parts = []
+                for i, name in enumerate(names):
+                    floor = sorted(run[0][step][0][i] for run in runs)
+                    graph = sorted(run[0][step][1][i] for run in runs)
+                    parts.append(f"{name} eager again {floor[len(floor) // 2]:.3e} / "
+                                 f"{floor[-1]:.3e}, graph {graph[len(graph) // 2]:.3e} / "
+                                 f"{graph[-1]:.3e}")
+                    if aligned and step and not graph[-1] <= max(limits[i], DRIFT_K * floor[-1]):
+                        raise AssertionError(
+                            f"13b: from one state at step {step + 1} the graph's {name} "
+                            f"{graph[-1]:.3e} exceeds {DRIFT_K:g} x the floor's {floor[-1]:.3e}")
+                log(f"[drift] 13b f32 B=2, {DRIFT_SEEDS} runs {design}, step {step + 1} against "
+                    f"the eager model (median / largest over the runs): " + "; ".join(parts))
+            if aligned:
+                stats = [s for run in runs for s in run[1]]
+                drifts = [d for run in runs for d in run[2]]
+                log(f"[drift] 13b from one state, over the runs and steps: the running "
+                    f"statistics' largest |diff| over phase 6's limit, eager again "
+                    f"{max(e for e, _ in stats):.3f}, graph {max(g for _, g in stats):.3f} "
+                    f"(limit 1); the parameters' mean |diff| after a step, eager again at most "
+                    f"{max(e for e, _ in drifts):.4f} lr, graph at most "
+                    f"{max(g for _, g in drifts):.4f} lr (limit {ADAM_MEAN:g})")
+                if not max(g for _, g in stats) <= 1:
+                    raise AssertionError("13b: graph and eager running statistics disagree")
+                if not max(g for _, g in drifts) <= ADAM_MEAN:
+                    raise AssertionError("13b: graph and eager parameters drift apart")
+            else:
+                log(f"[drift] 13b free-running, the parameters after step {DRIFT_STEPS}: mean "
+                    f"|diff| against the eager model's, eager again "
+                    + ", ".join(f"{run[2][0][0]:.4f}" for run in runs) + " lr, graph "
+                    + ", ".join(f"{run[2][0][1]:.4f}" for run in runs) + " lr")
+    finally:
+        torch.backends.cudnn.deterministic = False
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device; this script runs only on a GPU")
@@ -2448,6 +2590,11 @@ def main() -> None:
     phase_graphs(spec, dev, batches)
     log(f"[phase 12] the steps' CUDA graphs beside the eager steps: "
         f"{time.perf_counter() - t12:.1f} s wall")
+    t13 = time.perf_counter()
+    phase_bench()
+    phase_drift(spec, dev)
+    log(f"[phase 13] the bench at B={BATCH} (eval and train) and graph against eager over one "
+        f"batch stepped {DRIFT_STEPS} times: {time.perf_counter() - t13:.1f} s wall")
 
     k1.worst = max(k1.worst, bwd["gather_conv"].worst)
     entries = (

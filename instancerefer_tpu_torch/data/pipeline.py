@@ -20,8 +20,10 @@ leading dimension of every array is a multiple of the batch size.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import functools
+import time
 from typing import Dict, List, Optional, Sequence
 
 import numpy as np
@@ -29,6 +31,22 @@ import numpy as np
 from instancerefer_tpu_torch.ops import voxelize as V
 
 MEAN_COLOR_RGB = np.array([109.8, 97.2, 83.8])  # lib/dataset.py:22
+
+
+@contextlib.contextmanager
+def _phase(timings: Optional[Dict[str, float]], name: str):
+    """Add the wall-clock seconds of the enclosed block to ``timings[name]``:
+    the phases of ``pad_sample`` measured inside the real call, so they sum
+    to at most its total (``scripts/bench_host_pipeline.phase_split``).
+    ``timings`` None does nothing."""
+    if timings is None:
+        yield
+        return
+    t0 = time.perf_counter()
+    try:
+        yield
+    finally:
+        timings[name] = timings.get(name, 0.0) + (time.perf_counter() - t0)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -105,7 +123,8 @@ def _overflow(counts: Sequence[int], caps: Sequence[int]) -> np.float32:
 
 
 def build_scene_block(
-    point_cloud: np.ndarray, spec: BatchSpec, voxel_size_glp: float = 0.05
+    point_cloud: np.ndarray, spec: BatchSpec, voxel_size_glp: float = 0.05,
+    timings: Optional[Dict[str, float]] = None,
 ) -> Dict[str, np.ndarray]:
     """The scene-level half of ``pad_sample``: voxelize the full scene at
     ``voxel_size_glp`` (lib/dataset.py:256-261), build the padded conv
@@ -115,13 +134,18 @@ def build_scene_block(
     for every annotation of a scene (``static_scene_sampling``), the block is
     shared (``ScannetReferenceDataset.cached_scene_block``).  Callers treat
     the returned arrays as immutable (collate copies, never mutates).
+    ``timings``: as ``pad_sample``'s.
     """
-    coords, feats = V.quantize(point_cloud[:, :3], point_cloud[:, : spec.feat_dim], voxel_size_glp)
-    stages, counts = V.build_pyramid_padded([coords], [0], spec.scene_caps)
+    with _phase(timings, "scene_quantize"):
+        coords, feats = V.quantize(point_cloud[:, :3], point_cloud[:, : spec.feat_dim],
+                                   voxel_size_glp)
+    with _phase(timings, "scene_pyramid"):
+        stages, counts = V.build_pyramid_padded([coords], [0], spec.scene_caps)
     out = {"scene_overflow": _overflow(counts, spec.scene_caps)}
     out.update(_pack_pyramid(stages, feats.astype(np.float32), spec.scene_caps, "scene",
-                             spec.feat_dim))
-    out["point_min"], out["point_max"] = V.point_minmax3(point_cloud)
+                             spec.feat_dim, timings))
+    with _phase(timings, "sample_misc"):
+        out["point_min"], out["point_max"] = V.point_minmax3(point_cloud)
     return out
 
 
@@ -131,76 +155,85 @@ def pad_sample(
     voxel_size_ap: float = 0.02,
     voxel_size_glp: float = 0.05,
     scene_block: Optional[Dict[str, np.ndarray]] = None,
+    timings: Optional[Dict[str, float]] = None,
 ) -> Dict[str, np.ndarray]:
     """CoreSample -> per-sample padded arrays (local voxel-row indices).
 
     ``scene_block``: a precomputed ``build_scene_block`` result for this
     sample's point cloud (the scene-block cache's hit path); None recomputes.
+    ``timings``: a dict that gathers the seconds of the phases, under the
+    JAX package's names (``scene_quantize``, ``scene_pyramid``,
+    ``scene_inverse``, ``inst_quantize``, ``inst_pyramid``,
+    ``inst_inverse``, ``sample_misc``; the port builds no band metadata);
+    None times nothing and gives the same arrays.
     """
     t = spec.max_tokens
     m = spec.max_instances
     cmax = spec.max_candidates
 
     out: Dict[str, np.ndarray] = {}
-    lang_feat = np.zeros((t, 300), np.float32)
-    lang_feat[: core.lang_feat.shape[0]] = core.lang_feat[:t]
-    out["lang_feat"] = lang_feat
-    out["lang_len"] = np.int32(min(core.lang_len, t))
-    out["object_cat"] = np.int32(core.object_cat)
+    with _phase(timings, "sample_misc"):
+        lang_feat = np.zeros((t, 300), np.float32)
+        lang_feat[: core.lang_feat.shape[0]] = core.lang_feat[:t]
+        out["lang_feat"] = lang_feat
+        out["lang_len"] = np.int32(min(core.lang_len, t))
+        out["object_cat"] = np.int32(core.object_cat)
 
-    k = min(len(core.instance_points), m)
-    inst_mask = np.zeros(m, bool)
-    inst_mask[:k] = True
-    inst_class = np.zeros(m, np.int32)
-    inst_obbs = np.zeros((m, 7), np.float32)
-    node_feat = np.zeros((m, spec.feat_dim), np.float32)
-    for i in range(k):
-        inst_class[i] = core.instance_class[i]
-        inst_obbs[i] = core.instance_obbs[i]
-        # relation node feature: mean point feature, xyz <- obb center
-        # (models/relation_module.py:66-69)
-        mean_feat = core.instance_points[i].mean(0).astype(np.float32)
-        mean_feat[:3] = core.instance_obbs[i][:3]
-        node_feat[i] = mean_feat[: spec.feat_dim]
-    out["instance_mask"] = inst_mask
-    out["instance_class"] = inst_class
-    out["instance_obbs"] = inst_obbs
-    out["instance_node_feat"] = node_feat
+        k = min(len(core.instance_points), m)
+        inst_mask = np.zeros(m, bool)
+        inst_mask[:k] = True
+        inst_class = np.zeros(m, np.int32)
+        inst_obbs = np.zeros((m, 7), np.float32)
+        node_feat = np.zeros((m, spec.feat_dim), np.float32)
+        for i in range(k):
+            inst_class[i] = core.instance_class[i]
+            inst_obbs[i] = core.instance_obbs[i]
+            # relation node feature: mean point feature, xyz <- obb center
+            # (models/relation_module.py:66-69)
+            mean_feat = core.instance_points[i].mean(0).astype(np.float32)
+            mean_feat[:3] = core.instance_obbs[i][:3]
+            node_feat[i] = mean_feat[: spec.feat_dim]
+        out["instance_mask"] = inst_mask
+        out["instance_class"] = inst_class
+        out["instance_obbs"] = inst_obbs
+        out["instance_node_feat"] = node_feat
 
-    # ---- candidates: instances whose class == filter class (GT object
-    # class under use_gt_lang=True; the language prediction otherwise)
-    fclass = core.object_cat if core.filter_class is None else core.filter_class
-    matching = [i for i in range(k) if inst_class[i] == fclass]
-    # matching instances beyond the max_instances cap are also candidate drops
-    total_match = len(matching) + sum(1 for c in core.instance_class[k:] if int(c) == fclass)
-    cand_idx = matching[:cmax]
-    num_cand = len(cand_idx)
-    # candidate-capacity overflow: the reference keeps every filtered
-    # candidate (models/attribute_module.py:42-81); a truncation here can
-    # drop the GT instance, so it is reported like the voxel caps' overflow
-    out["cand_overflow"] = np.float32(max(0, total_match - num_cand) / max(total_match, 1))
-    cand_mask = np.zeros(cmax, bool)
-    cand_mask[:num_cand] = True
-    cand_slot = np.zeros(cmax, np.int32)
-    cand_slot[:num_cand] = cand_idx
-    pred_obb = np.zeros((cmax, 7), np.float32)
-    pred_obb[:num_cand] = inst_obbs[cand_idx]
-    out["cand_mask"] = cand_mask
-    out["cand_slot"] = cand_slot
-    out["pred_obb_batch"] = pred_obb
+        # ---- candidates: instances whose class == filter class (GT object
+        # class under use_gt_lang=True; the language prediction otherwise)
+        fclass = core.object_cat if core.filter_class is None else core.filter_class
+        matching = [i for i in range(k) if inst_class[i] == fclass]
+        # matching instances beyond the max_instances cap are also candidate drops
+        total_match = len(matching) + sum(1 for c in core.instance_class[k:] if int(c) == fclass)
+        cand_idx = matching[:cmax]
+        num_cand = len(cand_idx)
+        # candidate-capacity overflow: the reference keeps every filtered
+        # candidate (models/attribute_module.py:42-81); a truncation here can
+        # drop the GT instance, so it is reported like the voxel caps' overflow
+        out["cand_overflow"] = np.float32(max(0, total_match - num_cand) / max(total_match, 1))
+        cand_mask = np.zeros(cmax, bool)
+        cand_mask[:num_cand] = True
+        cand_slot = np.zeros(cmax, np.int32)
+        cand_slot[:num_cand] = cand_idx
+        pred_obb = np.zeros((cmax, 7), np.float32)
+        pred_obb[:num_cand] = inst_obbs[cand_idx]
+        out["cand_mask"] = cand_mask
+        out["cand_slot"] = cand_slot
+        out["pred_obb_batch"] = pred_obb
 
     # ---- instance voxel pyramid: only when >=2 candidates (the reference
     # never runs the encoder otherwise — models/attribute_module.py:75-76 —
     # which also keeps BatchNorm statistics identical)
     group_coords, inst_feat_rows = [], []
     if num_cand >= 2:
-        for i in cand_idx:
-            pts = core.instance_points[i]
-            coords, feats = V.quantize(pts[:, :3], pts[:, : spec.feat_dim], voxel_size_ap)
-            group_coords.append(coords)
-            inst_feat_rows.append(feats.astype(np.float32))
-    inst_stages, inst_counts = V.build_pyramid_padded(
-        group_coords, range(len(group_coords)), spec.inst_caps)
+        with _phase(timings, "inst_quantize"):
+            for i in cand_idx:
+                pts = core.instance_points[i]
+                coords, feats = V.quantize(pts[:, :3], pts[:, : spec.feat_dim], voxel_size_ap)
+                group_coords.append(coords)
+                inst_feat_rows.append(feats.astype(np.float32))
+    with _phase(timings, "inst_pyramid"):
+        inst_stages, inst_counts = V.build_pyramid_padded(
+            group_coords, range(len(group_coords)), spec.inst_caps)
     inst_feats = (
         np.concatenate(inst_feat_rows, axis=0)
         if inst_feat_rows
@@ -209,24 +242,26 @@ def pad_sample(
     # overflow across all stages: deeper stages can bust their caps even
     # when stage 0 fits
     out["inst_overflow"] = _overflow(inst_counts, spec.inst_caps)
-    out.update(_pack_pyramid(inst_stages, inst_feats, spec.inst_caps, "inst", spec.feat_dim))
+    out.update(_pack_pyramid(inst_stages, inst_feats, spec.inst_caps, "inst", spec.feat_dim,
+                             timings))
 
     # ---- scene voxel pyramid at voxel_size_glp (lib/dataset.py:256-261)
     out.update(
-        build_scene_block(core.point_cloud, spec, voxel_size_glp)
+        build_scene_block(core.point_cloud, spec, voxel_size_glp, timings)
         if scene_block is None
         else scene_block
     )
 
-    out["ref_center_label"] = core.ref_center_label.astype(np.float32)
-    out["ref_heading_class_label"] = np.int32(0)
-    out["ref_heading_residual_label"] = np.int32(0)
-    out["ref_size_class_label"] = np.int32(core.ref_size_class_label)
-    out["ref_size_residual_label"] = core.ref_size_residual_label.astype(np.float32)
-    out["unique_multiple"] = np.int32(core.unique_multiple)
-    out["object_id"] = np.int32(core.object_id)
-    out["ann_id"] = np.int32(core.ann_id)
-    out["scan_idx"] = np.int32(core.scan_idx)
+    with _phase(timings, "sample_misc"):
+        out["ref_center_label"] = core.ref_center_label.astype(np.float32)
+        out["ref_heading_class_label"] = np.int32(0)
+        out["ref_heading_residual_label"] = np.int32(0)
+        out["ref_size_class_label"] = np.int32(core.ref_size_class_label)
+        out["ref_size_residual_label"] = core.ref_size_residual_label.astype(np.float32)
+        out["unique_multiple"] = np.int32(core.unique_multiple)
+        out["object_id"] = np.int32(core.object_id)
+        out["ann_id"] = np.int32(core.ann_id)
+        out["scan_idx"] = np.int32(core.scan_idx)
     return out
 
 
@@ -236,10 +271,12 @@ def _pack_pyramid(
     caps: Sequence[int],
     prefix: str,
     feat_dim: int,
+    timings: Optional[Dict[str, float]] = None,
 ) -> Dict[str, np.ndarray]:
     """Padded stages (``build_pyramid_padded``) -> the per-sample arrays,
     with each down map's inverse (``uprow``/``upk``, from which
-    ``data/host.batch_to_torch`` builds the down conv's ``up8``)."""
+    ``data/host.batch_to_torch`` builds the down conv's ``up8``; timed as
+    ``{prefix}_inverse``)."""
     out: Dict[str, np.ndarray] = {}
     n0 = min(len(feats), caps[0])
     f = np.zeros((caps[0], feat_dim), np.float32)
@@ -251,8 +288,9 @@ def _pack_pyramid(
         out[f"{prefix}_nbr3_{s}"] = st.nbr3
         if s > 0:
             out[f"{prefix}_down_{s}"] = st.down
-            out[f"{prefix}_uprow_{s}"], out[f"{prefix}_upk_{s}"] = V.invert_down(
-                st.down, caps[s - 1])
+            with _phase(timings, f"{prefix}_inverse"):
+                out[f"{prefix}_uprow_{s}"], out[f"{prefix}_upk_{s}"] = V.invert_down(
+                    st.down, caps[s - 1])
     return out
 
 

@@ -128,6 +128,8 @@ def make_batch(
     num_candidates: int = 3,
     mean_size_arr: np.ndarray | None = None,
     target_rule: str = "first",
+    points_per_instance: int = 256,
+    scene_extent: float = 4.0,
 ) -> Dict[str, np.ndarray]:
     rng = np.random.default_rng(seed)
     samples = []
@@ -140,6 +142,8 @@ def make_batch(
             scan_idx=b,
             mean_size_arr=mean_size_arr,
             target_rule=target_rule,
+            points_per_instance=points_per_instance,
+            scene_extent=scene_extent,
         )
         samples.append(pad_sample(core, spec))
     return collate(samples, spec)

@@ -14,6 +14,10 @@ ScanNet's own formats:
   {root}/PointGroupInst/{split}/pred_mask/{scan}_{i}.txt     one 0/1 a vertex
   {root}/meta_data/scannetv2-labels.combined.tsv, scannetv2_{split}.txt
 
+``write_fake_scanrefer`` writes a prepared ScanRefer root instead (the
+layout ``data/dataset.py`` reads), drawn as ``data/synthetic.py`` draws a
+scene.
+
 The mesh is written in the scan's raw frame: the aligned room moved by the
 inverse of a rotation about z and a translation, whose matrix the ``.txt``
 holds.  Segments are 8 x 8-vertex tiles of the surfaces, their ids spread
@@ -27,7 +31,8 @@ from __future__ import annotations
 
 import json
 import os
-from typing import Dict, List, Sequence, Tuple
+import pickle
+from typing import Dict, List, Mapping, Sequence, Tuple
 
 import numpy as np
 
@@ -217,3 +222,91 @@ def write_scannet_scans(root: str, scans: Sequence[str], rng: np.random.Generato
         with open(os.path.join(pg, f"{scan}.txt"), "w") as f:
             f.write("".join(lines))
     return boxes
+
+
+# the words of the synthetic descriptions, besides the objects' names
+WORDS = ("the", "a", "is", "it", "this", "that", "of", "to", "in", "on", "with", "and",
+         "next", "near", "left", "right", "front", "behind", "corner", "room", "wall",
+         "brown", "white", "black", "small", "large", "wooden", "square", "round", "facing")
+# ScanRefer-layout scenes of each split: 8 train and 4 val scenes
+SCANREFER_SCENES = {"train": range(0, 8), "val": range(8, 12)}
+# an instance's class slot in its scene: three pairs share a class, six
+# instances are alone in theirs
+_SLOTS = (0, 0, 1, 1, 2, 2, 3, 4, 5, 6, 7, 8)
+
+
+def write_glove(root: str, rng: np.random.Generator) -> None:
+    """A GloVe pickle of ``WORDS``, the class names' words and ``unk``."""
+    vocab = set(WORDS) | {w for _, name in NYU40 for w in name.split()} | {"unk"}
+    with open(os.path.join(root, "glove.p"), "wb") as f:
+        pickle.dump({w: rng.normal(size=300).astype(np.float32) for w in sorted(vocab)}, f)
+
+
+def description(rng: np.random.Generator, scene_id: str, obj: int, name: str, ann_id: int):
+    """A ScanRefer entry: 6-39 random ``WORDS`` with the object's name."""
+    tokens = [str(w) for w in rng.choice(WORDS, size=int(rng.integers(6, 40)))]
+    tokens[1:1] = name.split()
+    return {"scene_id": scene_id, "object_id": str(obj), "object_name": name.replace(" ", "_"),
+            "ann_id": str(ann_id), "token": tokens, "description": " ".join(tokens)}
+
+
+def write_fake_scanrefer(root: str, rng: np.random.Generator, batches: Mapping[str, int],
+                         batch_size: int, *,
+                         scenes: Mapping[str, Sequence[int]] = SCANREFER_SCENES,
+                         num_points: int = 40000, points_per_instance: int = 256,
+                         extent: float = 4.0) -> None:
+    """A prepared ScanRefer root under ``root``: per-scene PointGroup npys,
+    the label tsv, a GloVe pickle and ``ScanRefer_filtered_{split}.json``
+    of ``batches[split] * batch_size`` descriptions over the split's
+    ``scenes``.  A scene is drawn as ``data/synthetic.py`` draws one: an
+    ``extent`` x ``extent`` x 0.1 m floor of unlabelled points and 12 boxes
+    of ``points_per_instance`` points, ``num_points`` in all; of its 12
+    instances three pairs share a class and six are alone in theirs.  No
+    multiview features (the port reads them only with ``use_multiview``)."""
+    pg = os.path.join(root, "scannet", "pointgroup_data")
+    meta = os.path.join(root, "scannet", "meta_data")
+    os.makedirs(pg)
+    os.makedirs(meta)
+    n_inst = len(_SLOTS)
+    n_floor = num_points - n_inst * points_per_instance
+    if n_floor < 0:
+        raise ValueError(f"{num_points} points do not hold {n_inst} x {points_per_instance}")
+    objects = {}
+    for si in sorted({si for ids in scenes.values() for si in ids}):
+        scene_id = f"scene{si:04d}_00"
+        classes = rng.permutation(len(NYU40))[:max(_SLOTS) + 1]
+        xyz = [rng.uniform([0, 0, 0], [extent, extent, 0.1], size=(n_floor, 3))]
+        ins, sem = [np.zeros(n_floor, np.int64)], [np.ones(n_floor, np.int64)]  # nyu40 1: wall
+        boxes = []
+        for i, slot in enumerate(_SLOTS):
+            nyu = NYU40[classes[slot]][0]
+            center = rng.uniform(0.5, extent - 0.5, size=3)
+            center[2] = rng.uniform(0.2, 1.5)
+            pts = center + rng.uniform(-0.5, 0.5, size=(points_per_instance, 3)) \
+                * rng.uniform(0.2, 0.9, size=3)
+            xyz.append(pts)
+            ins.append(np.full(points_per_instance, i + 1, np.int64))
+            sem.append(np.full(points_per_instance, nyu, np.int64))
+            mn, mx = pts.min(0), pts.max(0)
+            boxes.append(np.concatenate([(mn + mx) / 2, mx - mn, [nyu, i]]))
+        xyz = np.concatenate(xyz)
+        nrm = rng.normal(size=xyz.shape)
+        nrm /= np.linalg.norm(nrm, axis=1, keepdims=True)
+        verts = np.concatenate([xyz, rng.uniform(0, 255, size=xyz.shape), nrm], 1)
+        np.save(os.path.join(pg, f"{scene_id}_aligned_vert.npy"), verts.astype(np.float32))
+        np.save(os.path.join(pg, f"{scene_id}_ins_label_pg.npy"), np.concatenate(ins))
+        np.save(os.path.join(pg, f"{scene_id}_sem_label_pg.npy"), np.concatenate(sem))
+        np.save(os.path.join(pg, f"{scene_id}_aligned_bbox.npy"), np.stack(boxes))
+        objects[si] = [NYU40[classes[slot]][1] for slot in _SLOTS]
+
+    write_label_tsv(os.path.join(meta, "scannetv2-labels.combined.tsv"))
+    write_glove(root, rng)
+    for split, ids in scenes.items():
+        anns, seen = [], {}
+        for _ in range(batches[split] * batch_size):
+            si = int(rng.choice(ids))
+            obj = int(rng.integers(n_inst))
+            ann_id = seen[si, obj] = seen.get((si, obj), -1) + 1
+            anns.append(description(rng, f"scene{si:04d}_00", obj, objects[si][obj], ann_id))
+        with open(os.path.join(root, f"ScanRefer_filtered_{split}.json"), "w") as f:
+            json.dump(anns, f)

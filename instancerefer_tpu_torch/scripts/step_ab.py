@@ -85,7 +85,10 @@ def _shapes():
 SHAPES = _shapes()
 
 
-def _probe() -> dict:
+def host_probe() -> dict:
+    """The host's speed: ``py_ms``, a fixed pure-Python loop, and ``op_us``, one
+    small torch CPU op (the dispatch a step's launches go through); the best
+    of 5 each."""
     import torch
 
     def py_loop() -> float:
@@ -261,7 +264,7 @@ def child(steps: int) -> dict:
         return train_step(model, opt, dd, mean_size)
 
     load1 = os.getloadavg()[0]
-    probe_before = _probe()
+    probe_before = host_probe()
     for _ in range(2):  # warm-up
         step()
     torch.cuda.synchronize()
@@ -294,7 +297,7 @@ def child(steps: int) -> dict:
         gc.callbacks.remove(on_gc)
     if not all(bool(torch.isfinite(x)) for x in losses):
         raise AssertionError("non-finite loss")
-    probe_after = _probe()
+    probe_after = host_probe()
     prof = _profile(step, getattr(cs, "KERNEL_FAMILIES", ()))
     lang = _lang_profile(model.train(), dd, cs.median_ms)
     eval_wall = _walls(lambda: cs.run_slice(model.eval(), dd, mean_size), steps)

@@ -498,9 +498,8 @@ class Solver:
             self.log[phase]["iou_rate_0.25"] = self.log[phase]["iou25_hits"] / denom
             self.log[phase]["iou_rate_0.5"] = self.log[phase]["iou5_hits"] / denom
 
+            self.log[phase]["iter_time"].append(self.log[phase]["fetch"][-1] + step_time)
             if phase == "train":
-                iter_time = self.log[phase]["fetch"][-1] + step_time
-                self.log[phase]["iter_time"].append(iter_time)
                 if (self._global_iter_id + 1) % self.verbose == 0:
                     self._train_report(epoch_id)
                     self._dump_log("train")
