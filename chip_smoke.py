@@ -14,9 +14,13 @@ without the final ``ok`` line:
    every CUDA source under ``instancerefer_tpu_torch/csrc/`` (one ``nvcc``
    each, all at once), whose ``-Xptxas -v`` reports must show no spills.
 2. K1 vs plain twin: the CUDA gather-GEMM against ``ops/sparse.gather_conv``
-   at five main-path shapes of a 32-scene batch (scene and instance stems
-   7 -> 32 over ``nbr3``, stage-1 down 32 -> 64 over ``down``, stage-2 and
-   stage-3 residuals 128 -> 128 over ``nbr3``), in f32 (the FMA kernel) and
+   at six main-path shapes of a 32-scene batch (scene and instance stems
+   7 -> 32 over ``nbr3``, stage-1 down 32 -> 64 over ``down``, stage-2,
+   stage-3 and stage-4 residuals 128 -> 128 over ``nbr3``: on the
+   tensor-core route each tile plan, 64-row tiles alone at the down and
+   the stage-2 residual, split over a cluster of 2 blocks at stage 3 and of
+   4 at stage 4, each printed with its ``[kernel]`` line), in f32 (the FMA
+   kernel) and
    bf16 (the stem kernel at the stems, the tensor-core kernel elsewhere),
    with and without the fused BN/ReLU epilogue.  Times are CUDA-event
    medians of 10.  Each
@@ -41,11 +45,12 @@ without the final ``ok`` line:
 5. K2, K3 and K1's f32 output vs their plain twins on the maps of the
    32-scene batch: K3 at every shape a train step launches it at (both
    stems, K = 27, 7 -> 32, and the four down convs of both encoders, K = 8,
-   32 -> 64, 64 -> 128, 128 -> 128 twice), K2 at the scene stage-1
-   (64 -> 64), stage-2 and stage-3 (128 -> 128) residuals, K1 over the
-   stage-1 ``up8`` (64 -> 32, f32 out); f32 and bf16 inputs; two launches
-   on the same inputs give bit-identical dW.  CUDA-event medians of 10,
-   with bound and yardstick as in phase 2.
+   32 -> 64, 64 -> 128, 128 -> 128 twice), K2 at every residual of both
+   encoders (stage 1 64 -> 64, stages 2-4 128 -> 128; each dX plan and
+   its dW group and splits printed), K1 over the stage-1 ``up8``
+   (64 -> 32, f32 out); f32 and bf16 inputs; two launches on the same
+   inputs give bit-identical dW.  CUDA-event medians of 10, with bound and
+   yardstick as in phase 2.
 6. Train parity, card vs CPU: one ``train_step`` on a 2-scene batch at the
    full-size spec, f32, TF32 off, deterministic cuDNN, dropout 0, the same
    weights: loss, every parameter gradient, the running statistics, then
@@ -161,8 +166,8 @@ without the final ``ok`` line:
       of each kind under the profiler (the device's idle share).
     - 12e: every launch of a train step and an eval step, recorded at the
       capture by shape, against the profiler over 10 replays: each shape's
-      launches in each step, its bound and the device's own ms a launch
-      (``[shape]``).
+      launches in each step, its tile plan (K1 and K2 on tensor cores), its
+      bound and the device's own ms a launch (``[shape]``).
     - 12f: the train and eval step bodies run eagerly under
       ``torch.cuda.set_sync_debug_mode("error")``.
 
@@ -191,7 +196,8 @@ without the final ``ok`` line:
 Then one line ``{"kernels": [...]}`` (launch counts of phase 7, whose
 profiled replay showed the profiler's launches equal to the counters'; ms,
 plain_ms, bound_ms and im2col_ms of K1 from phase 2, of K2 and K3 from
-phase 5, bf16 summed over the shapes; then K1 and K3 at the stems at
+phase 5, bf16 summed over the shapes (K2: its 8 residual shapes, one launch
+each); then K1 and K3 at the stems at
 Cin 135 and 10, with their stem-kernel launches in phase 9's train runs
 and the times of phase 9's first part; library_ms is null, since no single
 PyTorch call computes these functions), the ``nvidia-smi`` line and, last,
@@ -303,6 +309,25 @@ def bound(flops: float, nbytes: float, dt):
 
 def nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def plan_text(kernel: str, path: str, v_out: int, k: int, cin: int, cout: int,
+              out_dtype, dev) -> str:
+    """The tile plan a K1 or K2 launch on the tensor-core route takes
+    (``gather_conv.tc_plan``; K2's dX and ``conv_bwd.dw_plan``), as text;
+    empty on the other routes and for K3."""
+    from instancerefer_tpu_torch.ops.conv_bwd import dw_plan
+    from instancerefer_tpu_torch.ops.gather_conv import sm_count, tc_plan
+
+    if path != "tensor_core" or kernel == "K3" or v_out == 0:
+        return ""
+    sms = sm_count(dev)
+    if kernel == "K2":
+        p, d = tc_plan(v_out, k, cout, cin, torch.float32, sms), dw_plan(v_out, k, cin, cout, sms)
+        return (f" plan dX {p.bm} rows x cluster {p.cluster} ({p.offsets_per_block} offsets a "
+                f"block), dW G={d.group} splits={d.splits}")
+    p = tc_plan(v_out, k, cin, cout, out_dtype, sms)
+    return f" plan {p.bm} rows x cluster {p.cluster} ({p.offsets_per_block} offsets a block)"
 
 
 def im2col(rows, nbr):
@@ -418,6 +443,7 @@ def phase_kernel(batch, dev):
         ("scene stage1 down", "scene_down_1", "scene_nbr3_0", 32, 64),
         ("scene stage2 residual", "scene_nbr3_2", "scene_nbr3_2", 128, 128),
         ("scene stage3 residual", "scene_nbr3_3", "scene_nbr3_3", 128, 128),
+        ("scene stage4 residual", "scene_nbr3_4", "scene_nbr3_4", 128, 128),
     )
     totals = Totals()
     for name, key, in_key, cin, cout in shapes:
@@ -448,8 +474,10 @@ def phase_kernel(batch, dev):
                 flops = 2 * nnz * cin * cout
                 nb = nbytes(feats, nbr, w, got) + (2 * cout * 4 if epi else 0)
                 b_ms, b_by = bound(flops, nb, dt)
+                path = route(dt, cin, dev)
                 log(f"[kernel] {name} V_out={nbr.shape[0]} K={k} {cin}->{cout} "
-                    f"{str(dt)[6:]} epilogue={epi} route={route(dt, cin, dev)}: max_abs={err:.3e} "
+                    f"{str(dt)[6:]} epilogue={epi} route={path}"
+                    f"{plan_text('K1', path, nbr.shape[0], k, cin, cout, dt, dev)}: max_abs={err:.3e} "
                     f"max_rel={err / max(scale, 1e-30):.3e} "
                     f"(tol {KERNEL_TOL[dt]:g} x max|ref|={scale:.3f}) "
                     f"kernel_ms={t_k:.4f} plain_ms={t_p:.4f} bound_ms={b_ms:.4f} ({b_by}: "
@@ -598,15 +626,13 @@ def phase_bwd_kernels(batch, dev):
                       FEAT_DIM, WIDTHS[0]))
         cases += [("conv_dw", f"{enc} stage{s} down", imap(batch[f"{p}_down_{s}"]),
                    rows(p, s - 1), WIDTHS[s - 1], WIDTHS[s]) for s in range(1, 5)]
-    cases += [
-        ("subm_conv_bwd", "scene stage1 residual", imap(batch["scene_nbr3_1"]), rows("scene", 1),
-         64, 64),
-        ("subm_conv_bwd", "scene stage2 residual", imap(batch["scene_nbr3_2"]), rows("scene", 2),
-         128, 128),
-        ("subm_conv_bwd", "scene stage3 residual", imap(batch["scene_nbr3_3"]), rows("scene", 3),
-         128, 128),
-        ("gather_conv", "scene stage1 down dX over up8", imap(up8), rows("scene", 1), 64, 32),
-    ]
+    # K2 at every residual of both encoders (each dX plan at B = 32: 64-row
+    # tiles alone at stages 1-2, in clusters of 2 at stage 3 and of 4 at
+    # stage 4), then K1's dX
+    cases += [("subm_conv_bwd", f"{enc} stage{s} residual", imap(batch[f"{p}_nbr3_{s}"]),
+               rows(p, s), WIDTHS[s], WIDTHS[s]) for enc, p in ENCODERS for s in range(1, 5)]
+    cases.append(("gather_conv", "scene stage1 down dX over up8", imap(up8), rows("scene", 1),
+                  64, 32))
     gen = torch.Generator(device=dev).manual_seed(1)
     res = {name: Totals() for name in kernels}
     for name, label, nbr, v_in, cin, cout in cases:
@@ -672,7 +698,10 @@ def phase_bwd_kernels(batch, dev):
                 if g.dtype != torch.float32 or not err <= tol * max(scale, 1e-30):
                     raise AssertionError(f"{name} disagrees with its twin at {label} {dt} {out_name}")
                 res[name].worst = max(res[name].worst, err)
-            log(f"[bwd-kernel] {name} {label} {str(dt)[6:]} route={route(dt, cin, dev)}: "
+            path = route(dt, cin, dev)
+            plan = plan_text({"conv_dw": "K3", "subm_conv_bwd": "K2"}.get(name, "K1"), path,
+                             v_out, k, cin, cout, f32_out, dev)
+            log(f"[bwd-kernel] {name} {label} {str(dt)[6:]} route={path}{plan}: "
                 f"kernel_ms={t_k:.4f} "
                 f"plain_ms={t_p:.4f} bound_ms={b_ms:.4f} ({b_by}: {flops / 1e9:.2f} GFLOP, "
                 f"{nb / 1e6:.1f} MB) library_ms=none (no single PyTorch call) im2col_ms={t_i:.4f}"
@@ -1855,7 +1884,7 @@ LAUNCH_FIRST = {
     "K2": re.compile(r"gather_gemm(_tc)?_kernel<.*true>"),
     "K3": re.compile(r"dw_(tc|partial)_kernel<.*true>|stem_wide_dw_kernel"),
 }
-LAUNCH_REST = re.compile(r"dw_(tc|partial)_kernel<.*false>|sum_partials_kernel")
+LAUNCH_REST = re.compile(r"dw_partial_kernel<.*false>|dw_group_tc_kernel|sum_partials_kernel")
 
 
 @contextlib.contextmanager
@@ -1975,8 +2004,11 @@ def shape_table(label, graphs_steps, replays=SHAPE_REPLAYS):
         ms = {n: statistics.mean(t) for n, t in row["ms"].items()}
         for n, t in ms.items():
             totals[n] += t * row["launches"][n]
+        out_dtype = torch.float32 if c["what"] == "f32 out" else c["dtype"]
         log(f"[shape] {label} {kernel} {what} V_out={v_out} K={k} {cin}->{cout} "
-            f"valid={nnz} route={path}: launches " + " / ".join(
+            f"valid={nnz} route={path}"
+            f"{plan_text(kernel, path, v_out, k, cin, cout, out_dtype, c['nbr'].device)}: launches "
+            + " / ".join(
                 f"{row['launches'].get(n, 0)} {n}" for n in names)
             + "; device ms a launch under graph replays " + " / ".join(
                 f"{ms[n]:.4f} {n}" for n in names if n in ms)
@@ -2319,9 +2351,8 @@ DRIFT_SEEDS = 5  # 13b: runs, each of its own weights and batch
 # 13b, from one state: at each later step the graph's largest reading over
 # the runs (loss, gradients overall and per layer) stays within phase 6's
 # limit or DRIFT_K x the floor's largest (eager against eager, the same
-# runs).  Three single runs on an H100 read the graph at up to 1.55x the
-# floor; a fault that reads stale inputs or a value baked in at the
-# capture reads O(1)
+# runs).  With the atomics' noise taken away both should read 0; a fault
+# that reads stale inputs or a value baked in at the capture reads O(1)
 DRIFT_K = 4.0
 
 
@@ -2454,11 +2485,18 @@ def phase_drift(spec, dev):
     """13b: DRIFT_SEEDS runs, each of its own weights and 2-scene batch:
     the batch stepped DRIFT_STEPS times by an eager model, its eager twin
     and a graphed one (whose first step is the warm-up that captures), f32,
-    TF32 off, deterministic cuDNN, dropout 0, from the same weights.  The
-    BEV scatter's atomics differ in the last bits, and Adam, which moves an
-    element by about lr whatever its gradient's size, turns that into ~lr
-    in the weights the next step runs on, where a 2-scene step's gradients
-    are ill-conditioned.  So the graph against eager is read beside eager
+    TF32 off, dropout 0, from the same weights, under
+    ``torch.use_deterministic_algorithms`` (``warn_only``; the ops it names
+    as still nondeterministic are logged).  Left to its atomics, the BEV
+    scatter's ``index_add_`` differs in the last bits from run to run, and
+    a 2-scene step's gradients are ill-conditioned: from one state, one
+    run's step-3 gradients read up to ~3e-2 apart, eager against eager or
+    graph against eager alike, so a floor sampled in the same call could
+    miss what the graph hit.  Deterministic sums take that noise away:
+    eager again and the graph should then read the eager model's values
+    exactly.  Adam, which moves an element by about lr whatever its
+    gradient's size, turns any difference left into ~lr in the weights the
+    next step runs on.  So the graph against eager is read beside eager
     against eager (the floor) in two designs, free-running and from one
     state (the eager model's state copied into the other two before each
     step), and their distributions over the runs are logged.  The first
@@ -2471,48 +2509,64 @@ def phase_drift(spec, dev):
     ``_param_drift``'s limits and ``ADAM_MEAN``."""
     from instancerefer_tpu_torch.ops.precision import set_compute_dtype
 
+    import warnings
+
+    import torch.utils.deterministic
+
     set_compute_dtype(None)
     torch.backends.cudnn.deterministic = True
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    fill = torch.utils.deterministic.fill_uninitialized_memory
+    torch.utils.deterministic.fill_uninitialized_memory = False
     ms = torch.tensor(MEAN_SIZE, dtype=torch.float32, device=dev)
     names = ("loss rel. diff", "gradients' L2 error", "a layer's L2 error at most")
     limits = (LOSS_RTOL, GRAD_ALL, GRAD_LAYER)
     try:
-        for aligned in (False, True):
-            runs = [_drift_run(spec, dev, ms, seed, aligned) for seed in range(DRIFT_SEEDS)]
-            design = "from one state copied before each step" if aligned else "free-running"
-            for step in range(DRIFT_STEPS):
-                parts = []
-                for i, name in enumerate(names):
-                    floor = sorted(run[0][step][0][i] for run in runs)
-                    graph = sorted(run[0][step][1][i] for run in runs)
-                    parts.append(f"{name} eager again {floor[len(floor) // 2]:.3e} / "
-                                 f"{floor[-1]:.3e}, graph {graph[len(graph) // 2]:.3e} / "
-                                 f"{graph[-1]:.3e}")
-                    if aligned and step and not graph[-1] <= max(limits[i], DRIFT_K * floor[-1]):
-                        raise AssertionError(
-                            f"13b: from one state at step {step + 1} the graph's {name} "
-                            f"{graph[-1]:.3e} exceeds {DRIFT_K:g} x the floor's {floor[-1]:.3e}")
-                log(f"[drift] 13b f32 B=2, {DRIFT_SEEDS} runs {design}, step {step + 1} against "
-                    f"the eager model (median / largest over the runs): " + "; ".join(parts))
-            if aligned:
-                stats = [s for run in runs for s in run[1]]
-                drifts = [d for run in runs for d in run[2]]
-                log(f"[drift] 13b from one state, over the runs and steps: the running "
-                    f"statistics' largest |diff| over phase 6's limit, eager again "
-                    f"{max(e for e, _ in stats):.3f}, graph {max(g for _, g in stats):.3f} "
-                    f"(limit 1); the parameters' mean |diff| after a step, eager again at most "
-                    f"{max(e for e, _ in drifts):.4f} lr, graph at most "
-                    f"{max(g for _, g in drifts):.4f} lr (limit {ADAM_MEAN:g})")
-                if not max(g for _, g in stats) <= 1:
-                    raise AssertionError("13b: graph and eager running statistics disagree")
-                if not max(g for _, g in drifts) <= ADAM_MEAN:
-                    raise AssertionError("13b: graph and eager parameters drift apart")
-            else:
-                log(f"[drift] 13b free-running, the parameters after step {DRIFT_STEPS}: mean "
-                    f"|diff| against the eager model's, eager again "
-                    + ", ".join(f"{run[2][0][0]:.4f}" for run in runs) + " lr, graph "
-                    + ", ".join(f"{run[2][0][1]:.4f}" for run in runs) + " lr")
+        with warnings.catch_warnings(record=True) as seen:
+            warnings.simplefilter("always")
+            for aligned in (False, True):
+                runs = [_drift_run(spec, dev, ms, seed, aligned) for seed in range(DRIFT_SEEDS)]
+                design = "from one state copied before each step" if aligned else "free-running"
+                for step in range(DRIFT_STEPS):
+                    parts = []
+                    for i, name in enumerate(names):
+                        floor = sorted(run[0][step][0][i] for run in runs)
+                        graph = sorted(run[0][step][1][i] for run in runs)
+                        parts.append(f"{name} eager again {floor[len(floor) // 2]:.3e} / "
+                                     f"{floor[-1]:.3e}, graph {graph[len(graph) // 2]:.3e} / "
+                                     f"{graph[-1]:.3e}")
+                        limit = max(limits[i], DRIFT_K * floor[-1])
+                        if aligned and step and not graph[-1] <= limit:
+                            raise AssertionError(
+                                f"13b: from one state at step {step + 1} the graph's {name} "
+                                f"{graph[-1]:.3e} exceeds {DRIFT_K:g} x the floor's {floor[-1]:.3e}")
+                    log(f"[drift] 13b f32 B=2, {DRIFT_SEEDS} runs {design}, step {step + 1} against "
+                        f"the eager model (median / largest over the runs): " + "; ".join(parts))
+                if aligned:
+                    stats = [s for run in runs for s in run[1]]
+                    drifts = [d for run in runs for d in run[2]]
+                    log(f"[drift] 13b from one state, over the runs and steps: the running "
+                        f"statistics' largest |diff| over phase 6's limit, eager again "
+                        f"{max(e for e, _ in stats):.3f}, graph {max(g for _, g in stats):.3f} "
+                        f"(limit 1); the parameters' mean |diff| after a step, eager again at most "
+                        f"{max(e for e, _ in drifts):.4f} lr, graph at most "
+                        f"{max(g for _, g in drifts):.4f} lr (limit {ADAM_MEAN:g})")
+                    if not max(g for _, g in stats) <= 1:
+                        raise AssertionError("13b: graph and eager running statistics disagree")
+                    if not max(g for _, g in drifts) <= ADAM_MEAN:
+                        raise AssertionError("13b: graph and eager parameters drift apart")
+                else:
+                    log(f"[drift] 13b free-running, the parameters after step {DRIFT_STEPS}: mean "
+                        f"|diff| against the eager model's, eager again "
+                        + ", ".join(f"{run[2][0][0]:.4f}" for run in runs) + " lr, graph "
+                        + ", ".join(f"{run[2][0][1]:.4f}" for run in runs) + " lr")
+            left = sorted({str(w.message).split("\n")[0][:160] for w in seen
+                           if "deterministic" in str(w.message)})
+            log("[drift] 13b ops that torch.use_deterministic_algorithms left nondeterministic: "
+                + ("; ".join(left) or "none"))
     finally:
+        torch.utils.deterministic.fill_uninitialized_memory = fill
+        torch.use_deterministic_algorithms(False)
         torch.backends.cudnn.deterministic = False
 
 

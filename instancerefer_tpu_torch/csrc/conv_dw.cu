@@ -18,8 +18,7 @@
 // wrapper (ops/conv_bwd.py) from the input type and Cin alone, as K1's:
 //
 //   ir_conv_dw_tc    bf16 with Cin in {32, 64, 128} (the downs):
-//     irsc::tc::dw_tc_kernel<GATHER_X> (sparse_conv_tc.cuh), K2's dW
-//     template with the gather moved to the x side.  Block (k, split) walks
+//     irsc::tc::dw_tc_kernel (sparse_conv_tc.cuh).  Block (k, split) walks
 //     its 64-row tiles, gathers the x rows named by nbr[r, k] and stages
 //     the g rows as a contiguous tile, both with 16-byte cp.async in a ring
 //     of 2, and accumulates x^T g with mma.sync.m16n8k16 from ldmatrix.trans;
@@ -38,8 +37,8 @@
 // all whatever the grid; g is read once per offset (8 passes, from L2).
 // One pass over g for all 8 offsets would need 8 x Cin x Cout accumulators
 // a block (64 a thread at 32 -> 64 with 8 warps, more at the wider stages),
-// a second kernel design for one shape; the (k, split) grid keeps K2's
-// tested template and spreads the small stages over more blocks.  The
+// a second kernel design for one shape; the (k, split) grid keeps one
+// template at every down and spreads the small stages over more blocks.  The
 // stems: the gather.  The FMA kernel this replaced read its split's g rows
 // once per offset (27 passes) and gathered x with scalar loads into f32
 // tiles.  Here g and the map are read once per 768 depth columns (5 times
@@ -57,6 +56,30 @@ namespace {
 
 bool bad_shape(long long v_out, int k_offsets, int cin, int splits) {
   return v_out <= 0 || k_offsets <= 0 || cin <= 0 || splits <= 0 || splits > 65535;
+}
+
+// K3's dW on tensor cores: cin and cout each one of 32, 64, 128
+// (instantiated here only, the one library that launches it).
+cudaError_t dispatch_dw_tc(const void* x, const void* g, const void* nbr, void* partial, void* dw,
+                           long long rows, int k_offsets, int cin, int cout, int splits,
+                           cudaStream_t stream) {
+#define IRSC_DW_TC(CI, CO) \
+  return irsc::tc::launch_dw_tc<CI, CO>(x, g, nbr, partial, dw, rows, k_offsets, splits, stream)
+#define IRSC_DW_TC_COUT(CI)                \
+  switch (cout) {                          \
+    case 32: IRSC_DW_TC(CI, 32);           \
+    case 64: IRSC_DW_TC(CI, 64);           \
+    case 128: IRSC_DW_TC(CI, 128);         \
+    default: return cudaErrorInvalidValue; \
+  }
+  switch (cin) {
+    case 32: IRSC_DW_TC_COUT(32)
+    case 64: IRSC_DW_TC_COUT(64)
+    case 128: IRSC_DW_TC_COUT(128)
+    default: return cudaErrorInvalidValue;
+  }
+#undef IRSC_DW_TC_COUT
+#undef IRSC_DW_TC
 }
 
 }  // namespace
@@ -78,8 +101,8 @@ extern "C" int ir_conv_dw_tc(const void* feats, const void* nbr, const void* g, 
                              void* dw, long long v_out, int k_offsets, int cin, int cout,
                              int splits, void* stream) {
   if (bad_shape(v_out, k_offsets, cin, splits)) return cudaErrorInvalidValue;
-  return irsc::tc::dispatch_dw_tc<true>(feats, g, nbr, partial, dw, v_out, k_offsets, cin, cout,
-                                        splits, static_cast<cudaStream_t>(stream));
+  return dispatch_dw_tc(feats, g, nbr, partial, dw, v_out, k_offsets, cin, cout, splits,
+                        static_cast<cudaStream_t>(stream));
 }
 
 // The stem route: bfloat16 feats [V_in, channels(cin)] (cin up to

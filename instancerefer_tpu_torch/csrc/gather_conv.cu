@@ -18,14 +18,17 @@
 // type and Cin alone:
 //
 //   ir_gather_conv_tc  bf16 with Cin in {32, 64, 128} (every down, residual
-//     and up8 call): irsc::tc::gather_gemm_tc_kernel (sparse_conv_tc.cuh).
-//     Tiles of 64 output rows x Cout, 4 warps issuing mma.sync.m16n8k16
-//     (bf16 in, f32 accumulate) from ldmatrix; per offset, the 64 rows are
-//     gathered by index with 16-byte cp.async (a -1 index zero-fills its
-//     row) and W[k] is staged the same way, in a ring of 2 so the next
-//     offset's gather overlaps this one's MMAs.  Offsets with no valid index
-//     in the tile are skipped, and a tile of padding rows only stores its
-//     epilogue.
+//     and up8 call): irsc::tc::gather_gemm_tc_kernel (sparse_conv_tc.cuh)
+//     under the plan the wrapper passes (ops/gather_conv.tc_plan: tiles of
+//     64 output rows x Cout, 4 warps issuing mma.sync.m16n8k16 from
+//     ldmatrix, bf16 in, f32 accumulate; a cluster of 2 or 4 blocks a tile
+//     at 8192-16384 rows, each taking every 2nd or 4th listed offset, their
+//     sums added in distributed shared memory in rank order).  Per listed
+//     offset the tile's rows (at the 8-offset maps only those of the 16-row
+//     slices with a valid index) are gathered with 16-byte cp.async (a -1
+//     index zero-fills its row) and W[k] is staged the same way, in a ring
+//     of 2 steps so the next step's gather overlaps this one's MMAs; a tile
+//     of padding rows only stores its epilogue.
 //   ir_gather_conv_stem_wide  bf16 at any other Cin (the stems, K = 27: 7,
 //     10 with normals, 135 with multiview features -> 32): irsc::stem::
 //     stem_wide_conv_kernel (sparse_conv_stem.cuh).  The tile's depth comes
@@ -37,13 +40,16 @@
 //     (sparse_conv.cuh), f32 products and sums in registers (a tensor-core
 //     f32 path would be TF32).
 
-// What bounds the tensor-core route on the card: the bytes it stages, not
-// the MMAs.  Per block and offset it moves 64 gathered rows (Cin x 2 B
-// each) and the whole W[k] slice (Cin x Cout x 2 B, up to 32 KB) from L2
-// into shared memory for 2 x 64 x Cin x Cout flops: 32 KB of weights per
-// 2.1 MFLOP at 128 -> 128, which the L2 serves more slowly than the tensor
-// cores consume it.  Taller tiles would share W[k] across more rows at the
-// cost of blocks on the small stages; that is the next lever.
+// What bounds the tensor-core route on the card: the gathers' latency,
+// which the blocks on an SM hide in proportion to the steps they keep in
+// flight.  Bytes staged from L2 into shared memory at B = 64
+// (scripts/conv_bytes.py): the scene's 278528-row 64 -> 64 residual 636 MB
+// of gathered rows and 636 MB of W[k] a launch; its stage-1 down (32 -> 64,
+// 8 offsets) 103 MB and 104 MB; its 1163264-row dX over up8 520 MB and
+// 322 MB; K1 over a train step 12.75 GB.  Skipping the 16-row slices
+// without a valid index at the 8-offset maps cuts the rows staged there,
+// and the cluster split keeps the SMs filled at the 8192-16384-row stages;
+// taller tiles, which stage W[k] less often, measured no faster (PERF.md).
 //
 // What bounds the stem route: the bytes from L2 into shared memory, 27 x
 // 272 bytes per output row at Cin 135 (4.3 GB at the scene stem, ~27 x
@@ -102,21 +108,31 @@ extern "C" int ir_gather_conv(const void* feats, const void* nbr, const void* w,
 }
 
 // The tensor-core route: bfloat16 feats and w [K, cin, cout] (16-byte
-// aligned), cin and cout each one of 32, 64, 128; out_dtype 0 = float32,
-// 1 = bfloat16.
+// aligned), cin and cout each one of 32, 64, 128; (bm, cs) the plan of
+// ops/gather_conv.tc_plan (tile height, cluster size), refused unless the
+// template is built for it; out_dtype 0 = float32, 1 = bfloat16.
 extern "C" int ir_gather_conv_tc(const void* feats, const void* nbr, const void* w,
                                  const void* scale, const void* bias, void* out,
                                  long long v_out, int k_offsets, int cin, int cout, int relu,
-                                 int out_dtype, void* stream) {
-  if (bad_rows(v_out, k_offsets, cin, irsc::tc::BM)) return cudaErrorInvalidValue;
+                                 int bm, int cs, int out_dtype, void* stream) {
+  if (!irsc::tc::tile_plan_ok(bm, cs) || bad_rows(v_out, k_offsets, cin, bm) ||
+      (v_out + bm - 1) / bm * cs > 0x7fffffffLL)
+    return cudaErrorInvalidValue;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (out_dtype == 1)
     return irsc::tc::dispatch_gather_gemm_tc<__nv_bfloat16, false>(
-        feats, nbr, w, scale, bias, out, v_out, k_offsets, cin, cout, relu, s);
+        feats, nbr, w, scale, bias, out, v_out, k_offsets, cin, cout, relu, bm, cs, s);
   if (out_dtype == 0)
-    return irsc::tc::dispatch_gather_gemm_tc<float, false>(feats, nbr, w, scale, bias, out,
-                                                           v_out, k_offsets, cin, cout, relu, s);
+    return irsc::tc::dispatch_gather_gemm_tc<float, false>(
+        feats, nbr, w, scale, bias, out, v_out, k_offsets, cin, cout, relu, bm, cs, s);
   return cudaErrorInvalidValue;
+}
+
+// Shared memory a block of the tensor-core gather-GEMM takes (widths red ->
+// nout, mirror 1 for K2's dX layout, k_offsets): ops/gather_conv.
+// tc_smem_bytes computes the same on the host.
+extern "C" long long ir_tc_smem_bytes(int red, int nout, int mirror, int k_offsets) {
+  return static_cast<long long>(irsc::tc::tile_smem_bytes(red, nout, mirror != 0, k_offsets));
 }
 
 // The stem route: bfloat16 feats [V_in, channels(cin)] (cin up to

@@ -17,26 +17,34 @@
 // (dX, then the dW split reduction and its fixed-order sum), with the same
 // two routes as K1, chosen by the wrapper (ops/conv_bwd.py) from the type:
 //
-//   ir_subm_conv_bwd_tc  bf16 (sparse_conv_tc.cuh):
-//     dX: irsc::tc::gather_gemm_tc_kernel with MIRROR_T — the K1 tile on
-//         tensor cores, W[K-1-k] staged as it lies ([Cin][Cout]) and read
-//         by plain ldmatrix as the transposed B operand; f32 store.
-//     dW: irsc::tc::dw_tc_kernel — block (k, split) accumulates [Cin, Cout]
-//         in registers from x tiles read transposed (ldmatrix.trans) times
-//         the gathered g rows, skipping row tiles with no valid index at k;
-//         then irsc::sum_partials_kernel adds the splits in a fixed order,
-//         so dW is bit-identical across launches.
+//   ir_subm_conv_bwd_tc  bf16 (sparse_conv_tc.cuh), two plans from the
+//   wrapper:
+//     dX: irsc::tc::gather_gemm_tc_kernel with MIRROR_T under K1's plan
+//         (ops/gather_conv.tc_plan) — W[K-1-k] staged as it lies ([Cin][Cout])
+//         and read by plain ldmatrix as the transposed B operand; f32 store.
+//     dW: irsc::tc::dw_group_tc_kernel under ops/conv_bwd.dw_plan — block
+//         (offset group, split) of 8 warps keeps G = 2 [Cin, Cout] products
+//         in registers, reads the G map columns of each 64-row tile once,
+//         stages the x tile once for both and the G gathered g tiles in a
+//         ring of 3-4 tiles, as many blocks as fill the card's slots; then
+//         irsc::sum_partials_kernel adds the splits in a fixed order, so dW
+//         is bit-identical across launches.
 //   ir_subm_conv_bwd     f32 only: the FMA templates irsc::gather_gemm_kernel
 //     (MIRROR_T) and irsc::dw_partial_kernel, f32 products (no TF32).
 //
-// What bounds the tensor-core route on the card: the bytes staged into
-// shared memory.  dX moves, per 64-row block and offset, 64 gathered g rows
-// and the whole W[K-1-k] slice, as K1 does.  dW makes K passes over x (one
-// per offset block column) and gathers g once per offset, so it reads x K
-// times from L2; its MMAs need far less time than those reads.  g is still
-// gathered twice, once for dX and once for dW; fusing the two (the TPU
-// kernel's design) would save one gather pass at the price of dW partials
-// held beside the dX tile, and is left for when the card shows it pays.
+// What bounds the tensor-core route on the card: the gathers' latency, as
+// in K1 (sparse_conv_tc.cuh).  dX is K1's kernel: at B = 64 the 278528-row
+// 64 -> 64 residual stages 636 MB of gathered g rows and 636 MB of W a
+// launch.  The dW it replaced read each x tile once per offset (27 passes),
+// read the map as one 4-byte entry a row and offset (a 32-byte sector
+// each) and wrote 19 splits of partials; dW now stages, at that shape,
+// 336 MB of x tiles (14 passes), 636 MB of gathered g rows and 139 MB of
+// map sectors, and writes and reads 16 MB of partials (18 splits); over a
+// train step's 16 launches 6.83 GB (scripts/conv_bytes.py).  g is gathered
+// twice, once for dX and once for dW.  The TPU kernel's fused gather would
+// save dW's 636 MB at that shape, zero-filled rows included; but its dW
+// would then be summed by the 4352 dX blocks, whose [27, 64, 64] f32
+// partials are 1.9 GB to write and as much to read.  Not taken.
 //
 // C interface (bound with ctypes): each entry returns cudaGetLastError()
 // after the launches, or cudaErrorInvalidValue for an unsupported shape.
@@ -67,6 +75,31 @@ cudaError_t launch_dx(const void* g, const void* nbr, const void* w, void* dx, l
   }
 }
 
+// K2's dW on tensor cores: cin and cout each one of 32, 64, 128 (instantiated
+// here only, the one library that launches it).
+cudaError_t dispatch_dw_group(const void* x, const void* g, const void* nbr, void* partial,
+                              void* dw, long long rows, int k_offsets, int cin, int cout,
+                              int splits, cudaStream_t stream) {
+#define IRSC_DWG(CI, CO)                                                                       \
+  return irsc::tc::launch_dw_group_tc<CI, CO>(x, g, nbr, partial, dw, rows, k_offsets, splits, \
+                                              stream)
+#define IRSC_DWG_COUT(CI)                  \
+  switch (cout) {                          \
+    case 32: IRSC_DWG(CI, 32);             \
+    case 64: IRSC_DWG(CI, 64);             \
+    case 128: IRSC_DWG(CI, 128);           \
+    default: return cudaErrorInvalidValue; \
+  }
+  switch (cin) {
+    case 32: IRSC_DWG_COUT(32)
+    case 64: IRSC_DWG_COUT(64)
+    case 128: IRSC_DWG_COUT(128)
+    default: return cudaErrorInvalidValue;
+  }
+#undef IRSC_DWG_COUT
+#undef IRSC_DWG
+}
+
 bool bad_shape(long long v, int k_offsets, int cout, int splits) {
   return v <= 0 || k_offsets <= 0 || k_offsets % 2 == 0 || cout < 32 || splits <= 0 ||
          splits > 65535 || (v + irsc::GEMM_BM - 1) / irsc::GEMM_BM > 0x7fffffffLL;
@@ -89,15 +122,26 @@ extern "C" int ir_subm_conv_bwd(const void* x, const void* nbr, const void* g, c
 }
 
 // The tensor-core route: bfloat16 x, g and w (16-byte aligned), cin and
-// cout each one of 32, 64, 128; the other arguments as above.
+// cout each one of 32, 64, 128, the other arguments as above; (bm, cs) dX's
+// plan (ops/gather_conv.tc_plan) and dW's G (ops/conv_bwd.dw_plan, 2),
+// each refused unless the templates are built for it.
 extern "C" int ir_subm_conv_bwd_tc(const void* x, const void* nbr, const void* g, const void* w,
                                    void* dx, void* partial, void* dw, long long v,
-                                   int k_offsets, int cin, int cout, int splits, void* stream) {
-  if (bad_shape(v, k_offsets, cout, splits)) return cudaErrorInvalidValue;
+                                   int k_offsets, int cin, int cout, int splits, int bm, int cs,
+                                   int group, void* stream) {
+  if (bad_shape(v, k_offsets, cout, splits) || !irsc::tc::tile_plan_ok(bm, cs) ||
+      group != irsc::tc::DWG_G ||
+      (v + bm - 1) / bm * cs > 0x7fffffffLL)
+    return cudaErrorInvalidValue;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err = irsc::tc::dispatch_gather_gemm_tc<float, true>(
-      g, nbr, w, nullptr, nullptr, dx, v, k_offsets, cout, cin, 0, s);
+      g, nbr, w, nullptr, nullptr, dx, v, k_offsets, cout, cin, 0, bm, cs, s);
   if (err != cudaSuccess) return err;
-  return irsc::tc::dispatch_dw_tc<false>(x, g, nbr, partial, dw, v, k_offsets, cin, cout,
-                                         splits, s);
+  return dispatch_dw_group(x, g, nbr, partial, dw, v, k_offsets, cin, cout, splits, s);
+}
+
+// Shared memory a block of K2's dW takes at cin -> cout: ops/conv_bwd.
+// dw_group_smem_bytes computes the same on the host.
+extern "C" long long ir_dw_group_smem_bytes(int cin, int cout) {
+  return static_cast<long long>(irsc::tc::dw_group_smem_bytes(cin, cout));
 }

@@ -14,22 +14,24 @@ stem kernel at any other Cin (K = 27: 7, 10 or 135 channels); the FMA
 kernels for f32.  ``<wrapper>.launches`` counts kernel launches and
 nothing else (``conv_dw.stem_launches`` those of the stem kernel).  Both
 outputs are f32.  dW is a split reduction: the wrapper picks the split
-count from the shapes alone, so a given shape always sums in the same
-order and repeated launches give bit-identical dW.
+count from the shapes alone (``dw_splits``; K2 on tensor cores ``dw_plan``,
+with its dX under ``gather_conv.tc_plan``), so a given shape always sums in
+the same order and repeated launches give bit-identical dW.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Optional, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
 from instancerefer_tpu_torch.ops import sparse
 from instancerefer_tpu_torch.ops.gather_conv import (
-    COUTS, DTYPES, ENTRY, check_launch, check_map, check_stem, check_tc, check_tensors,
-    cuda_stream, library, route, stem_depth_blocks, stem_rows,
+    COUTS, DTYPES, ENTRY, PAD, SMEM_LIMIT, check_launch, check_map, check_plan, check_stem,
+    check_tc, check_tensors, cuda_stream, library, route, sm_count, stem_depth_blocks, stem_rows,
+    tc_plan,
 )
 
 DW_BLOCKS = 512  # about four blocks per SM of an H100
@@ -42,12 +44,6 @@ SPLIT_ROWS = {"fma": 32, "stem_wide": 64, "tensor_core": 512}
 # many bytes: at Cin = 135 a split's partial is 0.47 MB, and 500 of them
 # (233 MB) would cost the sum of the splits more than the dW.
 DW_PARTIAL_BYTES = 1 << 24
-
-
-@functools.cache
-def sm_count(device: torch.device) -> int:
-    """The SMs of the card ``device`` (132 on an H100 SXM)."""
-    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def dw_splits(rows: int, blocks_per_split: int, path: str, split_bytes: int = 0,
@@ -67,6 +63,58 @@ def dw_splits(rows: int, blocks_per_split: int, path: str, split_bytes: int = 0,
     if split_bytes:
         splits = min(splits, DW_PARTIAL_BYTES // split_bytes)
     return max(1, splits)
+
+
+# K2's dW kernel (csrc/sparse_conv_tc.cuh, dw_group_tc_kernel): rows a
+# tile, offsets a block (the C entry refuses another), warps a block
+DWG_BR, DW_GROUP, DWG_WARPS = 64, 2, 8
+SM_SMEM = 228 * 1024  # shared memory of an H100 SM, 1 KB of it reserved a block
+
+
+class DwPlan(NamedTuple):
+    """How K2's dW runs one call: ``group`` offsets a block (their [Cin,
+    Cout] products in registers, the x tile staged once for all), over
+    ``splits`` row splits, whose partials the fixed-order sum adds."""
+
+    group: int
+    splits: int
+
+
+def dw_warps(cin: int, cout: int) -> Tuple[int, int]:
+    """(WM, WN): the warps along Cin and Cout that split a block's [Cin,
+    Cout] products (``DwGroupShape``; 4 of 8 warps at 32 x 32)."""
+    wm = min(cin // 16, 4)
+    return wm, min(cout // 16, DWG_WARPS // wm)
+
+
+def dw_group_smem_bytes(cin: int, cout: int) -> int:
+    """Shared memory a block of K2's dW takes, as ``dw_group_smem_bytes`` in
+    csrc/sparse_conv_tc.cuh computes it (the card tests hold the two
+    equal): a ring of up to 4 tiles, each the x tile and ``DW_GROUP``
+    gathered g tiles, the tile's map columns and each warp's vote a stage."""
+    if cin not in COUTS or cout not in COUTS:
+        raise ValueError(f"dw_group_smem_bytes: widths {cin} x {cout} are not the "
+                         f"tensor-core kernel's")
+    stage = (DWG_BR * (cin + PAD) + DW_GROUP * DWG_BR * (cout + PAD)) * 2
+    stages = min(4, (SMEM_LIMIT - 4096) // stage)
+    return stages * stage + (DWG_BR * DW_GROUP + stages * DWG_WARPS) * 4
+
+
+@functools.cache
+def dw_plan(rows: int, k: int, cin: int, cout: int, sms: int) -> DwPlan:
+    """K2's dW plan from the shape and the card's ``sms`` alone:
+    ``DW_GROUP`` offsets a block, and as many row splits as fill the card's
+    block slots (the blocks a block's shared memory lets share an SM, times
+    ``sms``) over the ceil(k / G) offset groups, at least
+    ``SPLIT_ROWS["tensor_core"]`` rows a split and at most
+    ``DW_PARTIAL_BYTES`` of partials.  A shape always sums in one order on a
+    card."""
+    if rows <= 0 or k <= 0 or sms <= 0:
+        raise ValueError(f"dw_plan: {rows} rows, {k} offsets, {sms} SMs")
+    per_sm = max(1, SM_SMEM // (dw_group_smem_bytes(cin, cout) + 1024))
+    splits = min(-(-rows // SPLIT_ROWS["tensor_core"]), per_sm * sms // -(-k // DW_GROUP),
+                 DW_PARTIAL_BYTES // (4 * k * cin * cout))
+    return DwPlan(DW_GROUP, max(1, splits))
 
 
 @functools.cache
@@ -179,12 +227,17 @@ def subm_conv_bwd(
     dw = torch.empty(k, cin, cout, dtype=torch.float32, device=feats.device)
     if v == 0:
         return dx, dw.zero_()
-    splits = dw_splits(v, k, path)
+    if path == "tensor_core":  # dX over the mirrored offsets (reduction Cout), then dW
+        sms = sm_count(feats.device)
+        plan, dwp = tc_plan(v, k, cout, cin, torch.float32, sms), dw_plan(v, k, cin, cout, sms)
+        check_plan("subm_conv_bwd", plan)
+        splits, name, plans = dwp.splits, "ir_subm_conv_bwd_tc", [plan.bm, plan.cluster, dwp.group]
+    else:
+        splits, name, plans = dw_splits(v, k, path), "ir_subm_conv_bwd", []
     partial = torch.empty(splits, k, cin, cout, dtype=torch.float32, device=feats.device)
-    name = "ir_subm_conv_bwd_tc" if path == "tensor_core" else "ir_subm_conv_bwd"
-    check_launch("subm_conv_bwd", _entry("subm_conv_bwd", name, 7, 4)(
+    check_launch("subm_conv_bwd", _entry("subm_conv_bwd", name, 7, 4 + len(plans))(
         feats.data_ptr(), nbr.data_ptr(), g.data_ptr(), weight.data_ptr(), dx.data_ptr(),
-        partial.data_ptr(), dw.data_ptr(), v, k, cin, cout, splits, cuda_stream(feats),
+        partial.data_ptr(), dw.data_ptr(), v, k, cin, cout, splits, *plans, cuda_stream(feats),
     ))
     subm_conv_bwd.launches += 1
     return dx, dw

@@ -7,8 +7,11 @@ what bounds it on the card and what its design does about that.
 
 ``route`` picks the path of a call from the device, the input type and Cin
 alone: the plain twin (``ops/sparse.gather_conv``) for tensors on the CPU;
-on a card, for bf16, the tensor-core kernel for Cin in {32, 64, 128} and
-the stem kernel for any other Cin (the stems, K = 27: 7 by default, 10 with
+on a card, for bf16, the tensor-core kernel for Cin in {32, 64, 128} (under
+the tile plan ``tc_plan`` picks from the shape and the card's SM count:
+64-row tiles, a tile's offsets split over a cluster of 2 or 4 blocks at the
+small stages; ``check_plan`` raises on a plan the C entry is not built
+for) and the stem kernel for any other Cin (the stems, K = 27: 7 by default, 10 with
 ``use_normal``, 135 with ``use_multiview``); the FMA kernel for f32.  A CUDA tensor launches a
 kernel or raises; there is no fallback.  ``gather_conv.launches`` counts
 kernel launches and nothing else, and ``gather_conv.stem_launches`` those
@@ -42,7 +45,7 @@ import os
 import shutil
 import subprocess
 import tempfile
-from typing import Dict, Optional
+from typing import Dict, NamedTuple, Optional
 
 import torch
 
@@ -171,6 +174,74 @@ def check_tc(name: str, widths, *tensors: torch.Tensor) -> None:
                          f"got {widths}")
     if any(t.data_ptr() % 16 for t in tensors):
         raise ValueError(f"{name}: the tensor-core kernel needs 16-byte aligned inputs")
+
+
+SMEM_LIMIT = 232448  # shared memory one block may take on an H100 (227 KB)
+PAD = 8  # bf16 padding of a staged row (csrc/sparse_conv_tc.cuh)
+TC_BM = 64  # rows a tile of the tensor-core gather-GEMM
+# the (tile height, cluster size) plans csrc/sparse_conv_tc.cuh's gather-GEMM
+# is built for; its C entries refuse any other
+TC_PLANS = ((64, 1), (64, 2), (64, 4))
+
+
+class TcPlan(NamedTuple):
+    """How the tensor-core gather-GEMM (K1, K2's dX) runs one call: tiles
+    of ``bm`` output rows, each taken by a cluster of ``cluster`` blocks, of
+    which rank q multiplies the tile's listed offsets q, q + cluster, ...
+    (``offsets_per_block`` of them at most); the ranks' sums meet in
+    distributed shared memory, added in rank order."""
+
+    bm: int
+    cluster: int
+    offsets_per_block: int
+
+
+@functools.cache
+def sm_count(device: torch.device) -> int:
+    """The SMs of the card ``device`` (132 on an H100 SXM)."""
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+@functools.cache
+def tc_plan(rows: int, k: int, red: int, nout: int, out_dtype: torch.dtype,
+            sms: int) -> TcPlan:
+    """The plan of a tensor-core gather-GEMM over ``rows`` output rows, a
+    ``k``-offset map, reduction width ``red`` (K1's Cin; K2's dX: Cout) and
+    output width ``nout``, from the shape and the card's ``sms`` alone, so
+    a shape always runs, and sums, the same way on a card.
+
+    64-row tiles; where those of a 3^3 map are no more than twice the SMs
+    (the 8192-16384-row stages), the tile's offsets split over a cluster of
+    2 blocks, or 4 where they are no more than the SMs (the plan sweep of
+    ``scripts/step_ab.py`` measured each choice)."""
+    if red not in TC_WIDTHS or nout not in TC_WIDTHS or out_dtype not in DTYPES:
+        raise ValueError(f"tc_plan: widths {red} -> {nout} ({out_dtype}) are not the "
+                         f"tensor-core kernel's")
+    if rows <= 0 or k <= 0 or sms <= 0:
+        raise ValueError(f"tc_plan: {rows} rows, {k} offsets, {sms} SMs")
+    tiles = -(-rows // TC_BM)
+    cluster = 1 if k <= 8 else 4 if tiles <= sms else 2 if tiles <= 2 * sms else 1
+    return TcPlan(TC_BM, cluster, -(-k // cluster))
+
+
+def tc_smem_bytes(k: int, red: int, nout: int, mirror: bool = False) -> int:
+    """Shared memory a block of the gather-GEMM takes, as
+    ``tile_smem_bytes`` in csrc/sparse_conv_tc.cuh computes it (the card
+    tests hold the two equal): a ring of 2 steps, each the tile's gathered
+    rows [64][red + PAD] and the weight slice ([red][nout + PAD], mirrored
+    [nout][red + PAD]), or the cluster's f32 partials [64][nout + 4] where
+    larger; then the [64, k] map tile, the offsets' slice masks and their
+    list."""
+    w_elems = nout * (red + PAD) if mirror else red * (nout + PAD)
+    ring = 2 * (TC_BM * (red + PAD) + w_elems) * 2
+    return max(ring, TC_BM * (nout + 4) * 4) + (TC_BM + 2) * k * 4
+
+
+def check_plan(name: str, plan: TcPlan) -> None:
+    """Raise on a plan the C entries are not built for (they refuse it too)."""
+    if (plan.bm, plan.cluster) not in TC_PLANS:
+        raise ValueError(f"{name}: no tensor-core kernel is built for plan {tuple(plan)[:2]}; "
+                         f"built: {TC_PLANS}")
 
 
 def _nvcc() -> str:
@@ -347,6 +418,10 @@ def gather_conv(
     ]
     if path == "fma":
         fn, codes = _entry("ir_gather_conv", 2), [DTYPES[feats.dtype], DTYPES[out_dtype]]
+    elif path == "tensor_core":
+        plan = tc_plan(v_out, k, cin, cout, out_dtype, sm_count(feats.device))
+        check_plan("gather_conv", plan)
+        fn, codes = _entry("ir_gather_conv_tc", 3), [plan.bm, plan.cluster, DTYPES[out_dtype]]
     else:
         fn, codes = _entry(f"ir_gather_conv_{ENTRY[path]}", 1), [DTYPES[out_dtype]]
     check_launch("gather_conv", fn(*args, *codes, cuda_stream(feats)))

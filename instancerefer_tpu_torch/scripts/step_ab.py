@@ -2,14 +2,14 @@
 alternated in one call on one GPU (eagerly, and as CUDA graphs where the
 checkout has them), profile the host side of one step and the language
 module of each, and time each checkout's sparse-conv wrappers at the stems'
-and down convs' shapes.
+and down convs' shapes and at every K1 tensor-core and K2 shape.
 
     python -m instancerefer_tpu_torch.scripts.step_ab ROOT [ROOT ...] \\
-        [--rounds 2] [--steps 20] [--out FILE]
+        [--rounds 2] [--steps 20] [--batch B] [--out FILE]
 
 Each ROOT is a checkout holding ``chip_smoke.py`` and
 ``instancerefer_tpu_torch/``.  The step is the one that phase 7 of
-``chip_smoke.py`` times (``train_step`` on a 32-scene synthetic batch at
+``chip_smoke.py`` times (``train_step`` on a synthetic batch at
 the fitted caps, random weights, Adam), run by ROOT's own package with
 ROOT's own constants.  A round runs the roots in order and then in reverse
 (A B B A), each in a fresh process, so a drift of the host over the call
@@ -39,21 +39,38 @@ falls on every root alike.  Each run prints one line ``STEP_AB {...}``:
 - ``graph``: where ROOT has ``train/step_graph.py``, the same model's train
   and eval steps as CUDA graph replays (``train_wall_ms``,
   ``eval_wall_ms``), timed as ``wall_ms``; empty otherwise;
-- ``kernels_ms``: CUDA-event medians of 10 launches of ROOT's wrappers on
-  the same batch's maps, bf16 (ROOT's ``chip_smoke.median_ms``, the timer
-  of the smoke's ``kernels`` line): K1 with its BN/ReLU epilogue at both
-  stems, and K3 at both stems and every down conv of both encoders
-  (``SHAPES``); the stems at Cin 7, 10 and 135, each fed the rows its main
+- ``kernels_ms``: the device's ms a call of ROOT's wrappers on the same
+  batch's maps, bf16 (``device_ms``: 20 calls captured into a CUDA graph,
+  the median of 3 replays, so no host time between launches): K1 with its
+  BN/ReLU epilogue at both stems, and K3 at both stems and every down conv
+  of both encoders (``SHAPES``); the stems at Cin 7, 10 and 135, each fed the rows its main
   path gives it (a root with ``gather_conv.pad_channels`` pads the stems'
-  rows before the timing, as ``ops/sparse_conv.stem_input`` does).
+  rows before the timing, as ``ops/sparse_conv.stem_input`` does); and K1
+  at every tensor-core shape of a train step (the downs and residuals with
+  the epilogue, the downs' dX over ``up8`` with an f32 output) and K2 at
+  every residual; beside each, ``kernels_bound`` (its valid map entries and
+  the least ms an H100 could take, ``shape_bounds``) and ``kernels_plan``
+  (ROOT's ``tc_plan`` / ``dw_plan`` where it has them).
+
+``--batch B`` sets the scenes of the step's and the kernels' batch (default
+ROOT's ``chip_smoke.BATCH``, 32; the bench runs 64).
 
 Then a table of the runs, per root the median of its runs' medians, and
 per shape the median of each root's kernel times.
+
+    python -m instancerefer_tpu_torch.scripts.step_ab --plans B [B ...] [--out FILE]
+
+times this checkout's K1 and K2 instead (``plan_sweep``), at every K1
+tensor-core and K2 shape of a train step of ``scripts/bench.py``'s batch of
+B scenes, under every tile plan the kernels are built for and with K2's
+dW at a half, 1, 2 and 3 times its splits: how ``tc_plan`` and ``dw_plan``
+were chosen.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import os
 import statistics
@@ -64,12 +81,17 @@ import time
 PREFIX = "STEP_AB "
 WIDTHS = (32, 64, 128, 128, 128)  # the encoders' channels by stage
 STEM_CINS = (7, 10, 135)  # the stems' Cin: the default config, use_normal, use_multiview
+TC_WRAPPERS = ("gather_conv", "gather_conv_dx", "subm_conv_bwd")  # K1 and K2's labels
 
 
 def _shapes():
     """(label, wrapper, map key, key of the map whose rows are the input,
     Cin, Cout) of the K1 stems and of every K3 launch of a train step, and
-    of the stems at the other input widths."""
+    of the stems at the other input widths; then every K1 tensor-core shape
+    of a train step (the downs and residuals of both encoders, the downs'
+    dX over ``up8``: wrapper ``gather_conv_dx``, Cin the down's Cout) and
+    every K2 shape (the residuals).  A map key ``<p>_up8_<s>`` names the
+    inverse of ``<p>_down_<s>`` (``shape_map``)."""
     shapes = []
     for enc, p in (("scene", "scene"), ("instance", "inst")):
         for cin in STEM_CINS:
@@ -79,7 +101,32 @@ def _shapes():
                        (f"K3 {enc} stem{tag}", "conv_dw", *stem)]
         shapes += [(f"K3 {enc} stage{s} down", "conv_dw", f"{p}_down_{s}", f"{p}_nbr3_{s - 1}",
                     WIDTHS[s - 1], WIDTHS[s]) for s in range(1, 5)]
+    for enc, p in (("scene", "scene"), ("instance", "inst")):
+        for s in range(1, 5):
+            shapes += [
+                (f"K1 {enc} stage{s} down", "gather_conv", f"{p}_down_{s}", f"{p}_nbr3_{s - 1}",
+                 WIDTHS[s - 1], WIDTHS[s]),
+                (f"K1 {enc} stage{s} residual", "gather_conv", f"{p}_nbr3_{s}", f"{p}_nbr3_{s}",
+                 WIDTHS[s], WIDTHS[s]),
+                (f"K1 {enc} stage{s} down dX over up8", "gather_conv_dx", f"{p}_up8_{s}",
+                 f"{p}_nbr3_{s}", WIDTHS[s], WIDTHS[s - 1]),
+                (f"K2 {enc} stage{s} residual", "subm_conv_bwd", f"{p}_nbr3_{s}",
+                 f"{p}_nbr3_{s}", WIDTHS[s], WIDTHS[s]),
+            ]
     return shapes
+
+
+def shape_map(batch, key: str):
+    """The int32 map ``key`` of a host batch; ``<p>_up8_<s>`` is built from
+    the batch's ``uprow``/``upk`` as ``data/host.batch_to_torch`` builds it."""
+    import numpy as np
+
+    if "_up8_" in key:
+        from instancerefer_tpu_torch.ops import voxelize
+
+        p, s = key.split("_up8_")
+        return voxelize.build_up8(batch[f"{p}_uprow_{s}"], batch[f"{p}_upk_{s}"])
+    return np.ascontiguousarray(batch[key], np.int32)
 
 
 SHAPES = _shapes()
@@ -148,9 +195,34 @@ def _profile(fn, families=()) -> dict:
             "runtime": runtime}
 
 
-def _time_kernels(batch, dev, median_ms) -> dict:
-    """ROOT's K1 and K3 wrappers at ``SHAPES``, bf16, random inputs."""
-    import numpy as np
+def device_ms(fn, launches: int = 20) -> float:
+    """ms a call of ``fn`` on the device: ``launches`` calls captured into
+    one CUDA graph, the median of 3 timed replays (no host time between
+    launches)."""
+    import torch
+
+    fn()  # warm (and build)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(launches):
+            fn()
+    graph.replay()
+    times = []
+    for _ in range(3):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / launches)
+    del graph
+    return statistics.median(times)
+
+
+def _time_kernels(batch, dev, timer, labels=None) -> dict:
+    """ROOT's K1, K2 and K3 wrappers at ``SHAPES`` (those of ``labels`` where
+    given), bf16, random inputs, each timed by ``timer`` (a call -> ms)."""
     import torch
 
     from instancerefer_tpu_torch.ops import conv_bwd
@@ -164,18 +236,74 @@ def _time_kernels(batch, dev, median_ms) -> dict:
 
     out = {}
     for label, wrapper, key, in_key, cin, cout in SHAPES:
-        nbr = torch.from_numpy(np.ascontiguousarray(batch[key], np.int32)).to(dev)
+        if labels is not None and label not in labels:
+            continue
+        nbr = torch.from_numpy(shape_map(batch, key)).to(dev)
+        k = nbr.shape[1]
         x = rnd(batch[in_key].shape[0], cin).bfloat16()
         if pad is not None and "stem" in label:
             x = pad(x)  # the rows the stem's main path gives it
+        w = (rnd(k, cin, cout) / (k * cin) ** 0.5).bfloat16()
         if wrapper == "gather_conv":
-            w = (rnd(nbr.shape[1], cin, cout) / (nbr.shape[1] * cin) ** 0.5).bfloat16()
             sc, bi = 0.5 + torch.rand(cout, device=dev, generator=gen), 0.1 * rnd(cout)
-            out[label] = median_ms(lambda: G.gather_conv(x, nbr, w, sc, bi, relu=True))
+            out[label] = timer(lambda: G.gather_conv(x, nbr, w, sc, bi, relu=True))
+        elif wrapper == "gather_conv_dx":
+            out[label] = timer(lambda: G.gather_conv(x, nbr, w, out_dtype=torch.float32))
+        elif wrapper == "subm_conv_bwd":
+            g = rnd(nbr.shape[0], cout).bfloat16()
+            out[label] = timer(lambda: conv_bwd.subm_conv_bwd(x, nbr, g, w))
         else:
             g = rnd(nbr.shape[0], cout).bfloat16()
             kw = {"cin": cin} if pad is not None else {}
-            out[label] = median_ms(lambda: conv_bwd.conv_dw(x, nbr, g, **kw))
+            out[label] = timer(lambda: conv_bwd.conv_dw(x, nbr, g, **kw))
+    return out
+
+
+def shape_bounds(batch, peak_flops: float = 989e12, peak_bytes_s: float = 3.35e12) -> dict:
+    """Per label of ``SHAPES``, bf16: (valid map entries, the least ms an
+    H100 could take: the larger of the valid entries' flops (x2 for K2's
+    two products) over ``peak_flops`` and the bytes the function must move
+    (inputs read once, outputs written once: bf16 rows and weights, int32
+    map, f32 dX and dW) over ``peak_bytes_s``)."""
+    out = {}
+    for label, wrapper, key, in_key, cin, cout in SHAPES:
+        nbr = shape_map(batch, key)
+        (v_out, k), v_in = nbr.shape, batch[in_key].shape[0]
+        nnz = int((nbr >= 0).sum())
+        flops = 2 * nnz * cin * cout * (2 if wrapper == "subm_conv_bwd" else 1)
+        nb = nbr.nbytes
+        if wrapper == "gather_conv":  # x, W, scale/bias in; bf16 out
+            nb += 2 * (v_in * cin + k * cin * cout + v_out * cout) + 8 * cout
+        elif wrapper == "gather_conv_dx":  # g, W^T in; f32 dX out
+            nb += 2 * (v_in * cin + k * cin * cout) + 4 * v_out * cout
+        elif wrapper == "subm_conv_bwd":  # x, g, W in; f32 dX and dW out
+            nb += 2 * (v_out * (cin + cout) + k * cin * cout) + 4 * (v_out * cin + k * cin * cout)
+        else:  # x, g in; f32 dW out
+            nb += 2 * (v_in * cin + v_out * cout) + 4 * k * cin * cout
+        out[label] = (nnz, max(flops / peak_flops, nb / peak_bytes_s) * 1e3)
+    return out
+
+
+def shape_plans(batch, sms: int) -> dict:
+    """Per K1 tensor-core and K2 label of ``SHAPES``: the plans ROOT's
+    package picks for it (``tc_plan``; for K2 also ``dw_plan``), or None
+    where ROOT has none (a checkout from before them)."""
+    import torch
+
+    from instancerefer_tpu_torch.ops import conv_bwd
+    from instancerefer_tpu_torch.ops import gather_conv as G
+
+    if not hasattr(G, "tc_plan"):
+        return {}
+    out = {}
+    for label, wrapper, key, in_key, cin, cout in SHAPES:
+        v, k = shape_map(batch, key).shape
+        if wrapper in ("gather_conv", "gather_conv_dx") and cin in G.TC_WIDTHS:
+            dt = torch.float32 if wrapper == "gather_conv_dx" else torch.bfloat16
+            out[label] = list(G.tc_plan(v, k, cin, cout, dt, sms))
+        elif wrapper == "subm_conv_bwd":
+            out[label] = list(G.tc_plan(v, k, cout, cin, torch.float32, sms)) + \
+                list(conv_bwd.dw_plan(v, k, cin, cout, sms))
     return out
 
 
@@ -226,7 +354,7 @@ def _lang_profile(model, dd, median_ms) -> dict:
     return {"ms": ms, "device_ms": device, "gru_device_ms": gru}
 
 
-def child(steps: int) -> dict:
+def child(steps: int, batch_size: int = 0) -> dict:
     sys.path.insert(0, os.getcwd())  # ROOT's package and chip_smoke.py
     import gc
 
@@ -252,7 +380,8 @@ def child(steps: int) -> dict:
     torch.backends.cudnn.allow_tf32 = False
     gather_conv.build()
     spec = BatchSpec(**cs.SPEC_KW)
-    batch = make_batch(cs.BATCH, spec, seed=0, mean_size_arr=cs.MEAN_SIZE, **cs.SCENE_KW)
+    batch = make_batch(batch_size or cs.BATCH, spec, seed=0, mean_size_arr=cs.MEAN_SIZE,
+                       **cs.SCENE_KW)
     dd = batch_to_torch(batch, spec, dev)
     set_compute_dtype("bfloat16")
     model = InstanceRefer(spec.feat_dim, spec.num_classes, spec.max_candidates,
@@ -316,11 +445,95 @@ def child(steps: int) -> dict:
         graph = {"train_wall_ms": _walls(lambda: graphs.train_step(t_in), steps),
                  "eval_wall_ms": _walls(lambda: graphs.eval_step(e_in), steps)}
     set_compute_dtype(None)
-    kernels = _time_kernels(batch, dev, cs.median_ms)
+    kernels = _time_kernels(batch, dev, device_ms)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
     return {"wall_ms": wall, "host_ms": host, "cpu_ms": cpu, "gc_ms": in_gc[0] * 1e3,
             "probe_before": probe_before, "probe_after": probe_after, "load1": load1,
             "profile": prof, "lang": lang, "eval_wall_ms": eval_wall, "graph": graph,
-            "kernels_ms": kernels}
+            "kernels_ms": kernels, "kernels_bound": shape_bounds(batch),
+            "kernels_plan": shape_plans(batch, sms)}
+
+
+def tc_labels(widths) -> list:
+    """The labels of ``SHAPES`` that K1's tensor-core route and K2 serve
+    (``widths``: the Cin the tensor-core kernels are built for)."""
+    return [label for label, wrapper, _, _, cin, _ in SHAPES
+            if wrapper in TC_WRAPPERS and cin in widths]
+
+
+@contextlib.contextmanager
+def forced_plans(tile=None, dw_scale=None):
+    """Inside, every tensor-core gather-GEMM launch (K1, K2's dX) takes the
+    tile plan ``tile`` ((rows, cluster)), and K2's dW ``dw_scale`` times the
+    splits ``dw_plan`` picks (within ``DW_PARTIAL_BYTES``), where given; the
+    plan functions are restored after."""
+    from instancerefer_tpu_torch.ops import conv_bwd
+    from instancerefer_tpu_torch.ops import gather_conv as G
+
+    saved = G.tc_plan, conv_bwd.tc_plan, conv_bwd.dw_plan
+    if tile is not None:
+        G.tc_plan = conv_bwd.tc_plan = lambda rows, k, *_: G.TcPlan(*tile, -(-k // tile[1]))
+    if dw_scale is not None:
+        def dw_plan(rows, k, cin, cout, sms):
+            plan = saved[2](rows, k, cin, cout, sms)
+            cap = conv_bwd.DW_PARTIAL_BYTES // (4 * k * cin * cout)
+            return plan._replace(splits=max(1, min(int(dw_scale * plan.splits), cap)))
+
+        conv_bwd.dw_plan = dw_plan
+    try:
+        yield
+    finally:
+        G.tc_plan, conv_bwd.tc_plan, conv_bwd.dw_plan = saved
+
+
+def plan_sweep(batch_sizes, out_path=None, dw_scales=(0.5, 1, 2, 3)) -> None:
+    """At each of ``batch_sizes`` (``scripts/bench.py``'s batch), every label
+    of ``tc_labels`` timed by ``device_ms`` under each plan of
+    ``gather_conv.TC_PLANS``, and K2 also with its dW at ``dw_scales`` times
+    its splits: one line a shape (valid entries, bound, the plans the plan
+    functions pick, the ms of each variant); with ``out_path``, one JSON
+    record a shape appended there too."""
+    import torch
+
+    from instancerefer_tpu_torch.config import band_profile_kwargs
+    from instancerefer_tpu_torch.data.pipeline import BatchSpec
+    from instancerefer_tpu_torch.data.synthetic import make_batch
+    from instancerefer_tpu_torch.ops import gather_conv as G
+    from instancerefer_tpu_torch.scripts import bench
+
+    if not torch.cuda.is_available():
+        raise SystemExit("step_ab --plans: no CUDA device")
+    dev = torch.device("cuda", 0)
+    G.build()
+    sms = G.sm_count(dev)
+    caps = band_profile_kwargs(bench.PROFILE)
+    spec = BatchSpec(**{k: caps[k] for k in ("scene_caps", "inst_caps", "max_candidates",
+                                            "max_instances")})
+    labels = tc_labels(G.TC_WIDTHS)
+    print(f"{torch.cuda.get_device_name(0)}, {sms} SMs; device ms a call by tile plan (rows x "
+          f"cluster) and by K2's dW splits (x the picked); the picked plans beside", flush=True)
+    for b in batch_sizes:
+        batch = make_batch(b, spec, seed=0, mean_size_arr=bench.MEAN_SIZE, **bench.SCENE_KW)
+        bounds, plans = shape_bounds(batch), shape_plans(batch, sms)
+        ms = {label: {} for label in labels}
+        for tile in G.TC_PLANS:
+            with forced_plans(tile=tile):
+                for label, t in _time_kernels(batch, dev, device_ms, labels).items():
+                    ms[label][f"{tile[0]}x{tile[1]}"] = t
+        k2 = [label for label in labels if label.startswith("K2")]
+        for m in dw_scales:
+            with forced_plans(dw_scale=m):
+                for label, t in _time_kernels(batch, dev, device_ms, k2).items():
+                    ms[label][f"dW x{m:g}"] = t
+        for label in labels:
+            nnz, bound_ms = bounds[label]
+            print(f"B={b} {label}: valid={nnz} bound {bound_ms:.4f} plan {plans[label]}: "
+                  + ", ".join(f"{p} {t:.4f}" for p, t in ms[label].items()), flush=True)
+            if out_path:
+                with open(out_path, "a") as f:
+                    f.write(json.dumps({"batch": b, "label": label, "valid": nnz,
+                                        "bound_ms": bound_ms, "plan": plans[label],
+                                        "ms": ms[label]}) + "\n")
 
 
 def _order(roots, rounds: int):
@@ -333,10 +546,17 @@ def main(argv=None) -> None:
     ap.add_argument("--rounds", type=int, default=2, help="A B B A rounds")
     ap.add_argument("--steps", type=int, default=20, help="timed steps a run")
     ap.add_argument("--out", help="also append each run's record to this file")
+    ap.add_argument("--batch", type=int, default=0,
+                    help="scenes a batch (default: ROOT's chip_smoke.BATCH)")
+    ap.add_argument("--plans", type=int, nargs="+", metavar="B",
+                    help="instead of an A/B, sweep this checkout's tile plans at batches B")
     ap.add_argument("--child", action="store_true", help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     if args.child:
-        print(PREFIX + json.dumps(child(args.steps)), flush=True)
+        print(PREFIX + json.dumps(child(args.steps, args.batch)), flush=True)
+        return
+    if args.plans:
+        plan_sweep(args.plans, args.out)
         return
     if not args.roots:
         ap.error("give at least one ROOT")
@@ -347,7 +567,8 @@ def main(argv=None) -> None:
     runs = []
     for i, root in enumerate(_order([os.path.abspath(r) for r in args.roots], args.rounds)):
         proc = subprocess.run(
-            [sys.executable, os.path.abspath(__file__), "--child", "--steps", str(args.steps)],
+            [sys.executable, os.path.abspath(__file__), "--child", "--steps", str(args.steps),
+             "--batch", str(args.batch)],
             cwd=root, capture_output=True, text=True, timeout=900)
         lines = [ln for ln in proc.stdout.splitlines() if ln.startswith(PREFIX)]
         if proc.returncode or not lines:
@@ -398,12 +619,17 @@ def main(argv=None) -> None:
             mm(lambda r: med(r["graph"]["eval_wall_ms"]) if r["graph"] else None),
             mm(lambda r: r["lang"]["ms"]), mm(lambda r: r["lang"]["device_ms"]),
             mm(lambda r: r["lang"]["gru_device_ms"]))))
-    print("kernel ms, bf16, median of each root's runs: " + ", ".join(
-        os.path.basename(root) for root in roots))
+    print("kernel ms a launch, bf16, median of each root's runs: " + ", ".join(
+        os.path.basename(root) for root in roots) + "; valid map entries; bound ms (H100 "
+        "peaks); each root's plan where it has one")
     for label, *_ in SHAPES:
+        nnz, bound_ms = runs[0]["kernels_bound"][label]
+        plans = [next((r["kernels_plan"].get(label) for r in runs if r["root"] == root), None)
+                 for root in roots]
         print(f"  {label}: " + ", ".join(
             f"{med(r['kernels_ms'][label] for r in runs if r['root'] == root):.4f}"
-            for root in roots))
+            for root in roots) + f"; valid {nnz}; bound {bound_ms:.4f}"
+            + "".join(f"; plan {p}" for p in plans if p))
 
 
 if __name__ == "__main__":

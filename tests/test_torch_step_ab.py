@@ -4,6 +4,8 @@ import os
 import subprocess
 import sys
 
+import pytest
+
 from instancerefer_tpu_torch.scripts import step_ab
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -25,9 +27,10 @@ def test_a_run_needs_a_card():
 
 def test_kernel_shapes_cover_the_stem_widths(monkeypatch):
     """The stems at Cin 7, 10 and 135 (K1 and K3 each, both encoders), fed
-    the rows their main path gives them, and K3 at every down conv.  On the
-    CPU with the card's routes and the C entries faked: which entry each
-    shape launches."""
+    the rows their main path gives them, K3 at every down conv, and K1 at
+    every tensor-core shape (down, residual, the down's dX over ``up8``)
+    and K2 at every residual.  On the CPU with the card's routes and the C
+    entries faked: which entry each shape launches."""
     import numpy as np
     import torch
 
@@ -52,7 +55,8 @@ def test_kernel_shapes_cover_the_stem_widths(monkeypatch):
         monkeypatch.setattr(module, "_entry", entry)
         monkeypatch.setattr(module, "cuda_stream", lambda t: 0)
         monkeypatch.setattr(module, "route", lambda dtype, cin, device: route(dtype, cin, "cuda"))
-    monkeypatch.setattr(conv_bwd, "sm_count", lambda device: 132)
+    for module in (G, conv_bwd):
+        monkeypatch.setattr(module, "sm_count", lambda device: 132)
     batch = make_batch(2, TEST_SPEC, seed=0, mean_size_arr=np.asarray(cs.MEAN_SIZE))
 
     def median_ms(fn):
@@ -62,4 +66,57 @@ def test_kernel_shapes_cover_the_stem_widths(monkeypatch):
     out = step_ab._time_kernels(batch, torch.device("cpu"), median_ms)
     assert list(out) == labels
     stems = ["ir_gather_conv_stem_wide", "ir_conv_dw_stem_wide"] * len(step_ab.STEM_CINS)
-    assert calls == (stems + ["ir_conv_dw_tc"] * 4) * 2
+    tensor_core = ["ir_gather_conv_tc"] * 3 + ["ir_subm_conv_bwd_tc"]
+    assert calls == (stems + ["ir_conv_dw_tc"] * 4) * 2 + tensor_core * 8
+
+
+def test_plan_sweep_forces_each_plan_and_restores(monkeypatch):
+    """``--plans``' forcing: inside ``forced_plans`` every K1 tensor-core and
+    K2 launch of ``tc_labels`` hands the forced tile plan (and K2 the scaled
+    dW splits) to the C entries; after it the plan functions are the
+    package's again.  On the CPU with the card's routes and the C entries
+    faked; ``--plans`` itself needs a card."""
+    import numpy as np
+    import torch
+
+    import chip_smoke as cs
+    from instancerefer_tpu_torch.data.synthetic import TEST_SPEC, make_batch
+    from instancerefer_tpu_torch.ops import conv_bwd
+    from instancerefer_tpu_torch.ops import gather_conv as G
+
+    calls = []
+
+    def entry(*key):
+        name = next(k for k in key if str(k).startswith("ir_"))
+        return lambda *args: calls.append((name, list(args[-5:-1]))) or 0
+
+    route = G.route
+    for module in (G, conv_bwd):
+        monkeypatch.setattr(module, "_entry", entry)
+        monkeypatch.setattr(module, "cuda_stream", lambda t: 0)
+        monkeypatch.setattr(module, "route", lambda dtype, cin, device: route(dtype, cin, "cuda"))
+        monkeypatch.setattr(module, "sm_count", lambda device: 132)
+    batch = make_batch(2, TEST_SPEC, seed=0, mean_size_arr=np.asarray(cs.MEAN_SIZE))
+    labels = step_ab.tc_labels(G.TC_WIDTHS)
+    assert len(labels) == 32 and all(lab.split()[0] in ("K1", "K2") for lab in labels)
+    plans = (G.tc_plan, conv_bwd.tc_plan, conv_bwd.dw_plan)
+    dw = [conv_bwd.dw_plan(2 * 8, 27, 64, 64, 132).splits]
+
+    def timer(fn):
+        fn()
+        return 0.0
+
+    with step_ab.forced_plans(tile=(64, 4), dw_scale=3):
+        out = step_ab._time_kernels(batch, torch.device("cpu"), timer, labels)
+        dw.append(conv_bwd.dw_plan(2 * 8, 27, 64, 64, 132).splits)
+    assert list(out) == labels
+    assert (G.tc_plan, conv_bwd.tc_plan, conv_bwd.dw_plan) == plans
+    assert dw[1] == min(3 * dw[0], conv_bwd.DW_PARTIAL_BYTES // (4 * 27 * 64 * 64))
+    # (relu, tile rows, cluster, out type) of K1; (splits, tile rows,
+    # cluster, G) of K2
+    assert {tuple(a[1:3]) for n, a in calls if n == "ir_gather_conv_tc"} == {(64, 4)}
+    assert {tuple(a[1:3]) for n, a in calls if n == "ir_subm_conv_bwd_tc"} == {(64, 4)}
+    assert len(calls) == 32
+    with pytest.raises(SystemExit, match="no CUDA device"):
+        monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+        step_ab.plan_sweep([2])
