@@ -78,8 +78,9 @@ without the final ``ok`` line:
    the train CLI's scenes/s per iteration (fetch + step) in the steady
    state (every iteration but an epoch's first) and over its whole run
    (validation and checkpoints included), the eval CLI's scenes/s end to
-   end, and the iter reports' means: fetch (split into the wait on the
-   loader and ``batch_to_torch``), forward, backward, eval.
+   end, and the iter reports' means: fetch (split into the wait for a
+   staged batch and ``finish``; beside them the prefetcher thread's
+   staging), forward, backward, eval.
 
 9. The multiview input path, with its own wall time (``[phase 9]``):
    - K1 (f32 and bf16, with and without the epilogue) and K3 at both stems
@@ -193,6 +194,20 @@ without the final ``ok`` line:
       the floor's largest, the running statistics to phase 6's limits and
       the parameters after every step (``[drift]``).
 
+14. The feed's prefetcher (``data/prefetch.DevicePrefetcher``: batches
+    staged on a thread into page-locked buffers, copied on a side stream,
+    ``finish``ed on the card), with its own wall time (``[phase 14]``):
+    - 14a: an epoch of 6 augmented batches of 8 from a fake root through
+      ``Solver._feed`` on its step graphs, f32, deterministic algorithms:
+      every batch finished into the graph's inputs equals
+      ``batch_to_torch``'s in every bit (``torch.equal``) before its step;
+      the fed split (``[prefetch]``).
+    - 14b: the same epoch fed synchronously through ``batch_to_torch(out=)``
+      from the same weights: the same losses, exactly.
+    - 14c: 16 two-scene batches from a list with a sleep on the card before
+      each eval replay: each batch's finished checksum on the card equals
+      the host's, so no staging set was rewritten before it was read.
+
 Then one line ``{"kernels": [...]}`` (launch counts of phase 7, whose
 profiled replay showed the profiler's launches equal to the counters'; ms,
 plain_ms, bound_ms and im2col_ms of K1 from phase 2, of K2 and K3 from
@@ -207,6 +222,7 @@ seeds); scenes are synthetic.
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import copy
 import io
@@ -1025,8 +1041,8 @@ def phase_cli():
         text = open(os.path.join(run, "log.txt")).read()
         reports = {k: np.array([float(v) for v in
                                 re.findall(rf"\[info\] mean_{k}_time: (\S+)s", text)])
-                   for k in ("fetch", "fetch_load", "fetch_copy", "forward", "backward", "eval",
-                             "iter")}
+                   for k in ("fetch", "fetch_load", "fetch_copy", "fetch_stage", "forward",
+                             "backward", "eval", "iter")}
         if any(len(v) != 2 * per_epoch for v in reports.values()):
             raise AssertionError("the train log holds no iter report for every iteration")
         # an epoch's first fetch waits for the loader to start and for two batches
@@ -2170,6 +2186,7 @@ def graphs_keys(spec, dev, batches, control):
     launches a step.  12c: dropout on (the model's own rates) at lr 0, two
     replays of one batch draw different masks, so their losses differ
     (``control``: the same with dropout 0)."""
+    from instancerefer_tpu_torch.data.host import stage_to
     from instancerefer_tpu_torch.ops.precision import set_compute_dtype
     from instancerefer_tpu_torch.train.solver import Solver
 
@@ -2185,17 +2202,21 @@ def graphs_keys(spec, dev, batches, control):
         graphs = solver.graphs
         if graphs is None:
             raise AssertionError("the solver on one card does not step through graphs")
+
+        def load(batch):
+            return graphs.load(stage_to(batch, spec, dev), spec, "train")
+
         before = _launch_counts()
         losses = []
         for batch in host + host[:1]:
-            losses.append(float(graphs.train_step(graphs.load(batch, spec, "train"))[0]["loss"]))
+            losses.append(float(graphs.train_step(load(batch))[0]["loss"]))
         keys = sorted(graphs.graphs)
         with contextlib.redirect_stdout(io.StringIO()):
             solver.load_checkpoint(solver.save_checkpoint("checkpoint", with_opt=True),
                                    with_opt=True)
         dropped = len(graphs.graphs)
         for batch in host[:2] * 2:
-            losses.append(float(graphs.train_step(graphs.load(batch, spec, "train"))[0]["loss"]))
+            losses.append(float(graphs.train_step(load(batch))[0]["loss"]))
         n_steps = len(host) + 1 + 4
         got = _steps_launches(before, _launch_counts(), n_steps, TRAIN_LAUNCHES, "12b")
         if keys != [("train", g, "torch.bfloat16") for g in sorted(grids)] or dropped \
@@ -2208,7 +2229,7 @@ def graphs_keys(spec, dev, batches, control):
             + "; losses " + ", ".join(f"{x:.4f}" for x in losses))
 
         solver.optimizer.param_groups[0]["lr"].fill_(0.0)
-        static = graphs.load(host[0], spec, "train")
+        static = load(host[0])
         drawn = [float(graphs.train_step(static)[0]["loss"]) for _ in range(2)]
         log(f"[graph] 12c two replays of one batch at lr 0: dropout on, losses {drawn[0]:.6f} "
             f"and {drawn[1]:.6f}; dropout 0 (12a, f32), {control[0]:.6f} and {control[1]:.6f}")
@@ -2570,6 +2591,181 @@ def phase_drift(spec, dev):
         torch.backends.cudnn.deterministic = False
 
 
+# ---------------------------------------------------------------- phase 14
+FEED_BATCH, FEED_BATCHES = 8, 6  # 14a-b: an epoch of 6 batches of 8 from a fake root
+STRESS_BATCHES = 16  # 14c: 2-scene batches, a list the producer runs through at once
+STRESS_SLEEP_CYCLES = 50_000_000  # 14c: ~25 ms of the card's clock before each replay
+
+
+class _Kept:
+    """A loader that keeps each batch it yields (on the prefetcher's
+    thread) for the consumer to hold its finished tensors against."""
+
+    def __init__(self, loader):
+        self.loader, self.kept = loader, collections.deque()
+
+    def __len__(self):
+        return len(self.loader)
+
+    def __iter__(self):
+        for batch in self.loader:
+            self.kept.append(batch)
+            yield batch
+
+
+def _differing(got: dict, want: dict):
+    """The names of the tensors of two data dicts that differ in dtype,
+    shape or any bit (``torch.equal``)."""
+    from instancerefer_tpu_torch.data.host import _named_tensors
+
+    got, want = dict(_named_tensors(got)), dict(_named_tensors(want))
+    if got.keys() != want.keys():
+        return sorted(got.keys() ^ want.keys())
+    return [n for n, w in want.items()
+            if got[n].dtype != w.dtype or got[n].shape != w.shape or not torch.equal(got[n], w)]
+
+
+def _checksums(dd: dict) -> torch.Tensor:
+    """Each tensor's bytes summed as int64, on its device: exact, so the
+    card's and the host's agree bit for bit."""
+    from instancerefer_tpu_torch.data.host import _named_tensors
+
+    return torch.stack([t.reshape(-1).view(torch.uint8).long().sum()
+                        for _, t in _named_tensors(dd)])
+
+
+def phase_prefetch(spec, dev):
+    """14a: an epoch of a fake ScanRefer root (augmented train split, the
+    CLIs' 4 build threads) through ``Solver._feed`` on its step graphs,
+    f32, TF32 off, dropout 0, under ``torch.use_deterministic_algorithms``:
+    every batch the prefetcher staged and the solver ``finish``ed into the
+    graph's inputs equals ``batch_to_torch(batch, spec, card)`` in every bit
+    (``torch.equal``), before the step reads it; the fed split.  14b: the
+    same epoch from the same weights fed synchronously (``batch_to_torch``
+    of each batch into the graph's inputs, ``out=``) writes the same
+    losses, exactly.  14c: 2-scene batches from a list, which the producer
+    runs through as fast as the fences let it, and a slow consumer (a
+    ``torch.cuda._sleep`` before each eval replay, no host sync): the
+    checksum of each batch's finished tensors taken on the card, read at
+    the end, equals the host's of ``batch_to_torch``: no staging set was
+    rewritten before its ``finish`` read it."""
+    import warnings
+
+    import torch.utils.deterministic
+
+    from instancerefer_tpu_torch.data import dataset as D
+    from instancerefer_tpu_torch.data.host import batch_to_torch
+    from instancerefer_tpu_torch.data.prefetch import DevicePrefetcher
+    from instancerefer_tpu_torch.data.synthetic import make_batch
+    from instancerefer_tpu_torch.ops.precision import set_compute_dtype
+    from instancerefer_tpu_torch.train.solver import Solver, make_optimizer
+    from instancerefer_tpu_torch.train.step_graph import StepGraphs
+
+    root = tempfile.mkdtemp(prefix="prefetch_smoke_")
+    ms = torch.tensor(MEAN_SIZE, dtype=torch.float32, device=dev)
+
+    def loader():
+        ds = D.ScannetReferenceDataset(D.get_scanrefer(root, "train"), "train", data_root=root,
+                                       num_points=SCENE_KW["num_points"])
+        return D.PaddedLoader(ds, spec, FEED_BATCH, shuffle=True, seed=0, num_workers=4)
+
+    set_compute_dtype(None)
+    torch.backends.cudnn.deterministic = True
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    fill = torch.utils.deterministic.fill_uninitialized_memory
+    torch.utils.deterministic.fill_uninitialized_memory = False
+    try:
+        write_fake_scanrefer(root, np.random.default_rng(4), {"train": FEED_BATCHES}, FEED_BATCH,
+                             scenes={"train": range(2)})
+        kept = _Kept(loader())
+        checked = []
+
+        class Checked(Solver):
+            def _load(self, staged, phase):
+                dd = super()._load(staged, phase)
+                bad = _differing(dd, batch_to_torch(kept.kept.popleft(), spec, dev))
+                if bad:
+                    raise AssertionError(f"14a: batch {len(checked)}: the prefetched batch "
+                                         f"differs from batch_to_torch's in {bad[:6]}")
+                checked.append(len(bad))
+                return dd
+
+        with warnings.catch_warnings(), contextlib.redirect_stdout(io.StringIO()):
+            warnings.simplefilter("ignore")
+            solver = Checked(_graph_model(spec, dev, 14, dropout_override=0.0), MEAN_SIZE, spec,
+                             dev, lr=LR, wd=WD, output_dir=os.path.join(root, "out"))
+            solver.epoch, solver.verbose = 1, 1 << 30  # one epoch, no iter report
+            solver._feed(kept, "train", 0)
+        fed = solver.log["train"]
+        if len(checked) != FEED_BATCHES or solver.graphs is None or solver.graphs.captures != 1:
+            raise AssertionError(f"14a: {len(checked)} batches checked, graphs "
+                                 f"{solver.graphs and solver.graphs.captures} captures")
+        step_ms = [(i - f) * 1e3 for i, f in zip(fed["iter_time"], fed["fetch"])]
+        log(f"[prefetch] 14a f32 B={FEED_BATCH}, an epoch of {FEED_BATCHES} augmented batches "
+            f"(4 build threads) through Solver._feed on its graphs: every batch staged, copied "
+            f"and finished into the graph's inputs equals batch_to_torch's in every bit")
+        log("[prefetch] fed split a batch after the first (the capture), ms: " + ", ".join(
+            f"{k} {statistics.median(fed[k][1:]) * 1e3:.2f}" for k in
+            ("fetch", "fetch_load", "fetch_copy", "fetch_stage"))
+            + f", step {statistics.median(step_ms[1:]):.2f}; the first iteration: fetch "
+            f"{fed['fetch'][0] * 1e3:.1f}, step {step_ms[0]:.1f}")
+
+        model = _graph_model(spec, dev, 14, dropout_override=0.0)
+        graphs = StepGraphs(model, make_optimizer(model.parameters(), LR, WD), ms)
+        losses = []
+        for batch in loader():
+            step = graphs.graphs.get(graphs.key("train", batch["lang_feat"].shape[1]))
+            dd = batch_to_torch(batch, spec, dev, out=step.inputs if step else None)
+            losses.append(float(graphs.train_step(dd)[0]["loss"]))
+        if losses != fed["loss"]:
+            raise AssertionError(f"14b: the prefetched epoch's losses {fed['loss']}, the "
+                                 f"synchronous feed's {losses}")
+        log(f"[prefetch] 14b the same epoch fed synchronously (batch_to_torch into the graph's "
+            f"inputs), deterministic algorithms: the same {len(losses)} losses, exactly ("
+            + ", ".join(f"{x:.6f}" for x in losses) + ")")
+    finally:
+        torch.utils.deterministic.fill_uninitialized_memory = fill
+        torch.use_deterministic_algorithms(False)
+        torch.backends.cudnn.deterministic = False
+        shutil.rmtree(root, ignore_errors=True)
+
+    set_compute_dtype("bfloat16")
+    try:
+        host = [make_batch(2, spec, seed=100 + i, mean_size_arr=MEAN_SIZE, **SCENE_KW)
+                for i in range(STRESS_BATCHES)]
+        graphs = StepGraphs(_graph_model(spec, dev, 15), None, ms)
+        sums, finish_s = [], []
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        with DevicePrefetcher(host, spec, dev) as fed:
+            for ready in fed:
+                t0 = time.perf_counter()
+                with ready as staged:
+                    dd = graphs.load(staged, spec, "eval")
+                finish_s.append(time.perf_counter() - t0)
+                sums.append(_checksums(dd))  # on the consumer's stream, after finish
+                torch.cuda._sleep(STRESS_SLEEP_CYCLES)
+                graphs.eval_step(dd)
+            queued = time.perf_counter() - start
+        torch.cuda.synchronize()
+        ran = time.perf_counter() - start
+        got = torch.stack(sums).cpu()
+        want = torch.stack([_checksums(batch_to_torch(b, spec, "cpu")) for b in host])
+        bad = [i for i in range(STRESS_BATCHES) if not torch.equal(got[i], want[i])]
+        log(f"[prefetch] 14c bf16 B=2, {STRESS_BATCHES} batches from a list, a "
+            f"{STRESS_SLEEP_CYCLES:.0e}-cycle sleep before each eval replay: the host queued "
+            f"them in {queued:.3f} s, the card ran them in {ran:.3f} s; the consumer's finish "
+            f"into the graph's inputs {statistics.median(finish_s[1:]) * 1e3:.2f} ms a batch "
+            f"(median; the same tensors as at B = 64, no loader threads); the checksums of "
+            f"{STRESS_BATCHES - len(bad)} of {STRESS_BATCHES} batches finished on the card equal "
+            f"the host's")
+        if bad or len(sums) != STRESS_BATCHES:
+            raise AssertionError(f"14c: {len(sums)} batches, checksums differ at {bad}: a "
+                                 f"staging set was rewritten before its finish read it")
+    finally:
+        set_compute_dtype(None)
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device; this script runs only on a GPU")
@@ -2649,6 +2845,10 @@ def main() -> None:
     phase_drift(spec, dev)
     log(f"[phase 13] the bench at B={BATCH} (eval and train) and graph against eager over one "
         f"batch stepped {DRIFT_STEPS} times: {time.perf_counter() - t13:.1f} s wall")
+    t14 = time.perf_counter()
+    phase_prefetch(spec, dev)
+    log(f"[phase 14] the prefetcher against batch_to_torch, a synchronous feed and a slow "
+        f"consumer: {time.perf_counter() - t14:.1f} s wall")
 
     k1.worst = max(k1.worst, bwd["gather_conv"].worst)
     entries = (

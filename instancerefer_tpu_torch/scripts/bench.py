@@ -38,10 +38,12 @@ Phases, in order:
    temporary directory, ``data/dataset.PaddedLoader`` at the bench's caps
    as the CLIs set it (train: augmentation on, shuffled; eval: the val
    split, the scene-block cache), fed through ``train/solver.Solver._feed``
-   (its prefetch and its graph step): scenes/s over ``--fed-iters``
+   (its prefetcher and its graph step): scenes/s over ``--fed-iters``
    iterations after the one that captures, the medians of ``fetch_load``,
-   ``fetch_copy`` and the step a iteration, and the fed batches' largest
-   capacity overflow.
+   ``fetch_copy``, ``fetch_stage`` and the step a iteration, and the fed
+   batches' largest capacity overflow; then the same loader alone for the
+   same iterations (``loader_only_scenes_s``: the feed's ceiling with the
+   CLIs' build threads) and the host's ``os.cpu_count()``.
 5. The host alone: ``pad_sample``'s phase split and ``collate``'s ms
    (``scripts/bench_host_pipeline``), and the batch build's scenes/s with
    the CLIs' worker count (``e2e_scenes_s_1core_host``, ``bench.py``'s
@@ -231,11 +233,12 @@ class Steps:
         self.graphs, self.path = choose(model, optimizer, mean_size)
 
     def load(self, batch: Dict[str, np.ndarray]) -> dict:
-        from instancerefer_tpu_torch.data.host import batch_to_torch
+        from instancerefer_tpu_torch.data.host import finish, stage_to
 
+        staged = stage_to(batch, self.spec, self.mean_size.device)
         if self.graphs is not None:
-            return self.graphs.load(batch, self.spec, self.mode)
-        return batch_to_torch(batch, self.spec, self.mean_size.device)
+            return self.graphs.load(staged, self.spec, self.mode)
+        return finish(staged, self.spec)
 
     def __call__(self, dd: dict):
         """(metrics, outputs) of one step on ``dd``."""
@@ -461,9 +464,12 @@ def fed_rate(mode: str, model, cfg, spec, batch_size: int, seed: int, iters: int
     """The solver's feed of ``1 + iters`` batches: a ScanRefer-layout root
     in a temporary directory, the split's ``PaddedLoader`` at ``spec``'s
     caps as the CLIs set it, ``Solver._feed``.  Per iteration
-    (``Solver.log``): the wait on the loader, the copy into the graph's
-    inputs, the step; scenes/s over the iterations after the first (the
-    capture); the fed batches' largest capacity overflow."""
+    (``Solver.log``): the wait for a staged batch, the ``finish`` into the
+    graph's inputs, the producer thread's staging, the step; scenes/s over
+    the iterations after the first (the capture); the fed batches' largest
+    capacity overflow.  Then the same loader alone, no copy and no step
+    (``loader_only_scenes_s``, over the same iterations), and the host's
+    ``os.cpu_count()``."""
     from instancerefer_tpu_torch.data.dataset import (
         PaddedLoader,
         ScannetReferenceDataset,
@@ -486,22 +492,35 @@ def fed_rate(mode: str, model, cfg, spec, batch_size: int, seed: int, iters: int
         cfg = copy.copy(cfg)
         cfg.data_root = root
         dc = ScannetDatasetConfig(meta_dir=cfg.path_scannet_meta)
-        with contextlib.redirect_stdout(sys.stderr):
+
+        def make_loader():
+            """The split's loader as the CLIs make it, on a dataset of its
+            own (the eval split's scene-block cache starts empty)."""
             dataset = ScannetReferenceDataset(
                 get_scanrefer(root, split), split, data_root=root, num_points=cfg.num_points,
                 use_color=cfg.use_color, use_height=cfg.use_height, use_normal=cfg.use_normal,
                 use_multiview=cfg.use_multiview,
                 use_augment=cfg.use_augment if split == "train" else False, seed=cfg.seed, dc=dc)
-            watched = _Watched(PaddedLoader(
+            return PaddedLoader(
                 dataset, spec, batch_size, shuffle=split == "train", seed=cfg.manual_seed,
                 num_workers=cfg.num_workers, drop_last=False, voxel_size_ap=cfg.voxel_size_ap,
-                voxel_size_glp=cfg.voxel_size_glp))
+                voxel_size_glp=cfg.voxel_size_glp)
+
+        with contextlib.redirect_stdout(sys.stderr):
+            watched = _Watched(make_loader())
             solver = Solver(model, MEAN_SIZE, spec, dev, lr=cfg.lr, wd=cfg.wd,
                             output_dir=os.path.join(root, "outputs"))
             solver.epoch, solver.verbose = 1, 1 << 30  # one epoch, no iter report
             before = launch_counts()
             solver._feed(watched, split, 0)
-        launches = counter_deltas(before, launch_counts())
+            launches = counter_deltas(before, launch_counts())
+            # the same batches from the loader alone: the feed's ceiling
+            # with these build threads
+            loader_s = []
+            start = time.perf_counter()
+            for _ in make_loader():
+                loader_s.append(time.perf_counter() - start)
+                start = time.perf_counter()
         log_ = solver.log[split]
         iter_s = log_["iter_time"][1:]
         step_s = [it - f for it, f in zip(iter_s, log_["fetch"][1:])]
@@ -511,7 +530,11 @@ def fed_rate(mode: str, model, cfg, spec, batch_size: int, seed: int, iters: int
             "scenes_s": batch_size * len(iter_s) / sum(iter_s) if iter_s else None,
             "fetch_load_ms": float(np.median(log_["fetch_load"][1:])) * 1e3,
             "fetch_copy_ms": float(np.median(log_["fetch_copy"][1:])) * 1e3,
+            "fetch_stage_ms": float(np.median(log_["fetch_stage"][1:])) * 1e3,
             "step_ms": float(np.median(step_s)) * 1e3,
+            "loader_only_scenes_s": (batch_size * len(loader_s[1:]) / sum(loader_s[1:])
+                                     if loader_s[1:] else None),
+            "cpu_count": os.cpu_count(),
             "root_written_s": written,
             "overflow_max": watched.overflow, "batches_seen": watched.batches,
             "launches": launches, "all_finite": bool(np.isfinite(log_["loss"]).all()),
@@ -697,10 +720,13 @@ def run(args) -> dict:
     log(f"fed {fed['split']}: " + (
         f"{fed['scenes_s']:.2f} scenes/s over {fed['iterations']} iterations; per iteration "
         f"fetch_load {fed['fetch_load_ms']:.1f} ms, fetch_copy {fed['fetch_copy_ms']:.1f} ms, "
-        f"step {fed['step_ms']:.1f} ms; {fed['workers']} workers, nproc {os.cpu_count()}; "
+        f"fetch_stage {fed['fetch_stage_ms']:.1f} ms, step {fed['step_ms']:.1f} ms; the loader "
+        f"alone {fed['loader_only_scenes_s']:.2f} scenes/s; {fed['workers']} workers, "
+        f"nproc {fed['cpu_count']}; "
         if card else f"{fed['iterations']} iterations; ")
         + f"overflow {fed['overflow_max']:.4f}")
-    for k in ("scenes_s", "fetch_load_ms", "fetch_copy_ms", "step_ms", "root_written_s"):
+    for k in ("scenes_s", "fetch_load_ms", "fetch_copy_ms", "fetch_stage_ms", "step_ms",
+              "loader_only_scenes_s", "root_written_s"):
         fed[k] = timed(fed[k])
 
     # 5. the host alone

@@ -90,7 +90,7 @@ def score(cfg: Config, root: str, device: torch.device) -> dict:
         get_scanrefer,
     )
     from instancerefer_tpu_torch.data.scannet_config import ScannetDatasetConfig
-    from instancerefer_tpu_torch.data.host import batch_to_torch
+    from instancerefer_tpu_torch.data.host import finish, stage_to
     from instancerefer_tpu_torch.models.instancerefer import build_model
     from instancerefer_tpu_torch.ops.precision import set_compute_dtype
     from instancerefer_tpu_torch.scripts.train import lang_predictor
@@ -139,10 +139,11 @@ def score(cfg: Config, root: str, device: torch.device) -> dict:
             ov = batch.get(f"{key}_overflow")
             if ov is not None:
                 overflow_max[key] = max(overflow_max[key], float(np.asarray(ov)[valid].max()))
+        staged = stage_to(batch, spec, device)  # synchronous, as the JAX eval CLI's loop
         if graphs is not None:
-            _, out = graphs.eval_step(graphs.load(batch, spec, "eval"))
+            _, out = graphs.eval_step(graphs.load(staged, spec, "eval"))
         else:
-            out = eval_body(model, batch_to_torch(batch, spec, device), mean_size)[1]
+            out = eval_body(model, finish(staged, spec), mean_size)[1]
         res = {"ref_iou": out["ref_iou"], "ref_acc": out["ref_acc"],
                "multiple": out["ref_multiple_mask"], "others": out["ref_others_mask"],
                "lang_correct": out["lang_correct"], "pred_bboxes": out["pred_bboxes"],

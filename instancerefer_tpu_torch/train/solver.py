@@ -12,9 +12,10 @@ the reference's reports and checkpoints.
 * ``bn_momentum_for_epoch``: the reference's BNMomentumScheduler.
 * ``train_step``: train-mode forward -> ``get_loss`` -> backward -> Adam ->
   ``get_eval``, eagerly (``step_graph.train_body``).
-* ``Solver``: the epoch loop (resumable from its epoch counter), a prefetch
-  of depth 2 with the host-side capacity-overflow log, the iter / epoch /
-  best report templates of the reference (``lib/solver.py:23-60``),
+* ``Solver``: the epoch loop (resumable from its epoch counter), the feed
+  through ``data/prefetch.DevicePrefetcher`` (depth 2, as the JAX solver's
+  ``_device_prefetch``) with the host-side capacity-overflow log, the iter /
+  epoch / best report templates of the reference (``lib/solver.py:23-60``),
   ``log.txt``, ``scalars.jsonl`` (whose train records also carry the lr),
   ``best.txt``, optional tensorboardX, best-model selection on val
   ``iou_rate_0.25``, and the reference's three checkpoint roles:
@@ -22,15 +23,19 @@ the reference's reports and checkpoints.
   ``checkpoint.tar`` = {epoch, model_state_dict, optimizer_state_dict, best}
   at the end and on Ctrl-C.  Every file holds the reference's layout
   (``utils/convert``).  Fetch time is the host clock; each iter report is
-  followed by its split into the wait on the loader and the time in
-  ``batch_to_torch``.
+  followed by its split: the wait for a staged batch (``fetch_load``), the
+  consumer's time in ``finish`` (``fetch_copy``), and the producer thread's
+  time staging a batch and issuing its copy (``fetch_stage``), which
+  overlaps the steps.
 
 How a step runs is chosen once, from the device and the world size
 (``step_graph.choose``), and logged: on a card at world size 1 the train and
 eval steps replay CUDA graphs (``step_graph.StepGraphs``, one per language
-grid, as the JAX package compiles one program per grid), and batches are
-written straight into the graphs' inputs at the step; on the CPU, and
-data-parallel, they run eagerly.
+grid, as the JAX package compiles one program per grid); on the CPU, and
+data-parallel, they run eagerly.  Either way a batch comes staged from the
+prefetcher's thread, its copy to the card made on a side stream while the
+steps before it run, and is ``finish``ed on the card at its step: straight
+into its graph's inputs, or into new tensors for an eager step.
 A graph's step is timed as a whole with CUDA events, and the iter report
 splits it as the JAX solver splits its fused step: forward 1/3, backward
 2/3, eval 0 (a val step's time is all forward).  An eager step is timed per
@@ -50,7 +55,6 @@ no collective runs.
 
 from __future__ import annotations
 
-import collections
 import json
 import os
 import time
@@ -60,7 +64,8 @@ from typing import Dict, Iterable, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from instancerefer_tpu_torch.data.host import batch_to_torch
+from instancerefer_tpu_torch.data.host import finish
+from instancerefer_tpu_torch.data.prefetch import DevicePrefetcher
 from instancerefer_tpu_torch.parallel.distributed import (
     all_reduce_max,
     all_reduce_sum,
@@ -99,7 +104,8 @@ ITER_REPORT_TEMPLATE = """
 
 # the fetch of the iter report in its two parts, logged after it
 FETCH_SPLIT_TEMPLATE = """[info] mean_fetch_load_time: {mean_load_time}s
-[info] mean_fetch_copy_time: {mean_copy_time}s"""
+[info] mean_fetch_copy_time: {mean_copy_time}s
+[info] mean_fetch_stage_time: {mean_stage_time}s"""
 
 EPOCH_REPORT_TEMPLATE = """
 ---------------------------------summary---------------------------------
@@ -122,8 +128,6 @@ BEST_REPORT_TEMPLATE = """
 [sco.] iou_rate_0.25: {iou_rate_25}, iou_rate_0.5: {iou_rate_5}
 """
 
-# batches on the device ahead of the step
-PREFETCH = 2
 # the top-level submodules a ``use_pretrained`` warm start copies
 PRETRAINED_MODULES = ("lang", "attribute", "relation", "scene")
 MOMENTS = ("exp_avg", "exp_avg_sq")
@@ -365,42 +369,6 @@ class Solver:
                 return
         self._finish(epoch_id)
 
-    def _prefetch(self, loader, overflow_log=None, to_device: bool = True):
-        """Batches on the device, ``PREFETCH`` ahead of the step, each with
-        the host seconds its fetch spent waiting on the loader (whose threads
-        build the batches) and in ``batch_to_torch``.  The depth is JAX's,
-        whose ``device_put`` is asynchronous.  Here the copies are
-        synchronous on this thread, so the depth overlaps nothing with the
-        step: it only moves the waits (an epoch's first fetch waits for two
-        batches).  ``to_device=False`` keeps the host batches (copy time 0):
-        a graph's batch is copied into its inputs at the step, as a batch
-        held ahead would overwrite the one before.  ``overflow_log``
-        ({"scene": [], "inst": []}) gathers each batch's capacity-overflow
-        fractions from the host arrays, before they are copied."""
-        queue = collections.deque()
-        it = iter(loader)
-        while True:
-            load = copy = 0.0
-            while len(queue) < PREFETCH:
-                start = time.perf_counter()
-                try:
-                    nxt = next(it)
-                except StopIteration:
-                    break
-                load += time.perf_counter() - start
-                if overflow_log is not None and isinstance(nxt.get("scene_overflow"), np.ndarray):
-                    overflow_log["scene"].append(float(nxt["scene_overflow"].mean()))
-                    overflow_log["inst"].append(float(nxt["inst_overflow"].mean()))
-                    co = nxt.get("cand_overflow")
-                    if isinstance(co, np.ndarray):
-                        overflow_log.setdefault("cand", []).append(float(co.mean()))
-                start = time.perf_counter()
-                queue.append(batch_to_torch(nxt, self.spec, self.device) if to_device else nxt)
-                copy += time.perf_counter() - start
-            if not queue:
-                return
-            yield queue.popleft(), load, copy
-
     def _report_overflow(self, phase, overflow_log):
         """Epoch-wide capacity-overflow fractions (every batch, not just the
         first): a capacity bust anywhere in the epoch is surfaced here.
@@ -445,68 +413,78 @@ class Solver:
             self.timer.mark()
         return metrics
 
-    def _graph_step(self, batch, phase, bn_momentum: float) -> Tuple[dict, float]:
-        """A host batch through the graph of its key: (metrics, the seconds
-        of the copy into the graph's inputs)."""
-        start = time.perf_counter()
-        dd = self.graphs.load(batch, self.spec, "train" if phase == "train" else "eval")
-        copy = time.perf_counter() - start
+    def _load(self, staged: dict, phase: str) -> dict:
+        """``finish`` of a staged batch: into its graph's inputs, or new
+        tensors for an eager step."""
+        if self.graphs is not None:
+            return self.graphs.load(staged, self.spec, "train" if phase == "train" else "eval")
+        return finish(staged, self.spec)
+
+    def _graph_step(self, dd: dict, phase, bn_momentum: float) -> dict:
+        """A loaded batch through the graph of its key: its metrics."""
         self.timer.mark()
         if phase == "train":
             metrics, _ = self.graphs.train_step(dd, bn_momentum)
         else:
             metrics, _ = self.graphs.eval_step(dd)
         self.timer.mark()
-        return metrics, copy
+        return metrics
 
     def _feed(self, loader, phase, epoch_id, bn_momentum: float = 0.1):
-        fetch_start = time.perf_counter()
         overflow_log = {"scene": [], "inst": []}
         graphs = self.graphs is not None
-        for dd, load, copy in self._prefetch(loader, overflow_log=overflow_log,
-                                             to_device=not graphs):
-            fetch = time.perf_counter() - fetch_start
-            start = time.perf_counter()
-            if graphs:
-                metrics, copy = self._graph_step(dd, phase, bn_momentum)
-                fetch += copy
-                start += copy
-            elif phase == "train":
-                metrics, _ = train_step(self.train_model, self.optimizer, dd, self.mean_size,
-                                        bn_momentum, self.timer)
-            else:
-                metrics = self._eval_step(dd)
-            metrics = metrics_to_host(metrics)
-            phases = self.timer.seconds()
-            step_time = time.perf_counter() - start
-            self.steps[phase] += 1
-            self.log[phase]["fetch"].append(fetch)
-            self.log[phase]["fetch_load"].append(load)
-            self.log[phase]["fetch_copy"].append(copy)
-            if graphs:  # one span for the step, split as the JAX solver splits its own
-                train = phase == "train"
-                phases = [phases[0] / 3, 2 * phases[0] / 3, 0.0] if train else [phases[0], 0.0]
-            self.log[phase]["forward"].append(phases[0])
-            self.log[phase]["backward"].append(phases[1] if phase == "train" else 0.0)
-            self.log[phase]["eval"].append(phases[-1])
-
-            for k in METRIC_KEYS:
-                self.log[phase][k].append(metrics[k])
-            for k in ("iou25_hits", "iou5_hits", "iou_count"):
-                self.log[phase][k] += metrics[k]
-            denom = max(self.log[phase]["iou_count"], 1.0)
-            self.log[phase]["iou_rate_0.25"] = self.log[phase]["iou25_hits"] / denom
-            self.log[phase]["iou_rate_0.5"] = self.log[phase]["iou5_hits"] / denom
-
-            self.log[phase]["iter_time"].append(self.log[phase]["fetch"][-1] + step_time)
-            if phase == "train":
-                if (self._global_iter_id + 1) % self.verbose == 0:
-                    self._train_report(epoch_id)
-                    self._dump_log("train")
-                    self.init_log()
-                self._global_iter_id += 1
+        # the producer is stopped and joined on leaving the block, also on a
+        # break, an exception in a step or Ctrl-C
+        with DevicePrefetcher(loader, self.spec, self.device,
+                              overflow_log=overflow_log) as batches:
             fetch_start = time.perf_counter()
+            for ready in batches:
+                start = time.perf_counter()
+                with ready as staged:
+                    dd = self._load(staged, phase)
+                copy = time.perf_counter() - start
+                fetch = time.perf_counter() - fetch_start
+                start = time.perf_counter()
+                if graphs:
+                    metrics = self._graph_step(dd, phase, bn_momentum)
+                elif phase == "train":
+                    metrics, _ = train_step(self.train_model, self.optimizer, dd, self.mean_size,
+                                            bn_momentum, self.timer)
+                else:
+                    metrics = self._eval_step(dd)
+                metrics = metrics_to_host(metrics)
+                phases = self.timer.seconds()
+                step_time = time.perf_counter() - start
+                self.steps[phase] += 1
+                self.log[phase]["fetch"].append(fetch)
+                self.log[phase]["fetch_load"].append(ready.load)
+                self.log[phase]["fetch_copy"].append(copy)
+                self.log[phase]["fetch_stage"].append(ready.stage)
+                if graphs:  # one span for the step, split as the JAX solver splits its own
+                    train = phase == "train"
+                    phases = [phases[0] / 3, 2 * phases[0] / 3, 0.0] if train else [phases[0], 0.0]
+                self.log[phase]["forward"].append(phases[0])
+                self.log[phase]["backward"].append(phases[1] if phase == "train" else 0.0)
+                self.log[phase]["eval"].append(phases[-1])
 
+                for k in METRIC_KEYS:
+                    self.log[phase][k].append(metrics[k])
+                for k in ("iou25_hits", "iou5_hits", "iou_count"):
+                    self.log[phase][k] += metrics[k]
+                denom = max(self.log[phase]["iou_count"], 1.0)
+                self.log[phase]["iou_rate_0.25"] = self.log[phase]["iou25_hits"] / denom
+                self.log[phase]["iou_rate_0.5"] = self.log[phase]["iou5_hits"] / denom
+
+                self.log[phase]["iter_time"].append(self.log[phase]["fetch"][-1] + step_time)
+                if phase == "train":
+                    if (self._global_iter_id + 1) % self.verbose == 0:
+                        self._train_report(epoch_id)
+                        self._dump_log("train")
+                        self.init_log()
+                    self._global_iter_id += 1
+                fetch_start = time.perf_counter()
+
+        # the producer appended to the log; it has been joined
         self._report_overflow(phase, overflow_log)
         if phase == "val":
             self._dump_log("val")
@@ -600,20 +578,22 @@ class Solver:
         inside the trace."""
         from torch.profiler import ProfilerActivity, profile
 
-        if self.graphs is not None:
-            def step(batch):
-                return self.graphs.train_step(self.graphs.load(batch, self.spec, "train"))[0]
-        else:
-            def step(dd):
-                return train_step(self.train_model, self.optimizer, dd, self.mean_size)[0]
-        it = (dd for dd, _, _ in self._prefetch(loader, to_device=self.graphs is None))
-        step(next(it))
+        def step(ready):
+            with ready as staged:
+                dd = self._load(staged, "train")
+            if self.graphs is not None:
+                return self.graphs.train_step(dd)[0]
+            return train_step(self.train_model, self.optimizer, dd, self.mean_size)[0]
+
         activities = [ProfilerActivity.CPU]
         if self.device.type == "cuda":
             activities.append(ProfilerActivity.CUDA)
-        with profile(activities=activities) as prof:
-            for _, dd in zip(range(num_steps), it):
-                metrics_to_host(step(dd))
+        with DevicePrefetcher(loader, self.spec, self.device) as batches:
+            it = iter(batches)
+            step(next(it))
+            with profile(activities=activities) as prof:
+                for _, ready in zip(range(num_steps), it):
+                    metrics_to_host(step(ready))
         path = os.path.join(out_dir, "trace.json")
         if self.main:
             os.makedirs(out_dir, exist_ok=True)
@@ -639,7 +619,7 @@ class Solver:
         self.log = {
             phase: {
                 "forward": [], "backward": [], "eval": [], "fetch": [], "fetch_load": [],
-                "fetch_copy": [], "iter_time": [],
+                "fetch_copy": [], "fetch_stage": [], "iter_time": [],
                 **{k: [] for k in METRIC_KEYS},
                 "iou25_hits": 0.0, "iou5_hits": 0.0, "iou_count": 0.0,
                 "iou_rate_0.25": 0.0, "iou_rate_0.5": 0.0,
@@ -714,6 +694,7 @@ class Solver:
         self._log(FETCH_SPLIT_TEMPLATE.format(
             mean_load_time=round(float(np.mean(log["fetch_load"])), 5),
             mean_copy_time=round(float(np.mean(log["fetch_copy"])), 5),
+            mean_stage_time=round(float(np.mean(log["fetch_stage"])), 5),
         ))
 
     def _epoch_report(self, epoch_id):

@@ -19,10 +19,11 @@ XLA program per step, compiled again for each language-grid bucket).
   eval CLI: graphs on a card at world size 1, eager on the CPU and
   data-parallel.
 
-A graph reads its inputs from static buffers: ``load`` writes a host batch
-straight into the buffers of its key's graph (``batch_to_torch(out=...)``);
-a data dict from elsewhere is copied into them (``data/host.copy_data``: the
-same names, shapes and types, or it raises).  The step's outputs are
+A graph reads its inputs from static buffers: ``load`` ``finish``es a
+staged batch (``data/host.stage``, on the card: ``data/prefetch``) straight
+into the buffers of its key's graph, widening as it copies; a data dict from
+elsewhere is copied into them (``data/host.copy_data``: the same names,
+shapes and types, or it raises).  The step's outputs are
 static too, so what a step returns is cloned: the metrics and ``OUT_KEYS``.
 What Python does when a step runs is captured once: the compute dtype and
 the model's settings are those of the capture (the dtype is part of the
@@ -45,10 +46,9 @@ from __future__ import annotations
 
 from typing import Callable, Dict, Optional, Tuple
 
-import numpy as np
 import torch
 
-from instancerefer_tpu_torch.data.host import batch_to_torch, clone_data, copy_data
+from instancerefer_tpu_torch.data.host import clone_data, copy_data, finish
 from instancerefer_tpu_torch.ops import conv_bwd
 from instancerefer_tpu_torch.ops.gather_conv import gather_conv
 from instancerefer_tpu_torch.ops.precision import get_compute_dtype
@@ -149,7 +149,10 @@ class CudaGraph:
         self.outputs = None
 
     def capture(self, fn: Callable[[], Step]) -> Step:
-        with torch.cuda.graph(self.graph, pool=self.pool):
+        # the feed's thread (``data/prefetch``) stages, allocates and copies
+        # on its own stream meanwhile; under the default "global" mode a
+        # capture on this thread would refuse its calls
+        with torch.cuda.graph(self.graph, pool=self.pool, capture_error_mode="thread_local"):
             self.outputs = fn()
         return self.outputs
 
@@ -193,14 +196,14 @@ class StepGraphs:
         batch's language grid T and the compute dtype."""
         return phase, int(lang_grid), str(get_compute_dtype() or torch.float32)
 
-    def load(self, batch: Dict[str, np.ndarray], spec, phase: str) -> dict:
-        """``batch_to_torch`` of a host batch: into the static inputs of its
-        key's graph if there is one (they are overwritten), else into new
-        tensors that the key's capture takes as its inputs."""
-        step = self.graphs.get(self.key(phase, np.shape(batch["lang_feat"])[1]))
+    def load(self, staged: Dict[str, torch.Tensor], spec, phase: str) -> dict:
+        """``finish`` of a staged batch on the card: into the static inputs
+        of its key's graph if there is one (they are overwritten), else into
+        new tensors that the key's capture takes as its inputs."""
+        step = self.graphs.get(self.key(phase, staged["lang_feat"].shape[1]))
         if step is not None:
-            return batch_to_torch(batch, spec, self.device, out=step.inputs)
-        self._fresh = batch_to_torch(batch, spec, self.device)
+            return finish(staged, spec, out=step.inputs)
+        self._fresh = finish(staged, spec)
         return self._fresh
 
     def train_step(self, dd: dict, bn_momentum: float = 0.1) -> Step:

@@ -223,7 +223,9 @@ def test_cpu_rehearsal_without_jax(mode):
     assert r["host_probe"] == {"before": None, "after": None}
     fed = r["fed"]
     assert fed["iterations"] == 2 and fed["split"] == ("train" if mode == "train" else "val")
-    assert all(fed[k] is None for k in ("scenes_s", "fetch_load_ms", "fetch_copy_ms", "step_ms"))
+    assert all(fed[k] is None for k in ("scenes_s", "fetch_load_ms", "fetch_copy_ms",
+                                        "fetch_stage_ms", "step_ms", "loader_only_scenes_s"))
+    assert fed["cpu_count"] == os.cpu_count()
     checks = r["checks"]
     assert checks["replay_vs_eager"]["ok"] and checks["finite"] and checks["overflow_max"] == 0
     assert checks["kernels_vs_twins_ok"] and checks["fed_overflow_gated"] == (mode == "eval")

@@ -37,7 +37,7 @@ import pytest
 import torch
 from torch.utils._python_dispatch import TorchDispatchMode, _disable_current_modes
 
-from instancerefer_tpu_torch.data.host import batch_to_torch
+from instancerefer_tpu_torch.data.host import batch_to_torch, stage, stage_to
 from instancerefer_tpu_torch.data.synthetic import TEST_SPEC, make_batch
 from instancerefer_tpu_torch.models.instancerefer import InstanceRefer
 from instancerefer_tpu_torch.ops import conv_bwd, gather_conv
@@ -164,7 +164,7 @@ def test_graph_keys_replays_and_a_load_that_drops_them(tmp_path):
     batches = {24: [_batch(0), _batch(1)], 16: [_batch(2, 16), _batch(3, 16)]}
     for grid in (24, 16):
         for i, batch in enumerate(batches[grid]):
-            dd = graphs.load(batch, TEST_SPEC, "train")
+            dd = graphs.load(stage(batch, TEST_SPEC), TEST_SPEC, "train")
             metrics, out = graphs.train_step(dd)
             assert torch.isfinite(metrics["loss"]) and out["ref_iou"].shape == (2,)
             step = graphs.graphs[("train", grid, "torch.float32")]
@@ -193,7 +193,7 @@ def test_graph_keys_replays_and_a_load_that_drops_them(tmp_path):
     path = solver.save_checkpoint("checkpoint", with_opt=True)
     solver.load_checkpoint(path, with_opt=True)
     assert graphs.graphs == {}
-    graphs.train_step(graphs.load(_batch(7), TEST_SPEC, "train"))
+    graphs.train_step(graphs.load(stage(_batch(7), TEST_SPEC), TEST_SPEC, "train"))
     assert list(graphs.graphs) == [("train", 24, "torch.float32")] and graphs.captures == 5
 
 
@@ -446,7 +446,8 @@ def test_a_new_language_grid_captures_its_own_graph_on_card():
     ms = torch.tensor(MEAN_SIZE, dtype=torch.float32, device=dev)
     graphs = G.StepGraphs(model, S.make_optimizer(model.parameters(), 1e-3, 1e-5), ms)
     for grid in (24, 16, 24, 16):
-        metrics, out = graphs.train_step(graphs.load(_batch(grid, grid), TEST_SPEC, "train"))
+        staged = stage_to(_batch(grid, grid), TEST_SPEC, dev)
+        metrics, out = graphs.train_step(graphs.load(staged, TEST_SPEC, "train"))
         assert torch.isfinite(metrics["loss"]) and bool(((out["ref_iou"] >= 0) &
                                                          (out["ref_iou"] <= 1)).all())
     assert graphs.captures == 2 and len(graphs.graphs) == 2
