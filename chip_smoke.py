@@ -45,7 +45,9 @@ without the final ``ok`` line:
 5. K2, K3 and K1's f32 output vs their plain twins on the maps of the
    32-scene batch: K3 at every shape a train step launches it at (both
    stems, K = 27, 7 -> 32, and the four down convs of both encoders, K = 8,
-   32 -> 64, 64 -> 128, 128 -> 128 twice), K2 at every residual of both
+   32 -> 64, 64 -> 128, 128 -> 128 twice; at the downs also the list pass
+   alone, ``conv_bwd.dw_lists``, equal to ``dw_lists_plain`` in every
+   entry, with its CUDA-event median and bound, ``[list]``), K2 at every residual of both
    encoders (stage 1 64 -> 64, stages 2-4 128 -> 128; each dX plan and
    its dW group and splits printed), K1 over the stage-1 ``up8``
    (64 -> 32, f32 out); f32 and bf16 inputs; two launches on the same
@@ -167,8 +169,9 @@ without the final ``ok`` line:
       of each kind under the profiler (the device's idle share).
     - 12e: every launch of a train step and an eval step, recorded at the
       capture by shape, against the profiler over 10 replays: each shape's
-      launches in each step, its tile plan (K1 and K2 on tensor cores), its
-      bound and the device's own ms a launch (``[shape]``).
+      launches in each step, its plan (on tensor cores: K1's and K2's
+      tiles, K3's list splits), its bound and the device's own ms a launch
+      (``[shape]``).
     - 12f: the train and eval step bodies run eagerly under
       ``torch.cuda.set_sync_debug_mode("error")``.
 
@@ -212,7 +215,8 @@ Then one line ``{"kernels": [...]}`` (launch counts of phase 7, whose
 profiled replay showed the profiler's launches equal to the counters'; ms,
 plain_ms, bound_ms and im2col_ms of K1 from phase 2, of K2 and K3 from
 phase 5, bf16 summed over the shapes (K2: its 8 residual shapes, one launch
-each); then K1 and K3 at the stems at
+each; K3's list pass, which runs inside K3's launches at the downs, on its
+own row); then K1 and K3 at the stems at
 Cin 135 and 10, with their stem-kernel launches in phase 9's train runs
 and the times of phase 9's first part; library_ms is null, since no single
 PyTorch call computes these functions), the ``nvidia-smi`` line and, last,
@@ -292,6 +296,7 @@ LOSS_RTOL, STATS_RTOL, GRAD_LAYER, GRAD_ALL, ADAM_MEAN = 1e-4, 1e-3, 5e-2, 2e-2,
 LR, WD = 1e-3, 1e-5  # config/InstanceRefer.yaml's Adam
 TRAIN_LAUNCHES = {"gather_conv": 34, "subm_conv_bwd": 16, "conv_dw": 10}  # per train step
 STEM_LAUNCHES = 2  # of K1's and of K3's per train step: the two stems, on the stem kernels
+LIST_LAUNCHES = 8  # of K3's list pass per train step: the downs
 # an H100 SXM's dense peaks at 700 W: bf16 on the tensor cores, f32 outside
 # them (TF32 is off), and device memory
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
@@ -329,15 +334,17 @@ def nbytes(*tensors) -> int:
 
 def plan_text(kernel: str, path: str, v_out: int, k: int, cin: int, cout: int,
               out_dtype, dev) -> str:
-    """The tile plan a K1 or K2 launch on the tensor-core route takes
-    (``gather_conv.tc_plan``; K2's dX and ``conv_bwd.dw_plan``), as text;
-    empty on the other routes and for K3."""
-    from instancerefer_tpu_torch.ops.conv_bwd import dw_plan
+    """The plan a K1, K2 or K3 launch on the tensor-core route takes
+    (``gather_conv.tc_plan``; K2's dX and ``conv_bwd.dw_plan``; K3's
+    ``conv_bwd.dw_list_splits``), as text; empty on the other routes."""
+    from instancerefer_tpu_torch.ops.conv_bwd import dw_list_splits, dw_plan
     from instancerefer_tpu_torch.ops.gather_conv import sm_count, tc_plan
 
-    if path != "tensor_core" or kernel == "K3" or v_out == 0:
+    if path != "tensor_core" or v_out == 0:
         return ""
     sms = sm_count(dev)
+    if kernel == "K3":
+        return f" plan per-offset lists, {dw_list_splits(v_out, k, cin, cout, sms)} splits a list"
     if kernel == "K2":
         p, d = tc_plan(v_out, k, cout, cin, torch.float32, sms), dw_plan(v_out, k, cin, cout, sms)
         return (f" plan dX {p.bm} rows x cluster {p.cluster} ({p.offsets_per_block} offsets a "
@@ -372,7 +379,7 @@ class Totals:
         return {"max_abs_err": self.worst, "ms": self.ms, "plain_ms": self.plain_ms,
                 "bound_ms": max(self.ops_ms, self.bytes_ms),
                 "bound_by": "operations" if self.ops_ms >= self.bytes_ms else "bytes",
-                "library_ms": None, "im2col_ms": self.im2col_ms}
+                "library_ms": None, "im2col_ms": self.im2col_ms or None}
 
 
 # a stem kernel's mangled name (template arguments, if any)
@@ -612,9 +619,34 @@ def _max_err(got, ref):
     return err, ref.float().abs().max().item()
 
 
+def check_lists(label, nbr, nnz, totals):
+    """K3's list pass alone (``conv_bwd.dw_lists``) against its plain
+    version, every entry equal; its CUDA-event median beside the plain
+    version's and the bound (the map read once, an int32 written a valid
+    entry and a count an offset), added to ``totals``."""
+    from instancerefer_tpu_torch.ops import conv_bwd
+
+    (v_out, k), dt = nbr.shape, torch.bfloat16
+    got, want = conv_bwd.dw_lists(nbr), conv_bwd.dw_lists_plain(nbr)
+    torch.cuda.synchronize()
+    if not (torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])):
+        raise AssertionError(f"the list pass disagrees with its plain version at {label}")
+    work = torch.empty(conv_bwd.dw_list_workspace(v_out), dtype=torch.int32, device=nbr.device)
+    t_k = median_ms(lambda: conv_bwd.dw_lists_into(nbr, work))
+    t_p = median_ms(lambda: conv_bwd.dw_lists_plain(nbr))
+    nb = nbytes(nbr) + 4 * (nnz + k)
+    b_ms, b_by = bound(0, nb, dt)
+    log(f"[list] dw_lists {label} V_out={v_out} K={k} valid={nnz}: lists and counts equal to "
+        f"the plain version's; kernel_ms={t_k:.4f} plain_ms={t_p:.4f} bound_ms={b_ms:.4f} "
+        f"({b_by}: {nb / 1e6:.1f} MB) library_ms=none (no single PyTorch call)")
+    totals.add(t_k, t_p, 0.0, 0, nb, dt)
+
+
 def phase_bwd_kernels(batch, dev):
-    """K3, K2 and K1's f32 output against their twins; returns per kernel
-    the ``Totals`` of its bf16 shapes (the worst |err| of all)."""
+    """K3, K2 and K1's f32 output against their twins, and K3's list pass
+    at the downs against its plain version; returns per kernel (and
+    ``dw_lists``) the ``Totals`` of its bf16 shapes (the worst |err| of
+    all)."""
     from instancerefer_tpu_torch.ops import conv_bwd, sparse, voxelize
     from instancerefer_tpu_torch.ops.gather_conv import gather_conv, pad_channels, route
 
@@ -650,11 +682,13 @@ def phase_bwd_kernels(batch, dev):
     cases.append(("gather_conv", "scene stage1 down dX over up8", imap(up8), rows("scene", 1),
                   64, 32))
     gen = torch.Generator(device=dev).manual_seed(1)
-    res = {name: Totals() for name in kernels}
+    res = {name: Totals() for name in (*kernels, "dw_lists")}
     for name, label, nbr, v_in, cin, cout in cases:
         kern, twin, outs, tols = kernels[name]
         v_out, k = nbr.shape
         nnz = int((nbr >= 0).sum())
+        if name == "conv_dw" and route(torch.bfloat16, cin, dev) == "tensor_core":
+            check_lists(label, nbr, nnz, res["dw_lists"])
         for dt in (torch.float32, torch.bfloat16):
             def rnd(*shape, scale=1.0):
                 return (scale * torch.randn(*shape, device=dev, generator=gen)).to(dt)
@@ -851,7 +885,7 @@ def phase_train(spec, dev, dds, label="train", repeats=5, profile=True):
             raise AssertionError("ref_iou outside [0, 1]")
         results.append({k: float(v) for k, v in metrics.items()})
 
-    for f in counters.values():
+    for f in (*counters.values(), conv_bwd.dw_lists):
         f.launches = 0
     for f in stems.values():
         f.stem_launches = 0
@@ -878,6 +912,11 @@ def phase_train(spec, dev, dds, label="train", repeats=5, profile=True):
     for k, n in stem_launches.items():  # both stems, on the stem kernels
         if n != STEM_LAUNCHES * n_steps:
             raise AssertionError(f"{k}: {n} stem-kernel launches in {n_steps} train steps")
+    # K3's list pass: once in each of its launches at the downs
+    launches["dw_lists"] = conv_bwd.dw_lists.launches
+    if launches["dw_lists"] != LIST_LAUNCHES * n_steps:
+        raise AssertionError(f"dw_lists: {launches['dw_lists']} launches in {n_steps} train "
+                             f"steps, want {LIST_LAUNCHES} per step")
     peak = torch.cuda.max_memory_allocated(dev)
     if profile:
         profile_kernels(f"{label} step B={BATCH} Cin={spec.feat_dim} bf16, graph replay",
@@ -1893,14 +1932,16 @@ GRAPH_RUNS = 2  # rounds of eager, graph, graph, eager in the timing of 12d
 GRAPH_STEPS = 5  # steps a timed run
 SHAPE_REPLAYS = 10  # replays of each step under the profiler in 12e
 # a wrapper's launch as the profiler names its kernels: the first kernel of
-# each launch (K1 and the down convs' dX over up8; K2's dX; K3), then the
-# kernels that finish it (K2's dW, the sum of the splits)
+# each launch (K1 and the down convs' dX over up8; K2's dX; K3: at the downs
+# the list pass's count), then the kernels that finish it (K2's dW; K3's
+# list writes and dW over the lists; the sum of the splits)
 LAUNCH_FIRST = {
     "K1": re.compile(r"gather_gemm(_tc)?_kernel<.*false>|stem_wide_conv_kernel"),
     "K2": re.compile(r"gather_gemm(_tc)?_kernel<.*true>"),
-    "K3": re.compile(r"dw_(tc|partial)_kernel<.*true>|stem_wide_dw_kernel"),
+    "K3": re.compile(r"dw_partial_kernel<.*true>|stem_wide_dw_kernel|dw_list_count_kernel"),
 }
-LAUNCH_REST = re.compile(r"dw_partial_kernel<.*false>|dw_group_tc_kernel|sum_partials_kernel")
+LAUNCH_REST = re.compile(r"dw_partial_kernel<.*false>|dw_group_tc_kernel|sum_partials_kernel"
+                         r"|dw_list_write_kernel|dw_list_tc_kernel")
 
 
 @contextlib.contextmanager
@@ -2857,6 +2898,8 @@ def main() -> None:
         ("conv_dw", "conv_dw.cu", 440, bwd["conv_dw"]),
     )
     rows = [(name, src, line, launches[name], totals) for name, src, line, totals in entries]
+    rows.append(("dw_lists (K3's list pass at the downs)", "conv_dw.cu", 440,
+                 launches["dw_lists"], bwd["dw_lists"]))
     for config, cin in MV_WIDTHS.items():  # the stems at the other input widths
         for name, src, line, _ in entries[::2]:
             rows.append((f"{name} at the stems, Cin {cin} ({config})", src, line,

@@ -4,8 +4,8 @@
 //   gather_gemm_tc_kernel  out[v] = epilogue(sum_k A[nbr[v, k]] @ Wk)     K1, K2's dX
 //   dw_group_tc_kernel     partial[s, K-1-k] = sum_{rows r of split s}
 //                              x_r^T g[nbr[r, k]], G offsets a block     K2's dW
-//   dw_tc_kernel           partial[s, k] = sum_{rows r of split s}
-//                              x[nbr[r, k]]^T g_r     (GATHER_X)          K3's dW
+//   dw_list_tc_kernel      partial[s, k] = sum_{v in range s of list k}
+//                              x[nbr[v, k]]^T g_v                       K3's dW
 //
 // They replace the TPU kernels of instancerefer_tpu/ops/pallas_conv.py:
 // _conv_kernel (K1, through windowed_gather_conv), _bwd_fused_kernel (K2,
@@ -37,6 +37,10 @@
 // (ops/gather_conv.tc_plan picks the plan).
 // K2's dW stages each x tile once for G = 2 offsets and reads the map's G
 // columns once a tile: 6.83 GB over a train step's 16 launches at B = 64.
+// K3 at the downs walks per-offset lists of the map's valid entries (the
+// list pass of conv_dw.cu), so it stages only rows that are multiplied:
+// 367 MB over a train step's 8 down launches at B = 64, where walking every
+// row of the map once per offset staged 914 MB.
 //
 // Shared-memory rows are padded by 8 bf16 (16 bytes), so the 8 rows one
 // ldmatrix phase reads start in 8 distinct 4-bank groups.  A gathered row
@@ -66,7 +70,6 @@ using bf16 = __nv_bfloat16;
 namespace cg = cooperative_groups;
 
 constexpr int THREADS = 128;  // 4 warps
-constexpr int BR = 64;        // dw_tc: rows per staged tile
 constexpr int PAD = 8;        // bf16 padding per shared row
 constexpr int STAGES = 2;
 
@@ -480,179 +483,6 @@ cudaError_t dispatch_gather_gemm_tc(const void* feats, const void* nbr, const vo
 }
 
 // ---------------------------------------------------------------------------
-// K3's weight gradient (the down convs) on tensor cores, as the same
-// deterministic split reduction as dw_partial_kernel: block (k, s) walks the
-// row tiles of split s in order and keeps its [CIN, COUT] product in
-// registers,
-//
-//   partial[s, k] = sum over rows r of split s of  x[nbr[r, k]]^T g_r
-//
-// The x rows, gathered by index with 16-byte cp.async (a -1 index
-// zero-fills its row), are staged [BR][CIN] and read transposed by
-// ldmatrix.trans as the A operand; the g rows, a contiguous row tile, are
-// staged [BR][COUT] as B.  GATHER_X is always true: it keeps the kernel's
-// name, and so its profiler family, as it was.  A tile whose BR indices at
-// offset k are all -1 (padding, or rows with no neighbour there)
-// contributes zero and is neither loaded nor multiplied.  Warps split the
-// [CIN, COUT] tile WM x WN ways.  No float atomics: sum_partials_kernel
-// adds the splits in a fixed order.
-// ---------------------------------------------------------------------------
-template <int CIN, int COUT>
-struct DwShape {
-  static constexpr int X_STRIDE = CIN + PAD;
-  static constexpr int G_STRIDE = COUT + PAD;
-  static constexpr int X_ELEMS = BR * X_STRIDE;
-  static constexpr int STAGE_ELEMS = X_ELEMS + BR * G_STRIDE;
-  static constexpr size_t SMEM_BYTES = STAGES * STAGE_ELEMS * sizeof(bf16);
-};
-
-// (a minimum of one block per SM: without it ptxas spills 8 bytes of the
-// narrow instantiations to keep them under 64 registers)
-template <int CIN, int COUT, bool GATHER_X>
-__global__ void __launch_bounds__(THREADS, 1)
-dw_tc_kernel(const bf16* __restrict__ x, const bf16* __restrict__ g, const int* __restrict__ nbr,
-             float* __restrict__ partial, long long rows, int k_offsets,
-             long long rows_per_split) {
-  static_assert(GATHER_X, "K3 only: the map names the x rows");
-  using S = DwShape<CIN, COUT>;
-  constexpr int WM = CIN >= 64 ? 4 : 2;  // warps along CIN
-  constexpr int WN = 4 / WM;             // warps along COUT
-  constexpr int MT = CIN / WM / 16;      // 16-row tiles per warp
-  constexpr int NT = COUT / WN / 8;      // 8-column tiles per warp
-  static_assert(MT >= 1 && NT >= 2 && NT % 2 == 0, "warp tile");
-  extern __shared__ __align__(16) unsigned char smem[];
-  bf16* stages = reinterpret_cast<bf16*>(smem);
-
-  const int tid = threadIdx.x;
-  const int lane = tid % 32;
-  const int warp = tid / 32;
-  const int m0 = (warp % WM) * (CIN / WM);
-  const int n0 = (warp / WM) * (COUT / WN);
-  const int k = blockIdx.x;
-  const long long r_begin = static_cast<long long>(blockIdx.y) * rows_per_split;
-  const long long r_end = min(rows, r_begin + rows_per_split);
-
-  // the source row of tile row r0 + r: of x the map's index, of g the row
-  // itself; -1 past the split
-  auto gathered = [&](long long r) -> long long {
-    return r < r_end ? nbr[r * k_offsets + k] : -1;
-  };
-  auto contiguous = [&](long long r) -> long long { return r < r_end ? r : -1; };
-
-  auto load = [&](int buf, long long r0) {
-    bf16* x_s = stages + buf * S::STAGE_ELEMS;
-    bf16* g_s = x_s + S::X_ELEMS;
-    constexpr int CPX = CIN / 8;
-    for (int e = tid; e < BR * CPX; e += THREADS) {
-      const int r = e / CPX;
-      const int c = e % CPX;
-      const long long src = gathered(r0 + r);
-      cp_async16(x_s + r * S::X_STRIDE + c * 8, src >= 0 ? x + src * CIN + c * 8 : x,
-                 src >= 0 ? 16 : 0);
-    }
-    constexpr int CPG = COUT / 8;
-    for (int e = tid; e < BR * CPG; e += THREADS) {
-      const int r = e / CPG;
-      const int c = e % CPG;
-      const long long src = contiguous(r0 + r);
-      cp_async16(g_s + r * S::G_STRIDE + c * 8, src >= 0 ? g + src * COUT + c * 8 : g,
-                 src >= 0 ? 16 : 0);
-    }
-  };
-
-  float acc[MT][NT][4];
-#pragma unroll
-  for (int i = 0; i < MT; ++i)
-#pragma unroll
-    for (int j = 0; j < NT; ++j)
-#pragma unroll
-      for (int t = 0; t < 4; ++t) acc[i][j][t] = 0.f;
-
-  auto compute = [&](int buf) {
-    const bf16* x_s = stages + buf * S::STAGE_ELEMS;
-    const bf16* g_s = x_s + S::X_ELEMS;
-#pragma unroll
-    for (int kk = 0; kk < BR; kk += 16) {
-      unsigned a[MT][4];
-#pragma unroll
-      for (int i = 0; i < MT; ++i)
-        ldsm_x4_trans(a[i], x_s + (kk + lane % 8 + (lane / 16) * 8) * S::X_STRIDE + m0 + i * 16 +
-                                ((lane / 8) % 2) * 8);
-#pragma unroll
-      for (int j = 0; j < NT; j += 2) {
-        unsigned b[4];
-        ldsm_x4_trans(b, g_s + (kk + lane % 8 + ((lane / 8) % 2) * 8) * S::G_STRIDE + n0 +
-                             j * 8 + (lane / 16) * 8);
-#pragma unroll
-        for (int i = 0; i < MT; ++i) {
-          mma_bf16(acc[i][j], a[i], b[0], b[1]);
-          mma_bf16(acc[i][j + 1], a[i], b[2], b[3]);
-        }
-      }
-    }
-  };
-
-  // ring of 2: the loads of a valid tile are in flight while the previous
-  // valid tile is multiplied
-  int buf = 0;
-  int pending = -1;
-  for (long long r0 = r_begin; r0 < r_end; r0 += BR) {
-    const long long r = r0 + tid;
-    if (!__syncthreads_or(tid < BR && r < r_end && nbr[r * k_offsets + k] >= 0)) continue;
-    load(buf, r0);
-    cp_async_commit();
-    if (pending >= 0) {
-      cp_async_wait<1>();
-      __syncthreads();
-      compute(pending);
-      __syncthreads();
-    }
-    pending = buf;
-    buf ^= 1;
-  }
-  if (pending >= 0) {
-    cp_async_wait<0>();
-    __syncthreads();
-    compute(pending);
-  }
-
-  float* dst = partial + (static_cast<long long>(blockIdx.y) * k_offsets + k) * CIN * COUT;
-#pragma unroll
-  for (int i = 0; i < MT; ++i)
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int c = m0 + i * 16 + lane / 4 + h * 8;
-#pragma unroll
-      for (int j = 0; j < NT; ++j)
-        store2<float>(dst + c * COUT + n0 + j * 8 + (lane % 4) * 2, acc[i][j][2 * h],
-                      acc[i][j][2 * h + 1]);
-    }
-}
-
-// dw_tc_kernel over a (K, splits) grid, then the fixed-order sum into dw.
-template <int CIN, int COUT>
-cudaError_t launch_dw_tc(const void* x, const void* g, const void* nbr, void* partial, void* dw,
-                         long long rows, int k_offsets, int splits, cudaStream_t stream) {
-  auto kernel = dw_tc_kernel<CIN, COUT, true>;
-  constexpr size_t smem = DwShape<CIN, COUT>::SMEM_BYTES;
-  static std::atomic<int> smem_set{0};
-  cudaError_t err = reserve_smem(kernel, smem_set, smem);
-  if (err != cudaSuccess) return err;
-  const long long tiles = (rows + BR - 1) / BR;
-  const long long rows_per_split = (tiles + splits - 1) / splits * BR;
-  const dim3 grid(static_cast<unsigned>(k_offsets), static_cast<unsigned>(splits));
-  kernel<<<grid, THREADS, smem, stream>>>(static_cast<const bf16*>(x),
-                                          static_cast<const bf16*>(g),
-                                          static_cast<const int*>(nbr),
-                                          static_cast<float*>(partial), rows, k_offsets,
-                                          rows_per_split);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  return launch_sum_partials(partial, dw, static_cast<long long>(k_offsets) * CIN * COUT, splits,
-                             stream);
-}
-
-// ---------------------------------------------------------------------------
 // K2's weight gradient on tensor cores, G offsets a block:
 //
 //   partial[s, K-1-k] = sum over rows r of split s of  x_r^T g[nbr[r, k]],
@@ -899,6 +729,278 @@ cudaError_t launch_dw_group_tc(const void* x, const void* g, const void* nbr, vo
   kernel<<<grid, DWG_THREADS, S::SMEM_BYTES, stream>>>(
       static_cast<const bf16*>(x), static_cast<const bf16*>(g), static_cast<const int*>(nbr),
       static_cast<float*>(partial), rows, k_offsets, rows_per_split);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  return launch_sum_partials(partial, dw, static_cast<long long>(k_offsets) * CIN * COUT, splits,
+                             stream);
+}
+
+// ---------------------------------------------------------------------------
+// K3's weight gradient at the down convs on tensor cores, over per-offset
+// lists of the map's valid entries:
+//
+//   partial[s, k] = sum over the entries p of range s of list k of
+//                   x[nbr[v, k]]^T g[v],  v = lists[k, p]
+//
+// The list pass of conv_dw.cu writes, for each offset k, the rows v with
+// nbr[v, k] >= 0 in ascending order (lists[k, :counts[k]]).  Block (k, s)
+// takes the contiguous range s of list k: ranges of ceil(counts[k] /
+// splits) entries rounded up to whole tiles of DWL_BR entries, so only the
+// last tile of a list carries zero rows.  The block reads counts[k] on the
+// device: the grid (K, splits) comes from the shapes alone, as a CUDA graph
+// needs, and a block whose range is empty writes a zero partial.
+//
+// Per tile the block gathers the entries' x rows (the map's indices) and g
+// rows (the list's) with 16-byte cp.async into padded tiles [BR][CIN] and
+// [BR][COUT], in a ring of stages, and adds x_tile^T g_tile into its [CIN,
+// COUT] product in registers (x read transposed by ldmatrix.trans as the A
+// operand, mma.sync.m16n8k16).  Threads 0..BR-1 keep the indices of the
+// tiles ahead in register queues: a tile's list entries are read
+// ST + LX + LG tiles ahead, the map entries they name ST + LX tiles ahead,
+// and both are written to the tile's index slot in shared memory the
+// iteration before its copies are issued, so no iteration waits on an
+// index load issued by the one before it.  The warps split [CIN, COUT]
+// WM x WN ways (4 of the 8 warps at 32 x 32); the ring is sized so that two
+// or three blocks share an SM (dw_list_blocks), whose gathers fill each
+// other's waits.  No float atomics: sum_partials_kernel adds the splits in
+// a fixed order.
+// ---------------------------------------------------------------------------
+constexpr int DWL_THREADS = 256;                 // 8 warps
+constexpr int DWL_BR = 64;                       // list entries a tile
+constexpr int DWL_SMEM_BUDGET = 113 * 1024;      // shared memory a block: two blocks an SM
+// Iterations of the ring between a map entry's load and the write of its
+// tile's indices to shared memory (LX), and between a list entry's load and
+// the load of the map entry it names (LG): each load has that many tiles'
+// time to return before anything waits on it.
+constexpr int DWL_LEAD_X = 3;
+constexpr int DWL_LEAD_G = 2;
+
+// A slot of the ring: the x and g tiles, bf16 rows padded by PAD, and the
+// tile's x and g row indices.
+constexpr int dw_list_slot_bytes(int cin, int cout) {
+  return DWL_BR * (cin + PAD + cout + PAD) * 2 + 2 * DWL_BR * 4;
+}
+// Slots in the ring: as many as the budget holds, at most 4.
+constexpr int dw_list_stages(int cin, int cout) {
+  return DWL_SMEM_BUDGET / dw_list_slot_bytes(cin, cout) < 4
+             ? DWL_SMEM_BUDGET / dw_list_slot_bytes(cin, cout)
+             : 4;
+}
+// Shared memory of a block (ops/conv_bwd.dw_list_smem_bytes is held equal
+// to it on the card through ir_dw_list_smem_bytes).
+constexpr size_t dw_list_smem_bytes(int cin, int cout) {
+  return static_cast<size_t>(dw_list_stages(cin, cout)) * dw_list_slot_bytes(cin, cout);
+}
+constexpr int SM_SMEM_BYTES = 233472;  // shared memory of an H100 SM, 1 KB of it reserved a block
+// Blocks that share an SM: as many as its shared memory holds, at most 3
+// (the launch bounds then leave each thread 85 registers).
+constexpr int dw_list_blocks(int cin, int cout) {
+  return SM_SMEM_BYTES / (static_cast<int>(dw_list_smem_bytes(cin, cout)) + 1024) < 3
+             ? SM_SMEM_BYTES / (static_cast<int>(dw_list_smem_bytes(cin, cout)) + 1024)
+             : 3;
+}
+
+template <int CIN, int COUT>
+struct DwListShape {
+  static constexpr int WM = CIN / 16 < 4 ? CIN / 16 : 4;              // warps along CIN
+  static constexpr int WN = COUT / 16 < 8 / WM ? COUT / 16 : 8 / WM;  // along COUT
+  static constexpr int MT = CIN / WM / 16;
+  static constexpr int NT = COUT / WN / 8;
+  static constexpr int X_STRIDE = CIN + PAD;
+  static constexpr int G_STRIDE = COUT + PAD;
+  static constexpr int X_ELEMS = DWL_BR * X_STRIDE;
+  static constexpr int STAGE_ELEMS = X_ELEMS + DWL_BR * G_STRIDE;
+  static constexpr int STAGES = dw_list_stages(CIN, COUT);
+  static constexpr int RING_BYTES = STAGES * STAGE_ELEMS * 2;
+  static constexpr size_t SMEM_BYTES = dw_list_smem_bytes(CIN, COUT);
+  static constexpr int BLOCKS = dw_list_blocks(CIN, COUT);  // an SM
+  static_assert(RING_BYTES + STAGES * 2 * DWL_BR * 4 == SMEM_BYTES, "slot");
+  static_assert(MT >= 1 && NT >= 2 && NT % 2 == 0, "warp tile");
+  static_assert(WM * MT * 16 == CIN && WN * NT * 8 == COUT, "warps cover the product");
+  static_assert(STAGES >= 3 && BLOCKS >= 2 && DWL_BR <= DWL_THREADS, "block");
+};
+
+template <int CIN, int COUT>
+__global__ void __launch_bounds__(DWL_THREADS, DwListShape<CIN, COUT>::BLOCKS)
+dw_list_tc_kernel(const bf16* __restrict__ x, const bf16* __restrict__ g,
+                  const int* __restrict__ nbr, const int* __restrict__ lists,
+                  const int* __restrict__ counts, float* __restrict__ partial, long long v_out,
+                  int k_offsets) {
+  using S = DwListShape<CIN, COUT>;
+  constexpr int BR = DWL_BR;
+  constexpr int ST = S::STAGES;
+  constexpr int LX = DWL_LEAD_X;
+  constexpr int LG = DWL_LEAD_G;
+  extern __shared__ __align__(16) unsigned char smem[];
+  bf16* ring = reinterpret_cast<bf16*>(smem);
+  int* xrow_s = reinterpret_cast<int*>(smem + S::RING_BYTES);  // [ST][BR]: the x rows of a slot
+  int* grow_s = xrow_s + ST * BR;                               // [ST][BR]: its g rows
+
+  const int tid = threadIdx.x;
+  const int lane = tid % 32;
+  const int warp = tid / 32;
+  const bool active = warp < S::WM * S::WN;
+  const int m0 = (warp % S::WM) * (CIN / S::WM);
+  const int n0 = (warp / S::WM % S::WN) * (COUT / S::WN);
+  const int k = blockIdx.x;
+  // this block's range of list k: a function of the count and the grid
+  const long long n = counts[k];
+  const long long splits = gridDim.y;
+  const long long per = ((n + splits - 1) / splits + BR - 1) / BR * BR;
+  const long long p0 = min(n, static_cast<long long>(blockIdx.y) * per);
+  const long long p1 = min(n, p0 + per);
+  const int n_tiles = static_cast<int>((p1 - p0 + BR - 1) / BR);
+  const int* list = lists + static_cast<long long>(k) * v_out;
+
+  // thread tid < BR's g row of tile t (its list entry), -1 past the range,
+  // and the x row a g row names at offset k (its map entry)
+  auto g_row = [&](int t) -> int {
+    const long long p = p0 + static_cast<long long>(t) * BR + tid;
+    return tid < BR && p < p1 ? __ldg(list + p) : -1;
+  };
+  auto x_row = [&](int v) -> int {
+    return v >= 0 ? __ldg(nbr + static_cast<long long>(v) * k_offsets + k) : -1;
+  };
+
+  // tile t's copies into slot t % ST, from the slot's indices (a -1 index
+  // zero-fills its row)
+  auto stage = [&](int t) {
+    const int slot = t % ST;
+    bf16* x_s = ring + slot * S::STAGE_ELEMS;
+    bf16* g_s = x_s + S::X_ELEMS;
+    const int* xr = xrow_s + slot * BR;
+    const int* gr = grow_s + slot * BR;
+    constexpr int CPX = CIN / 8;
+    for (int e = tid; e < BR * CPX; e += DWL_THREADS) {
+      const int r = e / CPX;
+      const int c = e % CPX;
+      const int src = xr[r];
+      cp_async16(x_s + r * S::X_STRIDE + c * 8,
+                 src >= 0 ? x + static_cast<long long>(src) * CIN + c * 8 : x, src >= 0 ? 16 : 0);
+    }
+    constexpr int CPG = COUT / 8;
+    for (int e = tid; e < BR * CPG; e += DWL_THREADS) {
+      const int r = e / CPG;
+      const int c = e % CPG;
+      const int src = gr[r];
+      cp_async16(g_s + r * S::G_STRIDE + c * 8,
+                 src >= 0 ? g + static_cast<long long>(src) * COUT + c * 8 : g, src >= 0 ? 16 : 0);
+    }
+  };
+
+  float acc[S::MT][S::NT][4];
+#pragma unroll
+  for (int i = 0; i < S::MT; ++i)
+#pragma unroll
+    for (int j = 0; j < S::NT; ++j)
+#pragma unroll
+      for (int t = 0; t < 4; ++t) acc[i][j][t] = 0.f;
+
+  auto compute = [&](int slot) {
+    const bf16* x_s = ring + slot * S::STAGE_ELEMS;
+    const bf16* g_s = x_s + S::X_ELEMS;
+#pragma unroll
+    for (int kk = 0; kk < BR; kk += 16) {
+      unsigned a[S::MT][4];
+#pragma unroll
+      for (int i = 0; i < S::MT; ++i)
+        ldsm_x4_trans(a[i], x_s + (kk + lane % 8 + (lane / 16) * 8) * S::X_STRIDE + m0 + i * 16 +
+                                ((lane / 8) % 2) * 8);
+#pragma unroll
+      for (int j = 0; j < S::NT; j += 2) {
+        unsigned b[4];
+        ldsm_x4_trans(b, g_s + (kk + lane % 8 + ((lane / 8) % 2) * 8) * S::G_STRIDE + n0 + j * 8 +
+                             (lane / 16) * 8);
+#pragma unroll
+        for (int i = 0; i < S::MT; ++i) {
+          mma_bf16(acc[i][j], a[i], b[0], b[1]);
+          mma_bf16(acc[i][j + 1], a[i], b[2], b[3]);
+        }
+      }
+    }
+  };
+
+  // the indices of tiles 0 .. ST - 1 into their slots, and the registers'
+  // queues filled: the list entries first (all in flight together), then
+  // the map entries they name.  At the top of iteration t, xq[i] holds the
+  // x row of tile t + ST + i (i < LX) and gq[i] its g row (i < LX + LG).
+  int g0[ST], x0[ST], gq[LX + LG], xq[LX];
+#pragma unroll
+  for (int j = 0; j < ST; ++j) g0[j] = g_row(j);
+#pragma unroll
+  for (int i = 0; i < LX + LG; ++i) gq[i] = g_row(ST + i);
+#pragma unroll
+  for (int j = 0; j < ST; ++j) x0[j] = x_row(g0[j]);
+#pragma unroll
+  for (int i = 0; i < LX; ++i) xq[i] = x_row(gq[i]);
+  if (tid < BR) {
+#pragma unroll
+    for (int j = 0; j < ST; ++j) {
+      xrow_s[j * BR + tid] = x0[j];
+      grow_s[j * BR + tid] = g0[j];
+    }
+  }
+  __syncthreads();
+
+  // the ring: tile t + ST - 1 is loaded while tile t is multiplied; an
+  // empty group past the last tile keeps the count
+#pragma unroll
+  for (int t = 0; t < ST - 1; ++t) {
+    if (t < n_tiles) stage(t);
+    cp_async_commit();
+  }
+  for (int t = 0; t < n_tiles; ++t) {
+    cp_async_wait<ST - 2>();
+    __syncthreads();  // tile t landed for all; slot (t - 1) % ST is free
+    if (t + ST - 1 < n_tiles) stage(t + ST - 1);
+    cp_async_commit();
+    if (tid < BR) {  // tile t + ST's indices into index slot t % ST, read by stage(t + ST)
+      xrow_s[(t % ST) * BR + tid] = xq[0];
+      grow_s[(t % ST) * BR + tid] = gq[0];
+      // the map entry of tile t + ST + LX, whose list entry came LG
+      // iterations ago, and the list entry of tile t + ST + LX + LG
+#pragma unroll
+      for (int i = 0; i < LX - 1; ++i) xq[i] = xq[i + 1];
+      xq[LX - 1] = x_row(gq[LX]);
+#pragma unroll
+      for (int i = 0; i < LX + LG - 1; ++i) gq[i] = gq[i + 1];
+      gq[LX + LG - 1] = g_row(t + ST + LX + LG);
+    }
+    if (active) compute(t % ST);
+  }
+  cp_async_wait<0>();
+  if (!active) return;
+
+  // accumulator fragment: CIN rows lane/4 and lane/4 + 8 of each 16-row
+  // tile, COUT columns 8j + 2(lane%4) + {0, 1}
+  float* dst = partial + (static_cast<long long>(blockIdx.y) * k_offsets + k) * CIN * COUT;
+#pragma unroll
+  for (int i = 0; i < S::MT; ++i)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int c = m0 + i * 16 + lane / 4 + h * 8;
+#pragma unroll
+      for (int j = 0; j < S::NT; ++j)
+        store2<float>(dst + c * COUT + n0 + j * 8 + (lane % 4) * 2, acc[i][j][2 * h],
+                      acc[i][j][2 * h + 1]);
+    }
+}
+
+// dw_list_tc_kernel over a (K, splits) grid, then the fixed-order sum into
+// dw.  lists [K, v_out] and counts [K] come from the list pass.
+template <int CIN, int COUT>
+cudaError_t launch_dw_list_tc(const void* x, const void* g, const void* nbr, const int* lists,
+                              const int* counts, void* partial, void* dw, long long v_out,
+                              int k_offsets, int splits, cudaStream_t stream) {
+  using S = DwListShape<CIN, COUT>;
+  auto kernel = dw_list_tc_kernel<CIN, COUT>;
+  static std::atomic<int> smem_set{0};
+  cudaError_t err = reserve_smem(kernel, smem_set, S::SMEM_BYTES);
+  if (err != cudaSuccess) return err;
+  const dim3 grid(static_cast<unsigned>(k_offsets), static_cast<unsigned>(splits));
+  kernel<<<grid, DWL_THREADS, S::SMEM_BYTES, stream>>>(
+      static_cast<const bf16*>(x), static_cast<const bf16*>(g), static_cast<const int*>(nbr),
+      lists, counts, static_cast<float*>(partial), v_out, k_offsets);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   return launch_sum_partials(partial, dw, static_cast<long long>(k_offsets) * CIN * COUT, splits,

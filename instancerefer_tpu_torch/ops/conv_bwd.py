@@ -15,8 +15,18 @@ kernels for f32.  ``<wrapper>.launches`` counts kernel launches and
 nothing else (``conv_dw.stem_launches`` those of the stem kernel).  Both
 outputs are f32.  dW is a split reduction: the wrapper picks the split
 count from the shapes alone (``dw_splits``; K2 on tensor cores ``dw_plan``,
-with its dX under ``gather_conv.tc_plan``), so a given shape always sums in
-the same order and repeated launches give bit-identical dW.
+with its dX under ``gather_conv.tc_plan``; K3 on tensor cores
+``dw_list_splits``), so a given shape always sums in the same order and
+repeated launches give bit-identical dW.
+
+K3's tensor-core route (the down convs) runs over per-offset lists of the
+map's valid entries: its launch first compacts each column k of the map
+into the rows v with nbr[v, k] >= 0, ascending (the list pass, on the
+card, in a workspace from the caching allocator), then block (k, split)
+of the dW kernel takes a contiguous range of list k (``dw_list_ranges``).
+``dw_lists`` runs the list pass alone, and ``dw_lists_plain`` is its plain
+version (the tests and ``chip_smoke.py`` hold the two equal); its
+launches, inside K3's or alone, count in ``dw_lists.launches``.
 """
 
 from __future__ import annotations
@@ -117,6 +127,107 @@ def dw_plan(rows: int, k: int, cin: int, cout: int, sms: int) -> DwPlan:
     return DwPlan(DW_GROUP, max(1, splits))
 
 
+# K3's list route (csrc/conv_dw.cu, csrc/sparse_conv_tc.cuh): map rows a
+# chunk of the list pass and the offsets it takes (a down map's 8; the C
+# entries refuse others); list entries a tile and shared memory a block of
+# the dW kernel (dw_list_tc_kernel); the fewest map rows a split takes (a
+# list holds at most as many entries as the map has rows)
+LIST_CHUNK, LIST_K = 1024, 8
+DWL_BR, DWL_SMEM_BUDGET = 64, 113 * 1024
+LIST_SPLIT_ROWS = 1024
+
+
+def dw_list_workspace(v_out: int) -> int:
+    """int32 elements of the list pass's workspace, as ``work_ints`` in
+    csrc/conv_dw.cu computes it: the lists [8, V_out], the counts [8] and
+    each chunk's counts [ceil(V_out / LIST_CHUNK), 8]."""
+    return LIST_K * (v_out + 1 + -(-v_out // LIST_CHUNK))
+
+
+def dw_list_smem_bytes(cin: int, cout: int) -> int:
+    """Shared memory a block of K3's list kernel takes, as
+    ``dw_list_smem_bytes`` in csrc/sparse_conv_tc.cuh computes it (the card
+    tests hold the two equal): a ring of up to 4 slots within
+    ``DWL_SMEM_BUDGET``, each the x and g tiles of ``DWL_BR`` entries and
+    their row indices."""
+    if cin not in COUTS or cout not in COUTS:
+        raise ValueError(f"dw_list_smem_bytes: widths {cin} x {cout} are not the "
+                         f"tensor-core kernel's")
+    slot = DWL_BR * (cin + PAD + cout + PAD) * 2 + 2 * DWL_BR * 4
+    return min(4, DWL_SMEM_BUDGET // slot) * slot
+
+
+def dw_list_blocks(cin: int, cout: int) -> int:
+    """Blocks of K3's list kernel an SM holds (its launch bounds): as many
+    as the SM's shared memory takes, at most 3."""
+    return min(3, SM_SMEM // (dw_list_smem_bytes(cin, cout) + 1024))
+
+
+@functools.cache
+def dw_list_splits(rows: int, k: int, cin: int, cout: int, sms: int) -> int:
+    """Splits of each list on K3's tensor-core route, from the shape and
+    the card's ``sms`` alone (not from the counts, which live on the card):
+    as many as fill the card's block slots (``dw_list_blocks`` a SM) over
+    the ``k`` lists, at least ``LIST_SPLIT_ROWS`` map rows a split and at
+    most ``DW_PARTIAL_BYTES`` of partials.  A shape always sums in one order
+    on a card."""
+    if rows <= 0 or k <= 0 or sms <= 0:
+        raise ValueError(f"dw_list_splits: {rows} rows, {k} offsets, {sms} SMs")
+    splits = min(-(-rows // LIST_SPLIT_ROWS), dw_list_blocks(cin, cout) * sms // k,
+                 DW_PARTIAL_BYTES // (4 * k * cin * cout))
+    return max(1, splits)
+
+
+def dw_list_ranges(count: int, splits: int) -> list:
+    """[(start, end)] of each split's entries of a list of ``count``, as
+    ``dw_list_tc_kernel`` computes them on the card: ceil(count / splits)
+    entries rounded up to whole tiles of ``DWL_BR``, the last ranges short
+    or empty."""
+    per = -(-(-(-count // splits)) // DWL_BR) * DWL_BR
+    return [(min(count, s * per), min(count, s * per + per)) for s in range(splits)]
+
+
+def dw_lists_plain(nbr: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The list pass in PyTorch: (lists [K, V_out] int32, counts [K]
+    int32), where lists[k, :counts[k]] are the rows v with nbr[v, k] >= 0
+    in ascending order and the rest is -1.  A stable sort per column."""
+    valid = (nbr >= 0).T
+    counts = valid.sum(1, dtype=torch.int32)
+    order = torch.sort((~valid).to(torch.uint8), dim=1, stable=True).indices.to(torch.int32)
+    pos = torch.arange(nbr.shape[0], device=nbr.device)
+    return torch.where(pos < counts[:, None], order, -1), counts
+
+
+def dw_lists_into(nbr: torch.Tensor, work: torch.Tensor) -> None:
+    """The list pass alone on the card, into ``work`` (``dw_list_workspace``
+    int32 elements)."""
+    check_launch("dw_lists", _entry("conv_dw", "ir_dw_lists", 2, 1)(
+        nbr.data_ptr(), work.data_ptr(), *nbr.shape, cuda_stream(nbr)))
+    dw_lists.launches += 1
+
+
+def dw_lists(nbr: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(lists, counts) of ``nbr`` [V_out, 8] int32 as ``dw_lists_plain``
+    gives them: on the CPU that function, on a card the list pass of K3's
+    tensor-core route (-1 written past each count here, not by the pass)."""
+    check_map("dw_lists", nbr)
+    check_tensors("dw_lists", nbr)
+    v_out, k = nbr.shape
+    if nbr.device.type == "cpu":
+        return dw_lists_plain(nbr)
+    if v_out == 0 or k != LIST_K or nbr.data_ptr() % 16:
+        raise ValueError(f"dw_lists: the list pass takes a 16-byte aligned map of "
+                         f"{LIST_K} offsets and at least one row, got {tuple(nbr.shape)}")
+    work = torch.empty(dw_list_workspace(v_out), dtype=torch.int32, device=nbr.device)
+    dw_lists_into(nbr, work)
+    lists, counts = work[:k * v_out].view(k, v_out), work[k * v_out:k * v_out + k]
+    pos = torch.arange(v_out, device=nbr.device)
+    return torch.where(pos < counts[:, None], lists, -1), counts
+
+
+dw_lists.launches = 0
+
+
 @functools.cache
 def _entry(source: str, name: str, n_args: int, n_ints: int = 5):
     """``name`` of the library built from ``csrc/<source>.cu``: ``n_args``
@@ -145,7 +256,8 @@ def conv_dw(feats: torch.Tensor, nbr: torch.Tensor, g: torch.Tensor,
 
     Args:
       feats: [V_in, Cin] f32 or bf16, any Cin; on a card, bf16 with Cin
-        outside {32, 64, 128} (a stem) needs K = 27.  Or [V_in,
+        outside {32, 64, 128} (a stem) needs K = 27, and with Cin in {32,
+        64, 128} (a down) K = 8 and a 16-byte aligned ``nbr``.  Or [V_in,
         stem_channels(Cin)] from ``gather_conv.pad_channels`` (a stem's
         input), with ``cin`` given.
       nbr:   [V_out, K] int32 rows of ``feats`` (all < V_in), -1 = empty.
@@ -166,7 +278,10 @@ def conv_dw(feats: torch.Tensor, nbr: torch.Tensor, g: torch.Tensor,
     if path == "twin":
         return sparse.conv_dw(feats, nbr, g)
     if path == "tensor_core":
-        check_tc("conv_dw", (cin, cout), feats, g)
+        check_tc("conv_dw", (cin, cout), feats, g, nbr)
+        if k != LIST_K:
+            raise ValueError(f"conv_dw: the tensor-core route takes the downs' maps of "
+                             f"K = {LIST_K} offsets, got {k}")
     elif path == "stem_wide":
         check_stem("conv_dw", k, feats, g)
     dw = torch.empty(k, cin, cout, dtype=torch.float32, device=feats.device)
@@ -175,18 +290,24 @@ def conv_dw(feats: torch.Tensor, nbr: torch.Tensor, g: torch.Tensor,
     if path == "stem_wide":  # a block per 32 columns of g and per depth block
         splits = dw_splits(v_out, cout // 32 * stem_depth_blocks(cin), path, 4 * k * cin * cout,
                            sm_count(feats.device))
+    elif path == "tensor_core":
+        splits = dw_list_splits(v_out, k, cin, cout, sm_count(feats.device))
     else:
         splits = dw_splits(v_out, k, path, 4 * k * cin * cout)
     partial = torch.empty(splits, k, cin, cout, dtype=torch.float32, device=feats.device)
-    args = [feats.data_ptr(), nbr.data_ptr(), g.data_ptr(), partial.data_ptr(), dw.data_ptr(),
-            v_out, k, cin, cout, splits]
+    ptrs = [feats.data_ptr(), nbr.data_ptr(), g.data_ptr(), partial.data_ptr(), dw.data_ptr()]
+    if path == "tensor_core":  # the list pass's workspace before the partials
+        work = torch.empty(dw_list_workspace(v_out), dtype=torch.int32, device=feats.device)
+        ptrs.insert(3, work.data_ptr())
+    args = [*ptrs, v_out, k, cin, cout, splits]
     if path == "fma":
         fn, codes = _entry("conv_dw", "ir_conv_dw", 5), [DTYPES[feats.dtype]]
     else:
-        fn, codes = _entry("conv_dw", f"ir_conv_dw_{ENTRY[path]}", 5, 4), []
+        fn, codes = _entry("conv_dw", f"ir_conv_dw_{ENTRY[path]}", len(ptrs), 4), []
     check_launch("conv_dw", fn(*args, *codes, cuda_stream(feats)))
     conv_dw.launches += 1
     conv_dw.stem_launches += path == "stem_wide"
+    dw_lists.launches += path == "tensor_core"
     return dw
 
 

@@ -71,8 +71,8 @@ The result is correct (``"correct": true``) only if all of these hold:
   fit their caps (a train epoch's augmentation overflows the fitted caps,
   ROADMAP §3, so the fed train batches' overflow is a reading);
 - every sparse conv launched its hand-written kernel: 34 / 16 / 10
-  K1 / K2 / K3 launches a train step, 26 K1 an eval step (on the CPU,
-  which runs the plain twins, none).
+  K1 / K2 / K3 launches a train step (K3's list pass in 8 of them), 26 K1
+  an eval step (on the CPU, which runs the plain twins, none).
 
 It exits nonzero otherwise.
 
@@ -128,8 +128,8 @@ ITERS = {"train": 50, "eval": 500}
 HOST_REPS = 5  # repeats of each host measurement (medians)
 # the launch counters of ``step_graph.LAUNCH_COUNTERS``, and what a step
 # launches on a card
-COUNTER_NAMES = ("K1", "K1 at the stems", "K2", "K3", "K3 at the stems")
-LAUNCHES = {"train": (34, 2, 16, 10, 2), "eval": (26, 2, 0, 0, 0)}
+COUNTER_NAMES = ("K1", "K1 at the stems", "K2", "K3", "K3 at the stems", "K3's list pass")
+LAUNCHES = {"train": (34, 2, 16, 10, 2, 8), "eval": (26, 2, 0, 0, 0, 0)}
 # the first replay against the eager step of the copy, from one state
 # (chip_smoke.py phase 12a's limits): the train loss to LOSS_RTOL; each
 # parameter's gradient in L2 to GRAD_LAYER x the largest gradient norm of
@@ -735,7 +735,7 @@ def run(args) -> dict:
         + f"; batch build {build_scenes_s:.2f} scenes/s with {cfg.num_workers} workers"
         if card else f"host phases: {', '.join(phases)}")
 
-    want_launches = dict(zip(COUNTER_NAMES, LAUNCHES[mode] if card else (0,) * 5))
+    want_launches = dict(zip(COUNTER_NAMES, LAUNCHES[mode] if card else (0,) * len(COUNTER_NAMES)))
     # a train epoch tilts and moves each scene, and the caps were fitted to
     # unaugmented ones (ROADMAP §3): the fed train batches' overflow is read
     fed_overflow_gated = mode == "eval"

@@ -1,7 +1,7 @@
-"""Count what the tensor-core gather-GEMM (K1, K2's dX) and K2's dW move, by
-shape, on the bench's synthetic batch: the bytes each stages from L2 into
-shared memory under this tree's tile plans, beside each shape's valid map
-entries and its bound.
+"""Count what the tensor-core gather-GEMM (K1, K2's dX), K2's dW and K3 at
+the down convs move, by shape, on the bench's synthetic batch: the bytes
+each stages from L2 into shared memory under this tree's plans, beside
+each shape's valid map entries and its bound.
 
     python -m instancerefer_tpu_torch.scripts.conv_bytes [--batch 64] [--sms 132]
 
@@ -24,6 +24,16 @@ the stems at Cin 7):
   bytes read in 32-byte sectors (``map_MB``; a row's G entries side by
   side, read once a tile) and the split partials written and read
   (``partial_MB``).
+
+Then K3 at each down conv, over the per-offset lists
+(``conv_bwd.dw_list_splits``): the x and g rows staged (``rows_MB``, the
+valid entries' rows; a list's last tile's zero rows read nothing), beside
+what the kernel this tree replaced staged (``grid_MB``: every (64-row
+tile, offset) pair with a valid index, all 64 rows of x and g); the list
+pass's reads of the map (``map_MB``, once in each of its two kernels) and
+its writes of the lists (``lists_MB``); the dW kernel's reads of the lists
+and of the map entries they name (``index_MB``, one 32-byte sector a map
+entry); the split partials written and read (``partial_MB``).
 """
 
 from __future__ import annotations
@@ -66,6 +76,18 @@ def dw_bytes(nbr, cin: int, cout: int, group: int, splits: int):
         last = (np.arange(v) * k + min(k, k0 + group) - 1) * 4 // 32
         mapb += int((last - first + 1).sum()) * 32
     return x, g, mapb, 2 * splits * k * cin * cout * 4
+
+
+def list_dw_bytes(nbr, cin: int, cout: int, splits: int) -> dict:
+    """What K3 moves at a down conv over the per-offset lists, by kind (see
+    the module's note), and ``grid``, what the (K, split) grid of 64-row
+    tiles it replaced staged."""
+    v, k = nbr.shape
+    nnz = int((nbr >= 0).sum())
+    return {"rows": nnz * (cin + cout) * 2,
+            "grid": int(active_pairs(nbr, BM).sum()) * BM * (cin + cout) * 2,
+            "map": 2 * nbr.nbytes, "lists": nnz * 4, "index": nnz * (4 + 32),
+            "partial": 2 * splits * k * cin * cout * 4}
 
 
 def main(argv=None) -> None:
@@ -114,7 +136,24 @@ def main(argv=None) -> None:
                      f"g_MB {g * mb:.1f} map_MB {m * mb:.1f} partial_MB {part * mb:.1f}")
             totals["K2 dW"] += launches * (x + g + m + part)
         print(line)
-    print("a train step, MB: " + ", ".join(f"{fam} {b * mb:.1f}" for fam, b in totals.items()))
+    k3 = dict.fromkeys(("rows", "grid", "map", "lists", "index", "partial"), 0)
+    for label, wrapper, key, _, cin, cout in step_ab.SHAPES:
+        if wrapper != "conv_dw" or cin not in G.TC_WIDTHS:
+            continue
+        nbr = step_ab.shape_map(batch, key)
+        v, k = nbr.shape
+        nnz, bound_ms = bounds[label]
+        splits = conv_bwd.dw_list_splits(v, k, cin, cout, args.sms)
+        b = list_dw_bytes(nbr, cin, cout, splits)
+        for kind, n in b.items():
+            k3[kind] += n
+        print(f"{label}: V={v} K={k} {cin}->{cout} valid={nnz} fill={nnz / (v * k):.3f} "
+              f"bound_ms={bound_ms:.4f} splits={splits}; " + " ".join(
+                  f"{kind}_MB {n * mb:.1f}" for kind, n in b.items()))
+    totals["K3 downs"] = sum(n for kind, n in k3.items() if kind != "grid")
+    print("a train step, MB: " + ", ".join(f"{fam} {b * mb:.1f}" for fam, b in totals.items())
+          + f" (K3 at the downs: rows {k3['rows'] * mb:.1f}, where the grid of tiles staged "
+          f"{k3['grid'] * mb:.1f})")
     # the bound of a step by kernel: every launch at Cin 7 (the default stems)
     steps = {"K1 train": 0.0, "K1 eval": 0.0, "K2": 0.0, "K3": 0.0}
     for label, wrapper, *_ in step_ab.SHAPES:

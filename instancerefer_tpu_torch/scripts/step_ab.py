@@ -50,7 +50,8 @@ falls on every root alike.  Each run prints one line ``STEP_AB {...}``:
   the epilogue, the downs' dX over ``up8`` with an f32 output) and K2 at
   every residual; beside each, ``kernels_bound`` (its valid map entries and
   the least ms an H100 could take, ``shape_bounds``) and ``kernels_plan``
-  (ROOT's ``tc_plan`` / ``dw_plan`` where it has them).
+  (ROOT's ``tc_plan`` / ``dw_plan`` / ``dw_list_splits`` where it has
+  them).
 
 ``--batch B`` sets the scenes of the step's and the kernels' batch (default
 ROOT's ``chip_smoke.BATCH``, 32; the bench runs 64).
@@ -60,11 +61,14 @@ per shape the median of each root's kernel times.
 
     python -m instancerefer_tpu_torch.scripts.step_ab --plans B [B ...] [--out FILE]
 
-times this checkout's K1 and K2 instead (``plan_sweep``), at every K1
+times this checkout's K1, K2 and K3 instead (``plan_sweep``), at every K1
 tensor-core and K2 shape of a train step of ``scripts/bench.py``'s batch of
 B scenes, under every tile plan the kernels are built for and with K2's
-dW at a half, 1, 2 and 3 times its splits: how ``tc_plan`` and ``dw_plan``
-were chosen.
+dW at a half, 1, 2 and 3 times its splits, and K3 at every down conv with
+its lists at a quarter, a half, 1, 2 and 4 times its splits: how
+``tc_plan``, ``dw_plan`` and ``dw_list_splits`` were chosen.  K3's lines
+also give its device ms a call by kernel (the list pass's two kernels, the
+dW kernel, the sum of the splits) under the picked plan, from the profiler.
 """
 
 from __future__ import annotations
@@ -220,6 +224,29 @@ def device_ms(fn, launches: int = 20) -> float:
     return statistics.median(times)
 
 
+def kernel_split(fn, calls: int = 20) -> dict:
+    """Device ms a call of ``fn`` by kernel (its short name), from
+    ``torch.profiler`` over ``calls`` calls after a warm one."""
+    import re
+
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for ev in prof.key_averages():
+        if ev.device_type == DeviceType.CUDA and not getattr(ev, "is_user_annotation", False):
+            name = re.sub(r"\(.*", "", ev.key).split("::")[-1]
+            out[name] = out.get(name, 0.0) + ev.self_device_time_total / 1e3 / calls
+    return out
+
+
 def _time_kernels(batch, dev, timer, labels=None) -> dict:
     """ROOT's K1, K2 and K3 wrappers at ``SHAPES`` (those of ``labels`` where
     given), bf16, random inputs, each timed by ``timer`` (a call -> ms)."""
@@ -285,9 +312,10 @@ def shape_bounds(batch, peak_flops: float = 989e12, peak_bytes_s: float = 3.35e1
 
 
 def shape_plans(batch, sms: int) -> dict:
-    """Per K1 tensor-core and K2 label of ``SHAPES``: the plans ROOT's
-    package picks for it (``tc_plan``; for K2 also ``dw_plan``), or None
-    where ROOT has none (a checkout from before them)."""
+    """Per K1 tensor-core, K2 and K3-down label of ``SHAPES``: the plans
+    ROOT's package picks for it (``tc_plan``; for K2 also ``dw_plan``; for
+    K3 ``dw_list_splits``), or none where ROOT has none (a checkout from
+    before them)."""
     import torch
 
     from instancerefer_tpu_torch.ops import conv_bwd
@@ -298,7 +326,9 @@ def shape_plans(batch, sms: int) -> dict:
     out = {}
     for label, wrapper, key, in_key, cin, cout in SHAPES:
         v, k = shape_map(batch, key).shape
-        if wrapper in ("gather_conv", "gather_conv_dx") and cin in G.TC_WIDTHS:
+        if wrapper == "conv_dw" and cin in G.TC_WIDTHS and hasattr(conv_bwd, "dw_list_splits"):
+            out[label] = [conv_bwd.dw_list_splits(v, k, cin, cout, sms)]
+        elif wrapper in ("gather_conv", "gather_conv_dx") and cin in G.TC_WIDTHS:
             dt = torch.float32 if wrapper == "gather_conv_dx" else torch.bfloat16
             out[label] = list(G.tc_plan(v, k, cin, cout, dt, sms))
         elif wrapper == "subm_conv_bwd":
@@ -461,38 +491,56 @@ def tc_labels(widths) -> list:
             if wrapper in TC_WRAPPERS and cin in widths]
 
 
+def list_labels(widths) -> list:
+    """The labels of ``SHAPES`` that K3's tensor-core route (over the
+    per-offset lists) serves: the downs."""
+    return [label for label, wrapper, _, _, cin, _ in SHAPES
+            if wrapper == "conv_dw" and cin in widths]
+
+
 @contextlib.contextmanager
-def forced_plans(tile=None, dw_scale=None):
+def forced_plans(tile=None, dw_scale=None, list_scale=None):
     """Inside, every tensor-core gather-GEMM launch (K1, K2's dX) takes the
-    tile plan ``tile`` ((rows, cluster)), and K2's dW ``dw_scale`` times the
-    splits ``dw_plan`` picks (within ``DW_PARTIAL_BYTES``), where given; the
+    tile plan ``tile`` ((rows, cluster)), K2's dW ``dw_scale`` times the
+    splits ``dw_plan`` picks and K3's lists ``list_scale`` times those of
+    ``dw_list_splits`` (both within ``DW_PARTIAL_BYTES``), where given; the
     plan functions are restored after."""
     from instancerefer_tpu_torch.ops import conv_bwd
     from instancerefer_tpu_torch.ops import gather_conv as G
 
-    saved = G.tc_plan, conv_bwd.tc_plan, conv_bwd.dw_plan
+    saved = G.tc_plan, conv_bwd.tc_plan, conv_bwd.dw_plan, conv_bwd.dw_list_splits
     if tile is not None:
         G.tc_plan = conv_bwd.tc_plan = lambda rows, k, *_: G.TcPlan(*tile, -(-k // tile[1]))
+
+    def scaled(splits, scale, k, cin, cout):
+        cap = conv_bwd.DW_PARTIAL_BYTES // (4 * k * cin * cout)
+        return max(1, min(int(scale * splits), cap))
+
     if dw_scale is not None:
         def dw_plan(rows, k, cin, cout, sms):
             plan = saved[2](rows, k, cin, cout, sms)
-            cap = conv_bwd.DW_PARTIAL_BYTES // (4 * k * cin * cout)
-            return plan._replace(splits=max(1, min(int(dw_scale * plan.splits), cap)))
+            return plan._replace(splits=scaled(plan.splits, dw_scale, k, cin, cout))
 
         conv_bwd.dw_plan = dw_plan
+    if list_scale is not None:
+        conv_bwd.dw_list_splits = lambda rows, k, cin, cout, sms: scaled(
+            saved[3](rows, k, cin, cout, sms), list_scale, k, cin, cout)
     try:
         yield
     finally:
-        G.tc_plan, conv_bwd.tc_plan, conv_bwd.dw_plan = saved
+        G.tc_plan, conv_bwd.tc_plan, conv_bwd.dw_plan, conv_bwd.dw_list_splits = saved
 
 
-def plan_sweep(batch_sizes, out_path=None, dw_scales=(0.5, 1, 2, 3)) -> None:
+def plan_sweep(batch_sizes, out_path=None, dw_scales=(0.5, 1, 2, 3),
+               list_scales=(0.25, 0.5, 1, 2, 4)) -> None:
     """At each of ``batch_sizes`` (``scripts/bench.py``'s batch), every label
     of ``tc_labels`` timed by ``device_ms`` under each plan of
     ``gather_conv.TC_PLANS``, and K2 also with its dW at ``dw_scales`` times
-    its splits: one line a shape (valid entries, bound, the plans the plan
-    functions pick, the ms of each variant); with ``out_path``, one JSON
-    record a shape appended there too."""
+    its splits; every label of ``list_labels`` (K3 at the downs) with its
+    lists at ``list_scales`` times their splits: one line a shape (valid
+    entries, bound, the plans the plan functions pick, the ms of each
+    variant); with ``out_path``, one JSON record a shape appended there
+    too."""
     import torch
 
     from instancerefer_tpu_torch.config import band_profile_kwargs
@@ -509,31 +557,41 @@ def plan_sweep(batch_sizes, out_path=None, dw_scales=(0.5, 1, 2, 3)) -> None:
     caps = band_profile_kwargs(bench.PROFILE)
     spec = BatchSpec(**{k: caps[k] for k in ("scene_caps", "inst_caps", "max_candidates",
                                             "max_instances")})
-    labels = tc_labels(G.TC_WIDTHS)
+    labels = tc_labels(G.TC_WIDTHS) + list_labels(G.TC_WIDTHS)
     print(f"{torch.cuda.get_device_name(0)}, {sms} SMs; device ms a call by tile plan (rows x "
-          f"cluster) and by K2's dW splits (x the picked); the picked plans beside", flush=True)
+          f"cluster), by K2's dW splits and by K3's list splits (x the picked); the picked "
+          f"plans beside", flush=True)
     for b in batch_sizes:
         batch = make_batch(b, spec, seed=0, mean_size_arr=bench.MEAN_SIZE, **bench.SCENE_KW)
         bounds, plans = shape_bounds(batch), shape_plans(batch, sms)
         ms = {label: {} for label in labels}
         for tile in G.TC_PLANS:
             with forced_plans(tile=tile):
-                for label, t in _time_kernels(batch, dev, device_ms, labels).items():
+                for label, t in _time_kernels(batch, dev, device_ms,
+                                              tc_labels(G.TC_WIDTHS)).items():
                     ms[label][f"{tile[0]}x{tile[1]}"] = t
+        for m in list_scales:
+            with forced_plans(list_scale=m):
+                for label, t in _time_kernels(batch, dev, device_ms,
+                                              list_labels(G.TC_WIDTHS)).items():
+                    ms[label][f"lists x{m:g}"] = t
         k2 = [label for label in labels if label.startswith("K2")]
         for m in dw_scales:
             with forced_plans(dw_scale=m):
                 for label, t in _time_kernels(batch, dev, device_ms, k2).items():
                     ms[label][f"dW x{m:g}"] = t
+        split = _time_kernels(batch, dev, kernel_split, list_labels(G.TC_WIDTHS))
         for label in labels:
             nnz, bound_ms = bounds[label]
             print(f"B={b} {label}: valid={nnz} bound {bound_ms:.4f} plan {plans[label]}: "
-                  + ", ".join(f"{p} {t:.4f}" for p, t in ms[label].items()), flush=True)
+                  + ", ".join(f"{p} {t:.4f}" for p, t in ms[label].items())
+                  + ("; by kernel " + ", ".join(f"{k} {t:.4f}" for k, t in split[label].items())
+                     if label in split else ""), flush=True)
             if out_path:
                 with open(out_path, "a") as f:
                     f.write(json.dumps({"batch": b, "label": label, "valid": nnz,
                                         "bound_ms": bound_ms, "plan": plans[label],
-                                        "ms": ms[label]}) + "\n")
+                                        "ms": ms[label], "by_kernel": split.get(label)}) + "\n")
 
 
 def _order(roots, rounds: int):

@@ -66,7 +66,7 @@ OUT_KEYS = ("loss", "ref_loss", "lang_loss", "seg_loss", "seg_acc", "lang_acc", 
 # (wrapper, attribute) of every launch counter of the sparse-conv kernels
 LAUNCH_COUNTERS = ((gather_conv, "launches"), (gather_conv, "stem_launches"),
                    (conv_bwd.subm_conv_bwd, "launches"), (conv_bwd.conv_dw, "launches"),
-                   (conv_bwd.conv_dw, "stem_launches"))
+                   (conv_bwd.conv_dw, "stem_launches"), (conv_bwd.dw_lists, "launches"))
 
 Step = Tuple[Dict[str, torch.Tensor], Dict[str, torch.Tensor]]
 

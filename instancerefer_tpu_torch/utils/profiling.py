@@ -14,15 +14,17 @@ from typing import Callable, Dict, List
 
 # the sparse-conv kernels' names as the profiler reports them, by wrapper:
 # the gather-GEMM templates end in MIRROR_T (true: K2's dX; the tensor-core
-# one's f32 output and false: K1's dX over up8), the dW ones in GATHER_A /
-# GATHER_X (true: K3); dw_group_tc_kernel is K2's dW; the stem kernels are
-# K1's and K3's; sum_partials_kernel serves K2 and K3
+# one's f32 output and false: K1's dX over up8), the FMA dW one in GATHER_A
+# (true: K3); dw_group_tc_kernel is K2's dW; K3's tensor-core route is the
+# list pass (dw_list_count_kernel, dw_list_write_kernel) and
+# dw_list_tc_kernel; the stem kernels are K1's and K3's;
+# sum_partials_kernel serves K2 and K3
 KERNEL_FAMILIES = (
     ("K1 dX over up8", re.compile(r"gather_gemm_tc_kernel<float, (\d+, )+false>")),
     ("K1 forward", re.compile(r"gather_gemm(_tc)?_kernel<.*false>|stem_wide_conv_kernel")),
     ("K2", re.compile(r"gather_gemm(_tc)?_kernel<.*true>|dw_partial_kernel<.*false>"
                       r"|dw_group_tc_kernel")),
-    ("K3", re.compile(r"dw_(tc|partial)_kernel<.*true>|stem_wide_dw_kernel")),
+    ("K3", re.compile(r"dw_partial_kernel<.*true>|dw_list_\w+_kernel|stem_wide_dw_kernel")),
     ("K2/K3 sum of splits", re.compile(r"sum_partials_kernel")),
 )
 

@@ -159,7 +159,7 @@ def _fake_entries(monkeypatch, module, path):
 @pytest.mark.parametrize("path, cin, k, entry, n_args", [
     ("twin", 7, 27, None, 0),
     ("fma", 7, 27, "ir_conv_dw", 12),
-    ("tensor_core", 32, 8, "ir_conv_dw_tc", 11),
+    ("tensor_core", 32, 8, "ir_conv_dw_tc", 12),
     ("stem_wide", 7, 27, "ir_conv_dw_stem_wide", 11),
     ("stem_wide", 10, 27, "ir_conv_dw_stem_wide", 11),
     ("stem_wide", 135, 27, "ir_conv_dw_stem_wide", 11),

@@ -120,3 +120,51 @@ def test_plan_sweep_forces_each_plan_and_restores(monkeypatch):
     with pytest.raises(SystemExit, match="no CUDA device"):
         monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
         step_ab.plan_sweep([2])
+
+
+def test_plan_sweep_forces_the_list_splits_and_restores(monkeypatch):
+    """``--plans``' forcing of K3's list splits: inside ``forced_plans`` every
+    launch at a down conv (``list_labels``) hands the C entry the scaled
+    splits of ``dw_list_splits`` (within ``DW_PARTIAL_BYTES``); after it the
+    plan function is the package's again.  On the CPU with the card's routes
+    and the C entries faked."""
+    import numpy as np
+    import torch
+
+    import chip_smoke as cs
+    from instancerefer_tpu_torch.data.synthetic import TEST_SPEC, make_batch
+    from instancerefer_tpu_torch.ops import conv_bwd
+    from instancerefer_tpu_torch.ops import gather_conv as G
+
+    calls = []
+
+    def entry(*key):
+        name = next(k for k in key if str(k).startswith("ir_"))
+        return lambda *args: calls.append((name, args[-2])) or 0
+
+    route = G.route
+    monkeypatch.setattr(conv_bwd, "_entry", entry)
+    monkeypatch.setattr(conv_bwd, "cuda_stream", lambda t: 0)
+    monkeypatch.setattr(conv_bwd, "route", lambda dtype, cin, device: route(dtype, cin, "cuda"))
+    monkeypatch.setattr(conv_bwd, "sm_count", lambda device: 132)
+    batch = make_batch(2, TEST_SPEC, seed=0, mean_size_arr=np.asarray(cs.MEAN_SIZE))
+    labels = step_ab.list_labels(G.TC_WIDTHS)
+    assert len(labels) == 8 and all(lab.startswith("K3") and "down" in lab for lab in labels)
+    picked = conv_bwd.dw_list_splits
+
+    def timer(fn):
+        fn()
+        return 0.0
+
+    for scale in (0.25, 4):
+        calls.clear()
+        with step_ab.forced_plans(list_scale=scale):
+            out = step_ab._time_kernels(batch, torch.device("cpu"), timer, labels)
+        assert list(out) == labels and len(calls) == 8
+        for (name, splits), label in zip(calls, labels):
+            _, _, key, _, cin, cout = next(s for s in step_ab.SHAPES if s[0] == label)
+            v = step_ab.shape_map(batch, key).shape[0]
+            cap = conv_bwd.DW_PARTIAL_BYTES // (4 * 8 * cin * cout)
+            assert name == "ir_conv_dw_tc"
+            assert splits == max(1, min(int(scale * picked(v, 8, cin, cout, 132)), cap))
+    assert conv_bwd.dw_list_splits is picked

@@ -140,7 +140,8 @@ class CountingGraph:
             (gather_conv.gather_conv, "stem_launches"): 2,
             (conv_bwd.subm_conv_bwd, "launches"): 16,
             (conv_bwd.conv_dw, "launches"): 10,
-            (conv_bwd.conv_dw, "stem_launches"): 2}
+            (conv_bwd.conv_dw, "stem_launches"): 2,
+            (conv_bwd.dw_lists, "launches"): 8}
 
     def capture(self, fn):
         self.outputs = fn()
@@ -226,7 +227,7 @@ def test_launch_counts_read_as_eager_under_replay():
     for _ in range(3):
         graphs.train_step(dd)
     assert [a - b for a, b in zip(G.launch_counts(), before)] == [3 * 34, 3 * 2, 3 * 16, 3 * 10,
-                                                                   3 * 2]
+                                                                   3 * 2, 3 * 8]
 
 
 def _tensor_lr_adam(params, lr, wd):
@@ -423,8 +424,8 @@ def test_graph_replays_equal_eager_steps_on_card():
     graphs.train_step(d_a)
     assert graphs.captures == 1
     launched = [a - b for a, b in zip(G.launch_counts(), counts)]
-    # 4 steps (2 eager, 2 replays); f32 takes no stem kernel
-    assert launched == [4 * 34, 0, 4 * 16, 4 * 10, 0]
+    # 4 steps (2 eager, 2 replays); f32 takes no stem kernel and no list pass
+    assert launched == [4 * 34, 0, 4 * 16, 4 * 10, 0, 0]
     total, count = 0.0, 0
     for e, g in zip(models[0].parameters(), models[1].parameters()):
         diff = (g - e).abs()
