@@ -313,6 +313,19 @@ extern "C" int ir_conv_dw_tc(const void* feats, const void* nbr, const void* g, 
                         cout, splits, s);
 }
 
+// The tensor-core route over lists the caller's list pass already wrote
+// into work (ops/conv_bwd.down_lists: the down convs' backward runs one
+// pass for its dX and its dW): the dW kernel and the sum of the splits.
+extern "C" int ir_conv_dw_tc_lists(const void* feats, const void* nbr, const void* g, void* work,
+                                   void* partial, void* dw, long long v_out, int k_offsets,
+                                   int cin, int cout, int splits, void* stream) {
+  if (bad_shape(v_out, k_offsets, cin, splits) || bad_lists(nbr, v_out, k_offsets) ||
+      !tc_width(cin) || !tc_width(cout))
+    return cudaErrorInvalidValue;
+  return dispatch_dw_tc(feats, g, nbr, static_cast<int*>(work), partial, dw, v_out, k_offsets, cin,
+                        cout, splits, static_cast<cudaStream_t>(stream));
+}
+
 // The list pass alone (ops/conv_bwd.dw_lists, held against its plain
 // version): nbr int32 [v_out, 8], 16-byte aligned, into work as above.
 extern "C" int ir_dw_lists(const void* nbr, void* work, long long v_out, int k_offsets,

@@ -11,22 +11,25 @@
 // its own nbr indices name, so there are no bands, windows or drops.
 //
 // Call sites: every sparse conv's forward (3^3 subm over nbr3, 2^3 stride-2
-// over down), and in training the down conv's dX, which is this kernel over
-// the inverse map up8 with W^T and an f32 output.
+// over down), and in f32 training on the FMA route the down conv's dX,
+// which is this kernel over the inverse map up8 with W^T and an f32
+// output.  In bf16 the down conv's dX is ir_down_dx_tc below:
+// irsc::tc::dx_list_tc_kernel (sparse_conv_tc.cuh) over the per-offset
+// lists of the down map that K3 reads too, each dX row stored once.
 //
 // Three routes, chosen by the wrapper (ops/gather_conv.py) from the input
 // type and Cin alone:
 //
-//   ir_gather_conv_tc  bf16 with Cin in {32, 64, 128} (every down, residual
-//     and up8 call): irsc::tc::gather_gemm_tc_kernel (sparse_conv_tc.cuh)
+//   ir_gather_conv_tc  bf16 with Cin in {32, 64, 128} (every down and
+//     residual): irsc::tc::gather_gemm_tc_kernel (sparse_conv_tc.cuh)
 //     under the plan the wrapper passes (ops/gather_conv.tc_plan: tiles of
 //     64 output rows x Cout, 4 warps issuing mma.sync.m16n8k16 from
 //     ldmatrix, bf16 in, f32 accumulate; a cluster of 2 or 4 blocks a tile
 //     at 8192-16384 rows, each taking every 2nd or 4th listed offset, their
 //     sums added in distributed shared memory in rank order).  Per listed
-//     offset the tile's rows (at the 8-offset maps only those of the 16-row
-//     slices with a valid index) are gathered with 16-byte cp.async (a -1
-//     index zero-fills its row) and W[k] is staged the same way, in a ring
+//     offset (one with a valid index in the tile) the tile's rows are
+//     gathered with 16-byte cp.async (a -1 index zero-fills its row) and
+//     W[k] is staged the same way, in a ring
 //     of 2 steps so the next step's gather overlaps this one's MMAs; a tile
 //     of padding rows only stores its epilogue.
 //   ir_gather_conv_stem_wide  bf16 at any other Cin (the stems, K = 27: 7,
@@ -45,11 +48,11 @@
 // flight.  Bytes staged from L2 into shared memory at B = 64
 // (scripts/conv_bytes.py): the scene's 278528-row 64 -> 64 residual 636 MB
 // of gathered rows and 636 MB of W[k] a launch; its stage-1 down (32 -> 64,
-// 8 offsets) 103 MB and 104 MB; its 1163264-row dX over up8 520 MB and
-// 322 MB; K1 over a train step 12.75 GB.  Skipping the 16-row slices
-// without a valid index at the 8-offset maps cuts the rows staged there,
-// and the cluster split keeps the SMs filled at the 8192-16384-row stages;
-// taller tiles, which stage W[k] less often, measured no faster (PERF.md).
+// 8 offsets) 104 MB and 104 MB; K1 over a train step 10.38 GB.  The cluster
+// split keeps the SMs filled at the 8192-16384-row stages; taller tiles,
+// which stage W[k] less often, measured no faster (PERF.md).  The list
+// route of the downs' dX stages only the valid entries' g rows, and W[k]
+// once a block (scripts/conv_bytes.py's list lines).
 //
 // What bounds the stem route: the bytes from L2 into shared memory, 27 x
 // 272 bytes per output row at Cin 135 (4.3 GB at the scene stem, ~27 x
@@ -154,4 +157,44 @@ extern "C" int ir_gather_conv_stem_wide(const void* feats, const void* nbr, cons
   if (out_dtype == 0)
     return stem::launch_conv<float>(feats, nbr, w, scale, bias, out, v_out, cin, cout, relu, s);
   return cudaErrorInvalidValue;
+}
+
+// The down convs' dX over the per-offset lists of their map (ops/conv_bwd.
+// down_dx): bfloat16 g [v_out, cout] and w [K, cin, cout] as stored, the
+// int32 down map [v_out, 8] and its inverse up8 [v_in, 8], all 16-byte
+// aligned; work the list pass's workspace of down (lists [8, v_out], then
+// counts [8]); dx float32 [v_in, cin]; cin and cout each one of 32, 64,
+// 128; splits the blocks a list (ops/conv_bwd.dx_list_splits).
+extern "C" int ir_down_dx_tc(const void* g, const void* down, const void* up8, const void* w,
+                             const void* work, void* dx, long long v_out, long long v_in,
+                             int k_offsets, int cin, int cout, int splits, void* stream) {
+  if (v_out < 0 || v_out > 0x7fffffffLL || v_in <= 0 || k_offsets != 8 || splits <= 0)
+    return cudaErrorInvalidValue;
+  const int* lists = static_cast<const int*>(work);
+  const int* counts = lists + k_offsets * v_out;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+#define IRSC_DX(CI, CO)                                                                     \
+  return irsc::tc::launch_dx_list_tc<CI, CO>(g, down, up8, w, lists, counts, dx, v_out, v_in, \
+                                             k_offsets, splits, s)
+#define IRSC_DX_COUT(CI)                   \
+  switch (cout) {                          \
+    case 32: IRSC_DX(CI, 32);              \
+    case 64: IRSC_DX(CI, 64);              \
+    case 128: IRSC_DX(CI, 128);            \
+    default: return cudaErrorInvalidValue; \
+  }
+  switch (cin) {
+    case 32: IRSC_DX_COUT(32)
+    case 64: IRSC_DX_COUT(64)
+    case 128: IRSC_DX_COUT(128)
+    default: return cudaErrorInvalidValue;
+  }
+#undef IRSC_DX_COUT
+#undef IRSC_DX
+}
+
+// Shared memory a block of the list-driven dX takes: ops/conv_bwd.
+// dx_list_smem_bytes computes the same on the host.
+extern "C" long long ir_dx_list_smem_bytes(int cin, int cout) {
+  return static_cast<long long>(irsc::tc::dx_list_smem_bytes(cin, cout));
 }

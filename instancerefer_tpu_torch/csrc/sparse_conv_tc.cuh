@@ -6,11 +6,14 @@
 //                              x_r^T g[nbr[r, k]], G offsets a block     K2's dW
 //   dw_list_tc_kernel      partial[s, k] = sum_{v in range s of list k}
 //                              x[nbr[v, k]]^T g_v                       K3's dW
+//   dx_list_tc_kernel      dX[nbr[v, k]] = g_v @ W[k]^T over the same   the downs' dX
+//                              lists, the rows no entry names 0         (K1 over up8)
 //
 // They replace the TPU kernels of instancerefer_tpu/ops/pallas_conv.py:
-// _conv_kernel (K1, through windowed_gather_conv), _bwd_fused_kernel (K2,
-// through windowed_conv_bwd_fused) and _dw_kernel (K3, through
-// windowed_conv_dw).  All three feed warp-level mma.sync.m16n8k16 (bf16 x
+// _conv_kernel (K1, through windowed_gather_conv; the downs' dX was K1 over
+// the inverse map up8 with W^T), _bwd_fused_kernel (K2, through
+// windowed_conv_bwd_fused) and _dw_kernel (K3, through windowed_conv_dw).
+// All four feed warp-level mma.sync.m16n8k16 (bf16 x
 // bf16 -> f32) from shared memory through ldmatrix and stage their operands
 // with 16-byte cp.async: gathered rows cannot come by TMA (it has no row
 // gather on Hopper; one bulk copy a row measured 6.6x slower than cp.async
@@ -29,18 +32,20 @@
 // steps and a warp-specialized producer on mbarriers were all built and
 // measured, and were no faster or slower: they put fewer independent
 // blocks on an SM.  So K1 keeps 64-row tiles of 4 warps, several blocks an
-// SM, and moves fewer bytes and waits less: at the 8-offset maps (the
-// downs, their dX over up8) 16-row slices with no valid index at an offset
-// are neither copied nor multiplied (K1 over a train step at B = 64 stages
-// 12.75 GB), and at 8192-16384 rows a tile's offsets split over a cluster
-// of 2 or 4 blocks summed in distributed shared memory
-// (ops/gather_conv.tc_plan picks the plan).
+// SM, stages only the offsets with a valid index in a tile, and at
+// 8192-16384 rows splits a tile's offsets over a cluster of 2 or 4 blocks
+// summed in distributed shared memory (ops/gather_conv.tc_plan picks the
+// plan).
 // K2's dW stages each x tile once for G = 2 offsets and reads the map's G
 // columns once a tile: 6.83 GB over a train step's 16 launches at B = 64.
 // K3 at the downs walks per-offset lists of the map's valid entries (the
 // list pass of conv_dw.cu), so it stages only rows that are multiplied:
 // 367 MB over a train step's 8 down launches at B = 64, where walking every
-// row of the map once per offset staged 914 MB.
+// row of the map once per offset staged 914 MB.  The downs' dX walks the
+// same lists (one list pass a down's backward serves both): 233.5 MB of g
+// rows and 42.3 MB of W over the 8 downs at B = 64, where K1's 64-row
+// tiles over up8 staged 2396.8 MB of gathered rows and weight slices; the
+// 381.7 MB of f32 dX it writes either way bound it.
 //
 // Shared-memory rows are padded by 8 bf16 (16 bytes), so the 8 rows one
 // ldmatrix phase reads start in 8 distinct 4-bank groups.  A gathered row
@@ -151,16 +156,12 @@ __device__ __forceinline__ void store2<bf16>(bf16* dst, float v0, float v1) {
 // K1 and K2's dX: output-stationary gather-GEMM on tensor cores.  A block of
 // 4 warps owns a tile of BM = 64 output rows x NOUT channels, each warp 16
 // rows as f32 accumulators in registers.  It reads its [BM, K] map tile
-// once, coalesced, and marks per offset the 16-row slices of the tile that
-// hold a valid index (a bit each); the offsets with any are listed.  Only
-// listed offsets are staged and multiplied; with SKIP (the maps of at most
-// 8 offsets: the downs and their dX over up8, where one valid entry a row
-// leaves most slices empty) only the marked slices too: a slice with no
-// valid index at an offset is neither copied nor multiplied.  At 27
-// offsets few slices are empty and the checks cost more than they save.
-// A tile with none goes straight to the epilogue of a zero sum.
+// once, coalesced, and flags the offsets that hold a valid index in the
+// tile; those are listed, staged and multiplied.  A tile with none goes
+// straight to the epilogue of a zero sum.  (Checking 16-row slices as well,
+// at the downs' 8-offset maps, measured no faster: PERF.md §6.)
 //
-// A step is one listed offset: it stages the marked slices' gathered rows
+// A step is one listed offset: it stages the tile's gathered rows
 // [BM][RED] (16-byte cp.async, a -1 index zero-fills its row) and the
 // weight slice, in a ring of STAGES steps; step s + 1 is loaded while
 // step s is multiplied (mma.sync m16n8k16 from ldmatrix), one barrier a
@@ -176,7 +177,7 @@ __device__ __forceinline__ void store2<bf16>(bf16* dst, float v0, float v1) {
 //
 // Weight layouts (RED: the reduction width, NOUT: the output width):
 //   MIRROR_T = false: w[K, RED, NOUT], slice k, staged [RED][NOUT] and read
-//     with ldmatrix.trans (K1, and the down conv's dX over up8 with W^T).
+//     with ldmatrix.trans (K1).
 //   MIRROR_T = true:  w[K, NOUT, RED], slice K-1-k, staged [NOUT][RED] and
 //     read with plain ldmatrix: the transpose comes from the fragment
 //     layout (K2's dX over the mirrored offsets).
@@ -201,7 +202,7 @@ constexpr int tile_body_bytes(int red, int nout, bool mirror) {
 }
 
 // Shared memory of a block: the body, then the [BM, K] map tile, the
-// offsets' slice masks and their list (ops/gather_conv.tc_smem_bytes is
+// offsets' flags and their list (ops/gather_conv.tc_smem_bytes is
 // held equal to it on the card through ir_tc_smem_bytes).
 constexpr size_t tile_smem_bytes(int red, int nout, bool mirror, int k_offsets) {
   return static_cast<size_t>(tile_body_bytes(red, nout, mirror)) +
@@ -221,7 +222,7 @@ struct TileShape {
 };
 
 // (a minimum of 4 blocks an SM: their gathers fill each other's waits)
-template <typename O, int RED, int NOUT, int SKIP, bool MIRROR_T>
+template <typename O, int RED, int NOUT, bool MIRROR_T>
 __global__ void __launch_bounds__(THREADS, 4)
 gather_gemm_tc_kernel(const bf16* __restrict__ feats, const int* __restrict__ nbr,
                       const bf16* __restrict__ w, const float* __restrict__ scale,
@@ -232,7 +233,7 @@ gather_gemm_tc_kernel(const bf16* __restrict__ feats, const int* __restrict__ nb
   extern __shared__ __align__(16) unsigned char smem[];
   bf16* stages = reinterpret_cast<bf16*>(smem);
   int* idx_s = reinterpret_cast<int*>(smem + S::BODY_BYTES);
-  int* mask_s = idx_s + BM * k_offsets;  // [K]: bit i, slice i has a valid index
+  int* mask_s = idx_s + BM * k_offsets;  // [K]: the offset has a valid index in the tile
   int* list_s = mask_s + k_offsets;      // [K]: the offsets with any, ascending
   __shared__ int n_list;
 
@@ -246,17 +247,13 @@ gather_gemm_tc_kernel(const bf16* __restrict__ feats, const int* __restrict__ nb
   for (int e = tid; e < BM * k_offsets; e += THREADS)
     idx_s[e] = e < rows * k_offsets ? nbr[row0 * k_offsets + e] : -1;
   __syncthreads();
-  // warp w marks the slices of offsets w, w + 4, ...: lane l reads rows
-  // l and l + 32; a ballot covers two 16-row slices
+  // warp w flags the offsets w, w + 4, ...: lane l reads rows l and l + 32
   for (int k = warp; k < k_offsets; k += THREADS / 32) {
-    int m = 0;
+    unsigned any = 0;
 #pragma unroll
-    for (int h = 0; h < BM / 32; ++h) {
-      const unsigned bits =
-          __ballot_sync(0xffffffffu, idx_s[(h * 32 + lane) * k_offsets + k] >= 0);
-      m |= ((bits & 0xffffu) ? 1 : 0) << (2 * h) | ((bits >> 16) ? 2 : 0) << (2 * h);
-    }
-    if (lane == 0) mask_s[k] = SKIP || m == 0 ? m : (1 << (BM / 16)) - 1;
+    for (int h = 0; h < BM / 32; ++h)
+      any |= __ballot_sync(0xffffffffu, idx_s[(h * 32 + lane) * k_offsets + k] >= 0);
+    if (lane == 0) mask_s[k] = any != 0;
   }
   __syncthreads();
   if (warp == 0) {  // the listed offsets, ascending: a lane's place counts those below it
@@ -275,13 +272,11 @@ gather_gemm_tc_kernel(const bf16* __restrict__ feats, const int* __restrict__ nb
 
   auto load = [&](int buf, int step) {
     const int k = list_s[rank + step * cs];
-    const int m = mask_s[k];
     bf16* a_s = stages + buf * S::STAGE_ELEMS;
     bf16* w_s = a_s + S::A_ELEMS;
     constexpr int CPR = RED / 8;  // 16-byte chunks of a row
     for (int e = tid; e < BM * CPR; e += THREADS) {
       const int r = e / CPR;
-      if (SKIP && !((m >> (r / 16)) & 1)) continue;  // a slice nobody multiplies
       const int c = e % CPR;
       const int src = idx_s[r * k_offsets + k];
       cp_async16(a_s + r * S::A_STRIDE + c * 8,
@@ -311,9 +306,8 @@ gather_gemm_tc_kernel(const bf16* __restrict__ feats, const int* __restrict__ nb
 #pragma unroll
     for (int t = 0; t < 4; ++t) acc[j][t] = 0.f;
 
-  // multiply step `buf` where this warp's slice is marked (`mine`)
-  auto compute = [&](int buf, bool mine) {
-    if (!mine) return;
+  // multiply step `buf`
+  auto compute = [&](int buf) {
     const bf16* a_s = stages + buf * S::STAGE_ELEMS;
     const bf16* w_s = a_s + S::A_ELEMS;
 #pragma unroll
@@ -344,14 +338,12 @@ gather_gemm_tc_kernel(const bf16* __restrict__ feats, const int* __restrict__ nb
     cp_async_commit();
   }
   for (int s = 0; s < n_steps; ++s) {
-    // whether this warp's slice of step s is marked, read before the wait
-    const bool mine = (mask_s[list_s[rank + s * cs]] >> warp) & 1;
     cp_async_wait<STAGES - 2>();
     __syncthreads();  // step s landed for all; step s - 1's buffer is free
     const int next = s + STAGES - 1;
     if (next < n_steps) load(next % STAGES, next);
     cp_async_commit();
-    compute(s % STAGES, mine);
+    compute(s % STAGES);
   }
 
   auto finish = [&](int r, int n, float v0, float v1) {
@@ -410,12 +402,12 @@ gather_gemm_tc_kernel(const bf16* __restrict__ feats, const int* __restrict__ nb
   cluster.sync();  // no rank leaves while another reads its shared memory
 }
 
-template <typename O, int RED, int NOUT, int SKIP, bool MIRROR_T>
+template <typename O, int RED, int NOUT, bool MIRROR_T>
 cudaError_t launch_gather_gemm_tc(const void* feats, const void* nbr, const void* w,
                                   const void* scale, const void* bias, void* out,
                                   long long v_out, int k_offsets, int relu, int cs,
                                   cudaStream_t stream) {
-  auto kernel = gather_gemm_tc_kernel<O, RED, NOUT, SKIP, MIRROR_T>;
+  auto kernel = gather_gemm_tc_kernel<O, RED, NOUT, MIRROR_T>;
   const size_t smem = tile_smem_bytes(RED, NOUT, MIRROR_T, k_offsets);
   static std::atomic<int> smem_set{0};
   cudaError_t err = reserve_smem(kernel, smem_set, smem);
@@ -440,21 +432,6 @@ cudaError_t launch_gather_gemm_tc(const void* feats, const void* nbr, const void
   return cudaGetLastError();
 }
 
-// The slice checks (SKIP) pay only at the maps of at most 8 offsets: the
-// downs and their dX over up8.  K2's dX is always over 27 and has none.
-template <typename O, int RED, int NOUT, bool MIRROR_T>
-cudaError_t launch_gather_gemm_tc_map(const void* feats, const void* nbr, const void* w,
-                                  const void* scale, const void* bias, void* out,
-                                  long long v_out, int k_offsets, int relu, int cs,
-                                  cudaStream_t stream) {
-  if constexpr (!MIRROR_T)
-    if (k_offsets <= 8)
-      return launch_gather_gemm_tc<O, RED, NOUT, 1, false>(feats, nbr, w, scale, bias, out,
-                                                           v_out, k_offsets, relu, cs, stream);
-  return launch_gather_gemm_tc<O, RED, NOUT, 0, MIRROR_T>(feats, nbr, w, scale, bias, out, v_out,
-                                                          k_offsets, relu, cs, stream);
-}
-
 // RED and NOUT each one of 32, 64, 128; (bm, cs) a plan of tile_plan_ok.
 template <typename O, bool MIRROR_T>
 cudaError_t dispatch_gather_gemm_tc(const void* feats, const void* nbr, const void* w,
@@ -462,9 +439,9 @@ cudaError_t dispatch_gather_gemm_tc(const void* feats, const void* nbr, const vo
                                     long long v_out, int k_offsets, int red, int nout, int relu,
                                     int bm, int cs, cudaStream_t stream) {
   if (!tile_plan_ok(bm, cs)) return cudaErrorInvalidValue;
-#define IRSC_TC(R, N)                                                                     \
-  return launch_gather_gemm_tc_map<O, R, N, MIRROR_T>(feats, nbr, w, scale, bias, out, v_out, \
-                                                      k_offsets, relu, cs, stream)
+#define IRSC_TC(R, N)                                                                 \
+  return launch_gather_gemm_tc<O, R, N, MIRROR_T>(feats, nbr, w, scale, bias, out, v_out, \
+                                                  k_offsets, relu, cs, stream)
 #define IRSC_TC_NOUT(R)                    \
   switch (nout) {                          \
     case 32: IRSC_TC(R, 32);               \
@@ -1005,6 +982,280 @@ cudaError_t launch_dw_list_tc(const void* x, const void* g, const void* nbr, con
   if (err != cudaSuccess) return err;
   return launch_sum_partials(partial, dw, static_cast<long long>(k_offsets) * CIN * COUT, splits,
                              stream);
+}
+
+// ---------------------------------------------------------------------------
+// The down convs' dX on tensor cores, over the per-offset lists of the down
+// map that K3 reads too (one list pass serves both gradients):
+//
+//   dX[down[v, k]] = g[v] @ W[k]^T   for every entry v of list k
+//   dX[u] = 0                        for every row u whose up8 row is all -1
+//
+// A stride-2 down map names each input row at most once (its inverse up8
+// holds at most one valid entry a row), so every row of dX has one writer:
+// no atomics and no split sums, and two launches give bit-identical dX.
+//
+// Blocks 0 .. K splits - 1: block b takes range b / K of list b % K (the
+// ranges of dw_list_tc_kernel: ceil(counts[k] / splits) entries rounded up
+// to whole tiles), stages W[k] once as stored, [CIN][COUT], and per tile of
+// DXL_BR entries gathers their g rows [BR][COUT] with 16-byte cp.async in a
+// ring of DXL_STAGES, multiplies g_tile W[k]^T with mma.sync.m16n8k16 (W^T
+// is the B operand that plain ldmatrix reads from W as stored: 4 warps, 16
+// entries each) and stores each entry's f32 row once, to dX[down[v, k]].
+// The list entries and the map entries they name come through register
+// queues as in dw_list_tc_kernel, so no iteration waits on an index load
+// issued by the one before it; the map entries of a tile are kept until its
+// store, in a ring of DXL_STAGES + 1 index slots.
+//
+// Blocks K splits ..: the zero pass over the rows no entry names (padding
+// rows, and rows whose parent a cap dropped), DXL_ZERO_ROWS rows of up8 a
+// block: a warp reads 8 rows a lane, each in two 16-byte loads, all in
+// flight together, ballots the rows without a valid entry and writes their
+// dX rows to 0.  It reads 32 bytes a row of up8, where zeroing all of dX
+// first would write CIN x 4 bytes a row again.
+// ---------------------------------------------------------------------------
+constexpr int DXL_THREADS = 128;  // 4 warps
+constexpr int DXL_BR = 64;        // list entries a tile
+constexpr int DXL_STAGES = 3;
+constexpr int DXL_ZERO_ROWS = 1024;                          // up8 rows a zero-pass block
+constexpr int DXL_ZERO_STEPS = DXL_ZERO_ROWS / DXL_THREADS;  // ballots a warp
+
+// Shared memory of a block (ops/conv_bwd.dx_list_smem_bytes is held equal
+// to it on the card through ir_dx_list_smem_bytes): W[k] and the ring of g
+// tiles, bf16 rows padded by PAD; the ring's g row indices [STAGES][BR] and
+// the map entries of the tiles in flight [STAGES + 1][BR].
+constexpr int dx_list_smem_bytes(int cin, int cout) {
+  return (cin + DXL_STAGES * DXL_BR) * (cout + PAD) * 2 + (2 * DXL_STAGES + 1) * DXL_BR * 4;
+}
+// Blocks that share an SM: as many as its shared memory holds, at most 4
+// (4 at 32 -> 64, 3 at 64 -> 128, 2 at 128 -> 128).
+constexpr int dx_list_blocks(int cin, int cout) {
+  return SM_SMEM_BYTES / (dx_list_smem_bytes(cin, cout) + 1024) < 4
+             ? SM_SMEM_BYTES / (dx_list_smem_bytes(cin, cout) + 1024)
+             : 4;
+}
+
+template <int CIN, int COUT>
+struct DxListShape {
+  static constexpr int NT = CIN / 8;           // 8-column tiles of a warp's 16 entries
+  static constexpr int STRIDE = COUT + PAD;    // a staged g row, and a staged row of W[k]
+  static constexpr int W_ELEMS = CIN * STRIDE;
+  static constexpr int G_ELEMS = DXL_BR * STRIDE;
+  static constexpr int RING_BYTES = (W_ELEMS + DXL_STAGES * G_ELEMS) * 2;
+  static constexpr int SMEM_BYTES = dx_list_smem_bytes(CIN, COUT);
+  static constexpr int BLOCKS = dx_list_blocks(CIN, COUT);  // an SM
+  static_assert(RING_BYTES + (2 * DXL_STAGES + 1) * DXL_BR * 4 == SMEM_BYTES, "layout");
+  static_assert(COUT % 16 == 0 && NT >= 2 && NT % 2 == 0, "warp tile");
+  static_assert(DXL_STAGES >= 2 && BLOCKS >= 2 && DXL_BR == 16 * (DXL_THREADS / 32), "block");
+};
+
+// The zero pass of one block: rows [r_begin, r_begin + DXL_ZERO_ROWS) of
+// up8, each warp DXL_ZERO_STEPS ballots of 32 consecutive rows.
+template <int CIN>
+__device__ __forceinline__ void dx_zero_rows(const int* __restrict__ up8, float* __restrict__ dx,
+                                             long long v_in, long long r_begin, int warp,
+                                             int lane) {
+  constexpr int STEPS = DXL_ZERO_STEPS;
+  const long long r0 = r_begin + static_cast<long long>(warp) * STEPS * 32;
+  int4 lo[STEPS], hi[STEPS];
+#pragma unroll
+  for (int i = 0; i < STEPS; ++i) {
+    const long long r = r0 + i * 32 + lane;
+    lo[i] = hi[i] = make_int4(0, 0, 0, 0);  // rows past v_in: not written
+    if (r < v_in) {
+      const int4* row = reinterpret_cast<const int4*>(up8 + r * 8);
+      lo[i] = __ldg(row);
+      hi[i] = __ldg(row + 1);
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < STEPS; ++i) {
+    const bool empty = (lo[i].x & lo[i].y & lo[i].z & lo[i].w & hi[i].x & hi[i].y & hi[i].z &
+                        hi[i].w) < 0;
+    unsigned bits = __ballot_sync(0xffffffffu, empty);
+    while (bits) {
+      const int j = __ffs(bits) - 1;
+      bits &= bits - 1;
+      float4* dst = reinterpret_cast<float4*>(dx + (r0 + i * 32 + j) * CIN);
+      for (int c = lane; c < CIN / 4; c += 32) dst[c] = make_float4(0.f, 0.f, 0.f, 0.f);
+    }
+  }
+}
+
+template <int CIN, int COUT>
+__global__ void __launch_bounds__(DXL_THREADS, DxListShape<CIN, COUT>::BLOCKS)
+dx_list_tc_kernel(const bf16* __restrict__ g, const int* __restrict__ nbr,
+                  const int* __restrict__ up8, const bf16* __restrict__ w,
+                  const int* __restrict__ lists, const int* __restrict__ counts,
+                  float* __restrict__ dx, long long v_out, long long v_in, int k_offsets,
+                  int splits) {
+  using S = DxListShape<CIN, COUT>;
+  constexpr int BR = DXL_BR;
+  constexpr int ST = DXL_STAGES;
+  constexpr int US = ST + 1;  // index slots of the map entries kept until the store
+  constexpr int LX = DWL_LEAD_X;
+  constexpr int LG = DWL_LEAD_G;
+  const int tid = threadIdx.x;
+  const int lane = tid % 32;
+  const int warp = tid / 32;  // owns entries [16 warp, 16 warp + 16) of a tile
+  const long long list_blocks = static_cast<long long>(k_offsets) * splits;
+  if (blockIdx.x >= list_blocks) {
+    dx_zero_rows<CIN>(up8, dx, v_in, (blockIdx.x - list_blocks) * DXL_ZERO_ROWS, warp, lane);
+    return;
+  }
+  extern __shared__ __align__(16) unsigned char smem[];
+  bf16* w_s = reinterpret_cast<bf16*>(smem);
+  bf16* ring = w_s + S::W_ELEMS;
+  int* grow_s = reinterpret_cast<int*>(smem + S::RING_BYTES);  // [ST][BR]: a slot's g rows
+  int* urow_s = grow_s + ST * BR;                               // [US][BR]: a tile's dX rows
+
+  const int k = static_cast<int>(blockIdx.x % k_offsets);
+  // this block's range of list k: a function of the count and the grid
+  const long long n = counts[k];
+  const long long per = ((n + splits - 1) / splits + BR - 1) / BR * BR;
+  const long long p0 = min(n, static_cast<long long>(blockIdx.x / k_offsets) * per);
+  const long long p1 = min(n, p0 + per);
+  const int n_tiles = static_cast<int>((p1 - p0 + BR - 1) / BR);
+  if (n_tiles == 0) return;
+  const int* list = lists + static_cast<long long>(k) * v_out;
+
+  // thread tid < BR's g row of tile t (its list entry), -1 past the range,
+  // and the dX row a g row names at offset k (its map entry)
+  auto g_row = [&](int t) -> int {
+    const long long p = p0 + static_cast<long long>(t) * BR + tid;
+    return tid < BR && p < p1 ? __ldg(list + p) : -1;
+  };
+  auto u_row = [&](int v) -> int {
+    return v >= 0 ? __ldg(nbr + static_cast<long long>(v) * k_offsets + k) : -1;
+  };
+
+  // tile t's g rows into ring slot t % ST, from the slot's indices (a -1
+  // index zero-fills its row)
+  constexpr int CPG = COUT / 8;  // 16-byte chunks of a row
+  auto stage = [&](int t) {
+    bf16* g_s = ring + (t % ST) * S::G_ELEMS;
+    const int* gr = grow_s + (t % ST) * BR;
+    for (int e = tid; e < BR * CPG; e += DXL_THREADS) {
+      const int r = e / CPG;
+      const int c = e % CPG;
+      const int src = gr[r];
+      cp_async16(g_s + r * S::STRIDE + c * 8,
+                 src >= 0 ? g + static_cast<long long>(src) * COUT + c * 8 : g, src >= 0 ? 16 : 0);
+    }
+  };
+
+  // W[k] as stored, in the first group with tile 0
+  const bf16* wk = w + static_cast<long long>(k) * CIN * COUT;
+  for (int e = tid; e < CIN * CPG; e += DXL_THREADS) {
+    const int r = e / CPG;
+    const int c = e % CPG;
+    cp_async16(w_s + r * S::STRIDE + c * 8, wk + r * COUT + c * 8, 16);
+  }
+
+  // the indices of tiles 0 .. ST - 1 into their slots, and the registers'
+  // queues filled: the list entries first (all in flight together), then
+  // the map entries they name.  At the top of iteration t, uq[i] holds the
+  // dX row of tile t + ST + i (i < LX) and gq[i] its g row (i < LX + LG).
+  int g0[ST], u0[ST], gq[LX + LG], uq[LX];
+#pragma unroll
+  for (int j = 0; j < ST; ++j) g0[j] = g_row(j);
+#pragma unroll
+  for (int i = 0; i < LX + LG; ++i) gq[i] = g_row(ST + i);
+#pragma unroll
+  for (int j = 0; j < ST; ++j) u0[j] = u_row(g0[j]);
+#pragma unroll
+  for (int i = 0; i < LX; ++i) uq[i] = u_row(gq[i]);
+  if (tid < BR) {
+#pragma unroll
+    for (int j = 0; j < ST; ++j) {
+      grow_s[j * BR + tid] = g0[j];
+      urow_s[j * BR + tid] = u0[j];
+    }
+  }
+  __syncthreads();
+
+  // tile t: g_tile W[k]^T into registers, then each entry's row stored once
+  auto compute_store = [&](int t) {
+    float acc[S::NT][4];
+#pragma unroll
+    for (int j = 0; j < S::NT; ++j)
+#pragma unroll
+      for (int q = 0; q < 4; ++q) acc[j][q] = 0.f;
+    const bf16* g_s = ring + (t % ST) * S::G_ELEMS;
+#pragma unroll
+    for (int kk = 0; kk < COUT; kk += 16) {
+      unsigned a[4];
+      ldsm_x4(a, g_s + (warp * 16 + lane % 16) * S::STRIDE + kk + (lane / 16) * 8);
+#pragma unroll
+      for (int j = 0; j < S::NT; j += 2) {
+        unsigned b[4];
+        ldsm_x4(b, w_s + (j * 8 + lane % 8 + (lane / 16) * 8) * S::STRIDE + kk +
+                       ((lane / 8) % 2) * 8);
+        mma_bf16(acc[j], a, b[0], b[1]);
+        mma_bf16(acc[j + 1], a, b[2], b[3]);
+      }
+    }
+    // accumulator fragment: entries lane/4 and lane/4 + 8 of the warp's 16,
+    // columns 8j + 2(lane%4) + {0, 1}
+    const int* ur = urow_s + (t % US) * BR;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int u = ur[warp * 16 + lane / 4 + h * 8];
+      if (u < 0) continue;
+      float* dst = dx + static_cast<long long>(u) * CIN + (lane % 4) * 2;
+#pragma unroll
+      for (int j = 0; j < S::NT; ++j) store2<float>(dst + j * 8, acc[j][2 * h], acc[j][2 * h + 1]);
+    }
+  };
+
+  // the ring: tile t + ST - 1 is loaded while tile t is multiplied; an
+  // empty group past the last tile keeps the count
+#pragma unroll
+  for (int t = 0; t < ST - 1; ++t) {
+    if (t < n_tiles) stage(t);
+    cp_async_commit();
+  }
+  for (int t = 0; t < n_tiles; ++t) {
+    cp_async_wait<ST - 2>();
+    __syncthreads();  // tile t landed for all; slot (t - 1) % ST and tile t - 1's rows are free
+    if (t + ST - 1 < n_tiles) stage(t + ST - 1);
+    cp_async_commit();
+    if (tid < BR) {  // tile t + ST's indices: its g rows into slot t % ST, read by
+                     // stage(t + ST), its dX rows into slot (t + ST) % US
+      grow_s[(t % ST) * BR + tid] = gq[0];
+      urow_s[((t + ST) % US) * BR + tid] = uq[0];
+#pragma unroll
+      for (int i = 0; i < LX - 1; ++i) uq[i] = uq[i + 1];
+      uq[LX - 1] = u_row(gq[LX]);
+#pragma unroll
+      for (int i = 0; i < LX + LG - 1; ++i) gq[i] = gq[i + 1];
+      gq[LX + LG - 1] = g_row(t + ST + LX + LG);
+    }
+    compute_store(t);
+  }
+  cp_async_wait<0>();
+}
+
+// dx_list_tc_kernel over K x splits list blocks and ceil(v_in /
+// DXL_ZERO_ROWS) zero-pass blocks.  lists [K, v_out] and counts [K] come
+// from the list pass.
+template <int CIN, int COUT>
+cudaError_t launch_dx_list_tc(const void* g, const void* nbr, const void* up8, const void* w,
+                              const int* lists, const int* counts, void* dx, long long v_out,
+                              long long v_in, int k_offsets, int splits, cudaStream_t stream) {
+  using S = DxListShape<CIN, COUT>;
+  auto kernel = dx_list_tc_kernel<CIN, COUT>;
+  const long long blocks = static_cast<long long>(k_offsets) * splits +
+                           (v_in + DXL_ZERO_ROWS - 1) / DXL_ZERO_ROWS;
+  if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
+  static std::atomic<int> smem_set{0};
+  cudaError_t err = reserve_smem(kernel, smem_set, S::SMEM_BYTES);
+  if (err != cudaSuccess) return err;
+  kernel<<<static_cast<unsigned>(blocks), DXL_THREADS, S::SMEM_BYTES, stream>>>(
+      static_cast<const bf16*>(g), static_cast<const int*>(nbr), static_cast<const int*>(up8),
+      static_cast<const bf16*>(w), lists, counts, static_cast<float*>(dx), v_out, v_in, k_offsets,
+      splits);
+  return cudaGetLastError();
 }
 
 }  // namespace tc

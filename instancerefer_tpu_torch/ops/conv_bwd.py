@@ -20,13 +20,21 @@ with its dX under ``gather_conv.tc_plan``; K3 on tensor cores
 repeated launches give bit-identical dW.
 
 K3's tensor-core route (the down convs) runs over per-offset lists of the
-map's valid entries: its launch first compacts each column k of the map
-into the rows v with nbr[v, k] >= 0, ascending (the list pass, on the
-card, in a workspace from the caching allocator), then block (k, split)
-of the dW kernel takes a contiguous range of list k (``dw_list_ranges``).
+map's valid entries: the list pass compacts each column k of the map into
+the rows v with nbr[v, k] >= 0, ascending, into an int32 workspace, then
+block (k, split) of the dW kernel takes a contiguous range of list k
+(``dw_list_ranges``).  The down convs' backward runs the list pass once
+(``down_lists``) and hands the workspace to both gradients: to
+``conv_dw(..., lists=)`` and to ``down_dx``, the dX over the same lists
+(``csrc/sparse_conv_tc.cuh``'s ``dx_list_tc_kernel``, entry in
+``csrc/gather_conv.cu``), whose launches count as K1's
+(``gather_conv.launches``; ``down_dx.launches`` counts them alone): its
+TPU counterpart is ``_conv_kernel`` over the inverse map ``up8``.
+``conv_dw`` given no lists runs the pass in its own launch.
 ``dw_lists`` runs the list pass alone, and ``dw_lists_plain`` is its plain
 version (the tests and ``chip_smoke.py`` hold the two equal); its
-launches, inside K3's or alone, count in ``dw_lists.launches``.
+launches, shared, inside K3's or alone, count in ``dw_lists.launches``.
+``down_dx_plain`` is ``down_dx``'s plain version, in the kernel's order.
 """
 
 from __future__ import annotations
@@ -40,8 +48,8 @@ import torch
 from instancerefer_tpu_torch.ops import sparse
 from instancerefer_tpu_torch.ops.gather_conv import (
     COUTS, DTYPES, ENTRY, PAD, SMEM_LIMIT, check_launch, check_map, check_plan, check_stem,
-    check_tc, check_tensors, cuda_stream, library, route, sm_count, stem_depth_blocks, stem_rows,
-    tc_plan,
+    check_tc, check_tensors, cuda_stream, gather_conv, library, route, sm_count,
+    stem_depth_blocks, stem_rows, tc_plan,
 )
 
 DW_BLOCKS = 512  # about four blocks per SM of an H100
@@ -228,14 +236,160 @@ def dw_lists(nbr: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
 dw_lists.launches = 0
 
 
+def list_view(work: torch.Tensor, v_out: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(lists [K, V_out], counts [K]): views of a list workspace (on a card
+    the entries past each count are unset)."""
+    k = LIST_K
+    return work[:k * v_out].view(k, v_out), work[k * v_out:k * v_out + k]
+
+
+def down_lists(nbr: torch.Tensor) -> torch.Tensor:
+    """The list pass of a down map ``nbr`` [V_out, 8] int32, run once per
+    down backward: the workspace (``dw_list_workspace(V_out)`` int32) that
+    ``down_dx`` and ``conv_dw(..., lists=)`` read.  On the CPU
+    ``dw_lists_plain`` written in the workspace's layout; on a card the
+    list pass (counted in ``dw_lists.launches``), none for a map of no
+    rows."""
+    check_map("down_lists", nbr, LIST_K)
+    check_tensors("down_lists", nbr)
+    v_out = nbr.shape[0]
+    if nbr.device.type == "cpu" or v_out == 0:
+        work = torch.zeros(dw_list_workspace(v_out), dtype=torch.int32, device=nbr.device)
+        lists, counts = list_view(work, v_out)
+        lists[:], counts[:] = dw_lists_plain(nbr)
+        return work
+    if nbr.data_ptr() % 16:
+        raise ValueError("down_lists: the list pass takes a 16-byte aligned map")
+    work = torch.empty(dw_list_workspace(v_out), dtype=torch.int32, device=nbr.device)
+    dw_lists_into(nbr, work)
+    return work
+
+
+# The down convs' dX over the lists (csrc/sparse_conv_tc.cuh,
+# dx_list_tc_kernel): list entries a tile (its ranges are dw_list_ranges'),
+# stages of the ring, up8 rows a block of the zero pass
+DXL_BR, DXL_STAGES, DXL_ZERO_ROWS = DWL_BR, 3, 1024
+
+
+def dx_list_smem_bytes(cin: int, cout: int) -> int:
+    """Shared memory a block of the list-driven dX takes, as
+    ``dx_list_smem_bytes`` in csrc/sparse_conv_tc.cuh computes it (the card
+    tests hold the two equal): W[k] [Cin][Cout] and a ring of ``DXL_STAGES``
+    g tiles of ``DXL_BR`` rows, bf16 rows padded by 8; the ring's g row
+    indices and the dX rows of ``DXL_STAGES + 1`` tiles."""
+    if cin not in COUTS or cout not in COUTS:
+        raise ValueError(f"dx_list_smem_bytes: widths {cin} x {cout} are not the "
+                         f"tensor-core kernel's")
+    return (cin + DXL_STAGES * DXL_BR) * (cout + PAD) * 2 + (2 * DXL_STAGES + 1) * DXL_BR * 4
+
+
+def dx_list_blocks(cin: int, cout: int) -> int:
+    """Blocks of the list-driven dX an SM holds (its launch bounds): as many
+    as the SM's shared memory takes, at most 4."""
+    return min(4, SM_SMEM // (dx_list_smem_bytes(cin, cout) + 1024))
+
+
 @functools.cache
-def _entry(source: str, name: str, n_args: int, n_ints: int = 5):
+def dx_list_splits(rows: int, k: int, cin: int, cout: int, sms: int) -> int:
+    """Blocks a list of the list-driven dX, from the shape (``rows``: the
+    down map's) and the card's ``sms`` alone: as many as fill the card's
+    block slots (``dx_list_blocks`` an SM) over the ``k`` lists, at least
+    ``LIST_SPLIT_ROWS`` map rows a block.  Each dX row has one writer, so
+    the splits change no sum."""
+    if rows <= 0 or k <= 0 or sms <= 0:
+        raise ValueError(f"dx_list_splits: {rows} rows, {k} offsets, {sms} SMs")
+    return max(1, min(-(-rows // LIST_SPLIT_ROWS), dx_list_blocks(cin, cout) * sms // k))
+
+
+def down_dx_plain(g: torch.Tensor, nbr: torch.Tensor, weight: torch.Tensor,
+                  lists: torch.Tensor, counts: torch.Tensor, v_in: int,
+                  splits: Optional[int] = None) -> torch.Tensor:
+    """``down_dx`` in PyTorch: for the entries v of each list k,
+    ``index_copy_`` of g[v] @ W[k]^T into rows nbr[v, k] of a zero f32
+    [v_in, Cin].  ``lists``/``counts`` as ``dw_lists_plain`` gives them (-1
+    past each count).  With ``splits``, in the kernel's order: each split's
+    range of each list (``dw_list_ranges``, which reads the counts on the
+    host), in tiles of ``DXL_BR`` entries.  Without, each whole list at
+    once, its -1 entries into a row past the last that is dropped: no host
+    read and no shape from the data (the CPU's ``down_dx``, which the step
+    graphs' bodies run)."""
+    dx = torch.zeros(v_in + 1, weight.shape[1], dtype=torch.float32, device=g.device)
+    gf, wf = g.float(), weight.float()
+    for k in range(nbr.shape[1]):
+        if splits is None:
+            tiles = [lists[k]]
+        else:
+            tiles = [lists[k, t0:min(p1, t0 + DXL_BR)]
+                     for p0, p1 in dw_list_ranges(int(counts[k]), splits)
+                     for t0 in range(p0, p1, DXL_BR)]
+        for v in tiles:
+            v = v.long()
+            rows = torch.where(v >= 0, nbr[v.clamp(min=0), k].long(), v_in)
+            dx.index_copy_(0, rows, gf[v.clamp(min=0)] @ wf[k].T)
+    return dx[:v_in]
+
+
+def down_dx(g: torch.Tensor, nbr: torch.Tensor, up8: torch.Tensor, weight: torch.Tensor,
+            work: torch.Tensor) -> torch.Tensor:
+    """dX of the 2^3 stride-2 down conv over ``nbr`` (its ``down`` map):
+    dX[nbr[v, k]] = g[v] @ W[k]^T for every valid entry, 0 in the rows no
+    entry names.
+
+    Args:
+      g:      [V_out, Cout] bf16 (the cotangent); f32 on the CPU.
+      nbr:    [V_out, 8] int32 rows of the conv's input, -1 = empty; each
+        input row named at most once (a down map).
+      up8:    [V_in, 8] int32, the inverse of ``nbr`` (``SparseStage.up8``):
+        the kernel's zero pass writes the rows whose entries are all -1.
+      weight: [8, Cin, Cout] in ``g.dtype``, as stored.
+      work:   ``down_lists(nbr)``.
+    Returns [V_in, Cin] f32.  On the CPU ``down_dx_plain``; on a card bf16
+    with Cin, Cout in {32, 64, 128} launches ``ir_down_dx_tc``, anything
+    else raises.
+    """
+    if g.dtype not in DTYPES or weight.dtype != g.dtype:
+        raise TypeError(f"down_dx: g {g.dtype} and weight {weight.dtype} not one of f32/bf16")
+    if g.dim() != 2 or weight.dim() != 3:
+        raise ValueError("down_dx: want g [V_out, Cout] and weight [8, Cin, Cout]")
+    k, cin, cout = weight.shape
+    check_map("down_dx", nbr, LIST_K)
+    check_map("down_dx", up8, LIST_K)
+    v_out, v_in = nbr.shape[0], up8.shape[0]
+    if k != LIST_K or g.shape != (v_out, cout) or work.dtype != torch.int32 \
+            or work.numel() != dw_list_workspace(v_out):
+        raise ValueError(f"down_dx: g {tuple(g.shape)}, nbr {tuple(nbr.shape)}, weight "
+                         f"{tuple(weight.shape)}, workspace {work.numel()} disagree")
+    check_tensors("down_dx", g, nbr, up8, weight, work)
+    path = route(g.dtype, cin, g.device)
+    if path == "twin":
+        return down_dx_plain(g, nbr, weight, *list_view(work, v_out), v_in)
+    if path != "tensor_core":
+        raise ValueError(f"down_dx: the list route takes bf16 at Cin in {COUTS}, got "
+                         f"{g.dtype} at Cin {cin}")
+    check_tc("down_dx", (cin, cout), g, nbr, up8, weight)
+    dx = torch.empty(v_in, cin, dtype=torch.float32, device=g.device)
+    if v_in == 0:
+        return dx
+    splits = dx_list_splits(max(v_out, 1), k, cin, cout, sm_count(g.device))
+    check_launch("down_dx", _entry("gather_conv", "ir_down_dx_tc", 6, 4, 2)(
+        g.data_ptr(), nbr.data_ptr(), up8.data_ptr(), weight.data_ptr(), work.data_ptr(),
+        dx.data_ptr(), v_out, v_in, k, cin, cout, splits, cuda_stream(g)))
+    gather_conv.launches += 1
+    down_dx.launches += 1
+    return dx
+
+
+down_dx.launches = 0
+
+
+@functools.cache
+def _entry(source: str, name: str, n_args: int, n_ints: int = 5, n_longs: int = 1):
     """``name`` of the library built from ``csrc/<source>.cu``: ``n_args``
-    pointers, the row count, ``n_ints`` ints and the stream."""
+    pointers, ``n_longs`` row counts, ``n_ints`` ints and the stream."""
     fn = getattr(library(source), name)
     p = ctypes.c_void_p
     fn.restype = ctypes.c_int
-    fn.argtypes = [p] * n_args + [ctypes.c_longlong] + [ctypes.c_int] * n_ints + [p]
+    fn.argtypes = [p] * n_args + [ctypes.c_longlong] * n_longs + [ctypes.c_int] * n_ints + [p]
     return fn
 
 
@@ -251,7 +405,7 @@ def _check_pair(name, feats, g):
 
 
 def conv_dw(feats: torch.Tensor, nbr: torch.Tensor, g: torch.Tensor,
-            cin: Optional[int] = None) -> torch.Tensor:
+            cin: Optional[int] = None, lists: Optional[torch.Tensor] = None) -> torch.Tensor:
     """dW[k] = sum_v feats[nbr[v, k]]^T g[v].
 
     Args:
@@ -263,6 +417,8 @@ def conv_dw(feats: torch.Tensor, nbr: torch.Tensor, g: torch.Tensor,
       nbr:   [V_out, K] int32 rows of ``feats`` (all < V_in), -1 = empty.
       g:     [V_out, Cout] in ``feats.dtype``; Cout in {32, 64, 128}.
       cin:   the conv's Cin (default ``feats.shape[1]``).
+      lists: ``down_lists(nbr)``, on the tensor-core route: the list pass
+        already run (none here); the other routes read no lists.
     Returns [K, Cin, Cout] f32.
     """
     _check_pair("conv_dw", feats, g)
@@ -282,6 +438,10 @@ def conv_dw(feats: torch.Tensor, nbr: torch.Tensor, g: torch.Tensor,
         if k != LIST_K:
             raise ValueError(f"conv_dw: the tensor-core route takes the downs' maps of "
                              f"K = {LIST_K} offsets, got {k}")
+        if lists is not None and (lists.dtype != torch.int32 or lists.device != feats.device
+                                  or lists.numel() != dw_list_workspace(v_out)):
+            raise ValueError(f"conv_dw: lists of {lists.numel()} {lists.dtype} are not the "
+                             f"workspace of a {v_out}-row map")
     elif path == "stem_wide":
         check_stem("conv_dw", k, feats, g)
     dw = torch.empty(k, cin, cout, dtype=torch.float32, device=feats.device)
@@ -296,18 +456,21 @@ def conv_dw(feats: torch.Tensor, nbr: torch.Tensor, g: torch.Tensor,
         splits = dw_splits(v_out, k, path, 4 * k * cin * cout)
     partial = torch.empty(splits, k, cin, cout, dtype=torch.float32, device=feats.device)
     ptrs = [feats.data_ptr(), nbr.data_ptr(), g.data_ptr(), partial.data_ptr(), dw.data_ptr()]
-    if path == "tensor_core":  # the list pass's workspace before the partials
-        work = torch.empty(dw_list_workspace(v_out), dtype=torch.int32, device=feats.device)
-        ptrs.insert(3, work.data_ptr())
+    own_lists = path == "tensor_core" and lists is None  # the list pass runs in this launch
+    if path == "tensor_core":  # the list workspace before the partials
+        if own_lists:
+            lists = torch.empty(dw_list_workspace(v_out), dtype=torch.int32, device=feats.device)
+        ptrs.insert(3, lists.data_ptr())
     args = [*ptrs, v_out, k, cin, cout, splits]
     if path == "fma":
         fn, codes = _entry("conv_dw", "ir_conv_dw", 5), [DTYPES[feats.dtype]]
     else:
-        fn, codes = _entry("conv_dw", f"ir_conv_dw_{ENTRY[path]}", len(ptrs), 4), []
+        suffix = "_lists" if path == "tensor_core" and not own_lists else ""
+        fn, codes = _entry("conv_dw", f"ir_conv_dw_{ENTRY[path]}{suffix}", len(ptrs), 4), []
     check_launch("conv_dw", fn(*args, *codes, cuda_stream(feats)))
     conv_dw.launches += 1
     conv_dw.stem_launches += path == "stem_wide"
-    dw_lists.launches += path == "tensor_core"
+    dw_lists.launches += own_lists
     return dw
 
 

@@ -10,8 +10,11 @@ Counterparts of the JAX package's custom VJPs ``pallas_conv.banded_subm_conv``
   input is a detached leaf) K3 and a zero dX.  A stem's input comes from
   ``stem_input``: on the card's stem route the same copy that casts it is
   zero-padded to 16-byte rows, and K1 and K3 read that copy.
-* ``down_conv``: forward K1 over ``down``; dX is K1 over the inverse map
-  ``up8`` with W^T and an f32 output, dW is K3 over ``down``.
+* ``down_conv``: forward K1 over ``down``; backward one list pass of
+  ``down`` (``conv_bwd.down_lists``) that both gradients read: dX
+  (``conv_bwd.down_dx``, the counterpart of K1 over the inverse map ``up8``
+  with W^T and an f32 output) and dW (K3 over ``down``).  f32 on a card
+  (the FMA kernels, no lists) takes K1 over ``up8`` and K3's own route.
 
 The backwards cast as the JAX ones do: the cotangent to ``cast_in(g.float())``;
 dX and dW are computed in f32 and cast to the dtype of the Function's
@@ -28,7 +31,7 @@ from __future__ import annotations
 
 import torch
 
-from instancerefer_tpu_torch.ops.conv_bwd import conv_dw, subm_conv_bwd
+from instancerefer_tpu_torch.ops.conv_bwd import conv_dw, down_dx, down_lists, subm_conv_bwd
 from instancerefer_tpu_torch.ops.gather_conv import gather_conv, pad_channels, route
 from instancerefer_tpu_torch.ops.precision import cast_dtype, cast_in
 
@@ -70,8 +73,13 @@ class DownConv(torch.autograd.Function):
         xc, down, up8, wc = ctx.saved_tensors
         feats_dtype, weight_dtype = ctx.dtypes
         gc = _cotangent(g)
-        dx = gather_conv(gc, up8, wc.transpose(1, 2).contiguous(), out_dtype=torch.float32)
-        dw = conv_dw(xc, down, gc)
+        if route(gc.dtype, wc.shape[1], gc.device) == "fma":
+            dx = gather_conv(gc, up8, wc.transpose(1, 2).contiguous(), out_dtype=torch.float32)
+            dw = conv_dw(xc, down, gc)
+        else:
+            lists = down_lists(down)
+            dx = down_dx(gc, down, up8, wc, lists)
+            dw = conv_dw(xc, down, gc, lists=lists)
         return dx.to(feats_dtype), None, None, dw.to(weight_dtype)
 
 

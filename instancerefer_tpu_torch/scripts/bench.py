@@ -332,8 +332,9 @@ def compare(mode: str, got: dict, want: dict, lr: float) -> Dict[str, object]:
 def held_against_twins(report: Dict[str, dict]):
     """Within the block, every call of K1's, K2's and K3's wrappers from
     the model (the convs of ``ops/sparse_conv``, the folded eval convs of
-    ``models/basic_blocks``) is repeated by the kernel's plain twin
-    (``ops/sparse``) on the same inputs.  ``report`` takes, per kernel, its
+    ``models/basic_blocks``; the down convs' dX over the lists, K1's route
+    there, against K1's twin over ``up8`` with W^T) is repeated by the
+    kernel's plain twin (``ops/sparse``) on the same inputs.  ``report`` takes, per kernel, its
     calls and per output the largest |kernel - twin| in ``TWIN_TOL``'s
     units (bf16: over max|twin|; f32: over each element's sum of term
     magnitudes); a stem's input padded to 16-byte rows reaches the twin
@@ -342,7 +343,7 @@ def held_against_twins(report: Dict[str, dict]):
     from instancerefer_tpu_torch.ops import sparse, sparse_conv
 
     callers = (sparse_conv, basic_blocks)
-    names = ("gather_conv", "subm_conv_bwd", "conv_dw")
+    names = ("gather_conv", "down_dx", "subm_conv_bwd", "conv_dw")
     real = {n: getattr(sparse_conv, n) for n in names}
     patched = [(m, n) for m in callers for n in names if hasattr(m, n)]
 
@@ -370,6 +371,16 @@ def held_against_twins(report: Dict[str, dict]):
         report["K1"]["calls"] += 1
         return out
 
+    def down_dx(g, nbr, up8, weight, lists):
+        # K1's route at the down convs' dX: the twin is K1's over up8 with W^T
+        out = real["down_dx"](g, nbr, up8, weight, lists)
+        w_t = weight.transpose(1, 2).contiguous()
+        want = sparse.gather_conv(g, up8, w_t, out_dtype=torch.float32)
+        note("K1", "out_f32", out, want,
+             sparse.gather_conv(g.abs(), up8, w_t.abs(), out_dtype=torch.float32))
+        report["K1"]["calls"] += 1
+        return out
+
     def subm_conv_bwd(feats, nbr, g, weight):
         dx, dw = real["subm_conv_bwd"](feats, nbr, g, weight)
         want_dx, want_dw = sparse.subm_conv_bwd(feats, nbr, g, weight)
@@ -379,8 +390,8 @@ def held_against_twins(report: Dict[str, dict]):
         report["K2"]["calls"] += 1
         return dx, dw
 
-    def conv_dw(feats, nbr, g, cin=None):
-        dw = real["conv_dw"](feats, nbr, g, cin=cin)
+    def conv_dw(feats, nbr, g, cin=None, lists=None):
+        dw = real["conv_dw"](feats, nbr, g, cin=cin, lists=lists)
         x = feats[:, :dw.shape[1]]
         note("K3", "dW", dw, sparse.conv_dw(x, nbr, g), sparse.conv_dw(x.abs(), nbr, g.abs()))
         report["K3"]["calls"] += 1
@@ -388,7 +399,8 @@ def held_against_twins(report: Dict[str, dict]):
 
     if any(getattr(m, n) is not real[n] for m, n in patched):
         raise AssertionError("the model's modules call other wrappers")
-    wrapped = {"gather_conv": gather_conv, "subm_conv_bwd": subm_conv_bwd, "conv_dw": conv_dw}
+    wrapped = {"gather_conv": gather_conv, "down_dx": down_dx, "subm_conv_bwd": subm_conv_bwd,
+               "conv_dw": conv_dw}
     try:
         for m, n in patched:
             setattr(m, n, wrapped[n])

@@ -1,29 +1,39 @@
-"""Count what the tensor-core gather-GEMM (K1, K2's dX), K2's dW and K3 at
-the down convs move, by shape, on the bench's synthetic batch: the bytes
-each stages from L2 into shared memory under this tree's plans, beside
-each shape's valid map entries and its bound.
+"""Count what the tensor-core gather-GEMM (K1, K2's dX), K2's dW, the downs'
+dX over their lists and K3 at the down convs move, by shape, on the
+bench's synthetic batch: the bytes each stages from L2 into shared memory
+under this tree's plans, beside each shape's valid map entries and its
+bound.
 
     python -m instancerefer_tpu_torch.scripts.conv_bytes [--batch 64] [--sms 132]
 
 Runs on the CPU (numpy; no card).  The batch is ``scripts/bench.py``'s:
 ``config/band_profile.synthetic.yaml``'s caps, 40 000-point scenes, seed 0.
-For every K1 tensor-core and K2 shape of a train step
-(``scripts/step_ab.SHAPES``) one line, then the totals of a train step and
-the bound of a step by kernel (every launch of a train and an eval step,
-the stems at Cin 7):
+For every K1 tensor-core shape of a train step but the downs' dX, and
+every K2 shape (``scripts/step_ab.SHAPES``), one line, then the totals of
+a train step and the bound of a step by kernel (every launch of a train
+and an eval step, the stems at Cin 7):
 
 - ``valid``: the map's valid entries; ``bound_ms``: ``step_ab.shape_bounds``
   (an H100's peaks);
 - the plan (``gather_conv.tc_plan``; K2 also ``conv_bwd.dw_plan``);
 - K1 / K2's dX: the gathered rows staged (``rows_MB``; -1 rows are
-  zero-filled but staged), per (16-row slice, offset) pair with a valid
-  index in the slice at the 8-offset maps and per (64-row tile, offset)
-  pair with one in the tile at 27; the weight slices staged per (tile,
-  offset) pair (``w_MB``); ``w_share``, W's part of the staged bytes;
+  zero-filled but staged), per (64-row tile, offset) pair with a valid
+  index in the tile; the weight slices staged per such pair (``w_MB``);
+  ``w_share``, W's part of the staged bytes;
 - K2's dW: x tiles staged (``x_MB``), gathered g rows (``g_MB``), map
   bytes read in 32-byte sectors (``map_MB``; a row's G entries side by
   side, read once a tile) and the split partials written and read
   (``partial_MB``).
+
+Then the downs' dX over the per-offset lists of the down map
+(``conv_bwd.down_dx``, ``dx_list_splits`` blocks a list): the valid
+entries' g rows staged (``rows_MB``), W[k] staged once a block (``w_MB``),
+the list and map entries read (``index_MB``, one 32-byte sector a map
+entry), ``up8`` read by the zero pass (``up8_MB``) and the f32 dX written
+(``dx_MB``: the named rows and the zeroed ones), beside what K1's grid of
+64-row tiles over ``up8`` with its 16-row slice checks staged for it
+(``grid_MB``: the gathered rows of every (16-row slice, offset) pair with
+a valid index and the weight slices of every (tile, offset) pair).
 
 Then K3 at each down conv, over the per-offset lists
 (``conv_bwd.dw_list_splits``): the x and g rows staged (``rows_MB``, the
@@ -56,11 +66,9 @@ def active_pairs(nbr: np.ndarray, bm: int) -> np.ndarray:
 
 def gemm_bytes(nbr, red: int, nout: int):
     """(rows, weight) bytes the gather-GEMM stages: the rows of every
-    (16-row slice, offset) pair with a valid index at the maps of at most 8
-    offsets, else of every (tile, offset) pair; W per (tile, offset)."""
+    (tile, offset) pair with a valid index, and W per such pair."""
     pairs = int(active_pairs(nbr, BM).sum())
-    rows = int(active_pairs(nbr, 16).sum()) * 16 if nbr.shape[1] <= 8 else pairs * BM
-    return rows * red * 2, pairs * red * nout * 2
+    return pairs * BM * red * 2, pairs * red * nout * 2
 
 
 def dw_bytes(nbr, cin: int, cout: int, group: int, splits: int):
@@ -90,6 +98,18 @@ def list_dw_bytes(nbr, cin: int, cout: int, splits: int) -> dict:
             "partial": 2 * splits * k * cin * cout * 4}
 
 
+def list_dx_bytes(down, up8, cin: int, cout: int, splits: int) -> dict:
+    """What the list-driven dX moves at a down conv (``down`` [V_out, 8],
+    its inverse ``up8`` [V_in, 8]; the conv's Cin -> Cout), by kind (see the
+    module's note), and ``grid``, what K1 over ``up8`` with W^T staged."""
+    nnz = int((down >= 0).sum())
+    grid = int(active_pairs(up8, 16).sum()) * 16 * cout * 2 + \
+        int(active_pairs(up8, BM).sum()) * cout * cin * 2
+    return {"rows": nnz * cout * 2, "w": down.shape[1] * splits * cin * cout * 2,
+            "index": nnz * (4 + 32), "up8": up8.nbytes, "dx": up8.shape[0] * cin * 4,
+            "grid": grid}
+
+
 def main(argv=None) -> None:
     import torch
 
@@ -113,16 +133,14 @@ def main(argv=None) -> None:
     totals = {"K1": 0.0, "K2 dX": 0.0, "K2 dW": 0.0}
     print(f"B={args.batch}, {args.sms} SMs; MB staged from L2 into shared memory")
     for label, wrapper, key, _, cin, cout in step_ab.SHAPES:
-        if wrapper not in ("gather_conv", "gather_conv_dx", "subm_conv_bwd") or \
-                cin not in G.TC_WIDTHS:
+        if wrapper not in ("gather_conv", "subm_conv_bwd") or cin not in G.TC_WIDTHS:
             continue
         nbr = step_ab.shape_map(batch, key)
         v, k = nbr.shape
         nnz, bound_ms = bounds[label]
         launches = 2 if "residual" in label else 1
         red, nout = (cout, cin) if wrapper == "subm_conv_bwd" else (cin, cout)
-        dt = torch.bfloat16 if wrapper == "gather_conv" else torch.float32
-        plan = G.tc_plan(v, k, red, nout, dt, args.sms)
+        plan = G.tc_plan(v, k, red, nout, torch.bfloat16, args.sms)
         rows, w = gemm_bytes(nbr, red, nout)
         line = (f"{label}: V={v} K={k} {cin}->{cout} valid={nnz} bound_ms={bound_ms:.4f} "
                 f"launches={launches} plan={plan.bm}x{plan.cluster}; "
@@ -136,6 +154,21 @@ def main(argv=None) -> None:
                      f"g_MB {g * mb:.1f} map_MB {m * mb:.1f} partial_MB {part * mb:.1f}")
             totals["K2 dW"] += launches * (x + g + m + part)
         print(line)
+    dx = dict.fromkeys(("rows", "w", "index", "up8", "dx", "grid"), 0)
+    for label, wrapper, key, in_key, cin, cout in step_ab.SHAPES:
+        if wrapper != "gather_conv_dx" or cin not in G.TC_WIDTHS:
+            continue
+        up8 = step_ab.shape_map(batch, key)
+        down = step_ab.shape_map(batch, key.replace("_up8_", "_down_"))
+        nnz, bound_ms = bounds[label]
+        splits = conv_bwd.dx_list_splits(down.shape[0], 8, cout, cin, args.sms)
+        b = list_dx_bytes(down, up8, cout, cin, splits)
+        for kind, n in b.items():
+            dx[kind] += n
+        print(f"{label}, over the lists: V_in={up8.shape[0]} V_out={down.shape[0]} "
+              f"{cin}->{cout} valid={nnz} zeroed rows={up8.shape[0] - nnz} bound_ms={bound_ms:.4f} "
+              f"splits={splits}; " + " ".join(f"{kind}_MB {n * mb:.1f}" for kind, n in b.items()))
+    totals["K1 dX over the lists"] = sum(n for kind, n in dx.items() if kind != "grid")
     k3 = dict.fromkeys(("rows", "grid", "map", "lists", "index", "partial"), 0)
     for label, wrapper, key, _, cin, cout in step_ab.SHAPES:
         if wrapper != "conv_dw" or cin not in G.TC_WIDTHS:
@@ -152,8 +185,10 @@ def main(argv=None) -> None:
                   f"{kind}_MB {n * mb:.1f}" for kind, n in b.items()))
     totals["K3 downs"] = sum(n for kind, n in k3.items() if kind != "grid")
     print("a train step, MB: " + ", ".join(f"{fam} {b * mb:.1f}" for fam, b in totals.items())
-          + f" (K3 at the downs: rows {k3['rows'] * mb:.1f}, where the grid of tiles staged "
-          f"{k3['grid'] * mb:.1f})")
+          + f" (the downs' dX: g rows {dx['rows'] * mb:.1f}, W {dx['w'] * mb:.1f}, dX "
+          f"written {dx['dx'] * mb:.1f}, where K1's grid of tiles over up8 staged "
+          f"{dx['grid'] * mb:.1f}; K3 at the downs: rows {k3['rows'] * mb:.1f}, where the grid "
+          f"of tiles staged {k3['grid'] * mb:.1f})")
     # the bound of a step by kernel: every launch at Cin 7 (the default stems)
     steps = {"K1 train": 0.0, "K1 eval": 0.0, "K2": 0.0, "K3": 0.0}
     for label, wrapper, *_ in step_ab.SHAPES:

@@ -47,11 +47,13 @@ falls on every root alike.  Each run prints one line ``STEP_AB {...}``:
   path gives it (a root with ``gather_conv.pad_channels`` pads the stems'
   rows before the timing, as ``ops/sparse_conv.stem_input`` does); and K1
   at every tensor-core shape of a train step (the downs and residuals with
-  the epilogue, the downs' dX over ``up8`` with an f32 output) and K2 at
-  every residual; beside each, ``kernels_bound`` (its valid map entries and
-  the least ms an H100 could take, ``shape_bounds``) and ``kernels_plan``
-  (ROOT's ``tc_plan`` / ``dw_plan`` / ``dw_list_splits`` where it has
-  them).
+  the epilogue; the downs' dX: ``conv_bwd.down_dx`` over the lists of the
+  down map, built outside the timing as the down's backward shares them
+  with K3, or in a checkout from before it K1 over ``up8`` with an f32
+  output) and K2 at every residual; beside each, ``kernels_bound`` (its
+  valid map entries and the least ms an H100 could take, ``shape_bounds``)
+  and ``kernels_plan`` (ROOT's ``tc_plan`` / ``dw_plan`` /
+  ``dw_list_splits`` / ``dx_list_splits`` where it has them).
 
 ``--batch B`` sets the scenes of the step's and the kernels' batch (default
 ROOT's ``chip_smoke.BATCH``, 32; the bench runs 64).
@@ -64,11 +66,12 @@ per shape the median of each root's kernel times.
 times this checkout's K1, K2 and K3 instead (``plan_sweep``), at every K1
 tensor-core and K2 shape of a train step of ``scripts/bench.py``'s batch of
 B scenes, under every tile plan the kernels are built for and with K2's
-dW at a half, 1, 2 and 3 times its splits, and K3 at every down conv with
-its lists at a quarter, a half, 1, 2 and 4 times its splits: how
-``tc_plan``, ``dw_plan`` and ``dw_list_splits`` were chosen.  K3's lines
-also give its device ms a call by kernel (the list pass's two kernels, the
-dW kernel, the sum of the splits) under the picked plan, from the profiler.
+dW at a half, 1, 2 and 3 times its splits, and K3 and the dX at every
+down conv with their lists at a quarter, a half, 1, 2 and 4 times their
+splits: how ``tc_plan``, ``dw_plan``, ``dw_list_splits`` and
+``dx_list_splits`` were chosen.  The list lines also give the device ms a
+call by kernel (K3: the list pass's two kernels, the dW kernel, the sum of
+the splits) under the picked plan, from the profiler.
 """
 
 from __future__ import annotations
@@ -85,7 +88,7 @@ import time
 PREFIX = "STEP_AB "
 WIDTHS = (32, 64, 128, 128, 128)  # the encoders' channels by stage
 STEM_CINS = (7, 10, 135)  # the stems' Cin: the default config, use_normal, use_multiview
-TC_WRAPPERS = ("gather_conv", "gather_conv_dx", "subm_conv_bwd")  # K1 and K2's labels
+TC_WRAPPERS = ("gather_conv", "subm_conv_bwd")  # the labels of K1's tile route and K2
 
 
 def _shapes():
@@ -274,7 +277,13 @@ def _time_kernels(batch, dev, timer, labels=None) -> dict:
         if wrapper == "gather_conv":
             sc, bi = 0.5 + torch.rand(cout, device=dev, generator=gen), 0.1 * rnd(cout)
             out[label] = timer(lambda: G.gather_conv(x, nbr, w, sc, bi, relu=True))
-        elif wrapper == "gather_conv_dx":
+        elif wrapper == "gather_conv_dx" and hasattr(conv_bwd, "down_dx"):
+            # over the lists of the down map (built outside the timing: the
+            # down's backward shares them with K3), W as stored
+            down = torch.from_numpy(shape_map(batch, key.replace("_up8_", "_down_"))).to(dev)
+            ws, work = w.transpose(1, 2).contiguous(), conv_bwd.down_lists(down)
+            out[label] = timer(lambda: conv_bwd.down_dx(x, down, nbr, ws, work))
+        elif wrapper == "gather_conv_dx":  # a checkout from before the lists: K1 over up8
             out[label] = timer(lambda: G.gather_conv(x, nbr, w, out_dtype=torch.float32))
         elif wrapper == "subm_conv_bwd":
             g = rnd(nbr.shape[0], cout).bfloat16()
@@ -328,6 +337,9 @@ def shape_plans(batch, sms: int) -> dict:
         v, k = shape_map(batch, key).shape
         if wrapper == "conv_dw" and cin in G.TC_WIDTHS and hasattr(conv_bwd, "dw_list_splits"):
             out[label] = [conv_bwd.dw_list_splits(v, k, cin, cout, sms)]
+        elif wrapper == "gather_conv_dx" and hasattr(conv_bwd, "dx_list_splits"):
+            v_down = batch[in_key].shape[0]  # the down map's rows
+            out[label] = ["lists", conv_bwd.dx_list_splits(v_down, k, cout, cin, sms)]
         elif wrapper in ("gather_conv", "gather_conv_dx") and cin in G.TC_WIDTHS:
             dt = torch.float32 if wrapper == "gather_conv_dx" else torch.bfloat16
             out[label] = list(G.tc_plan(v, k, cin, cout, dt, sms))
@@ -492,10 +504,10 @@ def tc_labels(widths) -> list:
 
 
 def list_labels(widths) -> list:
-    """The labels of ``SHAPES`` that K3's tensor-core route (over the
-    per-offset lists) serves: the downs."""
+    """The labels of ``SHAPES`` that the routes over the per-offset lists of
+    the down maps serve: K3 at the downs and the downs' dX."""
     return [label for label, wrapper, _, _, cin, _ in SHAPES
-            if wrapper == "conv_dw" and cin in widths]
+            if wrapper in ("conv_dw", "gather_conv_dx") and cin in widths]
 
 
 @contextlib.contextmanager
@@ -503,12 +515,14 @@ def forced_plans(tile=None, dw_scale=None, list_scale=None):
     """Inside, every tensor-core gather-GEMM launch (K1, K2's dX) takes the
     tile plan ``tile`` ((rows, cluster)), K2's dW ``dw_scale`` times the
     splits ``dw_plan`` picks and K3's lists ``list_scale`` times those of
-    ``dw_list_splits`` (both within ``DW_PARTIAL_BYTES``), where given; the
-    plan functions are restored after."""
+    ``dw_list_splits`` (both within ``DW_PARTIAL_BYTES``), and the downs' dX
+    ``list_scale`` times the blocks a list of ``dx_list_splits``, where
+    given; the plan functions are restored after."""
     from instancerefer_tpu_torch.ops import conv_bwd
     from instancerefer_tpu_torch.ops import gather_conv as G
 
-    saved = G.tc_plan, conv_bwd.tc_plan, conv_bwd.dw_plan, conv_bwd.dw_list_splits
+    saved = (G.tc_plan, conv_bwd.tc_plan, conv_bwd.dw_plan, conv_bwd.dw_list_splits,
+             conv_bwd.dx_list_splits)
     if tile is not None:
         G.tc_plan = conv_bwd.tc_plan = lambda rows, k, *_: G.TcPlan(*tile, -(-k // tile[1]))
 
@@ -525,10 +539,13 @@ def forced_plans(tile=None, dw_scale=None, list_scale=None):
     if list_scale is not None:
         conv_bwd.dw_list_splits = lambda rows, k, cin, cout, sms: scaled(
             saved[3](rows, k, cin, cout, sms), list_scale, k, cin, cout)
+        conv_bwd.dx_list_splits = lambda rows, k, cin, cout, sms: max(
+            1, int(list_scale * saved[4](rows, k, cin, cout, sms)))
     try:
         yield
     finally:
-        G.tc_plan, conv_bwd.tc_plan, conv_bwd.dw_plan, conv_bwd.dw_list_splits = saved
+        (G.tc_plan, conv_bwd.tc_plan, conv_bwd.dw_plan, conv_bwd.dw_list_splits,
+         conv_bwd.dx_list_splits) = saved
 
 
 def plan_sweep(batch_sizes, out_path=None, dw_scales=(0.5, 1, 2, 3),
@@ -536,8 +553,9 @@ def plan_sweep(batch_sizes, out_path=None, dw_scales=(0.5, 1, 2, 3),
     """At each of ``batch_sizes`` (``scripts/bench.py``'s batch), every label
     of ``tc_labels`` timed by ``device_ms`` under each plan of
     ``gather_conv.TC_PLANS``, and K2 also with its dW at ``dw_scales`` times
-    its splits; every label of ``list_labels`` (K3 at the downs) with its
-    lists at ``list_scales`` times their splits: one line a shape (valid
+    its splits; every label of ``list_labels`` (K3 at the downs, the downs'
+    dX) with its lists at ``list_scales`` times their splits: one line a
+    shape (valid
     entries, bound, the plans the plan functions pick, the ms of each
     variant); with ``out_path``, one JSON record a shape appended there
     too."""

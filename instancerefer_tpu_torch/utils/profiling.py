@@ -13,18 +13,19 @@ import time
 from typing import Callable, Dict, List
 
 # the sparse-conv kernels' names as the profiler reports them, by wrapper:
-# the gather-GEMM templates end in MIRROR_T (true: K2's dX; the tensor-core
-# one's f32 output and false: K1's dX over up8), the FMA dW one in GATHER_A
-# (true: K3); dw_group_tc_kernel is K2's dW; K3's tensor-core route is the
-# list pass (dw_list_count_kernel, dw_list_write_kernel) and
-# dw_list_tc_kernel; the stem kernels are K1's and K3's;
+# dx_list_tc_kernel is the down convs' dX (K1's counterpart over up8), the
+# list pass (dw_list_count_kernel, dw_list_write_kernel) serves it and K3;
+# the gather-GEMM templates end in MIRROR_T (true: K2's dX), the FMA dW one
+# in GATHER_A (true: K3); dw_group_tc_kernel is K2's dW, dw_list_tc_kernel
+# K3's at the downs; the stem kernels are K1's and K3's;
 # sum_partials_kernel serves K2 and K3
 KERNEL_FAMILIES = (
-    ("K1 dX over up8", re.compile(r"gather_gemm_tc_kernel<float, (\d+, )+false>")),
+    ("K1 dX over up8", re.compile(r"dx_list_tc_kernel")),
     ("K1 forward", re.compile(r"gather_gemm(_tc)?_kernel<.*false>|stem_wide_conv_kernel")),
     ("K2", re.compile(r"gather_gemm(_tc)?_kernel<.*true>|dw_partial_kernel<.*false>"
                       r"|dw_group_tc_kernel")),
-    ("K3", re.compile(r"dw_partial_kernel<.*true>|dw_list_\w+_kernel|stem_wide_dw_kernel")),
+    ("down lists", re.compile(r"dw_list_(count|write)_kernel")),
+    ("K3", re.compile(r"dw_partial_kernel<.*true>|dw_list_tc_kernel|stem_wide_dw_kernel")),
     ("K2/K3 sum of splits", re.compile(r"sum_partials_kernel")),
 )
 

@@ -143,7 +143,7 @@ def test_train_gate_holds_the_whole_step(kind):
     assert res["loss_rel_diff"] == 0 and not res["ok"], res
 
 
-@pytest.mark.parametrize("wrong", [None, "gather_conv", "subm_conv_bwd", "conv_dw"])
+@pytest.mark.parametrize("wrong", [None, "gather_conv", "down_dx", "subm_conv_bwd", "conv_dw"])
 def test_twin_check_catches_a_wrong_kernel(wrong, monkeypatch):
     """``held_against_twins`` over an eager train step at TEST_SPEC: every
     wrapper is called as often as a step launches it and agrees with its

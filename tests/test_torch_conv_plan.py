@@ -78,8 +78,7 @@ def _plans(wrapper, v, k, cin, cout, sms=H100_SMS):
     if wrapper == "subm_conv_bwd":  # dX reduces over Cout into Cin, f32
         return (G.tc_plan(v, k, cout, cin, torch.float32, sms),
                 conv_bwd.dw_plan(v, k, cin, cout, sms))
-    dt = torch.float32 if wrapper == "gather_conv_dx" else torch.bfloat16
-    return (G.tc_plan(v, k, cin, cout, dt, sms),)
+    return (G.tc_plan(v, k, cin, cout, torch.bfloat16, sms),)
 
 
 @pytest.mark.parametrize("which", ["B=32", "B=64", "TEST_SPEC"])
@@ -88,11 +87,20 @@ def test_every_tensor_core_launch_gets_a_built_plan(batches, which):
     eval step, the forward's shapes), 8 K1 shapes of 2 launches (the
     residuals) or 1 (the downs, their dX) and 8 K2 shapes of 2, each
     with a plan the C entries are built for, within the shared memory and
-    partials a block and a call may take, the same on every call."""
+    partials a block and a call may take, the same on every call.  The
+    downs' dX runs over the down map's lists: its blocks a list fill at
+    most the card's slots."""
     launches = _tc_launches(batches[which])
+    list_plans = step_ab.shape_plans(batches[which], H100_SMS)
     counts = {"gather_conv": 0, "gather_conv_dx": 0, "subm_conv_bwd": 0}
     for label, wrapper, v, k, cin, cout in launches:
         counts[wrapper] += 2 if "residual" in label else 1
+        if wrapper == "gather_conv_dx":  # Cin -> Cout of the dX: the down's Cout -> Cin
+            route, splits = list_plans[label]
+            assert route == "lists" and splits >= 1
+            assert splits * k <= conv_bwd.dx_list_blocks(cout, cin) * H100_SMS
+            assert conv_bwd.dx_list_smem_bytes(cout, cin) <= G.SMEM_LIMIT
+            continue
         plans = _plans(wrapper, v, k, cin, cout)
         assert plans == _plans(wrapper, v, k, cin, cout)  # a function of the shape
         plan = plans[0]

@@ -66,7 +66,8 @@ def test_kernel_shapes_cover_the_stem_widths(monkeypatch):
     out = step_ab._time_kernels(batch, torch.device("cpu"), median_ms)
     assert list(out) == labels
     stems = ["ir_gather_conv_stem_wide", "ir_conv_dw_stem_wide"] * len(step_ab.STEM_CINS)
-    tensor_core = ["ir_gather_conv_tc"] * 3 + ["ir_subm_conv_bwd_tc"]
+    # the down, the residual, the down's dX over its lists, K2
+    tensor_core = ["ir_gather_conv_tc"] * 2 + ["ir_down_dx_tc", "ir_subm_conv_bwd_tc"]
     assert calls == (stems + ["ir_conv_dw_tc"] * 4) * 2 + tensor_core * 8
 
 
@@ -98,7 +99,8 @@ def test_plan_sweep_forces_each_plan_and_restores(monkeypatch):
         monkeypatch.setattr(module, "sm_count", lambda device: 132)
     batch = make_batch(2, TEST_SPEC, seed=0, mean_size_arr=np.asarray(cs.MEAN_SIZE))
     labels = step_ab.tc_labels(G.TC_WIDTHS)
-    assert len(labels) == 32 and all(lab.split()[0] in ("K1", "K2") for lab in labels)
+    assert len(labels) == 24 and all(lab.split()[0] in ("K1", "K2") for lab in labels)
+    assert not any("dX" in lab for lab in labels)  # the downs' dX runs over lists
     plans = (G.tc_plan, conv_bwd.tc_plan, conv_bwd.dw_plan)
     dw = [conv_bwd.dw_plan(2 * 8, 27, 64, 64, 132).splits]
 
@@ -116,18 +118,19 @@ def test_plan_sweep_forces_each_plan_and_restores(monkeypatch):
     # cluster, G) of K2
     assert {tuple(a[1:3]) for n, a in calls if n == "ir_gather_conv_tc"} == {(64, 4)}
     assert {tuple(a[1:3]) for n, a in calls if n == "ir_subm_conv_bwd_tc"} == {(64, 4)}
-    assert len(calls) == 32
+    assert len(calls) == 24
     with pytest.raises(SystemExit, match="no CUDA device"):
         monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
         step_ab.plan_sweep([2])
 
 
 def test_plan_sweep_forces_the_list_splits_and_restores(monkeypatch):
-    """``--plans``' forcing of K3's list splits: inside ``forced_plans`` every
-    launch at a down conv (``list_labels``) hands the C entry the scaled
-    splits of ``dw_list_splits`` (within ``DW_PARTIAL_BYTES``); after it the
-    plan function is the package's again.  On the CPU with the card's routes
-    and the C entries faked."""
+    """``--plans``' forcing of the list splits: inside ``forced_plans`` every
+    K3 launch at a down conv (``list_labels``) hands the C entry the scaled
+    splits of ``dw_list_splits`` (within ``DW_PARTIAL_BYTES``), and every
+    down's dX the scaled blocks a list of ``dx_list_splits``; after it the
+    plan functions are the package's again.  On the CPU with the card's
+    routes and the C entries faked."""
     import numpy as np
     import torch
 
@@ -149,8 +152,8 @@ def test_plan_sweep_forces_the_list_splits_and_restores(monkeypatch):
     monkeypatch.setattr(conv_bwd, "sm_count", lambda device: 132)
     batch = make_batch(2, TEST_SPEC, seed=0, mean_size_arr=np.asarray(cs.MEAN_SIZE))
     labels = step_ab.list_labels(G.TC_WIDTHS)
-    assert len(labels) == 8 and all(lab.startswith("K3") and "down" in lab for lab in labels)
-    picked = conv_bwd.dw_list_splits
+    assert len(labels) == 16 and all("down" in lab for lab in labels)
+    picked, picked_dx = conv_bwd.dw_list_splits, conv_bwd.dx_list_splits
 
     def timer(fn):
         fn()
@@ -160,11 +163,16 @@ def test_plan_sweep_forces_the_list_splits_and_restores(monkeypatch):
         calls.clear()
         with step_ab.forced_plans(list_scale=scale):
             out = step_ab._time_kernels(batch, torch.device("cpu"), timer, labels)
-        assert list(out) == labels and len(calls) == 8
+        assert list(out) == labels and len(calls) == 16
         for (name, splits), label in zip(calls, labels):
-            _, _, key, _, cin, cout = next(s for s in step_ab.SHAPES if s[0] == label)
+            _, wrapper, key, in_key, cin, cout = next(s for s in step_ab.SHAPES if s[0] == label)
+            if wrapper == "gather_conv_dx":  # the down map's rows, its Cin -> Cout
+                v = batch[in_key].shape[0]
+                assert name == "ir_down_dx_tc"
+                assert splits == max(1, int(scale * picked_dx(v, 8, cout, cin, 132)))
+                continue
             v = step_ab.shape_map(batch, key).shape[0]
             cap = conv_bwd.DW_PARTIAL_BYTES // (4 * 8 * cin * cout)
             assert name == "ir_conv_dw_tc"
             assert splits == max(1, min(int(scale * picked(v, 8, cin, cout, 132)), cap))
-    assert conv_bwd.dw_list_splits is picked
+    assert conv_bwd.dw_list_splits is picked and conv_bwd.dx_list_splits is picked_dx
