@@ -256,7 +256,12 @@ from instancerefer_tpu_torch.data.synthetic_scans import (
     write_fake_scanrefer,
     write_glove,
 )
-from instancerefer_tpu_torch.utils.profiling import KERNEL_FAMILIES
+from instancerefer_tpu_torch.utils.profiling import (
+    KERNEL_FAMILIES,
+    LAUNCH_FIRST,
+    LAUNCH_REST,
+    PROFILE_TRIES,
+)
 
 # the capacities of config/band_profile.synthetic.yaml, as literals (no yaml
 # here); the port ignores its band geometry
@@ -394,11 +399,11 @@ class Totals:
 STEM_KERNEL = re.compile(r"(stem_\w*?kernel)(I\w*?E)?E")
 
 
-# profiles of one step, at most, before a disagreement with the launches
-# counted fails it: the profiler can lose device records (one profile of
-# the use_multiview train replay kept 4073 of its 4296, another missed 4
-# of K1's 34 launches), while a step runs the same kernels each time
-PROFILE_TRIES = 3
+# PROFILE_TRIES (utils/profiling): profiles of one step, at most, before a
+# disagreement with the launches counted fails it: the profiler can lose
+# device records (one profile of the use_multiview train replay kept 4073 of
+# its 4296, another missed 4 of K1's 34 launches), while a step runs the
+# same kernels each time
 
 
 def device_records(prof) -> int:
@@ -2037,21 +2042,6 @@ def phase_loss_variants(dev) -> None:
 GRAPH_RUNS = 2  # rounds of eager, graph, graph, eager in the timing of 12d
 GRAPH_STEPS = 5  # steps a timed run
 SHAPE_REPLAYS = 10  # replays of each step under the profiler in 12e
-# a wrapper's launch as the profiler names its kernels: the first kernel of
-# each launch (K1, and the down convs' dX over the lists; K2's dX; K3; "L",
-# the list pass a down's backward runs before both), then the kernels that
-# finish it (K2's dW; the list pass's writes; the sum of the splits)
-LAUNCH_FIRST = {
-    "K1": re.compile(r"gather_gemm(_tc)?_kernel<.*false>|stem_wide_conv_kernel"
-                     r"|dx_list_tc_kernel"),
-    "K2": re.compile(r"gather_gemm(_tc)?_kernel<.*true>"),
-    "K3": re.compile(r"dw_partial_kernel<.*true>|stem_wide_dw_kernel|dw_list_tc_kernel"),
-    "L": re.compile(r"dw_list_count_kernel"),
-}
-LAUNCH_REST = re.compile(r"dw_partial_kernel<.*false>|dw_group_tc_kernel|sum_partials_kernel"
-                         r"|dw_list_write_kernel")
-
-
 @contextlib.contextmanager
 def record_launches():
     """The sparse-conv wrappers' calls made inside, in order, as dicts

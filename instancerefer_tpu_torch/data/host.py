@@ -34,6 +34,7 @@ import torch
 
 from instancerefer_tpu_torch.data.pipeline import BatchSpec
 from instancerefer_tpu_torch.ops import voxelize
+from instancerefer_tpu_torch.utils.profiling import span
 
 # the voxel pyramid's keys, read into ``SparseStage``s (``uprow``/``upk``
 # into ``up8``) rather than kept as dense tensors
@@ -317,25 +318,29 @@ def finish(staged: Dict[str, torch.Tensor], spec: BatchSpec, out: Optional[Dict]
     Into ``out``'s tensors when given (a captured step's static inputs: the
     same names, shapes and types, or it raises), each widened in its
     ``copy_``; else into new tensors, which never alias ``staged`` (a staging
-    set is rewritten once ``finish`` has read it)."""
-    sources = _finish_sources(staged, spec)
-    want = dict(_named_tensors(out)) if out is not None else None
-    if want is not None and want.keys() != {name for name, _, _ in sources}:
-        raise ValueError(f"the batch's tensors {sorted(n for n, _, _ in sources)} are not "
-                         f"{sorted(want)}")
-    done = {}
-    for name, src, dtype in sources:
-        if want is None:
-            dst = torch.empty(src.shape, dtype=dtype, device=src.device)
-        else:
-            dst = want[name]
-            if dst.shape != src.shape or dst.dtype != dtype:
-                raise ValueError(f"{name}: {tuple(src.shape)} {dtype}, where "
-                                 f"{tuple(dst.shape)} {dst.dtype} is wanted")
-        done[name] = dst
-    # one call for every copy: the feed's threads hold the interpreter lock
-    # in turns, and each call into torch gives it up and waits to take it back
-    torch._foreach_copy_(list(done.values()), [src for _, src, _ in sources])
+    set is rewritten once ``finish`` has read it).  Its two parts run
+    under the spans ``ir.load.sources`` and ``ir.load.copy``."""
+    with span("ir.load.sources"):
+        sources = _finish_sources(staged, spec)
+    with span("ir.load.copy"):
+        want = dict(_named_tensors(out)) if out is not None else None
+        if want is not None and want.keys() != {name for name, _, _ in sources}:
+            raise ValueError(f"the batch's tensors {sorted(n for n, _, _ in sources)} are not "
+                             f"{sorted(want)}")
+        done = {}
+        for name, src, dtype in sources:
+            if want is None:
+                dst = torch.empty(src.shape, dtype=dtype, device=src.device)
+            else:
+                dst = want[name]
+                if dst.shape != src.shape or dst.dtype != dtype:
+                    raise ValueError(f"{name}: {tuple(src.shape)} {dtype}, where "
+                                     f"{tuple(dst.shape)} {dst.dtype} is wanted")
+            done[name] = dst
+        # one call for every copy: the feed's threads hold the interpreter
+        # lock in turns, and each call into torch gives it up and waits to
+        # take it back
+        torch._foreach_copy_(list(done.values()), [src for _, src, _ in sources])
     if out is not None:
         return out
     dd = {k: done[k] for k in staged if not k.startswith(_PYRAMID_KEYS)}

@@ -28,6 +28,7 @@ from instancerefer_tpu_torch.ops.gather_conv import gather_conv
 from instancerefer_tpu_torch.ops.precision import cast_in
 from instancerefer_tpu_torch.ops.sparse_conv import down_conv, stem_input, subm_conv
 from instancerefer_tpu_torch.parallel.distributed import all_reduce_sum, world_size
+from instancerefer_tpu_torch.utils.profiling import span
 
 
 class MaskedBatchNorm(nn.Module):
@@ -86,6 +87,11 @@ class MaskedBatchNorm(nn.Module):
 
     def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None,
                 channel_dim: int = -1) -> torch.Tensor:
+        with span("ir.bn"):
+            return self._normalize(x, mask, channel_dim)
+
+    def _normalize(self, x: torch.Tensor, mask: Optional[torch.Tensor],
+                   channel_dim: int) -> torch.Tensor:
         shape = [1] * x.dim()
         shape[channel_dim] = -1
         if not self.training:

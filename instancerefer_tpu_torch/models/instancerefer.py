@@ -26,6 +26,7 @@ from instancerefer_tpu_torch.models.basic_blocks import (
 from instancerefer_tpu_torch.models.lang_module import LangModule
 from instancerefer_tpu_torch.models.relation_module import RelationModule
 from instancerefer_tpu_torch.models.scene_module import SceneModule
+from instancerefer_tpu_torch.utils.profiling import span
 
 
 class InstanceRefer(nn.Module):
@@ -55,10 +56,10 @@ class InstanceRefer(nn.Module):
                 m.momentum = momentum
 
     def forward(self, data_dict: dict) -> dict:
-        data_dict = self.lang(data_dict)
-        data_dict = self.attribute(data_dict)
-        data_dict = self.relation(data_dict)
-        return self.scene(data_dict)
+        for name in ("lang", "attribute", "relation", "scene"):
+            with span(f"ir.fwd.{name}"):
+                data_dict = getattr(self, name)(data_dict)
+        return data_dict
 
 
 MODULE_SWITCHES = ("attribute_module", "relation_module", "scene_module")

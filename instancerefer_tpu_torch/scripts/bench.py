@@ -25,10 +25,14 @@ Phases, in order:
    host clock up to ``torch.cuda.synchronize()``: the median, p90 and
    count; scenes/s is the batch over the median.
 2. One window of ``PROFILE_CALLS`` replays under ``torch.profiler``, apart
-   from the timed ones (``utils/profiling.device_profile``): the device's
-   busy ms and idle share, K1 / K2 / K3 / split sums, the rest by class
-   (the language module's GRU among them), the busiest kernels, the
-   longest idle gaps; peak device memory.
+   from the timed ones (``utils/profiling.device_profile``, retaken until
+   its launches agree with the counters): the device's busy ms and idle
+   share, K1 / K2 / K3 / split sums, the rest by class (the language
+   module's GRU among them), the busiest kernels, the longest idle gaps
+   and the idle ms by the span the host was in; peak device memory.  Then
+   ``MODULE_STEPS`` eager steps of the same batch under the profiler
+   (``utils/profiling.module_split``): the device ms a step by module,
+   forward and backward (``profile.modules``).
 3. ``--mode eval``: the occupancy curve, eval scenes/s at 10k, 40k and 80k
    points through the same graph (``bench.py``'s batches), each with its
    live-voxel fraction and its capacity overflow: the fitted caps do not
@@ -122,6 +126,7 @@ A100_REFERENCE_SCENES_PER_SEC = 15.0
 PEAK_BF16_FLOPS = 989e12  # one H100 SXM, dense bf16, at 700 W
 WIDTHS = (32, 64, 128, 128, 128)  # the encoders' channels by stage
 PROFILE_CALLS = 5  # replays in the profiled window
+MODULE_STEPS = 3  # eager steps in the module split's window
 # timed replays by default: a window of 2-4 s on an H100 at B = 64 (a
 # train replay takes ~46 ms, an eval replay ~6.5)
 ITERS = {"train": 50, "eval": 500}
@@ -256,6 +261,19 @@ def eager_step(mode: str, model, optimizer, dd: dict, mean_size):
         return train_step(model, optimizer, dd, mean_size)
     model.eval()
     return eval_body(model, dd, mean_size)
+
+
+def split_step(mode: str, model, optimizer, dd: dict, mean_size) -> None:
+    """One eager step for the module split: train keeps the gradient
+    tensors the graph captured (``set_to_none=False``)."""
+    from instancerefer_tpu_torch.train.step_graph import eval_body, train_body
+
+    if mode == "train":
+        model.train()
+        train_body(model, optimizer, dd, mean_size, set_to_none=False)
+    else:
+        model.eval()
+        eval_body(model, dd, mean_size)
 
 
 def all_finite(*dicts) -> bool:
@@ -589,7 +607,7 @@ def run(args) -> dict:
     from instancerefer_tpu_torch.scripts.step_ab import host_probe
     from instancerefer_tpu_torch.train.solver import make_optimizer
     from instancerefer_tpu_torch.train.step_graph import launch_counts
-    from instancerefer_tpu_torch.utils.profiling import device_profile
+    from instancerefer_tpu_torch.utils.profiling import device_profile, module_split
 
     card = args.device == "cuda"
     if card and not torch.cuda.is_available():
@@ -696,7 +714,16 @@ def run(args) -> dict:
             f"; within a replay {prof['idle_within_calls_ms']:.3f} ms); sparse "
             + ", ".join(f"{k} {v:.3f}" for k, v in prof["sparse_ms"].items()) + "; dense "
             + ", ".join(f"{k} {v:.3f}" for k, v in prof["dense_ms"].items())
-            + f"; peak memory {peak:.1f} MiB")
+            + f"; peak memory {peak:.1f} MiB; launches agree with the counters: "
+            + ("yes" if prof["agrees"] else prof["why"]))
+        # the device ms by module, from eager steps (a replay keeps no spans)
+        prof["modules"] = module_split(lambda: split_step(mode, model, optimizer, dd, mean_size),
+                                       MODULE_STEPS, log)
+        log(f"{MODULE_STEPS} eager {mode} steps by module (device ms a step, forward / "
+            "backward): " + "; ".join(f"{k} {v['forward']:.3f} / {v['backward']:.3f}"
+                                      for k, v in prof["modules"]["modules"].items())
+            + f"; unattributed {prof['modules']['unattributed_ms']:.3f} of "
+            f"{prof['modules']['device_ms']:.3f}")
 
     # 3. the occupancy curve (eval)
     curve = []

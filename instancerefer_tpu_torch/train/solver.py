@@ -36,11 +36,12 @@ data-parallel, they run eagerly.  Either way a batch comes staged from the
 prefetcher's thread, its copy to the card made on a side stream while the
 steps before it run, and is ``finish``ed on the card at its step: straight
 into its graph's inputs, or into new tensors for an eager step.
-A graph's step is timed as a whole with CUDA events, and the iter report
-splits it as the JAX solver splits its fused step: forward 1/3, backward
-2/3, eval 0 (a val step's time is all forward).  An eager step is timed per
-phase, with CUDA events on a card and the host clock on the CPU.  Every
-time is read once the step's metrics are on the host.
+Every step is timed per phase (forward with the loss, backward with Adam,
+eval): a graph's step by the CUDA events its graph records at the body's
+marks (``step_graph.StepMarks``; a key's first step, its eager warm-up, by
+its own), an eager step with CUDA events on a card and the host clock on
+the CPU; the iter report's last line says which.  Every time is read once
+the step's metrics are on the host.
 
 Data-parallel (a process group of world size > 1, ``parallel/distributed``):
 the ``Solver`` wraps the model in ``DistributedDataParallel``; each rank
@@ -72,9 +73,7 @@ from instancerefer_tpu_torch.parallel.distributed import (
     is_main,
     world_size,
 )
-from instancerefer_tpu_torch.train.evaluate import get_eval
-from instancerefer_tpu_torch.train.losses import get_loss
-from instancerefer_tpu_torch.train.step_graph import METRIC_KEYS, train_body, train_metrics
+from instancerefer_tpu_torch.train.step_graph import METRIC_KEYS, StepMarks, eval_body, train_body
 from instancerefer_tpu_torch.train.step_graph import choose as choose_steps
 from instancerefer_tpu_torch.utils.convert import (
     from_reference,
@@ -83,6 +82,7 @@ from instancerefer_tpu_torch.utils.convert import (
     to_reference_state_dict,
 )
 from instancerefer_tpu_torch.utils.eta import decode_eta
+from instancerefer_tpu_torch.utils.profiling import span
 
 ITER_REPORT_TEMPLATE = """
 -------------------------------iter: [{epoch_id}: {iter_id}/{total_iter}]-------------------------------
@@ -102,10 +102,12 @@ ITER_REPORT_TEMPLATE = """
 [info] ETA: {eta_h}h {eta_m}m {eta_s}s
 """
 
-# the fetch of the iter report in its two parts, logged after it
+# the fetch of the iter report in its parts, and where its phase times
+# come from, logged after it
 FETCH_SPLIT_TEMPLATE = """[info] mean_fetch_load_time: {mean_load_time}s
 [info] mean_fetch_copy_time: {mean_copy_time}s
-[info] mean_fetch_stage_time: {mean_stage_time}s"""
+[info] mean_fetch_stage_time: {mean_stage_time}s
+[info] phase_times: {phase_times}"""
 
 EPOCH_REPORT_TEMPLATE = """
 ---------------------------------summary---------------------------------
@@ -185,42 +187,23 @@ def bn_momentum_for_epoch(epoch: int, bn_decay_step, bn_decay_rate) -> float:
     return max(0.5 * bn_decay_rate ** (epoch // bn_decay_step), 0.001)
 
 
-def metrics_to_host(metrics: Dict[str, torch.Tensor]) -> Dict[str, float]:
-    """Every scalar of a step in one device -> host transfer."""
-    keys = list(metrics)
-    values = torch.stack([metrics[k].float() for k in keys]).cpu().tolist()
-    return dict(zip(keys, values))
-
-
-class PhaseTimer:
-    """Phase boundaries of one step: CUDA events on a card (read after the
-    step's results reached the host, so reading them waits for nothing),
-    the host clock on the CPU."""
-
-    def __init__(self, device):
-        self.device = torch.device(device)
-        self.marks: List = []
-
-    def mark(self) -> None:
-        if self.device.type == "cuda":
-            event = torch.cuda.Event(enable_timing=True)
-            event.record(torch.cuda.current_stream(self.device))
-            self.marks.append(event)
-        else:
-            self.marks.append(time.perf_counter())
-
-    def seconds(self) -> List[float]:
-        """Seconds between consecutive marks; forgets the marks."""
-        marks, self.marks = self.marks, []
-        if self.device.type == "cuda":
-            marks[-1].synchronize()
-            return [a.elapsed_time(b) / 1e3 for a, b in zip(marks, marks[1:])]
-        return [b - a for a, b in zip(marks, marks[1:])]
+def metrics_to_host(metrics: Dict[str, torch.Tensor], step: Optional[int] = None
+                    ) -> Dict[str, float]:
+    """Every scalar of a step in one device -> host transfer: the stack and
+    cast issued (``ir.to_host.issue``), then the read, which waits for the
+    step's last kernel (``ir.to_host.wait``); ``step`` numbers the span."""
+    with span("ir.to_host", **({} if step is None else {"step": step})):
+        keys = list(metrics)
+        with span("ir.to_host.issue"):
+            stacked = torch.stack([metrics[k].float() for k in keys])
+        with span("ir.to_host.wait"):
+            values = stacked.cpu().tolist()
+        return dict(zip(keys, values))
 
 
 def train_step(model: torch.nn.Module, optimizer: torch.optim.Optimizer, dd: dict,
                mean_size: torch.Tensor, bn_momentum: float = 0.1,
-               timer: Optional[PhaseTimer] = None) -> Tuple[Dict[str, torch.Tensor], dict]:
+               timer: Optional[StepMarks] = None) -> Tuple[Dict[str, torch.Tensor], dict]:
     """Train-mode forward -> ``get_loss`` -> backward -> ``optimizer.step()``
     -> ``get_eval``, eagerly (``step_graph.train_body``).  Returns (metrics,
     the step's outputs).  The gradients stay in ``.grad`` until the next
@@ -305,7 +288,7 @@ class Solver:
             os.makedirs(self.root, exist_ok=True)
         self.log_path = os.path.join(self.root, "log.txt")
         self.scalars_path = os.path.join(self.root, "scalars.jsonl")
-        self.timer = PhaseTimer(self.device)
+        self.timer = StepMarks(self.device)  # an eager step's phases
 
         # tensorboard writers (reference lib/solver.py:96-102); optional dep
         self._log_writer = {}
@@ -405,29 +388,22 @@ class Solver:
 
     def _eval_step(self, dd: dict) -> Dict[str, torch.Tensor]:
         self.model.eval()
-        with torch.no_grad():
-            self.timer.mark()
-            out = get_loss(self.model(dd), self.mean_size)
-            self.timer.mark()
-            metrics = train_metrics(get_eval(out))
-            self.timer.mark()
-        return metrics
+        return eval_body(self.model, dd, self.mean_size, self.timer.mark)[0]
 
     def _load(self, staged: dict, phase: str) -> dict:
         """``finish`` of a staged batch: into its graph's inputs, or new
         tensors for an eager step."""
         if self.graphs is not None:
             return self.graphs.load(staged, self.spec, "train" if phase == "train" else "eval")
-        return finish(staged, self.spec)
+        with span("ir.load", step=sum(self.steps.values())):
+            return finish(staged, self.spec)
 
     def _graph_step(self, dd: dict, phase, bn_momentum: float) -> dict:
         """A loaded batch through the graph of its key: its metrics."""
-        self.timer.mark()
         if phase == "train":
             metrics, _ = self.graphs.train_step(dd, bn_momentum)
         else:
             metrics, _ = self.graphs.eval_step(dd)
-        self.timer.mark()
         return metrics
 
     def _feed(self, loader, phase, epoch_id, bn_momentum: float = 0.1):
@@ -445,6 +421,7 @@ class Solver:
                 copy = time.perf_counter() - start
                 fetch = time.perf_counter() - fetch_start
                 start = time.perf_counter()
+                self.timer.begin()
                 if graphs:
                     metrics = self._graph_step(dd, phase, bn_momentum)
                 elif phase == "train":
@@ -452,17 +429,14 @@ class Solver:
                                             bn_momentum, self.timer)
                 else:
                     metrics = self._eval_step(dd)
-                metrics = metrics_to_host(metrics)
-                phases = self.timer.seconds()
+                metrics = metrics_to_host(metrics, sum(self.steps.values()))
+                phases = self.graphs.phase_seconds() if graphs else self.timer.seconds()
                 step_time = time.perf_counter() - start
                 self.steps[phase] += 1
                 self.log[phase]["fetch"].append(fetch)
                 self.log[phase]["fetch_load"].append(ready.load)
                 self.log[phase]["fetch_copy"].append(copy)
                 self.log[phase]["fetch_stage"].append(ready.stage)
-                if graphs:  # one span for the step, split as the JAX solver splits its own
-                    train = phase == "train"
-                    phases = [phases[0] / 3, 2 * phases[0] / 3, 0.0] if train else [phases[0], 0.0]
                 self.log[phase]["forward"].append(phases[0])
                 self.log[phase]["backward"].append(phases[1] if phase == "train" else 0.0)
                 self.log[phase]["eval"].append(phases[-1])
@@ -695,7 +669,16 @@ class Solver:
             mean_load_time=round(float(np.mean(log["fetch_load"])), 5),
             mean_copy_time=round(float(np.mean(log["fetch_copy"])), 5),
             mean_stage_time=round(float(np.mean(log["fetch_stage"])), 5),
+            phase_times=self._phase_times(),
         ))
+
+    def _phase_times(self) -> str:
+        """Where the iter report's forward, backward and eval times come from."""
+        if self.graphs is not None:
+            return ("the marks inside the step graphs, which each replay records (a key's "
+                    "first step: its eager warm-up's)")
+        return ("CUDA events" if self.device.type == "cuda" else "the host clock") + \
+            " at the eager step's phase bounds"
 
     def _epoch_report(self, epoch_id):
         self._log(f"epoch [{epoch_id + 1}/{self.epoch}] done...")

@@ -40,11 +40,19 @@ would reach the default stream and fail.
 The kernel wrappers count their launches in Python, which a replay does not
 run: the count a capture made is taken back and added on every replay
 (``LAUNCH_COUNTERS``), so the counts read as they would eagerly.
+
+A step's phases are timed inside it: the body's marks record CUDA events
+(``StepMarks``), captured into the graph as nodes that every replay records
+again, so ``phase_seconds`` reads a replay's own forward, backward and eval.
+The host step path runs under the spans of ``utils/profiling`` (``ir.load``,
+``ir.step`` and their children), which cost one check each while no
+profiler records.
 """
 
 from __future__ import annotations
 
-from typing import Callable, Dict, Optional, Tuple
+import time
+from typing import Callable, Dict, List, Optional, Tuple
 
 import torch
 
@@ -55,6 +63,7 @@ from instancerefer_tpu_torch.ops.precision import get_compute_dtype
 from instancerefer_tpu_torch.parallel.distributed import all_reduce_sum, world_size
 from instancerefer_tpu_torch.train.evaluate import get_eval
 from instancerefer_tpu_torch.train.losses import get_loss
+from instancerefer_tpu_torch.utils.profiling import span
 
 METRIC_KEYS = ("loss", "ref_loss", "lang_loss", "seg_loss", "lang_acc", "ref_acc", "seg_acc")
 # what a step returns besides its metrics: the losses, the scores and the
@@ -96,25 +105,41 @@ def train_body(model: torch.nn.Module, optimizer: torch.optim.Optimizer, dd: dic
     at the bounds of forward (with the loss), backward (with Adam) and
     eval."""
     mark = mark or (lambda: None)
-    optimizer.zero_grad(set_to_none=set_to_none)
+    with span("ir.adam"):
+        optimizer.zero_grad(set_to_none=set_to_none)
     mark()
-    out = get_loss(model(dd), mean_size)
+    out = model(dd)
+    with span("ir.loss"):
+        out = get_loss(out, mean_size)
     mark()
-    out["loss"].backward()
-    optimizer.step()
+    with span("ir.backward"):
+        out["loss"].backward()
+    with span("ir.adam"):
+        optimizer.step()
     mark()
-    with torch.no_grad():
+    with torch.no_grad(), span("ir.eval"):
         out = get_eval(out)
         metrics = train_metrics(out)
     mark()
     return metrics, out
 
 
-def eval_body(model: torch.nn.Module, dd: dict, mean_size: torch.Tensor) -> Step:
-    """One eval step in the model's current mode: (metrics, outputs)."""
+def eval_body(model: torch.nn.Module, dd: dict, mean_size: torch.Tensor,
+              mark: Optional[Callable[[], None]] = None) -> Step:
+    """One eval step in the model's current mode: (metrics, outputs).
+    ``mark`` is called at the bounds of forward (with the loss) and eval."""
+    mark = mark or (lambda: None)
     with torch.no_grad():
-        out = get_eval(get_loss(model(dd), mean_size))
-        return train_metrics(out), out
+        mark()
+        out = model(dd)
+        with span("ir.loss"):
+            out = get_loss(out, mean_size)
+        mark()
+        with span("ir.eval"):
+            out = get_eval(out)
+            metrics = train_metrics(out)
+        mark()
+        return metrics, out
 
 
 def launch_counts() -> Tuple[int, ...]:
@@ -162,11 +187,45 @@ class CudaGraph:
         return self.outputs
 
 
+class StepMarks:
+    """The times at the marks of a step's body (``train_body``'s and
+    ``eval_body``'s ``mark``).  On a card each mark records a CUDA event
+    with timing on the current stream; made ``external``, in a capture it
+    becomes a node of the graph, which each replay records again (a replay
+    runs no Python).  On the CPU each mark reads the host clock.  ``begin``
+    forgets the last run's marks."""
+
+    def __init__(self, device: torch.device, external: bool = False):
+        self.device = device
+        self.external = external
+        self.marks: list = []
+
+    def begin(self) -> None:
+        self.marks = []
+
+    def mark(self) -> None:
+        if self.device.type == "cuda":
+            event = torch.cuda.Event(enable_timing=True, external=self.external)
+            event.record(torch.cuda.current_stream(self.device))
+            self.marks.append(event)
+        else:
+            self.marks.append(time.perf_counter())
+
+    def seconds(self) -> List[float]:
+        """Seconds between consecutive marks of the last run, which has
+        ended (the step's results are on the host)."""
+        if self.device.type == "cuda":
+            self.marks[-1].synchronize()
+            return [a.elapsed_time(b) / 1e3 for a, b in zip(self.marks, self.marks[1:])]
+        return [b - a for a, b in zip(self.marks, self.marks[1:])]
+
+
 class _Captured:
-    def __init__(self, graph, inputs: dict, launches: Tuple[int, ...]):
+    def __init__(self, graph, inputs: dict, launches: Tuple[int, ...], marks: StepMarks):
         self.graph = graph
         self.inputs = inputs
         self.launches = launches  # what the capture counted, added on each replay
+        self.marks = marks  # the body's marks, recorded again by each replay
 
 
 class StepGraphs:
@@ -175,7 +234,9 @@ class StepGraphs:
     ``new_graph()`` makes the object a key's body is captured into and
     replayed from (``capture(fn) -> outputs``, ``replay() -> outputs``); the
     default is a ``CudaGraph`` in a pool the graphs share.  ``captures``
-    counts the captures made."""
+    counts the captures made, ``replays`` the replays, ``steps`` every step
+    (a key's first step is its eager warm-up).  ``phase_seconds`` splits
+    the last step at its body's marks."""
 
     def __init__(self, model: torch.nn.Module, optimizer: Optional[torch.optim.Optimizer],
                  mean_size: torch.Tensor, new_graph: Optional[Callable[[], object]] = None):
@@ -189,7 +250,10 @@ class StepGraphs:
         self.new_graph = new_graph
         self.graphs: Dict[tuple, _Captured] = {}
         self.captures = 0
+        self.replays = 0
+        self.steps = 0
         self._fresh = None  # the last data dict ``load`` made for a key with no graph
+        self._marks: Optional[StepMarks] = None  # the last step's
 
     @staticmethod
     def key(phase: str, lang_grid: int) -> tuple:
@@ -201,71 +265,93 @@ class StepGraphs:
         """``finish`` of a staged batch on the card: into the static inputs
         of its key's graph if there is one (they are overwritten), else into
         new tensors that the key's capture takes as its inputs."""
-        step = self.graphs.get(self.key(phase, staged["lang_feat"].shape[1]))
-        if step is not None:
-            return finish(staged, spec, out=step.inputs)
-        self._fresh = finish(staged, spec)
-        return self._fresh
+        with span("ir.load", step=self.steps):
+            step = self.graphs.get(self.key(phase, staged["lang_feat"].shape[1]))
+            if step is not None:
+                return finish(staged, spec, out=step.inputs)
+            self._fresh = finish(staged, spec)
+            return self._fresh
 
     def train_step(self, dd: dict, bn_momentum: float = 0.1) -> Step:
         """One train step of ``dd``: (metrics, ``OUT_KEYS`` of the outputs),
         both clones."""
-        self.model.train()
-        self.model.set_bn_momentum(bn_momentum)
-        return self._step("train", dd, lambda d: train_body(
-            self.model, self.optimizer, d, self.mean_size, set_to_none=False))
+        def mode():
+            self.model.train()
+            self.model.set_bn_momentum(bn_momentum)
+
+        return self._step("train", dd, mode, lambda d, mark: train_body(
+            self.model, self.optimizer, d, self.mean_size, mark, set_to_none=False))
 
     def eval_step(self, dd: dict) -> Step:
         """One eval step of ``dd``: (metrics, ``OUT_KEYS`` of the outputs),
         both clones."""
-        self.model.eval()
-        return self._step("eval", dd, lambda d: eval_body(self.model, d, self.mean_size))
+        return self._step("eval", dd, self.model.eval,
+                          lambda d, mark: eval_body(self.model, d, self.mean_size, mark))
+
+    def phase_seconds(self) -> List[float]:
+        """The last step's seconds between its body's marks (train:
+        forward with the loss, backward with Adam, eval; eval: forward with
+        the loss, eval), read once its results are on the host: a replay's
+        from the events its graph records, a warm-up's from its own."""
+        return self._marks.seconds()
 
     def reset(self) -> None:
         """Drop every graph; the next batch of each key captures anew."""
         self.graphs.clear()
         self._fresh = None
 
-    def _step(self, phase: str, dd: dict, body: Callable[[dict], Step]) -> Step:
-        key = self.key(phase, dd["lang_feat"].shape[1])
-
-        def run(d: dict) -> Step:  # detached: no output holds the autograd graph
-            metrics, out = body(d)
+    def _step(self, phase: str, dd: dict, mode: Callable[[], object],
+              body: Callable[[dict, Callable[[], None]], Step]) -> Step:
+        def run(d: dict, marks: StepMarks) -> Step:  # detached: no output holds the autograd graph
+            marks.begin()
+            metrics, out = body(d, marks.mark)
             return ({k: v.detach() for k, v in metrics.items()},
                     {k: out[k].detach() for k in OUT_KEYS if k in out})
 
-        step = self.graphs.get(key)
-        if step is None:
-            # a dict of the caller's own is copied, so a later batch of the
-            # key never writes into the caller's tensors
-            inputs = dd if dd is self._fresh else clone_data(dd)
-            self._fresh = None
-            result = self._warm_up(run, inputs)
-            before = launch_counts()
-            graph = self.new_graph()
-            graph.capture(lambda: run(inputs))
-            counted = tuple(a - b for a, b in zip(launch_counts(), before))
-            _add_launch_counts(-n for n in counted)  # nothing ran: a replay launches
-            self.graphs[key] = _Captured(graph, inputs, counted)
-            self.captures += 1
-        else:
-            if dd is not step.inputs:
-                copy_data(dd, step.inputs)
-            result = step.graph.replay()
-            _add_launch_counts(step.launches)
-        metrics, out = result
-        return ({k: v.clone() for k, v in metrics.items()},
-                {k: v.clone() for k, v in out.items()})
+        with span("ir.step", step=self.steps, phase=phase):
+            self.steps += 1
+            with span("ir.step.mode"):
+                mode()
+                key = self.key(phase, dd["lang_feat"].shape[1])
+                step = self.graphs.get(key)
+                if step is not None and dd is not step.inputs:
+                    copy_data(dd, step.inputs)
+            if step is None:
+                with span("ir.step.capture"):
+                    # a dict of the caller's own is copied, so a later batch
+                    # of the key never writes into the caller's tensors
+                    inputs = dd if dd is self._fresh else clone_data(dd)
+                    self._fresh = None
+                    self._marks = StepMarks(self.device)
+                    result = self._warm_up(lambda: run(inputs, self._marks))
+                    before = launch_counts()
+                    graph = self.new_graph()
+                    marks = StepMarks(self.device, external=True)
+                    graph.capture(lambda: run(inputs, marks))
+                    counted = tuple(a - b for a, b in zip(launch_counts(), before))
+                    _add_launch_counts(-n for n in counted)  # nothing ran: a replay launches
+                    self.graphs[key] = _Captured(graph, inputs, counted, marks)
+                    self.captures += 1
+            else:
+                with span("ir.step.replay"):
+                    result = step.graph.replay()
+                    _add_launch_counts(step.launches)
+                    self.replays += 1
+                    self._marks = step.marks
+            with span("ir.step.clone"):
+                metrics, out = result
+                return ({k: v.clone() for k, v in metrics.items()},
+                        {k: v.clone() for k, v in out.items()})
 
-    def _warm_up(self, run: Callable[[dict], Step], inputs: dict) -> Step:
+    def _warm_up(self, run: Callable[[], Step]) -> Step:
         """The key's first step, eagerly; on a card on a side stream, as a
         capture wants its first launches made off the capturing stream."""
         if self.device.type != "cuda":
-            return run(inputs)
+            return run()
         current = torch.cuda.current_stream(self.device)
         side = torch.cuda.Stream(self.device)
         side.wait_stream(current)
         with torch.cuda.stream(side):
-            result = run(inputs)
+            result = run()
         current.wait_stream(side)
         return result
