@@ -59,6 +59,12 @@ without the final ``ok`` line:
    vectorised form).  CUDA-event medians of 10, with
    bound and yardstick as in phase 2 (the dX's: an index gather over
    ``up8`` and one ``torch.mm``).
+   5b. The fused masked BatchNorm pair (``ops/masked_bn``, ``[bn]``) at the
+   26 BN sites of a B = 64 bf16 train step at the benchmark's capacities,
+   with the inputs the model makes there: each output against the plain
+   twin on the same card tensors, each direction's device ms as a CUDA
+   graph, the twin's eager ms, and the bound of 20 bytes an element (4
+   more at a residual) at 3.35 TB/s.
 6. Train parity, card vs CPU: one ``train_step`` on a 2-scene batch at the
    full-size spec, f32, TF32 off, deterministic cuDNN, dropout 0, the same
    weights: loss, every parameter gradient, the running statistics, then
@@ -869,6 +875,115 @@ def phase_bwd_kernels(batch, dev):
             check_down_dx(f"{enc} stage{s} down", imap(batch[f"{p}_down_{s}"]), up8,
                           WIDTHS[s - 1], WIDTHS[s], gen, res["down_dx"])
     return res
+
+
+# the benchmark's capacities (benchmark/configs/*.json), a sample's rows a
+# stage: the masked BN pair is timed at the rows of its B = 64 train step
+BN_SPEC_KW = dict(scene_caps=(18176, 4352, 1280, 512, 256),
+                  inst_caps=(2048, 1984, 1792, 896, 256), max_candidates=8, max_instances=24)
+BN_BATCH = 64
+BN_BYTES, BN_RES_BYTES = 20, 4  # bf16 bytes an element of the pair, and more at a residual
+
+
+def graph_ms(fn, replays: int = 10, reps: int = 5) -> float:
+    """Device ms of ``fn`` as a captured CUDA graph: the median over
+    ``reps`` of ``replays`` replays between two events, a replay's share."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        fn()
+    return median_ms(lambda: [graph.replay() for _ in range(replays)], reps) / replays
+
+
+def phase_masked_bn(dev):
+    """5b. The fused masked BN pair (``ops/masked_bn``) at the 26 BN sites of
+    a B = 64 bf16 train step: each call's inputs as the model makes them
+    (its rows, mask, width, ReLU and residual); the kernels against the
+    plain twin on the same card tensors; each direction's device ms as a
+    CUDA graph (as the step replays it), the twin's eager ms, and the bound
+    of 20 bytes an element (4 more at a residual) and the mask's bytes at
+    3.35 TB/s.  Returns the step's totals."""
+    from instancerefer_tpu_torch.data.host import batch_to_torch
+    from instancerefer_tpu_torch.data.pipeline import BatchSpec
+    from instancerefer_tpu_torch.data.synthetic import make_batch
+    from instancerefer_tpu_torch.models import basic_blocks
+    from instancerefer_tpu_torch.ops import masked_bn as M
+    from instancerefer_tpu_torch.ops.precision import get_compute_dtype, set_compute_dtype
+
+    t0 = time.perf_counter()
+    spec = BatchSpec(**BN_SPEC_KW)
+    dd = batch_to_torch(make_batch(BN_BATCH, spec, seed=5, mean_size_arr=MEAN_SIZE, **SCENE_KW),
+                        spec, dev)
+    calls, real = [], basic_blocks.masked_bn
+
+    def record(x, mask, weight, bias, rm, rv, momentum, eps, residual):
+        calls.append((x, mask, weight.detach(), bias.detach(), rm.clone(), rv.clone(),
+                      momentum, eps, residual))
+        return real(x, mask, weight, bias, rm, rv, momentum, eps, residual)
+
+    policy = get_compute_dtype()
+    set_compute_dtype("bfloat16")
+    basic_blocks.masked_bn = record
+    try:
+        model = make_model(spec, seed=4).to(dev).train()
+        with torch.no_grad():
+            model(dd)
+    finally:
+        basic_blocks.masked_bn = real
+        set_compute_dtype(policy)
+    del model, dd
+    if len(calls) != 26:
+        raise AssertionError(f"masked BN: {len(calls)} fused calls in a train forward, want 26")
+    gen = torch.Generator(device=dev).manual_seed(3)
+    tot = {"kernel": 0.0, "fwd": 0.0, "bwd": 0.0, "plain": 0.0, "bound": 0.0}
+    worst = 0.0
+    for i, (x, mask, w, b, rm, rv, mom, eps, res) in enumerate(calls):
+        rows, c = x.shape
+        dy = torch.randn(rows, c, generator=gen, device=dev).to(x.dtype)
+
+        def fwd(plain, rm=rm, rv=rv, x=x, mask=mask, w=w, b=b, res=res, mom=mom, eps=eps):
+            return M.forward_passes(x, mask, w, b, res, rm.clone(), rv.clone(), mom, eps, plain)
+
+        got, want = fwd(False), fwd(True)
+
+        def bwd(plain, y=got[0], stat=got[1], x=x, mask=mask, dy=dy, res=res):
+            return M.backward_passes(dy, y, x, mask, stat, res is not None, plain)
+
+        outs = [("y", got[0], want[0])] + list(zip(("dx", "dweight", "dbias", "dres"),
+                                                    bwd(False), bwd(True)))
+        for name, g, r in outs:
+            if g is None:
+                continue
+            tol = KERNEL_TOL[torch.bfloat16] if g.dtype == torch.bfloat16 else 1e-4
+            err = (g.float() - r.float()).abs().max().item() / max(r.abs().max().item(), 1e-6)
+            worst = max(worst, err)
+            if err > tol:
+                raise AssertionError(f"masked BN site {i} ({rows} x {c}): {name} differs from "
+                                     f"the twin by {err:.3e} of its largest value")
+        f_ms, b_ms = graph_ms(lambda: fwd(False)), graph_ms(lambda: bwd(False))
+        p_ms = median_ms(lambda: (fwd(True), bwd(True)))
+        nb = rows * c * (BN_BYTES + (BN_RES_BYTES if res is not None else 0))
+        nb += 2 * rows if mask is not None else 0
+        b_ms_bound = nb / PEAK_BYTES_PER_S * 1e3
+        masked = rows if mask is None else int(mask.sum())
+        log(f"[bn] site {i}: {rows} x {c}, {masked} masked rows, "
+            f"{'residual + ReLU' if res is not None else 'ReLU'}: device ms forward "
+            f"{f_ms:.4f}, backward {b_ms:.4f} (graph replays); twin {p_ms:.3f} (eager); bound "
+            f"{b_ms_bound:.4f} ({nb / 1e6:.1f} MB), {100 * b_ms_bound / (f_ms + b_ms):.1f}% of it")
+        tot["fwd"] += f_ms
+        tot["bwd"] += b_ms
+        tot["kernel"] += f_ms + b_ms
+        tot["plain"] += p_ms
+        tot["bound"] += b_ms_bound
+    log(f"[bn] a train step's 26 sites: device ms {tot['kernel']:.3f} (forward {tot['fwd']:.3f}, "
+        f"backward {tot['bwd']:.3f}); bound {tot['bound']:.3f}; twin {tot['plain']:.3f}; worst "
+        f"|err| {worst:.2e} of the largest value; {time.perf_counter() - t0:.1f} s wall")
+    log(json.dumps({"masked_bn": {k: round(v, 4) for k, v in tot.items()}}))
+    return tot
 
 
 def phase_train_parity(spec, dev, batch=None):
@@ -2988,6 +3103,7 @@ def main() -> None:
     phase_parity(spec, dev)
     phase_full(spec, dev, dds, make_model(spec, seed=2).to(dev))
     bwd = phase_bwd_kernels(batches[0], dev)
+    phase_masked_bn(dev)
     phase_train_parity(spec, dev)
     launches, _ = phase_train(spec, dev, dds)
     del dds

@@ -8,9 +8,11 @@ Eval mode: every BatchNorm of an encoder folds into a per-channel affine that
 the CUDA kernel K1 applies (with the ReLU) to its f32 accumulator, where the
 JAX package fuses it (``models/basic_blocks.py:303-309,334-341``).  Train
 mode: conv with no epilogue (``ops/sparse_conv``: K1 forward, K2/K3
-backward) -> masked BatchNorm over the stage's valid rows -> ReLU, as
-``models/basic_blocks.py:310-317,342-347``.  Train/eval follows
-``nn.Module.train()``.
+backward) -> masked BatchNorm over the stage's valid rows -> ReLU (or the
+residual add and ReLU), as ``models/basic_blocks.py:310-317,342-347``; the
+BN and the op after it are one ``ops/masked_bn`` call
+(``MaskedBatchNorm.fused``: the CUDA pair on a card, its plain twin on the
+CPU).  Train/eval follows ``nn.Module.train()``.
 
 Sparse-conv kernels are stored [K, Cin, Cout] in the offset order of the
 host maps (``instancerefer_tpu/ops/voxelize.KERNEL_OFFSETS_3/2``).
@@ -25,6 +27,7 @@ from torch import nn
 
 from instancerefer_tpu_torch.data.host import SparseStage
 from instancerefer_tpu_torch.ops.gather_conv import gather_conv
+from instancerefer_tpu_torch.ops.masked_bn import masked_bn
 from instancerefer_tpu_torch.ops.precision import cast_in
 from instancerefer_tpu_torch.ops.sparse_conv import down_conv, stem_input, subm_conv
 from instancerefer_tpu_torch.parallel.distributed import all_reduce_sum, world_size
@@ -56,6 +59,11 @@ class MaskedBatchNorm(nn.Module):
     statistics follow from the global sums, equal on every rank.  The
     all-reduce is differentiable, so the backward adds the ranks' gradients
     of the sums and dX is that of one BN over the union of the rows.
+
+    The sparse encoders' train path calls ``fused`` instead: the same BN
+    with the ReLU (and the residual add) after it, one ``ops/masked_bn``
+    call with its own closed-form backward and the same all-reduced sums.
+    The heads' BNs and eval mode take ``forward``.
     """
 
     def __init__(self, features: int, eps: float = 1e-5):
@@ -89,6 +97,19 @@ class MaskedBatchNorm(nn.Module):
                 channel_dim: int = -1) -> torch.Tensor:
         with span("ir.bn"):
             return self._normalize(x, mask, channel_dim)
+
+    def fused(self, x: torch.Tensor, mask: Optional[torch.Tensor],
+              residual: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """Train mode over [N, C] rows: relu(BN(x) [+ residual]) in one
+        ``ops/masked_bn`` call, the same statistics, running statistics
+        and gradients as ``forward`` followed by the add and the ReLU (the
+        add in f32, before the one rounding)."""
+        with span("ir.bn"):
+            y = masked_bn(x, mask, self.weight, self.bias, self.running_mean, self.running_var,
+                          self.batch_momentum, self.eps, residual)
+            with torch.no_grad():
+                self.num_batches_tracked += 1
+            return y
 
     def _normalize(self, x: torch.Tensor, mask: Optional[torch.Tensor],
                    channel_dim: int) -> torch.Tensor:
@@ -176,7 +197,7 @@ class BasicConvolutionBlock(nn.Module):
             x = subm_conv(x, sv.nbr3, conv.kernel, self.grad_input)
         else:
             x = down_conv(x, sv.down, sv.up8, conv.kernel)
-        return torch.relu(bn(x, sv.mask))
+        return bn.fused(x, sv.mask)
 
 
 class ResidualBlock(nn.Module):
@@ -195,10 +216,9 @@ class ResidualBlock(nn.Module):
         if not self.training:
             h = _fused_eval(x, sv.nbr3, conv1, bn1, relu=True)
             h = _fused_eval(h, sv.nbr3, conv2, bn2, relu=False)
-        else:
-            h = torch.relu(bn1(subm_conv(x, sv.nbr3, conv1.kernel), sv.mask))
-            h = bn2(subm_conv(h, sv.nbr3, conv2.kernel), sv.mask)
-        return torch.relu(h + x)
+            return torch.relu(h + x)
+        h = bn1.fused(subm_conv(x, sv.nbr3, conv1.kernel), sv.mask)
+        return bn2.fused(subm_conv(h, sv.nbr3, conv2.kernel), sv.mask, residual=x)
 
 
 class SparseConvEncoder(nn.Module):

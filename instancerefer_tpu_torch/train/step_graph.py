@@ -59,6 +59,7 @@ import torch
 from instancerefer_tpu_torch.data.host import clone_data, copy_data, finish
 from instancerefer_tpu_torch.ops import conv_bwd
 from instancerefer_tpu_torch.ops.gather_conv import gather_conv
+from instancerefer_tpu_torch.ops.masked_bn import masked_bn
 from instancerefer_tpu_torch.ops.precision import get_compute_dtype
 from instancerefer_tpu_torch.parallel.distributed import all_reduce_sum, world_size
 from instancerefer_tpu_torch.train.evaluate import get_eval
@@ -72,11 +73,13 @@ OUT_KEYS = ("loss", "ref_loss", "lang_loss", "seg_loss", "seg_acc", "lang_acc", 
             "num_missed", "lang_scores", "attribute_scores", "relation_scores", "scene_scores",
             "seg_scores", "score_mask", "cand_mask", "sample_valid", "ref_iou", "ref_acc",
             "lang_correct", "ref_multiple_mask", "ref_others_mask", "pred_bboxes", "gt_bboxes")
-# (wrapper, attribute) of every launch counter of the sparse-conv kernels
+# (wrapper, attribute) of every launch counter of the hand-written kernels:
+# the sparse convs', then the fused masked BN's forward and backward calls
 LAUNCH_COUNTERS = ((gather_conv, "launches"), (gather_conv, "stem_launches"),
                    (conv_bwd.subm_conv_bwd, "launches"), (conv_bwd.conv_dw, "launches"),
                    (conv_bwd.conv_dw, "stem_launches"), (conv_bwd.dw_lists, "launches"),
-                   (conv_bwd.down_dx, "launches"))
+                   (conv_bwd.down_dx, "launches"), (masked_bn, "launches"),
+                   (masked_bn, "bwd_launches"))
 
 Step = Tuple[Dict[str, torch.Tensor], Dict[str, torch.Tensor]]
 

@@ -18,7 +18,8 @@
   - modules, in eager steps and captures (a replay runs no Python):
     ``ir.fwd.lang``, ``ir.fwd.attribute``, ``ir.fwd.relation``,
     ``ir.fwd.scene`` (``InstanceRefer.forward``), ``ir.bn``
-    (``MaskedBatchNorm.forward``), and the step bodies' ``ir.loss``,
+    (``MaskedBatchNorm.forward``, and ``.fused``: the encoders' BN with the
+    ReLU and residual add after it), and the step bodies' ``ir.loss``,
     ``ir.backward``, ``ir.adam``, ``ir.eval``.
 
 * ``device_profile``: calls of a function under the profiler, each window's

@@ -176,19 +176,27 @@ def test_two_ranks_match_the_jax_global_batch_step(runs, case):
                                    err_msg=name)
 
 
-@pytest.mark.parametrize("name", ["masked", "all"])
+@pytest.mark.parametrize("name", ["masked", "all", "fused"])
 def test_batchnorm_over_two_ranks_equals_one_over_the_union(runs, name):
+    """``fused``: the encoders' fused path (mask, ReLU, residual) on each
+    rank against the unfused BN, add and ReLU over the union."""
     rows = [R.bn_rows(r) for r in range(WORLD)]
     x = torch.from_numpy(np.concatenate([a[0] for a in rows])).requires_grad_(True)
-    mask = torch.from_numpy(np.concatenate([a[1] for a in rows])) if name == "masked" else None
+    mask = torch.from_numpy(np.concatenate([a[1] for a in rows])) if name != "all" else None
     g = torch.from_numpy(np.concatenate([a[2] for a in rows]))
+    res = torch.from_numpy(np.concatenate([a[3] for a in rows])).requires_grad_(True)
     bn = MaskedBatchNorm(R.BN_C).train()
     with torch.no_grad():
         bn.weight.uniform_(0.5, 1.5, generator=torch.Generator().manual_seed(1))
     y = bn(x, mask)
+    if name == "fused":
+        y = torch.relu(y + res)
     (y * g).sum().backward()
     got = [r[name] for r in runs["bn"]]
-    for key, want in (("y", y.detach()), ("dx", x.grad)):
+    want_grads = [("y", y.detach()), ("dx", x.grad)]
+    if name == "fused":
+        want_grads.append(("dres", res.grad))
+    for key, want in want_grads:
         np.testing.assert_allclose(torch.cat([r[key] for r in got]).numpy(), want.numpy(),
                                    rtol=1e-5, atol=1e-5, err_msg=key)
     for key, want in (("dweight", bn.weight.grad), ("dbias", bn.bias.grad)):

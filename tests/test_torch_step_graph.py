@@ -42,6 +42,7 @@ from instancerefer_tpu_torch.data.host import batch_to_torch, stage, stage_to
 from instancerefer_tpu_torch.data.synthetic import TEST_SPEC, make_batch
 from instancerefer_tpu_torch.models.instancerefer import InstanceRefer
 from instancerefer_tpu_torch.ops import conv_bwd, gather_conv
+from instancerefer_tpu_torch.ops.masked_bn import masked_bn
 from instancerefer_tpu_torch.ops.precision import set_compute_dtype
 from instancerefer_tpu_torch.train import solver as S
 from instancerefer_tpu_torch.train import step_graph as G
@@ -143,7 +144,9 @@ class CountingGraph:
             (conv_bwd.conv_dw, "launches"): 10,
             (conv_bwd.conv_dw, "stem_launches"): 2,
             (conv_bwd.dw_lists, "launches"): 8,
-            (conv_bwd.down_dx, "launches"): 8}
+            (conv_bwd.down_dx, "launches"): 8,
+            (masked_bn, "launches"): 26,
+            (masked_bn, "bwd_launches"): 26}
 
     def capture(self, fn):
         self.outputs = fn()
@@ -229,7 +232,8 @@ def test_launch_counts_read_as_eager_under_replay():
     for _ in range(3):
         graphs.train_step(dd)
     assert [a - b for a, b in zip(G.launch_counts(), before)] == [3 * 34, 3 * 2, 3 * 16, 3 * 10,
-                                                                   3 * 2, 3 * 8, 3 * 8]
+                                                                   3 * 2, 3 * 8, 3 * 8, 3 * 26,
+                                                                   3 * 26]
 
 
 def _tensor_lr_adam(params, lr, wd):
@@ -440,8 +444,8 @@ def test_graph_replays_equal_eager_steps_on_card():
     assert graphs.captures == 1
     launched = [a - b for a, b in zip(G.launch_counts(), counts)]
     # 4 steps (2 eager, 2 replays); f32 takes no stem kernel, no list pass and
-    # no dX over the lists
-    assert launched == [4 * 34, 0, 4 * 16, 4 * 10, 0, 0, 0]
+    # no dX over the lists; the fused masked BN at the encoders' 26 BNs
+    assert launched == [4 * 34, 0, 4 * 16, 4 * 10, 0, 0, 0, 4 * 26, 4 * 26]
     total, count = 0.0, 0
     for e, g in zip(models[0].parameters(), models[1].parameters()):
         diff = (g - e).abs()

@@ -7,7 +7,8 @@ in a process that imports no jax:
 The ranks meet through a ``file://`` store in ``workdir``.  Each rank:
 
 * ``bn``: a ``MaskedBatchNorm`` in train mode over its own rows of
-  ``bn_rows`` (with and without a row mask), forward and backward of
+  ``bn_rows`` (with and without a row mask, and through ``fused`` with
+  the mask, the ReLU and a residual), forward and backward of
   ``sum(y * g)``;
 * ``full`` and ``partial``: one ``train_step`` of the ``Solver``'s DDP
   model on its ``PaddedLoader`` shard of a 4-sample (and a 3-sample)
@@ -63,29 +64,32 @@ class Scenes:
 
 
 def bn_rows(rank):
-    """Rank ``rank``'s rows, row mask and output gradient of the BN check."""
+    """Rank ``rank``'s rows, row mask, output gradient and residual of the
+    BN check."""
     rng = np.random.default_rng(11)
     x = rng.normal(1.5, 2.0, size=(sum(BN_ROWS), BN_C)).astype(np.float32)
     mask = rng.random(sum(BN_ROWS)) < 0.7
     g = rng.normal(size=x.shape).astype(np.float32)
+    res = rng.normal(size=x.shape).astype(np.float32)
     lo = sum(BN_ROWS[:rank])
     rows = slice(lo, lo + BN_ROWS[rank])
-    return x[rows], mask[rows], g[rows]
+    return x[rows], mask[rows], g[rows], res[rows]
 
 
 def run_bn(rank):
-    x, mask, g = (torch.from_numpy(a) for a in bn_rows(rank))
+    x, mask, g, res = (torch.from_numpy(a) for a in bn_rows(rank))
     out = {}
-    for name, m in (("masked", mask), ("all", None)):
+    for name, m in (("masked", mask), ("all", None), ("fused", mask)):
         bn = MaskedBatchNorm(BN_C).train()
         with torch.no_grad():
             bn.weight.uniform_(0.5, 1.5, generator=torch.Generator().manual_seed(1))
         xi = x.clone().requires_grad_(True)
-        y = bn(xi, m)
+        ri = res.clone().requires_grad_(True)
+        y = bn.fused(xi, m, residual=ri) if name == "fused" else bn(xi, m)
         (y * g).sum().backward()
         out[name] = {"y": y.detach(), "dx": xi.grad, "dweight": bn.weight.grad,
                      "dbias": bn.bias.grad, "running_mean": bn.running_mean,
-                     "running_var": bn.running_var}
+                     "running_var": bn.running_var, "dres": ri.grad}
     return out
 
 
