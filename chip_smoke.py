@@ -223,6 +223,19 @@ without the final ``ok`` line:
       each eval replay: each batch's finished checksum on the card equals
       the host's, so no staging set was rewritten before it was read.
 
+15. PointGroup (``phase_pointgroup``), with its own wall time
+    (``[phase 15]``): one batch of 4 rooms of the cell
+    ``pointgroup-train-resident``'s traffic at its configuration's
+    capacities; at every level of the seven K1 and K2 at c -> c and 2c ->
+    c, the BN pair (eps 1e-4, no residual) at c and 2c; at every down c ->
+    c + 16 K1, the list pass, K3 and the dX over the lists; the inverse
+    conv c + 16 -> c's forward, dX and dW; the input conv 6 -> 16 on the
+    stem kernels; each against its twin on the card (``[pg]``).  Then two
+    train steps through ``StepGraphs`` with ``PointGroupTask`` from zeroed
+    counters: every counter of ``LAUNCH_COUNTERS`` (the inverse convs'
+    ``up_conv.launches`` among them) at twice the count the model's
+    structure gives a step.
+
 Then one line ``{"kernels": [...]}`` (launch counts of phase 7, whose
 profiled replay showed the profiler's launches equal to the counters'; ms,
 plain_ms, bound_ms and im2col_ms of K1 from phase 2, of K2, K3 and the
@@ -245,6 +258,7 @@ import contextlib
 import copy
 import io
 import json
+import math
 import os
 import re
 import shutil
@@ -3054,6 +3068,201 @@ def phase_prefetch(spec, dev):
         set_compute_dtype(None)
 
 
+# PointGroup's cell (benchmark/configs/pointgroup-scannet-m16.json): phase 15
+# holds the kernels against their twins on one pool batch of its traffic
+PG_WORKLOAD = "pointgroup-train-resident"
+PG_SEED = 15
+
+
+def _pg_launches(model, levels: int) -> dict:
+    """A PointGroup train step's launches by counter, from the model: the
+    input conv on the stem kernels (K1, and K3 for its weight), each 3^3
+    submanifold conv once in K1 and once in K2, each down in K1 with its dX
+    over the lists among K1's launches, its list pass and K3, each inverse
+    conv's three kernels, each BN one call of the pair each way."""
+    from instancerefer_tpu_torch.models.basic_blocks import MaskedBatchNorm, SparseConv
+
+    subm = sum(isinstance(mod, SparseConv) and mod.kernel.shape[0] == 27
+               for mod in model.modules()) - 1
+    downs = levels - 1
+    bns = sum(isinstance(mod, MaskedBatchNorm) for mod in model.modules())
+    return {"gather_conv.launches": 1 + subm + 2 * downs, "gather_conv.stem_launches": 1,
+            "subm_conv_bwd.launches": subm, "conv_dw.launches": 1 + downs,
+            "conv_dw.stem_launches": 1, "dw_lists.launches": downs, "down_dx.launches": downs,
+            "masked_bn.launches": bns, "masked_bn.bwd_launches": bns,
+            "up_conv.launches": 3 * downs}
+
+
+def phase_pointgroup(dev):
+    """15. PointGroup's U-Net kernels on one pool batch of its cell (4 rooms
+    of the traffic, at the configuration's capacities; the random inputs 0
+    in the padding): at every level K1 and K2 at c -> c and 2c -> c over
+    the level's map, the BN pair at c and 2c with its mask and eps 1e-4;
+    at every down c -> c + 16 K1, the list pass, K3 and the dX over the
+    lists; the inverse conv c + 16 -> c over the same map, its forward, dX
+    and dW (``ops/up_conv``), two launches bit-identical and the fine rows
+    no entry names 0; the input conv 6 -> 16 on the stem kernels.  Each
+    against its twin on the card to a tolerance a wrong kernel fails
+    (``[pg]``, with the kernel's CUDA-event median).  Then the counters
+    zeroed and two train steps through ``StepGraphs`` (a capture, a
+    replay): every counter of ``LAUNCH_COUNTERS`` twice a step's count
+    from the model's structure (``_pg_launches``), the inverse convs' too."""
+    from benchmark import run as bench_run
+    from benchmark.drivers import pointgroup as drv
+    from instancerefer_tpu_torch.models.pointgroup import PointGroup, init_parameters
+    from instancerefer_tpu_torch.ops import conv_bwd, sparse, up_conv
+    from instancerefer_tpu_torch.ops import gather_conv as G
+    from instancerefer_tpu_torch.ops import masked_bn as M
+    from instancerefer_tpu_torch.ops.precision import set_compute_dtype
+    from instancerefer_tpu_torch.train.pointgroup import PointGroupTask
+    from instancerefer_tpu_torch.train.solver import make_optimizer
+    from instancerefer_tpu_torch.train.step_graph import (
+        LAUNCH_COUNTERS, StepGraphs, launch_counts,
+    )
+
+    t0 = time.perf_counter()
+    bf, f32 = torch.bfloat16, torch.float32
+    _, values, traffic, _, _, _ = bench_run.cell_data(REPO, PG_WORKLOAD)
+    traffic = {**traffic, "pool_batches": 1}
+    spec = drv.level_spec(values, traffic)
+    host = drv.host_batches(drv.make_pool(PG_SEED, traffic), spec)[0]
+    staged = {k: v.to(dev) for k, v in spec.stage(host).items()}
+    pyr = spec.finish(staged)["pyramid"]
+    valid = [int(sv.mask.sum()) for sv in pyr]
+    log(f"[pg] one batch of {traffic['batch']} rooms of {PG_WORKLOAD}'s traffic (seed "
+        f"{PG_SEED}): valid rows by level {valid} of {[sv.mask.numel() for sv in pyr]}; built "
+        f"and staged in {time.perf_counter() - t0:.1f} s")
+    gen = torch.Generator(device=dev).manual_seed(PG_SEED)
+    widths = [values["m"] * (i + 1) for i in range(values["num_levels"])]
+    worst: dict = {}
+    totals = {"dw_lists": Totals(), "down_dx": Totals()}
+
+    def rows(sv, c, dt=bf, shift=0.0):
+        x = torch.randn(sv.mask.shape[0], c, device=dev, generator=gen) + shift
+        return (x * sv.mask[:, None]).to(dt)
+
+    def weight(k, cin, cout):
+        return (torch.randn(k, cin, cout, device=dev, generator=gen) / (k * cin) ** 0.5).to(bf)
+
+    def held(kind, label, got, want, tol, run=None):
+        err, scale = _max_err(got, want)
+        rel = err / max(scale, 1e-30)
+        ms = "" if run is None else f" kernel_ms={median_ms(run):.4f}"
+        log(f"[pg] {kind} {label}: max_rel={rel:.3e} (tol {tol:g}){ms}")
+        if not rel <= tol:
+            raise AssertionError(f"PointGroup {kind} at {label} disagrees with its twin: "
+                                 f"max |err| {err:.3e}, max |ref| {scale:.3e}")
+        worst[kind] = max(worst.get(kind, 0.0), rel)
+
+    def bn_pair(label, x, mask):
+        c = x.shape[1]
+        w = torch.rand(c, device=dev, generator=gen) + 0.5
+        b = 0.1 * torch.randn(c, device=dev, generator=gen)
+        dy = torch.randn(x.shape, device=dev, generator=gen).to(x.dtype)
+        mom = torch.tensor(0.1, device=dev)
+        run = [torch.zeros(c, device=dev), torch.ones(c, device=dev)]
+        twin = [r.clone() for r in run]
+        y, stat = M.forward_passes(x, mask, w, b, None, *run, mom, values["bn_eps"], False)
+        y_p, stat_p = M.forward_passes(x, mask, w, b, None, *twin, mom, values["bn_eps"], True)
+        held("BN y", label, y, y_p, KERNEL_TOL[bf])
+        for name, g, r in (("stat", stat, stat_p), ("running_mean", run[0], twin[0]),
+                           ("running_var", run[1], twin[1])):
+            held(f"BN {name}", label, g, r, DW_TOL)
+        # the twin's backward from the kernels' own y and statistics: a few
+        # y within a rounding of 0 take the other side of the ReLU otherwise
+        got = M.backward_passes(dy, y, x, mask, stat, False, False)
+        want = M.backward_passes(dy, y, x, mask, stat, False, True)
+        for name, g, r, tol in zip(("dx", "dweight", "dbias"), got, want,
+                                   (KERNEL_TOL[bf], DW_TOL, DW_TOL)):
+            held(f"BN {name}", label, g, r, tol)
+
+    sv = pyr[0]
+    x6, w = rows(sv, 6), weight(27, 6, widths[0])
+    xp = G.pad_channels(x6)
+    held("K1", f"level 0 input conv 6->{widths[0]} (stem)", G.gather_conv(xp, sv.nbr3, w),
+         sparse.gather_conv(x6.float(), sv.nbr3, w.float(), out_dtype=f32), KERNEL_TOL[bf],
+         lambda: G.gather_conv(xp, sv.nbr3, w))
+    g = rows(sv, widths[0])
+    held("K3", f"level 0 input conv 6->{widths[0]} (stem)",
+         conv_bwd.conv_dw(xp, sv.nbr3, g, cin=6), sparse.conv_dw(x6.float(), sv.nbr3, g.float()),
+         DW_TOL, lambda: conv_bwd.conv_dw(xp, sv.nbr3, g, cin=6))
+    last = len(pyr) - 1
+    for lvl, (sv, c) in enumerate(zip(pyr, widths)):
+        for cin in (c, 2 * c) if lvl < last else (c,):
+            label = f"level {lvl} subm {cin}->{c} V={sv.mask.numel()}"
+            x, w, g = rows(sv, cin), weight(27, cin, c), rows(sv, c)
+            held("K1", label, G.gather_conv(x, sv.nbr3, w),
+                 sparse.gather_conv(x.float(), sv.nbr3, w.float(), out_dtype=f32),
+                 KERNEL_TOL[bf], lambda: G.gather_conv(x, sv.nbr3, w))
+            got = conv_bwd.subm_conv_bwd(x, sv.nbr3, g, w)
+            want = sparse.subm_conv_bwd(x.float(), sv.nbr3, g.float(), w.float())
+            held("K2 dX", label, got[0], want[0], DX_TOL,
+                 lambda: conv_bwd.subm_conv_bwd(x, sv.nbr3, g, w))
+            held("K2 dW", label, got[1], want[1], DW_TOL)
+            bn_pair(f"level {lvl} C={cin}", rows(sv, cin, shift=0.5), sv.mask)
+        if lvl == last:
+            break
+        nxt, c2 = pyr[lvl + 1], widths[lvl + 1]
+        down, up8 = nxt.down, nxt.up8
+        label = f"level {lvl}->{lvl + 1} {c}->{c2} V={sv.mask.numel()}->{nxt.mask.numel()}"
+        x, w, g = rows(sv, c), weight(8, c, c2), rows(nxt, c2)
+        held("K1", f"down {label}", G.gather_conv(x, down, w),
+             sparse.gather_conv(x.float(), down, w.float(), out_dtype=f32), KERNEL_TOL[bf],
+             lambda: G.gather_conv(x, down, w))
+        check_lists(f"PointGroup down {label}", down, int((down >= 0).sum()), totals["dw_lists"])
+        work = conv_bwd.down_lists(down)
+        held("K3", f"down {label}", conv_bwd.conv_dw(x, down, g, lists=work),
+             sparse.conv_dw(x.float(), down, g.float()), DW_TOL,
+             lambda: conv_bwd.conv_dw(x, down, g, lists=work))
+        check_down_dx(f"PointGroup down {label}", down, up8, c, c2, gen, totals["down_dx"])
+        # the inverse conv c2 -> c over the same map and lists
+        xc, wi, gf = rows(nxt, c2), weight(8, c2, c), rows(sv, c)
+        label = f"inverse {c2}->{c} V={nxt.mask.numel()}->{sv.mask.numel()}"
+        out = up_conv.up_conv(xc, down, up8, wi, work)
+        if not torch.equal(out, up_conv.up_conv(xc, down, up8, wi, work)):
+            raise AssertionError(f"up_conv at {label}: two launches differ")
+        if out[(up8 < 0).all(1)].any():
+            raise AssertionError(f"up_conv at {label}: a fine row no entry names is not 0")
+        held("UP fwd", label, out, up_conv.up_conv_plain(xc, down, wi, sv.mask.numel()),
+             KERNEL_TOL[bf], lambda: up_conv.up_conv(xc, down, up8, wi, work))
+        held("UP dX", label, up_conv.up_dx(gf, down, wi), up_conv.up_dx_plain(gf, down, wi),
+             KERNEL_TOL[bf], lambda: up_conv.up_dx(gf, down, wi))
+        dw = up_conv.up_dw(gf, down, xc, work)
+        if not torch.equal(dw, up_conv.up_dw(gf, down, xc, work)):
+            raise AssertionError(f"up_dw at {label}: two launches differ")
+        held("UP dW", label, dw, up_conv.up_dw_plain(gf, down, xc), DW_TOL,
+             lambda: up_conv.up_dw(gf, down, xc, work))
+        bn_pair(f"level {lvl + 1} C={c2} (the inverse conv's BN)", rows(nxt, c2, shift=0.5),
+                nxt.mask)
+
+    set_compute_dtype(values["compute_dtype"])
+    try:
+        model = PointGroup(6, values["m"], values["num_levels"], values["block_reps"],
+                           values["sem_classes"], values["bn_eps"])
+        init_parameters(model, torch.Generator().manual_seed(PG_SEED))
+        model = model.to(dev)
+        graphs = StepGraphs(model, make_optimizer(model.parameters(), values["lr"], values["wd"]),
+                            torch.zeros((), device=dev), task=PointGroupTask())
+        for fn, attr in LAUNCH_COUNTERS:
+            setattr(fn, attr, 0)
+        losses = [float(graphs.train_step(graphs.load(staged, spec, "train"))[0]["loss"])
+                  for _ in range(2)]  # the eager step that captures, then a replay
+        counted = {f"{fn.__name__}.{attr}": n
+                   for (fn, attr), n in zip(LAUNCH_COUNTERS, launch_counts())}
+    finally:
+        set_compute_dtype(None)
+    want = {k: 2 * n for k, n in _pg_launches(model, values["num_levels"]).items()}
+    log(f"[pg] 2 train steps (bf16; {graphs.captures} capture, then a replay): losses "
+        f"{losses}; launches counted {counted}, want {want}")
+    if graphs.captures != 1 or counted != want or not all(map(math.isfinite, losses)):
+        raise AssertionError("PointGroup's train steps: the launches counted differ from the "
+                             "model's, or a loss is not finite")
+    log(json.dumps({"pointgroup": {"valid_rows": valid, "launches_per_step": {
+        k: n // 2 for k, n in counted.items()}, "worst_rel_err": worst,
+        "dw_lists": totals["dw_lists"].entry(), "down_dx": totals["down_dx"].entry(),
+        "wall_s": round(time.perf_counter() - t0, 1)}}))
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device; this script runs only on a GPU")
@@ -3138,6 +3347,10 @@ def main() -> None:
     phase_prefetch(spec, dev)
     log(f"[phase 14] the prefetcher against batch_to_torch, a synchronous feed and a slow "
         f"consumer: {time.perf_counter() - t14:.1f} s wall")
+    t15 = time.perf_counter()
+    phase_pointgroup(dev)
+    log(f"[phase 15] PointGroup's kernels on a batch of its cell and the launches of its "
+        f"train step: {time.perf_counter() - t15:.1f} s wall")
 
     entries = (
         ("gather_conv", "gather_conv.cu", 51, k1),

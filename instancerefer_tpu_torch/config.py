@@ -12,7 +12,11 @@ the repo's configs use, and raises on anything else rather than guess:
 * ``#`` comments on their own line or after a value.
 
 ``Config`` holds every field of the JAX package's ``Config`` that the port
-consumes, with the same defaults, plus ``device``.  The TPU band geometry
+consumes, with the same defaults, plus ``device``; ``model`` picks the
+model the CLIs build: ``instancerefer`` (the default) or ``pointgroup``
+(PointGroup's first training phase, ``config/PointGroup.yaml``, whose keys
+``m`` ... ``level_caps`` only it reads; ``pg_spec`` gives its batches'
+shapes).  The TPU band geometry
 and the switch to it (the ``pallas_*`` keys) have no meaning here: the port
 gathers exactly and its host pipeline always emits raster row order.  Those
 keys, and four that change nothing in JAX either, are named in
@@ -38,7 +42,7 @@ from instancerefer_tpu_torch.data.pipeline import BatchSpec
 # either (its solver stores val_step but validates once an epoch; --debug is
 # parsed and dropped), and the banded Pallas conv and its geometry
 IGNORED_KEYS = (
-    "model", "language_module", "val_step", "debug", "pallas_conv",
+    "language_module", "val_step", "debug", "pallas_conv",
     "pallas_chunk", "pallas_window", "pallas_subwin", "pallas_subwin_inst",
     "pallas_count_drops", "pallas_down_chunk", "pallas_down_subwin",
     "pallas_down_window", "pallas_down_subwin_inst", "pallas_down_window_inst",
@@ -46,10 +50,16 @@ IGNORED_KEYS = (
 )
 
 
+# PointGroup's keys (config/PointGroup.yaml), which the JAX package has not
+POINTGROUP_KEYS = ("m", "block_reps", "num_levels", "sem_classes", "scale", "full_scale",
+                   "max_npoint", "use_coords", "bn_eps", "level_caps", "point_cap")
+
+
 @dataclasses.dataclass
 class Config:
     # GENERAL
     manual_seed: int = 123
+    model: str = "instancerefer"
     # DATA (config/InstanceRefer.yaml:4-15)
     dataset: str = "ScanRefer"
     num_points: int = 40000
@@ -106,6 +116,21 @@ class Config:
     allow_overflow: bool = False
     data_root: str = "data"
     output_root: str = "outputs"
+    # PointGroup (config/PointGroup.yaml; pointgroup_run1_scannet.yaml's
+    # names): the U-Net's width unit and depth, the classes, the voxels a
+    # metre, the crop, the BNs' eps; the padded rows a sample at each level
+    # and its points
+    m: int = 16
+    block_reps: int = 2
+    num_levels: int = 7
+    sem_classes: int = 20
+    scale: int = 50
+    full_scale: Sequence[int] = (128, 512)
+    max_npoint: int = 250000
+    use_coords: bool = True
+    bn_eps: float = 0.0001
+    level_caps: Sequence[int] = (250048, 182208, 57216, 15936, 5184, 1280, 256)
+    point_cap: int = 250000
 
     @property
     def input_feature_dim(self) -> int:
@@ -129,6 +154,18 @@ class Config:
             feat_dim=self.input_feature_dim,
             lang_bucket=self.lang_bucket,
         )
+
+    def pg_spec(self):
+        """PointGroup's batch spec (``data/pointgroup.PGSpec``)."""
+        from instancerefer_tpu_torch.data.pointgroup import PGSpec
+
+        if not self.use_coords:
+            raise ValueError("use_coords: False is not ported (the input is rgb and xyz)")
+        if len(self.level_caps) != self.num_levels:
+            raise ValueError(f"level_caps {tuple(self.level_caps)} for {self.num_levels} levels")
+        return PGSpec(tuple(int(c) for c in self.level_caps), int(self.point_cap),
+                      float(self.scale), tuple(int(v) for v in self.full_scale),
+                      int(self.max_npoint), bool(self.use_augment))
 
     def torch_device(self) -> torch.device:
         """``device``: ``cuda`` (card ``gpu``) or ``cpu``.  ``cuda`` without a

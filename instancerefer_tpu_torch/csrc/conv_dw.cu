@@ -12,12 +12,13 @@
 // partials in a fixed order.  No float atomics, so two launches on the
 // same inputs give bit-identical dW.
 //
-// Call sites: the 2^3 stride-2 down convs' dW (over down, K = 8, 32 -> 64,
-// 64 -> 128, 128 -> 128) and the stems' dW-only backward (over nbr3,
-// K = 27, Cin -> 32 with Cin 7, 10 or 135).  Three routes, chosen by the
+// Call sites: the 2^3 stride-2 down convs' dW (over down, K = 8: 32 -> 64,
+// 64 -> 128, 128 -> 128 in InstanceRefer, c -> c + 16 in PointGroup) and
+// the stems' dW-only backward (over nbr3, K = 27: Cin -> 32 with Cin 7, 10
+// or 135; 6 -> 16 in PointGroup).  Three routes, chosen by the
 // wrapper (ops/conv_bwd.py) from the input type and Cin alone, as K1's:
 //
-//   ir_conv_dw_tc    bf16 with Cin in {32, 64, 128} (the downs): the list
+//   ir_conv_dw_tc    bf16 at the downs' pairs (dispatch_dw_tc): the list
 //     pass below, then irsc::tc::dw_list_tc_kernel (sparse_conv_tc.cuh).
 //     The list pass compacts each column k of the map into the rows v with
 //     nbr[v, k] >= 0, ascending, and their count; block (k, split) of the
@@ -252,34 +253,25 @@ bool bad_lists(const void* nbr, long long v_out, int k_offsets) {
          k_offsets != irsc::lists::K;
 }
 
-// K3's dW on tensor cores over the lists in work: cin and cout each one of
-// 32, 64, 128 (instantiated here only, the one library that launches it).
+// K3's dW on tensor cores over the lists in work: (cin, cout) one of the
+// pairs of IRSC_IR_PAIRS and IRSC_PG_DOWN_PAIRS (sparse_conv_tc.cuh),
+// instantiated here only, the one library that launches them.
 cudaError_t dispatch_dw_tc(const void* x, const void* g, const void* nbr, int* work,
                            void* partial, void* dw, long long rows, int k_offsets, int cin,
                            int cout, int splits, cudaStream_t stream) {
   const int* lists = work;
   const int* counts = work + static_cast<long long>(k_offsets) * rows;
 #define IRSC_DW_TC(CI, CO)                                                                    \
-  return irsc::tc::launch_dw_list_tc<CI, CO>(x, g, nbr, lists, counts, partial, dw, rows,    \
-                                             k_offsets, splits, stream)
-#define IRSC_DW_TC_COUT(CI)                \
-  switch (cout) {                          \
-    case 32: IRSC_DW_TC(CI, 32);           \
-    case 64: IRSC_DW_TC(CI, 64);           \
-    case 128: IRSC_DW_TC(CI, 128);         \
-    default: return cudaErrorInvalidValue; \
-  }
-  switch (cin) {
-    case 32: IRSC_DW_TC_COUT(32)
-    case 64: IRSC_DW_TC_COUT(64)
-    case 128: IRSC_DW_TC_COUT(128)
-    default: return cudaErrorInvalidValue;
-  }
-#undef IRSC_DW_TC_COUT
+  if (cin == CI && cout == CO)                                                                \
+    return irsc::tc::launch_dw_list_tc<CI, CO>(x, g, nbr, lists, counts, partial, dw, rows,  \
+                                               k_offsets, splits, stream);
+  IRSC_IR_PAIRS(IRSC_DW_TC)
+  IRSC_PG_DOWN_PAIRS(IRSC_DW_TC)
 #undef IRSC_DW_TC
+  return cudaErrorInvalidValue;
 }
 
-bool tc_width(int c) { return c == 32 || c == 64 || c == 128; }
+bool tc_width(int c) { return c >= 16 && c % 16 == 0; }
 
 }  // namespace
 
@@ -295,8 +287,8 @@ extern "C" int ir_conv_dw(const void* feats, const void* nbr, const void* g, voi
 }
 
 // The tensor-core route (the downs): bfloat16 feats and g and the int32
-// map nbr of 8 offsets (all 16-byte aligned), cin and cout each one of 32,
-// 64, 128; work is int32 scratch of ir_dw_list_work_ints(v_out); the other
+// map nbr of 8 offsets (all 16-byte aligned), (cin, cout) one of the
+// pairs of dispatch_dw_tc; work is int32 scratch of ir_dw_list_work_ints(v_out); the other
 // arguments as above.  The list pass, the dW kernel and the sum of the
 // splits, in that order.
 extern "C" int ir_conv_dw_tc(const void* feats, const void* nbr, const void* g, void* work,

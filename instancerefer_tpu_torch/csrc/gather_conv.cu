@@ -20,8 +20,10 @@
 // Three routes, chosen by the wrapper (ops/gather_conv.py) from the input
 // type and Cin alone:
 //
-//   ir_gather_conv_tc  bf16 with Cin in {32, 64, 128} (every down and
-//     residual): irsc::tc::gather_gemm_tc_kernel (sparse_conv_tc.cuh)
+//   ir_gather_conv_tc  bf16 at the pairs of sparse_conv_tc.cuh (every down
+//     and residual of InstanceRefer, Cin and Cout in {32, 64, 128}; every
+//     submanifold conv and down of PointGroup's U-Net, widths 16-192):
+//     irsc::tc::gather_gemm_tc_kernel (sparse_conv_tc.cuh)
 //     under the plan the wrapper passes (ops/gather_conv.tc_plan: tiles of
 //     64 output rows x Cout, 4 warps issuing mma.sync.m16n8k16 from
 //     ldmatrix, bf16 in, f32 accumulate; a cluster of 2 or 4 blocks a tile
@@ -33,7 +35,8 @@
 //     of 2 steps so the next step's gather overlaps this one's MMAs; a tile
 //     of padding rows only stores its epilogue.
 //   ir_gather_conv_stem_wide  bf16 at any other Cin (the stems, K = 27: 7,
-//     10 with normals, 135 with multiview features -> 32): irsc::stem::
+//     10 with normals, 135 with multiview features -> 32; PointGroup's 6 ->
+//     16): irsc::stem::
 //     stem_wide_conv_kernel (sparse_conv_stem.cuh).  The tile's depth comes
 //     from its im2col, not from Cin: the rows' 27 neighbours side by side,
 //     each zero-padded to 16 bytes (cp = Cin rounded up to 8 channels),
@@ -111,7 +114,9 @@ extern "C" int ir_gather_conv(const void* feats, const void* nbr, const void* w,
 }
 
 // The tensor-core route: bfloat16 feats and w [K, cin, cout] (16-byte
-// aligned), cin and cout each one of 32, 64, 128; (bm, cs) the plan of
+// aligned), (cin, cout) one of the pairs of sparse_conv_tc.cuh (bfloat16
+// out: IRSC_IR_PAIRS, IRSC_PG_SUBM_PAIRS and IRSC_PG_DOWN_PAIRS; float32
+// out: IRSC_IR_PAIRS); (bm, cs) the plan of
 // ops/gather_conv.tc_plan (tile height, cluster size), refused unless the
 // template is built for it; out_dtype 0 = float32, 1 = bfloat16.
 extern "C" int ir_gather_conv_tc(const void* feats, const void* nbr, const void* w,
@@ -141,7 +146,7 @@ extern "C" long long ir_tc_smem_bytes(int red, int nout, int mirror, int k_offse
 // The stem route: bfloat16 feats [V_in, channels(cin)] (cin up to
 // MAX_CIN, rows zero-padded to a multiple of 8 channels), nbr [v_out, 27],
 // w [27, cin, cout] as stored, both 16-byte aligned, cout a multiple of
-// 32; out_dtype 0 = float32, 1 = bfloat16.
+// 16; out_dtype 0 = float32, 1 = bfloat16.
 extern "C" int ir_gather_conv_stem_wide(const void* feats, const void* nbr, const void* w,
                                         const void* scale, const void* bias, void* out,
                                         long long v_out, int k_offsets, int cin, int cout,
@@ -163,8 +168,9 @@ extern "C" int ir_gather_conv_stem_wide(const void* feats, const void* nbr, cons
 // down_dx): bfloat16 g [v_out, cout] and w [K, cin, cout] as stored, the
 // int32 down map [v_out, 8] and its inverse up8 [v_in, 8], all 16-byte
 // aligned; work the list pass's workspace of down (lists [8, v_out], then
-// counts [8]); dx float32 [v_in, cin]; cin and cout each one of 32, 64,
-// 128; splits the blocks a list (ops/conv_bwd.dx_list_splits).
+// counts [8]); dx float32 [v_in, cin]; (cin, cout) one of the pairs of
+// IRSC_IR_PAIRS and IRSC_PG_DOWN_PAIRS (sparse_conv_tc.cuh); splits the
+// blocks a list (ops/conv_bwd.dx_list_splits).
 extern "C" int ir_down_dx_tc(const void* g, const void* down, const void* up8, const void* w,
                              const void* work, void* dx, long long v_out, long long v_in,
                              int k_offsets, int cin, int cout, int splits, void* stream) {
@@ -173,24 +179,14 @@ extern "C" int ir_down_dx_tc(const void* g, const void* down, const void* up8, c
   const int* lists = static_cast<const int*>(work);
   const int* counts = lists + k_offsets * v_out;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define IRSC_DX(CI, CO)                                                                     \
-  return irsc::tc::launch_dx_list_tc<CI, CO>(g, down, up8, w, lists, counts, dx, v_out, v_in, \
-                                             k_offsets, splits, s)
-#define IRSC_DX_COUT(CI)                   \
-  switch (cout) {                          \
-    case 32: IRSC_DX(CI, 32);              \
-    case 64: IRSC_DX(CI, 64);              \
-    case 128: IRSC_DX(CI, 128);            \
-    default: return cudaErrorInvalidValue; \
-  }
-  switch (cin) {
-    case 32: IRSC_DX_COUT(32)
-    case 64: IRSC_DX_COUT(64)
-    case 128: IRSC_DX_COUT(128)
-    default: return cudaErrorInvalidValue;
-  }
-#undef IRSC_DX_COUT
+#define IRSC_DX(CI, CO)                                                                       \
+  if (cin == CI && cout == CO)                                                                \
+    return irsc::tc::launch_dx_list_tc<CI, CO>(g, down, up8, w, lists, counts, dx, v_out, v_in, \
+                                               k_offsets, splits, s);
+  IRSC_IR_PAIRS(IRSC_DX)
+  IRSC_PG_DOWN_PAIRS(IRSC_DX)
 #undef IRSC_DX
+  return cudaErrorInvalidValue;
 }
 
 // Shared memory a block of the list-driven dX takes: ops/conv_bwd.

@@ -51,8 +51,13 @@
 // C interface (bound with ctypes): each entry returns cudaGetLastError()
 // after its launch, or cudaErrorInvalidValue for an unsupported shape.
 // dtype codes: 0 float32, 1 bfloat16.  x, r, y, dy, dx and dr are [N, C]
-// row-major, 16-byte aligned, C one of 32, 64, 128; mask is one byte a row
-// or null.
+// row-major, 16-byte aligned, C one of WIDTHS (InstanceRefer's encoders:
+// 32, 64, 128; PointGroup's U-Net: 16 to 112 and the tails' 2C up to 192);
+// mask is one byte a row or null.
+//
+// A row is C / V threads' 16-byte vectors (V channels a vector).  Where
+// that does not divide the block (48, 80, 96, 112, 160, 192 channels), the
+// block's last THREADS % (C / V) threads take no rows.
 
 #include <cstdint>
 #include <type_traits>
@@ -126,12 +131,14 @@ __device__ __forceinline__ void block_sums(const float (&a)[V], const float (&b)
   __shared__ float cnt[SLOTS];
   const int lane = threadIdx.x % TPR;
   const int slot = threadIdx.x / TPR;
+  if (slot < SLOTS) {
 #pragma unroll
-  for (int i = 0; i < V; ++i) {
-    red[0][slot][lane * V + i] = a[i];
-    red[1][slot][lane * V + i] = b[i];
+    for (int i = 0; i < V; ++i) {
+      red[0][slot][lane * V + i] = a[i];
+      red[1][slot][lane * V + i] = b[i];
+    }
+    if (lane == 0) cnt[slot] = count;
   }
-  if (lane == 0) cnt[slot] = count;
   __syncthreads();
   const int width = 2 * C + (with_count ? 1 : 0);
   for (int j = threadIdx.x; j < width; j += THREADS) {
@@ -160,6 +167,7 @@ masked_bn_stats_kernel(const T* __restrict__ x, const uint8_t* __restrict__ mask
   constexpr int RPB = RPI * FWD_UNROLL;
   const int lane = threadIdx.x % TPR;
   const int slot = threadIdx.x / TPR;
+  const bool active = slot < RPI;
   float s[V], q[V], n = 0.f;
 #pragma unroll
   for (int i = 0; i < V; ++i) s[i] = q[i] = 0.f;
@@ -169,7 +177,7 @@ masked_bn_stats_kernel(const T* __restrict__ x, const uint8_t* __restrict__ mask
 #pragma unroll
     for (int u = 0; u < FWD_UNROLL; ++u) {
       const long long r = base + u * RPI + slot;
-      on[u] = r < n_rows && (mask == nullptr || mask[r] != 0);
+      on[u] = active && r < n_rows && (mask == nullptr || mask[r] != 0);
     }
     uint4 raw[FWD_UNROLL];
 #pragma unroll
@@ -261,9 +269,11 @@ masked_bn_apply_kernel(const T* __restrict__ x, const T* __restrict__ res,
                        long long n_rows, T* __restrict__ y) {
   constexpr int V = Pack<T>::N;
   constexpr int TPR = C / V;
+  constexpr int ACTIVE = THREADS / TPR * TPR;  // threads of a block that take vectors
+  if (threadIdx.x >= ACTIVE) return;
   const long long nvec = n_rows * TPR;
-  const long long stride = (long long)gridDim.x * THREADS;
-  const long long first = (long long)blockIdx.x * THREADS + threadIdx.x;
+  const long long stride = (long long)gridDim.x * ACTIVE;
+  const long long first = (long long)blockIdx.x * ACTIVE + threadIdx.x;
   const int lane = (int)(first % TPR);  // stride is a multiple of TPR
   float sc[V], mu[V], be[V];
 #pragma unroll
@@ -311,6 +321,7 @@ masked_bn_bwd_reduce_kernel(const T* __restrict__ dy, const T* __restrict__ y,
   constexpr int RPB = RPI * BWD_UNROLL;
   const int lane = threadIdx.x % TPR;
   const int slot = threadIdx.x / TPR;
+  const bool active = slot < RPI;
   float mu[V], is[V], sg[V], sgx[V];
 #pragma unroll
   for (int i = 0; i < V; ++i) {
@@ -325,7 +336,7 @@ masked_bn_bwd_reduce_kernel(const T* __restrict__ dy, const T* __restrict__ y,
     for (int u = 0; u < BWD_UNROLL; ++u) {
       const long long r = base + u * RPI + slot;
       const long long off = r * C + lane * V;
-      const bool in = r < n_rows;
+      const bool in = active && r < n_rows;
       dr[u] = in ? load16(dy + off) : make_uint4(0, 0, 0, 0);
       yr[u] = in ? load16(y + off) : make_uint4(0, 0, 0, 0);
       xr[u] = in ? load16(x + off) : make_uint4(0, 0, 0, 0);
@@ -358,9 +369,11 @@ masked_bn_bwd_apply_kernel(const T* __restrict__ dy, const T* __restrict__ y,
                            T* __restrict__ dx, T* __restrict__ dres) {
   constexpr int V = Pack<T>::N;
   constexpr int TPR = C / V;
+  constexpr int ACTIVE = THREADS / TPR * TPR;  // threads of a block that take vectors
+  if (threadIdx.x >= ACTIVE) return;
   const long long nvec = n_rows * TPR;
-  const long long stride = (long long)gridDim.x * THREADS;
-  const long long first = (long long)blockIdx.x * THREADS + threadIdx.x;
+  const long long stride = (long long)gridDim.x * ACTIVE;
+  const long long first = (long long)blockIdx.x * ACTIVE + threadIdx.x;
   const int lane = (int)(first % TPR);
   const float n = stat[4 * C];
   float sc[V], mu[V], is[V], a[V], b[V];
@@ -407,24 +420,36 @@ masked_bn_bwd_apply_kernel(const T* __restrict__ dy, const T* __restrict__ y,
   }
 }
 
+// The widths the kernels are built for (ops/masked_bn.CHANNELS).
+#define IRBN_WIDTHS(X) X(16) X(32) X(48) X(64) X(80) X(96) X(112) X(128) X(160) X(192)
+
+bool width_ok(int c) {
+#define IRBN_IS(W) if (c == W) return true;
+  IRBN_WIDTHS(IRBN_IS)
+#undef IRBN_IS
+  return false;
+}
+
 bool bad(long long n_rows, int c, int dtype, int blocks) {
-  return n_rows < 0 || (c != 32 && c != 64 && c != 128) || (dtype != 0 && dtype != 1) ||
-         blocks <= 0;
+  return n_rows < 0 || !width_ok(c) || (dtype != 0 && dtype != 1) || blocks <= 0;
+}
+
+template <typename T, typename F>
+void dispatch_width(int c, F&& f) {
+#define IRBN_CALL(W) \
+  if (c == W) return f(T{}, std::integral_constant<int, W>{});
+  IRBN_WIDTHS(IRBN_CALL)
+#undef IRBN_CALL
 }
 
 // f(T{}, std::integral_constant<int, C>{}) for the element type of dtype
 // and the width c (both checked by bad()).
 template <typename F>
 void dispatch(int dtype, int c, F&& f) {
-  if (dtype == 1) {
-    if (c == 32) f(__nv_bfloat16{}, std::integral_constant<int, 32>{});
-    else if (c == 64) f(__nv_bfloat16{}, std::integral_constant<int, 64>{});
-    else f(__nv_bfloat16{}, std::integral_constant<int, 128>{});
-  } else {
-    if (c == 32) f(float{}, std::integral_constant<int, 32>{});
-    else if (c == 64) f(float{}, std::integral_constant<int, 64>{});
-    else f(float{}, std::integral_constant<int, 128>{});
-  }
+  if (dtype == 1)
+    dispatch_width<__nv_bfloat16>(c, f);
+  else
+    dispatch_width<float>(c, f);
 }
 
 }  // namespace irbn

@@ -5,7 +5,7 @@
 //   sum_partials_kernel  dW = sum_s partial[s]        (fixed order; every dW route)
 //
 // The two FMA templates (f32 products) serve f32 inputs; bf16 takes
-// sparse_conv_tc.cuh (Cin and Cout in {32, 64, 128}) or, at the stems,
+// sparse_conv_tc.cuh (the pairs of widths it lists) or, at the stems,
 // sparse_conv_stem.cuh (any other Cin).
 //
 // Every source under csrc/ is compiled on its own into its own library, so

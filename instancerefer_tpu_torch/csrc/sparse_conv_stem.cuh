@@ -127,8 +127,11 @@ __device__ __forceinline__ void store_rows(const float (&acc)[NT][4], O* __restr
 }
 
 constexpr int THREADS = 256;              // 8 warps
-constexpr int N = 32;                     // output (K1) or g (K3) columns of a block
-constexpr int N_STRIDE = N + tc::PAD;     // 80 bytes: W_flat's and g's staged rows
+// Output (K1) or g (K3) columns of a block, N: 32, or 16 where Cout is no
+// multiple of 32 (PointGroup's input conv, 6 -> 16).  A block's staged W
+// and g rows are N + PAD wide (80 or 48 bytes).
+constexpr int N = 32;
+constexpr int block_n(int cout) { return cout % 32 == 0 ? 32 : 16; }
 // K1
 constexpr int BM = 128;                   // rows of a tile
 constexpr int CH = 64;                    // depth columns of a stage: 4 k-steps
@@ -138,8 +141,14 @@ constexpr int WK = THREADS / 32 / WR;     // warps along a stage's k-steps
 constexpr int MI = BM / WR / 16;          // 16-row tiles a warp
 constexpr int KS = CH / 16 / WK;          // k-steps of a stage a warp
 constexpr int XS = CH + tc::PAD;          // 144 bytes
-constexpr int STAGE = BM * XS + CH * N_STRIDE;  // bf16 elements of a stage
-constexpr size_t CONV_SMEM = STAGES * STAGE * sizeof(bf16) + BM * K * sizeof(int);
+template <int NB>
+__host__ __device__ constexpr int stage_elems() {  // bf16 elements of a stage
+  return BM * XS + CH * (NB + tc::PAD);
+}
+template <int NB>
+constexpr size_t conv_smem() {
+  return STAGES * stage_elems<NB>() * sizeof(bf16) + BM * K * sizeof(int);
+}
 // K3
 constexpr int DW_THREADS = 512;           // 16 warps
 constexpr int BR = 64;                    // rows of a tile
@@ -150,16 +159,22 @@ constexpr int MT = 3;                     // 16-column tiles of the depth a warp
 #endif
 constexpr int DB = IRSC_STEM_DW_BLOCK;    // 768 depth columns a block
 constexpr int DXS = DB + tc::PAD;         // 1552 bytes
-constexpr int DW_STAGE = BR * DXS + BR * N_STRIDE;  // bf16 elements of a stage
+template <int NB>
+__host__ __device__ constexpr int dw_stage_elems() {  // bf16 elements of a stage
+  return BR * DXS + BR * (NB + tc::PAD);
+}
 constexpr int IDX_U = (BR * K + DW_THREADS - 1) / DW_THREADS;  // a tile's indices a thread
-constexpr size_t DW_SMEM =
-    DW_STAGES * (DW_STAGE * sizeof(bf16) + BR * K * sizeof(int)) + DB / 8 * sizeof(int);
+template <int NB>
+constexpr size_t dw_smem() {
+  return DW_STAGES * (dw_stage_elems<NB>() * sizeof(bf16) + BR * K * sizeof(int)) +
+         DB / 8 * sizeof(int);
+}
 
 static_assert(THREADS == CH / 8 * 32 && BM % 32 == 0, "K1: a thread's piece of every 32nd row");
-static_assert(THREADS == CH * N / 8, "K1: one 16-byte piece of W_flat a thread a stage");
+static_assert(THREADS == CH * N / 8, "K1: at most one 16-byte piece of W_flat a thread a stage");
 static_assert(DW_THREADS >= BR * N / 8, "K3: at most one 16-byte piece of g a thread a tile");
 static_assert(WR * WK * 32 == THREADS && MI * WR * 16 == BM && KS * WK * 16 == CH, "K1: warps");
-static_assert((WK - 1) * BM * N * sizeof(float) <= STAGES * STAGE * sizeof(bf16),
+static_assert((WK - 1) * BM * N * sizeof(float) <= STAGES * stage_elems<16>() * sizeof(bf16),
               "K1: the k-groups' sums");
 static_assert(DB == DW_THREADS / 32 * MT * 16, "K3: a block's depth is its warps' tiles");
 static_assert(DW_STAGES <= 32, "K3: a tile's bit in `live` is its index mod 32");
@@ -179,12 +194,15 @@ __host__ __device__ constexpr int depth_blocks(int cin) { return (depth(cin) + D
 // piece t % 8 of rows t / 8 + 32 u.  A tile of padding rows goes straight
 // to the epilogue of a zero sum.
 // ---------------------------------------------------------------------------
-template <typename O>
+template <typename O, int NB = N>
 __global__ void __launch_bounds__(THREADS, 2)
 stem_wide_conv_kernel(const bf16* __restrict__ x, const int* __restrict__ nbr,
                       const bf16* __restrict__ w, const float* __restrict__ scale,
                       const float* __restrict__ bias, O* __restrict__ out, long long v_out,
                       int cin, int cout, int relu) {
+  constexpr int N = NB;
+  constexpr int N_STRIDE = N + tc::PAD;
+  constexpr int STAGE = stage_elems<N>();
   extern __shared__ __align__(16) unsigned char smem[];
   bf16* stages = reinterpret_cast<bf16*>(smem);                         // STAGES x STAGE
   int* idx_s = reinterpret_cast<int*>(stages + STAGES * STAGE);         // [BM * K]
@@ -222,13 +240,15 @@ stem_wide_conv_kernel(const bf16* __restrict__ x, const int* __restrict__ nbr,
         tc::cp_async16(xs + r * XS + pp * 8,
                        src >= 0 ? x + static_cast<long long>(src) * cp + c : x, src >= 0 ? 16 : 0);
       }
-      const int jw = j * CH + wr;  // the row of W_flat
-      const int kw = jw / cp;
-      const int cw = jw - kw * cp;
-      const bool ok = kw < K && cw < cin;  // zero rows for padding channels and depth
-      tc::cp_async16(ws + wr * N_STRIDE + wc * 8,
-                     ok ? w + static_cast<long long>(kw * cin + cw) * cout + col0 + wc * 8 : w,
-                     ok ? 16 : 0);
+      if (tid < CH * N / 8) {  // one piece of W_flat a thread (half the threads at N 16)
+        const int jw = j * CH + wr;  // the row of W_flat
+        const int kw = jw / cp;
+        const int cw = jw - kw * cp;
+        const bool ok = kw < K && cw < cin;  // zero rows for padding channels and depth
+        tc::cp_async16(ws + wr * N_STRIDE + wc * 8,
+                       ok ? w + static_cast<long long>(kw * cin + cw) * cout + col0 + wc * 8 : w,
+                       ok ? 16 : 0);
+      }
     };
 
 #pragma unroll
@@ -291,22 +311,32 @@ stem_wide_conv_kernel(const bf16* __restrict__ x, const int* __restrict__ nbr,
   }
 }
 
-// K1 over a (tiles, cout / 32) grid.
-template <typename O>
-cudaError_t launch_conv(const void* x, const void* nbr, const void* w, const void* scale,
-                        const void* bias, void* out, long long v_out, int cin, int cout,
-                        int relu, cudaStream_t stream) {
-  if (cout % N != 0) return cudaErrorInvalidValue;
-  auto kernel = stem_wide_conv_kernel<O>;
+// K1 over a (tiles, cout / NB) grid.
+template <typename O, int NB>
+cudaError_t launch_conv_n(const void* x, const void* nbr, const void* w, const void* scale,
+                          const void* bias, void* out, long long v_out, int cin, int cout,
+                          int relu, cudaStream_t stream) {
+  auto kernel = stem_wide_conv_kernel<O, NB>;
   static std::atomic<int> smem_set{0};
-  const cudaError_t err = tc::reserve_smem(kernel, smem_set, CONV_SMEM);
+  const cudaError_t err = tc::reserve_smem(kernel, smem_set, conv_smem<NB>());
   if (err != cudaSuccess) return err;
-  const dim3 grid(static_cast<unsigned>((v_out + BM - 1) / BM), static_cast<unsigned>(cout / N));
-  kernel<<<grid, THREADS, CONV_SMEM, stream>>>(
+  const dim3 grid(static_cast<unsigned>((v_out + BM - 1) / BM), static_cast<unsigned>(cout / NB));
+  kernel<<<grid, THREADS, conv_smem<NB>(), stream>>>(
       static_cast<const bf16*>(x), static_cast<const int*>(nbr), static_cast<const bf16*>(w),
       static_cast<const float*>(scale), static_cast<const float*>(bias), static_cast<O*>(out),
       v_out, cin, cout, relu);
   return cudaGetLastError();
+}
+
+// K1 at any cout that is a multiple of 16: blocks of block_n(cout) columns.
+template <typename O>
+cudaError_t launch_conv(const void* x, const void* nbr, const void* w, const void* scale,
+                        const void* bias, void* out, long long v_out, int cin, int cout,
+                        int relu, cudaStream_t stream) {
+  if (cout % 16 != 0) return cudaErrorInvalidValue;
+  if (block_n(cout) == 32)
+    return launch_conv_n<O, 32>(x, nbr, w, scale, bias, out, v_out, cin, cout, relu, stream);
+  return launch_conv_n<O, 16>(x, nbr, w, scale, bias, out, v_out, cin, cout, relu, stream);
 }
 
 // ---------------------------------------------------------------------------
@@ -323,10 +353,14 @@ cudaError_t launch_conv(const void* x, const void* nbr, const void* w, const voi
 // for each of its columns k * cp + c with c < cin into partial[s] ([27,
 // cin, Cout]); padding channels and depth are never written.
 // ---------------------------------------------------------------------------
+template <int NB = N>
 __global__ void __launch_bounds__(DW_THREADS, 1)
 stem_wide_dw_kernel(const bf16* __restrict__ x, const bf16* __restrict__ g,
                     const int* __restrict__ nbr, float* __restrict__ partial, long long rows,
                     int cin, int cout, long long rows_per_split) {
+  constexpr int N = NB;
+  constexpr int N_STRIDE = N + tc::PAD;
+  constexpr int DW_STAGE = dw_stage_elems<N>();
   extern __shared__ __align__(16) unsigned char smem[];
   bf16* stages = reinterpret_cast<bf16*>(smem);                        // DW_STAGES x DW_STAGE
   int* idx_s = reinterpret_cast<int*>(stages + DW_STAGES * DW_STAGE);  // DW_STAGES x [BR * K]
@@ -431,9 +465,9 @@ stem_wide_dw_kernel(const bf16* __restrict__ x, const bf16* __restrict__ g,
       const bf16* gs = xs + BR * DXS;
 #pragma unroll
       for (int kk = 0; kk < BR; kk += 16) {
-        unsigned b[2][4];
+        unsigned b[N / 16][4];
 #pragma unroll
-        for (int n = 0; n < 2; ++n)
+        for (int n = 0; n < N / 16; ++n)
           tc::ldsm_x4_trans(b[n], gs + (kk + lane % 8 + ((lane / 8) % 2) * 8) * N_STRIDE +
                                       n * 16 + (lane / 16) * 8);
 #pragma unroll
@@ -442,10 +476,11 @@ stem_wide_dw_kernel(const bf16* __restrict__ x, const bf16* __restrict__ g,
           unsigned a[4];
           tc::ldsm_x4_trans(a, xs + (kk + lane % 8 + (lane / 16) * 8) * DXS + (mt0 + i) * 16 +
                                    ((lane / 8) % 2) * 8);
-          tc::mma_bf16(acc[i][0], a, b[0][0], b[0][1]);
-          tc::mma_bf16(acc[i][1], a, b[0][2], b[0][3]);
-          tc::mma_bf16(acc[i][2], a, b[1][0], b[1][1]);
-          tc::mma_bf16(acc[i][3], a, b[1][2], b[1][3]);
+#pragma unroll
+          for (int n = 0; n < N / 16; ++n) {
+            tc::mma_bf16(acc[i][2 * n], a, b[n][0], b[n][1]);
+            tc::mma_bf16(acc[i][2 * n + 1], a, b[n][2], b[n][3]);
+          }
         }
       }
     }
@@ -473,24 +508,34 @@ stem_wide_dw_kernel(const bf16* __restrict__ x, const bf16* __restrict__ g,
     }
 }
 
-// stem_wide_dw_kernel over a (splits, cout / 32, depth_blocks(cin)) grid,
+// stem_wide_dw_kernel over a (splits, cout / NB, depth_blocks(cin)) grid,
 // then the fixed-order sum into dw [27, cin, cout].
-inline cudaError_t launch_dw(const void* x, const void* g, const void* nbr, void* partial, void* dw,
-                             long long rows, int cin, int cout, int splits, cudaStream_t stream) {
-  if (cout % N != 0) return cudaErrorInvalidValue;
+template <int NB>
+cudaError_t launch_dw_n(const void* x, const void* g, const void* nbr, void* partial, void* dw,
+                        long long rows, int cin, int cout, int splits, cudaStream_t stream) {
+  auto kernel = stem_wide_dw_kernel<NB>;
   static std::atomic<int> smem_set{0};
-  cudaError_t err = tc::reserve_smem(stem_wide_dw_kernel, smem_set, DW_SMEM);
+  cudaError_t err = tc::reserve_smem(kernel, smem_set, dw_smem<NB>());
   if (err != cudaSuccess) return err;
   const long long tiles = (rows + BR - 1) / BR;
   const long long rows_per_split = (tiles + splits - 1) / splits * BR;
-  const dim3 grid(static_cast<unsigned>(splits), static_cast<unsigned>(cout / N),
+  const dim3 grid(static_cast<unsigned>(splits), static_cast<unsigned>(cout / NB),
                   static_cast<unsigned>(depth_blocks(cin)));
-  stem_wide_dw_kernel<<<grid, DW_THREADS, DW_SMEM, stream>>>(
+  kernel<<<grid, DW_THREADS, dw_smem<NB>(), stream>>>(
       static_cast<const bf16*>(x), static_cast<const bf16*>(g), static_cast<const int*>(nbr),
       static_cast<float*>(partial), rows, cin, cout, rows_per_split);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   return launch_sum_partials(partial, dw, static_cast<long long>(K) * cin * cout, splits, stream);
+}
+
+// K3 at any cout that is a multiple of 16: blocks of block_n(cout) columns.
+inline cudaError_t launch_dw(const void* x, const void* g, const void* nbr, void* partial, void* dw,
+                             long long rows, int cin, int cout, int splits, cudaStream_t stream) {
+  if (cout % 16 != 0) return cudaErrorInvalidValue;
+  if (block_n(cout) == 32)
+    return launch_dw_n<32>(x, g, nbr, partial, dw, rows, cin, cout, splits, stream);
+  return launch_dw_n<16>(x, g, nbr, partial, dw, rows, cin, cout, splits, stream);
 }
 
 }  // namespace stem

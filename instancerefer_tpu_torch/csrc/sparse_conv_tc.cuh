@@ -65,6 +65,7 @@
 #include <cooperative_groups.h>
 
 #include <atomic>
+#include <type_traits>
 
 #include "sparse_conv.cuh"  // sum_partials_kernel
 
@@ -175,18 +176,25 @@ __device__ __forceinline__ void store2<bf16>(bf16* dst, float v0, float v1) {
 // order, applies the epilogue and stores them.  No atomics: a plan sums in
 // one order.  Without a cluster (CS = 1) the block stores its own sums.
 //
-// Weight layouts (RED: the reduction width, NOUT: the output width):
-//   MIRROR_T = false: w[K, RED, NOUT], slice k, staged [RED][NOUT] and read
-//     with ldmatrix.trans (K1).
-//   MIRROR_T = true:  w[K, NOUT, RED], slice K-1-k, staged [NOUT][RED] and
-//     read with plain ldmatrix: the transpose comes from the fragment
-//     layout (K2's dX over the mirrored offsets).
+// Weight layouts (RED: the reduction width, NOUT: the output width), WL:
+//   W_KRN (MIRROR_T = false): w[K, RED, NOUT], slice k, staged [RED][NOUT]
+//     and read with ldmatrix.trans (K1).
+//   W_MIRROR (MIRROR_T = true): w[K, NOUT, RED], slice K-1-k, staged
+//     [NOUT][RED] and read with plain ldmatrix: the transpose comes from
+//     the fragment layout (K2's dX over the mirrored offsets).
+//   W_KNR: w[K, NOUT, RED], slice k, staged as W_MIRROR's (the inverse
+//     convs' dX over the down map, up_dgrad_tc_kernel: W^T of the weight as
+//     stored).
+// gather_gemm_tc_kernel (K1, K2's dX) and up_dgrad_tc_kernel run one body,
+// gather_gemm_tc_body; the kernels' names tell the launches apart in a
+// trace.
 //
 // The plans it is built for: 64-row tiles, alone or in clusters of 2 or 4
 // blocks (ops/gather_conv.tc_plan picks one from the shape and the card's
 // SM count; the C entries refuse the rest).
 // ---------------------------------------------------------------------------
 constexpr int TC_BM = 64;  // rows a tile
+constexpr int W_KRN = 0, W_MIRROR = 1, W_KNR = 2;  // the staged weight's layouts (above)
 
 inline bool tile_plan_ok(int bm, int cs) {
   return bm == TC_BM && (cs == 1 || cs == 2 || cs == 4);
@@ -209,26 +217,26 @@ constexpr size_t tile_smem_bytes(int red, int nout, bool mirror, int k_offsets) 
          static_cast<size_t>(TC_BM + 2) * k_offsets * sizeof(int);
 }
 
-template <int RED, int NOUT, bool MIRROR_T>
+// NR: the weight staged [NOUT][RED] (W_MIRROR, W_KNR), else [RED][NOUT].
+template <int RED, int NOUT, bool NR>
 struct TileShape {
   static constexpr int NT = NOUT / 8;  // 8-column tiles a warp
   static constexpr int A_STRIDE = RED + PAD;
   static constexpr int A_ELEMS = TC_BM * A_STRIDE;
-  static constexpr int W_STRIDE = (MIRROR_T ? RED : NOUT) + PAD;
-  static constexpr int STAGE_ELEMS = A_ELEMS + (MIRROR_T ? NOUT : RED) * W_STRIDE;
+  static constexpr int W_STRIDE = (NR ? RED : NOUT) + PAD;
+  static constexpr int STAGE_ELEMS = A_ELEMS + (NR ? NOUT : RED) * W_STRIDE;
   static constexpr int SUM_STRIDE = NOUT + 4;  // floats in a row of the cluster's partials
-  static constexpr int BODY_BYTES = tile_body_bytes(RED, NOUT, MIRROR_T);
+  static constexpr int BODY_BYTES = tile_body_bytes(RED, NOUT, NR);
   static_assert(RED % 16 == 0 && NT >= 2 && NT % 2 == 0, "warp tile");
 };
 
-// (a minimum of 4 blocks an SM: their gathers fill each other's waits)
-template <typename O, int RED, int NOUT, bool MIRROR_T>
-__global__ void __launch_bounds__(THREADS, 4)
-gather_gemm_tc_kernel(const bf16* __restrict__ feats, const int* __restrict__ nbr,
-                      const bf16* __restrict__ w, const float* __restrict__ scale,
-                      const float* __restrict__ bias, O* __restrict__ out, long long v_out,
-                      int k_offsets, int relu, int cs) {
-  using S = TileShape<RED, NOUT, MIRROR_T>;
+template <typename O, int RED, int NOUT, int WL>
+__device__ __forceinline__ void gather_gemm_tc_body(
+    const bf16* __restrict__ feats, const int* __restrict__ nbr, const bf16* __restrict__ w,
+    const float* __restrict__ scale, const float* __restrict__ bias, O* __restrict__ out,
+    long long v_out, int k_offsets, int relu, int cs) {
+  constexpr bool NR = WL != W_KRN;
+  using S = TileShape<RED, NOUT, NR>;
   constexpr int BM = TC_BM;
   extern __shared__ __align__(16) unsigned char smem[];
   bf16* stages = reinterpret_cast<bf16*>(smem);
@@ -283,8 +291,8 @@ gather_gemm_tc_kernel(const bf16* __restrict__ feats, const int* __restrict__ nb
                  src >= 0 ? feats + static_cast<long long>(src) * RED + c * 8 : feats,
                  src >= 0 ? 16 : 0);
     }
-    const bf16* wk = w + static_cast<long long>(MIRROR_T ? k_offsets - 1 - k : k) * RED * NOUT;
-    if constexpr (MIRROR_T) {  // [NOUT][RED]
+    const bf16* wk = w + static_cast<long long>(WL == W_MIRROR ? k_offsets - 1 - k : k) * RED * NOUT;
+    if constexpr (NR) {  // [NOUT][RED]
       for (int e = tid; e < NOUT * CPR; e += THREADS) {
         const int n = e / CPR;
         const int c = e % CPR;
@@ -318,7 +326,7 @@ gather_gemm_tc_kernel(const bf16* __restrict__ feats, const int* __restrict__ nb
       for (int j = 0; j < S::NT; j += 2) {
         const int n = j * 8;
         unsigned b[4];
-        if constexpr (MIRROR_T)
+        if constexpr (NR)
           ldsm_x4(b, w_s + (n + lane % 8 + (lane / 16) * 8) * S::W_STRIDE + kk +
                          ((lane / 8) % 2) * 8);
         else
@@ -402,14 +410,47 @@ gather_gemm_tc_kernel(const bf16* __restrict__ feats, const int* __restrict__ nb
   cluster.sync();  // no rank leaves while another reads its shared memory
 }
 
+// The blocks an SM keeps at least (the kernels' launch bounds): 4 at
+// {16, 32, 64, 128} output columns, whose gathers fill each other's waits;
+// 3 at PointGroup's 48-112, and 2 past 128, whose accumulators and
+// addresses would spill under the registers of 4.
+__host__ __device__ constexpr int tile_min_blocks(int nout) {
+  return nout > 128 ? 2 : (nout & (nout - 1)) != 0 ? 3 : 4;
+}
+
 template <typename O, int RED, int NOUT, bool MIRROR_T>
-cudaError_t launch_gather_gemm_tc(const void* feats, const void* nbr, const void* w,
-                                  const void* scale, const void* bias, void* out,
-                                  long long v_out, int k_offsets, int relu, int cs,
-                                  cudaStream_t stream) {
-  auto kernel = gather_gemm_tc_kernel<O, RED, NOUT, MIRROR_T>;
-  const size_t smem = tile_smem_bytes(RED, NOUT, MIRROR_T, k_offsets);
-  static std::atomic<int> smem_set{0};
+__global__ void __launch_bounds__(THREADS, tile_min_blocks(NOUT))
+gather_gemm_tc_kernel(const bf16* __restrict__ feats, const int* __restrict__ nbr,
+                      const bf16* __restrict__ w, const float* __restrict__ scale,
+                      const float* __restrict__ bias, O* __restrict__ out, long long v_out,
+                      int k_offsets, int relu, int cs) {
+  gather_gemm_tc_body<O, RED, NOUT, MIRROR_T ? W_MIRROR : W_KRN>(feats, nbr, w, scale, bias, out,
+                                                                 v_out, k_offsets, relu, cs);
+}
+
+// The inverse convs' dX over the down map: dX[v] = sum_k g[down[v, k]] @
+// W[k]^T, w [K, NOUT, RED] as the inverse conv stores it, a bf16 output.
+template <int RED, int NOUT>
+__global__ void __launch_bounds__(THREADS, tile_min_blocks(NOUT))
+up_dgrad_tc_kernel(const bf16* __restrict__ feats, const int* __restrict__ nbr,
+                const bf16* __restrict__ w, const float* __restrict__ scale,
+                const float* __restrict__ bias, bf16* __restrict__ out, long long v_out,
+                int k_offsets, int relu, int cs) {
+  gather_gemm_tc_body<bf16, RED, NOUT, W_KNR>(feats, nbr, w, scale, bias, out, v_out, k_offsets,
+                                              relu, cs);
+}
+
+template <typename O>
+using TileKernel = void (*)(const bf16*, const int*, const bf16*, const float*, const float*, O*,
+                            long long, int, int, int);
+
+// A tile kernel over ceil(v_out / 64) tiles of cs blocks; smem_set is the
+// kernel's own (reserve_smem).
+template <typename O>
+cudaError_t launch_tiles(TileKernel<O> kernel, std::atomic<int>& smem_set, size_t smem,
+                         const void* feats, const void* nbr, const void* w, const void* scale,
+                         const void* bias, void* out, long long v_out, int k_offsets, int relu,
+                         int cs, cudaStream_t stream) {
   cudaError_t err = reserve_smem(kernel, smem_set, smem);
   if (err != cudaSuccess) return err;
   cudaLaunchConfig_t cfg = {};
@@ -432,30 +473,65 @@ cudaError_t launch_gather_gemm_tc(const void* feats, const void* nbr, const void
   return cudaGetLastError();
 }
 
-// RED and NOUT each one of 32, 64, 128; (bm, cs) a plan of tile_plan_ok.
+template <typename O, int RED, int NOUT, bool MIRROR_T>
+cudaError_t launch_gather_gemm_tc(const void* feats, const void* nbr, const void* w,
+                                  const void* scale, const void* bias, void* out,
+                                  long long v_out, int k_offsets, int relu, int cs,
+                                  cudaStream_t stream) {
+  static std::atomic<int> smem_set{0};
+  return launch_tiles<O>(gather_gemm_tc_kernel<O, RED, NOUT, MIRROR_T>, smem_set,
+                         tile_smem_bytes(RED, NOUT, MIRROR_T, k_offsets), feats, nbr, w, scale,
+                         bias, out, v_out, k_offsets, relu, cs, stream);
+}
+
+template <int RED, int NOUT>
+cudaError_t launch_up_dx_tc(const void* g, const void* nbr, const void* w, void* dx,
+                            long long v_out, int k_offsets, int cs, cudaStream_t stream) {
+  static std::atomic<int> smem_set{0};
+  return launch_tiles<bf16>(up_dgrad_tc_kernel<RED, NOUT>, smem_set,
+                            tile_smem_bytes(RED, NOUT, true, k_offsets), g, nbr, w, nullptr,
+                            nullptr, dx, v_out, k_offsets, 0, cs, stream);
+}
+
+// The (Cin, Cout) pairs the tensor-core templates are instantiated for, the
+// convs of the port's configurations (ops/gather_conv.py keeps the same
+// lists): InstanceRefer's encoders, {32, 64, 128} x {32, 64, 128}; and
+// PointGroup's U-Net at m = 16 (widths c = 16, 32, ..., 112): its
+// submanifold convs c -> c and the tails' 2c -> c (those not among the
+// first), and its downs c -> c + 16, whose pairs the inverse convs' kernels
+// take too.
+#define IRSC_IR_PAIRS(X) \
+  X(32, 32) X(32, 64) X(32, 128) X(64, 32) X(64, 64) X(64, 128) X(128, 32) X(128, 64) X(128, 128)
+#define IRSC_PG_SUBM_PAIRS(X) \
+  X(16, 16) X(48, 48) X(80, 80) X(96, 96) X(112, 112) X(32, 16) X(96, 48) X(160, 80) X(192, 96)
+#define IRSC_PG_DOWN_PAIRS(X) X(16, 32) X(32, 48) X(48, 64) X(64, 80) X(80, 96) X(96, 112)
+
+// (red, nout): K1's (Cin, Cout) of the pairs above, f32 outputs at
+// InstanceRefer's alone; K2's dX (MIRROR_T) (Cout, Cin) of its
+// submanifold pairs.  (bm, cs) a plan of tile_plan_ok.
 template <typename O, bool MIRROR_T>
 cudaError_t dispatch_gather_gemm_tc(const void* feats, const void* nbr, const void* w,
                                     const void* scale, const void* bias, void* out,
                                     long long v_out, int k_offsets, int red, int nout, int relu,
                                     int bm, int cs, cudaStream_t stream) {
   if (!tile_plan_ok(bm, cs)) return cudaErrorInvalidValue;
-#define IRSC_TC(R, N)                                                                 \
-  return launch_gather_gemm_tc<O, R, N, MIRROR_T>(feats, nbr, w, scale, bias, out, v_out, \
-                                                  k_offsets, relu, cs, stream)
-#define IRSC_TC_NOUT(R)                    \
-  switch (nout) {                          \
-    case 32: IRSC_TC(R, 32);               \
-    case 64: IRSC_TC(R, 64);               \
-    case 128: IRSC_TC(R, 128);             \
-    default: return cudaErrorInvalidValue; \
+#define IRSC_TC(R, N)                                                                     \
+  if (red == R && nout == N)                                                              \
+    return launch_gather_gemm_tc<O, R, N, MIRROR_T>(feats, nbr, w, scale, bias, out, v_out, \
+                                                    k_offsets, relu, cs, stream);
+#define IRSC_TC_MIRROR(CI, CO) IRSC_TC(CO, CI)
+  if constexpr (MIRROR_T) {
+    IRSC_IR_PAIRS(IRSC_TC_MIRROR)
+    IRSC_PG_SUBM_PAIRS(IRSC_TC_MIRROR)
+  } else {
+    IRSC_IR_PAIRS(IRSC_TC)
+    if constexpr (std::is_same<O, bf16>::value) {
+      IRSC_PG_SUBM_PAIRS(IRSC_TC)
+      IRSC_PG_DOWN_PAIRS(IRSC_TC)
+    }
   }
-  switch (red) {
-    case 32: IRSC_TC_NOUT(32)
-    case 64: IRSC_TC_NOUT(64)
-    case 128: IRSC_TC_NOUT(128)
-    default: return cudaErrorInvalidValue;
-  }
-#undef IRSC_TC_NOUT
+  return cudaErrorInvalidValue;
+#undef IRSC_TC_MIRROR
 #undef IRSC_TC
 }
 
@@ -487,13 +563,43 @@ cudaError_t dispatch_gather_gemm_tc(const void* feats, const void* nbr, const vo
 // ---------------------------------------------------------------------------
 constexpr int DWG_THREADS = 256;  // 8 warps
 constexpr int DWG_BR = 64;        // rows a tile
-constexpr int DWG_G = 2;          // offsets a block
+constexpr int DWG_G = 2;          // offsets a block, where the accumulators allow
 constexpr int SMEM_LIMIT = 232448;  // shared memory a block may take on an H100
+
+// How the 8 warps of a dW block split its [cin, cout] products, and the
+// offsets g a block takes (at most max_g): WM warps along cin (at most 4)
+// and WN along cout, each a divisor of the width's 16-column tiles, the
+// most warps whose accumulators (g x cin / WM x cout / WN / 32 a thread)
+// stay within 128, the larger WM on a tie; the largest g that has one.
+// At {32, 64, 128} this is WM = min(cin / 16, 4), WN = min(cout / 16, 8 /
+// WM) and g = max_g; at PointGroup's widths the split follows the
+// divisors (80 -> 80: 1 x 5 warps; 160 -> 80 and 192 -> 96: g = 1).
+struct WarpSplit {
+  int wm, wn, g;
+};
+constexpr WarpSplit warp_split(int cin, int cout, int max_g) {
+  for (int g = max_g; g >= 1; --g) {
+    WarpSplit best{0, 0, g};
+    for (int wm = 1; wm <= 4; ++wm) {
+      if ((cin / 16) % wm != 0) continue;
+      for (int wn = 1; wm * wn <= 8; ++wn) {
+        if ((cout / 16) % wn != 0) continue;
+        if (g * (cin / 16 / wm) * (cout / 8 / wn) * 4 > 128) continue;
+        if (wm * wn > best.wm * best.wn || (wm * wn == best.wm * best.wn && wm > best.wm))
+          best = WarpSplit{wm, wn, g};
+      }
+    }
+    if (best.wm > 0) return best;
+  }
+  return WarpSplit{0, 0, 0};
+}
+// K2's dW: offsets a block at cin -> cout (ops/conv_bwd.dw_group passes it).
+constexpr int dw_group_g(int cin, int cout) { return warp_split(cin, cout, DWG_G).g; }
 
 // A stage of the ring: the x tile and the G gathered g tiles, bf16 rows
 // padded by PAD.
 constexpr int dw_group_stage_bytes(int cin, int cout) {
-  return (DWG_BR * (cin + PAD) + DWG_G * DWG_BR * (cout + PAD)) * 2;
+  return (DWG_BR * (cin + PAD) + dw_group_g(cin, cout) * DWG_BR * (cout + PAD)) * 2;
 }
 // Stages in the ring: as many as fit, at most 4.
 constexpr int dw_group_stages(int cin, int cout) {
@@ -506,14 +612,15 @@ constexpr int dw_group_stages(int cin, int cout) {
 // to it on the card through ir_dw_group_smem_bytes).
 constexpr size_t dw_group_smem_bytes(int cin, int cout) {
   return static_cast<size_t>(dw_group_stages(cin, cout)) * dw_group_stage_bytes(cin, cout) +
-         (DWG_BR * DWG_G + dw_group_stages(cin, cout) * 8) * sizeof(int);
+         (DWG_BR * dw_group_g(cin, cout) + dw_group_stages(cin, cout) * 8) * sizeof(int);
 }
 
 template <int CIN, int COUT>
 struct DwGroupShape {
-  static constexpr int G = DWG_G;
-  static constexpr int WM = CIN / 16 < 4 ? CIN / 16 : 4;                // warps along CIN
-  static constexpr int WN = COUT / 16 < 8 / WM ? COUT / 16 : 8 / WM;    // along COUT
+  static constexpr WarpSplit SPLIT = warp_split(CIN, COUT, DWG_G);
+  static constexpr int G = SPLIT.g;
+  static constexpr int WM = SPLIT.wm;  // warps along CIN
+  static constexpr int WN = SPLIT.wn;  // along COUT
   static constexpr int MT = CIN / WM / 16;
   static constexpr int NT = COUT / WN / 8;
   static constexpr int X_STRIDE = CIN + PAD;
@@ -524,7 +631,8 @@ struct DwGroupShape {
   static constexpr int STAGES = dw_group_stages(CIN, COUT);
   static constexpr size_t SMEM_BYTES = dw_group_smem_bytes(CIN, COUT);
   static_assert(STAGE_ELEMS * 2 == dw_group_stage_bytes(CIN, COUT), "stage");
-  static_assert(MT >= 1 && NT >= 2 && NT % 2 == 0, "warp tile");
+  static_assert(G >= 1 && MT >= 1 && NT >= 2 && NT % 2 == 0, "warp tile");
+  static_assert(WM * MT * 16 == CIN && WN * NT * 8 == COUT, "warps cover the product");
   static_assert(G * MT * NT * 4 <= 128, "at most 128 accumulators a thread");
   static_assert(DWG_BR * G <= DWG_THREADS && STAGES >= 3 && SMEM_BYTES <= SMEM_LIMIT, "block");
 };
@@ -535,7 +643,7 @@ dw_group_tc_kernel(const bf16* __restrict__ x, const bf16* __restrict__ g,
                    const int* __restrict__ nbr, float* __restrict__ partial, long long rows,
                    int k_offsets, long long rows_per_split) {
   using S = DwGroupShape<CIN, COUT>;
-  constexpr int G = DWG_G;
+  constexpr int G = S::G;
   extern __shared__ __align__(16) unsigned char smem[];
   bf16* ring = reinterpret_cast<bf16*>(smem);
   int* idx_s = reinterpret_cast<int*>(smem + S::STAGES * S::STAGE_ELEMS * sizeof(bf16));
@@ -701,7 +809,7 @@ cudaError_t launch_dw_group_tc(const void* x, const void* g, const void* nbr, vo
   if (err != cudaSuccess) return err;
   const long long tiles = (rows + DWG_BR - 1) / DWG_BR;
   const long long rows_per_split = (tiles + splits - 1) / splits * DWG_BR;
-  const dim3 grid(static_cast<unsigned>((k_offsets + DWG_G - 1) / DWG_G),
+  const dim3 grid(static_cast<unsigned>((k_offsets + S::G - 1) / S::G),
                   static_cast<unsigned>(splits));
   kernel<<<grid, DWG_THREADS, S::SMEM_BYTES, stream>>>(
       static_cast<const bf16*>(x), static_cast<const bf16*>(g), static_cast<const int*>(nbr),
@@ -779,8 +887,8 @@ constexpr int dw_list_blocks(int cin, int cout) {
 
 template <int CIN, int COUT>
 struct DwListShape {
-  static constexpr int WM = CIN / 16 < 4 ? CIN / 16 : 4;              // warps along CIN
-  static constexpr int WN = COUT / 16 < 8 / WM ? COUT / 16 : 8 / WM;  // along COUT
+  static constexpr int WM = warp_split(CIN, COUT, 1).wm;  // warps along CIN
+  static constexpr int WN = warp_split(CIN, COUT, 1).wn;  // along COUT
   static constexpr int MT = CIN / WM / 16;
   static constexpr int NT = COUT / WN / 8;
   static constexpr int X_STRIDE = CIN + PAD;
@@ -797,12 +905,16 @@ struct DwListShape {
   static_assert(STAGES >= 3 && BLOCKS >= 2 && DWL_BR <= DWL_THREADS, "block");
 };
 
-template <int CIN, int COUT>
-__global__ void __launch_bounds__(DWL_THREADS, DwListShape<CIN, COUT>::BLOCKS)
-dw_list_tc_kernel(const bf16* __restrict__ x, const bf16* __restrict__ g,
-                  const int* __restrict__ nbr, const int* __restrict__ lists,
-                  const int* __restrict__ counts, float* __restrict__ partial, long long v_out,
-                  int k_offsets) {
+// TRANS: partial[s, k] written [COUT][CIN] (the inverse convs' dW, whose
+// weight is the transpose of the product), else [CIN][COUT].
+template <int CIN, int COUT, bool TRANS>
+__device__ __forceinline__ void dw_list_tc_body(const bf16* __restrict__ x,
+                                                const bf16* __restrict__ g,
+                                                const int* __restrict__ nbr,
+                                                const int* __restrict__ lists,
+                                                const int* __restrict__ counts,
+                                                float* __restrict__ partial, long long v_out,
+                                                int k_offsets) {
   using S = DwListShape<CIN, COUT>;
   constexpr int BR = DWL_BR;
   constexpr int ST = S::STAGES;
@@ -957,20 +1069,53 @@ dw_list_tc_kernel(const bf16* __restrict__ x, const bf16* __restrict__ g,
     for (int h = 0; h < 2; ++h) {
       const int c = m0 + i * 16 + lane / 4 + h * 8;
 #pragma unroll
-      for (int j = 0; j < S::NT; ++j)
-        store2<float>(dst + c * COUT + n0 + j * 8 + (lane % 4) * 2, acc[i][j][2 * h],
-                      acc[i][j][2 * h + 1]);
+      for (int j = 0; j < S::NT; ++j) {
+        const int n = n0 + j * 8 + (lane % 4) * 2;
+        if constexpr (TRANS) {
+          dst[n * CIN + c] = acc[i][j][2 * h];
+          dst[(n + 1) * CIN + c] = acc[i][j][2 * h + 1];
+        } else {
+          store2<float>(dst + c * COUT + n, acc[i][j][2 * h], acc[i][j][2 * h + 1]);
+        }
+      }
     }
 }
 
-// dw_list_tc_kernel over a (K, splits) grid, then the fixed-order sum into
-// dw.  lists [K, v_out] and counts [K] come from the list pass.
 template <int CIN, int COUT>
+__global__ void __launch_bounds__(DWL_THREADS, DwListShape<CIN, COUT>::BLOCKS)
+dw_list_tc_kernel(const bf16* __restrict__ x, const bf16* __restrict__ g,
+                  const int* __restrict__ nbr, const int* __restrict__ lists,
+                  const int* __restrict__ counts, float* __restrict__ partial, long long v_out,
+                  int k_offsets) {
+  dw_list_tc_body<CIN, COUT, false>(x, g, nbr, lists, counts, partial, v_out, k_offsets);
+}
+
+// The inverse convs' dW over the down map's lists: dW[k] = sum_v
+// x[v]^T g[down[v, k]] [COUT][CIN], with x the fine cotangent (CIN) read
+// through the map and g the coarse input (COUT).
+template <int CIN, int COUT>
+__global__ void __launch_bounds__(DWL_THREADS, DwListShape<CIN, COUT>::BLOCKS)
+up_wgrad_tc_kernel(const bf16* __restrict__ x, const bf16* __restrict__ g,
+                     const int* __restrict__ nbr, const int* __restrict__ lists,
+                     const int* __restrict__ counts, float* __restrict__ partial,
+                     long long v_out, int k_offsets) {
+  dw_list_tc_body<CIN, COUT, true>(x, g, nbr, lists, counts, partial, v_out, k_offsets);
+}
+
+// dw_list_tc_kernel (or, TRANS, up_wgrad_tc_kernel) over a (K, splits)
+// grid, then the fixed-order sum into dw.  lists [K, v_out] and counts [K]
+// come from the list pass.
+template <int CIN, int COUT, bool TRANS = false>
 cudaError_t launch_dw_list_tc(const void* x, const void* g, const void* nbr, const int* lists,
                               const int* counts, void* partial, void* dw, long long v_out,
                               int k_offsets, int splits, cudaStream_t stream) {
   using S = DwListShape<CIN, COUT>;
-  auto kernel = dw_list_tc_kernel<CIN, COUT>;
+  auto kernel = [] {
+    if constexpr (TRANS)
+      return up_wgrad_tc_kernel<CIN, COUT>;
+    else
+      return dw_list_tc_kernel<CIN, COUT>;
+  }();
   static std::atomic<int> smem_set{0};
   cudaError_t err = reserve_smem(kernel, smem_set, S::SMEM_BYTES);
   if (err != cudaSuccess) return err;
@@ -1051,8 +1196,8 @@ struct DxListShape {
 
 // The zero pass of one block: rows [r_begin, r_begin + DXL_ZERO_ROWS) of
 // up8, each warp DXL_ZERO_STEPS ballots of 32 consecutive rows.
-template <int CIN>
-__device__ __forceinline__ void dx_zero_rows(const int* __restrict__ up8, float* __restrict__ dx,
+template <int CIN, typename O>
+__device__ __forceinline__ void dx_zero_rows(const int* __restrict__ up8, O* __restrict__ dx,
                                              long long v_in, long long r_begin, int warp,
                                              int lane) {
   constexpr int STEPS = DXL_ZERO_STEPS;
@@ -1076,19 +1221,22 @@ __device__ __forceinline__ void dx_zero_rows(const int* __restrict__ up8, float*
     while (bits) {
       const int j = __ffs(bits) - 1;
       bits &= bits - 1;
-      float4* dst = reinterpret_cast<float4*>(dx + (r0 + i * 32 + j) * CIN);
-      for (int c = lane; c < CIN / 4; c += 32) dst[c] = make_float4(0.f, 0.f, 0.f, 0.f);
+      uint4* dst = reinterpret_cast<uint4*>(dx + (r0 + i * 32 + j) * CIN);
+      constexpr int ROW16 = CIN * static_cast<int>(sizeof(O)) / 16;  // 16-byte pieces a row
+      for (int c = lane; c < ROW16; c += 32) dst[c] = make_uint4(0, 0, 0, 0);
     }
   }
 }
 
-template <int CIN, int COUT>
-__global__ void __launch_bounds__(DXL_THREADS, DxListShape<CIN, COUT>::BLOCKS)
-dx_list_tc_kernel(const bf16* __restrict__ g, const int* __restrict__ nbr,
-                  const int* __restrict__ up8, const bf16* __restrict__ w,
-                  const int* __restrict__ lists, const int* __restrict__ counts,
-                  float* __restrict__ dx, long long v_out, long long v_in, int k_offsets,
-                  int splits) {
+template <int CIN, int COUT, typename O>
+__device__ __forceinline__ void dx_list_tc_body(const bf16* __restrict__ g,
+                                                const int* __restrict__ nbr,
+                                                const int* __restrict__ up8,
+                                                const bf16* __restrict__ w,
+                                                const int* __restrict__ lists,
+                                                const int* __restrict__ counts,
+                                                O* __restrict__ dx, long long v_out,
+                                                long long v_in, int k_offsets, int splits) {
   using S = DxListShape<CIN, COUT>;
   constexpr int BR = DXL_BR;
   constexpr int ST = DXL_STAGES;
@@ -1100,7 +1248,7 @@ dx_list_tc_kernel(const bf16* __restrict__ g, const int* __restrict__ nbr,
   const int warp = tid / 32;  // owns entries [16 warp, 16 warp + 16) of a tile
   const long long list_blocks = static_cast<long long>(k_offsets) * splits;
   if (blockIdx.x >= list_blocks) {
-    dx_zero_rows<CIN>(up8, dx, v_in, (blockIdx.x - list_blocks) * DXL_ZERO_ROWS, warp, lane);
+    dx_zero_rows<CIN, O>(up8, dx, v_in, (blockIdx.x - list_blocks) * DXL_ZERO_ROWS, warp, lane);
     return;
   }
   extern __shared__ __align__(16) unsigned char smem[];
@@ -1202,9 +1350,9 @@ dx_list_tc_kernel(const bf16* __restrict__ g, const int* __restrict__ nbr,
     for (int h = 0; h < 2; ++h) {
       const int u = ur[warp * 16 + lane / 4 + h * 8];
       if (u < 0) continue;
-      float* dst = dx + static_cast<long long>(u) * CIN + (lane % 4) * 2;
+      O* dst = dx + static_cast<long long>(u) * CIN + (lane % 4) * 2;
 #pragma unroll
-      for (int j = 0; j < S::NT; ++j) store2<float>(dst + j * 8, acc[j][2 * h], acc[j][2 * h + 1]);
+      for (int j = 0; j < S::NT; ++j) store2<O>(dst + j * 8, acc[j][2 * h], acc[j][2 * h + 1]);
     }
   };
 
@@ -1236,15 +1384,46 @@ dx_list_tc_kernel(const bf16* __restrict__ g, const int* __restrict__ nbr,
   cp_async_wait<0>();
 }
 
-// dx_list_tc_kernel over K x splits list blocks and ceil(v_in /
-// DXL_ZERO_ROWS) zero-pass blocks.  lists [K, v_out] and counts [K] come
-// from the list pass.
 template <int CIN, int COUT>
+__global__ void __launch_bounds__(DXL_THREADS, DxListShape<CIN, COUT>::BLOCKS)
+dx_list_tc_kernel(const bf16* __restrict__ g, const int* __restrict__ nbr,
+                  const int* __restrict__ up8, const bf16* __restrict__ w,
+                  const int* __restrict__ lists, const int* __restrict__ counts,
+                  float* __restrict__ dx, long long v_out, long long v_in, int k_offsets,
+                  int splits) {
+  dx_list_tc_body<CIN, COUT, float>(g, nbr, up8, w, lists, counts, dx, v_out, v_in, k_offsets,
+                                    splits);
+}
+
+// The inverse convs' forward over the down map's lists, the same product
+// with a bf16 output: out[down[v, k]] = x[v] @ W[k] for the coarse rows x
+// (COUT channels) and w [K, CIN, COUT] the transpose of the inverse conv's
+// weight as stored; the fine rows no entry names 0.
+template <int CIN, int COUT>
+__global__ void __launch_bounds__(DXL_THREADS, DxListShape<CIN, COUT>::BLOCKS)
+up_fwd_tc_kernel(const bf16* __restrict__ g, const int* __restrict__ nbr,
+                  const int* __restrict__ up8, const bf16* __restrict__ w,
+                  const int* __restrict__ lists, const int* __restrict__ counts,
+                  bf16* __restrict__ dx, long long v_out, long long v_in, int k_offsets,
+                  int splits) {
+  dx_list_tc_body<CIN, COUT, bf16>(g, nbr, up8, w, lists, counts, dx, v_out, v_in, k_offsets,
+                                   splits);
+}
+
+// dx_list_tc_kernel (O float) or up_fwd_tc_kernel (O bf16) over K x
+// splits list blocks and ceil(v_in / DXL_ZERO_ROWS) zero-pass blocks.
+// lists [K, v_out] and counts [K] come from the list pass.
+template <int CIN, int COUT, typename O = float>
 cudaError_t launch_dx_list_tc(const void* g, const void* nbr, const void* up8, const void* w,
                               const int* lists, const int* counts, void* dx, long long v_out,
                               long long v_in, int k_offsets, int splits, cudaStream_t stream) {
   using S = DxListShape<CIN, COUT>;
-  auto kernel = dx_list_tc_kernel<CIN, COUT>;
+  auto kernel = [] {
+    if constexpr (std::is_same<O, float>::value)
+      return dx_list_tc_kernel<CIN, COUT>;
+    else
+      return up_fwd_tc_kernel<CIN, COUT>;
+  }();
   const long long blocks = static_cast<long long>(k_offsets) * splits +
                            (v_in + DXL_ZERO_ROWS - 1) / DXL_ZERO_ROWS;
   if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
@@ -1253,7 +1432,7 @@ cudaError_t launch_dx_list_tc(const void* g, const void* nbr, const void* up8, c
   if (err != cudaSuccess) return err;
   kernel<<<static_cast<unsigned>(blocks), DXL_THREADS, S::SMEM_BYTES, stream>>>(
       static_cast<const bf16*>(g), static_cast<const int*>(nbr), static_cast<const int*>(up8),
-      static_cast<const bf16*>(w), lists, counts, static_cast<float*>(dx), v_out, v_in, k_offsets,
+      static_cast<const bf16*>(w), lists, counts, static_cast<O*>(dx), v_out, v_in, k_offsets,
       splits);
   return cudaGetLastError();
 }

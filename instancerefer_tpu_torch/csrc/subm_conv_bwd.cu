@@ -75,33 +75,24 @@ cudaError_t launch_dx(const void* g, const void* nbr, const void* w, void* dx, l
   }
 }
 
-// K2's dW on tensor cores: cin and cout each one of 32, 64, 128 (instantiated
-// here only, the one library that launches it).
+// K2's dW on tensor cores: (cin, cout) one of the pairs of IRSC_IR_PAIRS
+// and IRSC_PG_SUBM_PAIRS (sparse_conv_tc.cuh), instantiated here only, the
+// one library that launches them.
 cudaError_t dispatch_dw_group(const void* x, const void* g, const void* nbr, void* partial,
                               void* dw, long long rows, int k_offsets, int cin, int cout,
                               int splits, cudaStream_t stream) {
-#define IRSC_DWG(CI, CO)                                                                       \
-  return irsc::tc::launch_dw_group_tc<CI, CO>(x, g, nbr, partial, dw, rows, k_offsets, splits, \
-                                              stream)
-#define IRSC_DWG_COUT(CI)                  \
-  switch (cout) {                          \
-    case 32: IRSC_DWG(CI, 32);             \
-    case 64: IRSC_DWG(CI, 64);             \
-    case 128: IRSC_DWG(CI, 128);           \
-    default: return cudaErrorInvalidValue; \
-  }
-  switch (cin) {
-    case 32: IRSC_DWG_COUT(32)
-    case 64: IRSC_DWG_COUT(64)
-    case 128: IRSC_DWG_COUT(128)
-    default: return cudaErrorInvalidValue;
-  }
-#undef IRSC_DWG_COUT
+#define IRSC_DWG(CI, CO)                                                                  \
+  if (cin == CI && cout == CO)                                                            \
+    return irsc::tc::launch_dw_group_tc<CI, CO>(x, g, nbr, partial, dw, rows, k_offsets, \
+                                                splits, stream);
+  IRSC_IR_PAIRS(IRSC_DWG)
+  IRSC_PG_SUBM_PAIRS(IRSC_DWG)
 #undef IRSC_DWG
+  return cudaErrorInvalidValue;
 }
 
 bool bad_shape(long long v, int k_offsets, int cout, int splits) {
-  return v <= 0 || k_offsets <= 0 || k_offsets % 2 == 0 || cout < 32 || splits <= 0 ||
+  return v <= 0 || k_offsets <= 0 || k_offsets % 2 == 0 || cout < 16 || splits <= 0 ||
          splits > 65535 || (v + irsc::GEMM_BM - 1) / irsc::GEMM_BM > 0x7fffffffLL;
 }
 
@@ -121,16 +112,17 @@ extern "C" int ir_subm_conv_bwd(const void* x, const void* nbr, const void* g, c
                                          s);
 }
 
-// The tensor-core route: bfloat16 x, g and w (16-byte aligned), cin and
-// cout each one of 32, 64, 128, the other arguments as above; (bm, cs) dX's
-// plan (ops/gather_conv.tc_plan) and dW's G (ops/conv_bwd.dw_plan, 2),
-// each refused unless the templates are built for it.
+// The tensor-core route: bfloat16 x, g and w (16-byte aligned), (cin,
+// cout) one of the pairs of dispatch_dw_group, the other arguments as
+// above; (bm, cs) dX's plan (ops/gather_conv.tc_plan) and dW's G
+// (ops/conv_bwd.dw_plan: 2, or 1 where the accumulators of 2 would not
+// fit), each refused unless the templates are built for it.
 extern "C" int ir_subm_conv_bwd_tc(const void* x, const void* nbr, const void* g, const void* w,
                                    void* dx, void* partial, void* dw, long long v,
                                    int k_offsets, int cin, int cout, int splits, int bm, int cs,
                                    int group, void* stream) {
   if (bad_shape(v, k_offsets, cout, splits) || !irsc::tc::tile_plan_ok(bm, cs) ||
-      group != irsc::tc::DWG_G ||
+      group != irsc::tc::dw_group_g(cin, cout) ||
       (v + bm - 1) / bm * cs > 0x7fffffffLL)
     return cudaErrorInvalidValue;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);

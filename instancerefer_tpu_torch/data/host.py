@@ -257,7 +257,10 @@ def stage(batch: Dict[str, np.ndarray], spec: BatchSpec,
     ``ValueError`` as there), then {key: host tensor} of every array
     ``finish`` reads, in ``collate``'s dtypes.  Into the buffers of
     ``pinned`` when given (reused; their earlier contents are overwritten),
-    else tensors over the batch's own arrays."""
+    else tensors over the batch's own arrays.  A spec with a ``stage`` of
+    its own (``data/pointgroup.PGSpec``) stages its batches itself."""
+    if hasattr(spec, "stage"):
+        return spec.stage(batch, pinned)
     arrays = _staged_arrays(batch, spec)
     _check_maps(arrays, spec)
     if pinned is None:
@@ -319,7 +322,12 @@ def finish(staged: Dict[str, torch.Tensor], spec: BatchSpec, out: Optional[Dict]
     same names, shapes and types, or it raises), each widened in its
     ``copy_``; else into new tensors, which never alias ``staged`` (a staging
     set is rewritten once ``finish`` has read it).  Its two parts run
-    under the spans ``ir.load.sources`` and ``ir.load.copy``."""
+    under the spans ``ir.load.sources`` and ``ir.load.copy``.  A spec with
+    a ``finish`` of its own (``data/pointgroup.PGSpec``) finishes its
+    batches itself."""
+    if hasattr(spec, "finish"):
+        with span("ir.load.copy"):
+            return spec.finish(staged, out)
     with span("ir.load.sources"):
         sources = _finish_sources(staged, spec)
     with span("ir.load.copy"):

@@ -9,9 +9,10 @@
 Each runs its plain twin (``ops/sparse.subm_conv_bwd`` / ``conv_dw``) for
 tensors on the CPU; a CUDA tensor launches a kernel or raises, with no
 fallback.  Both take the route ``gather_conv.route`` gives: for bf16 the
-tensor-core kernels at Cin in {32, 64, 128} and, for ``conv_dw``, the
-stem kernel at any other Cin (K = 27: 7, 10 or 135 channels); the FMA
-kernels for f32.  ``<wrapper>.launches`` counts kernel launches and
+tensor-core kernels at the pairs they are built for (``gather_conv.K2_PAIRS``,
+``K3_PAIRS``) and, for ``conv_dw``, the stem kernel at any other Cin (K =
+27: 7, 10 or 135 channels, 6 in PointGroup); the FMA kernels for f32 (Cout
+in {32, 64, 128}).  ``<wrapper>.launches`` counts kernel launches and
 nothing else (``conv_dw.stem_launches`` those of the stem kernel).  Both
 outputs are f32.  dW is a split reduction: the wrapper picks the split
 count from the shapes alone (``dw_splits``; K2 on tensor cores ``dw_plan``,
@@ -47,9 +48,9 @@ import torch
 
 from instancerefer_tpu_torch.ops import sparse
 from instancerefer_tpu_torch.ops.gather_conv import (
-    COUTS, DTYPES, ENTRY, PAD, SMEM_LIMIT, check_launch, check_map, check_plan, check_stem,
-    check_tc, check_tensors, cuda_stream, gather_conv, library, route, sm_count,
-    stem_depth_blocks, stem_rows, tc_plan,
+    COUTS, DTYPES, ENTRY, K2_PAIRS, K3_PAIRS, PAD, SMEM_LIMIT, check_launch, check_map,
+    check_plan, check_stem, check_tc, check_tensors, cuda_stream, gather_conv, library, route,
+    sm_count, stem_block_n, stem_depth_blocks, stem_rows, tc_plan,
 )
 
 DW_BLOCKS = 512  # about four blocks per SM of an H100
@@ -84,9 +85,39 @@ def dw_splits(rows: int, blocks_per_split: int, path: str, split_bytes: int = 0,
 
 
 # K2's dW kernel (csrc/sparse_conv_tc.cuh, dw_group_tc_kernel): rows a
-# tile, offsets a block (the C entry refuses another), warps a block
+# tile, offsets a block where the accumulators allow (the C entry refuses
+# another than dw_group's), warps a block
 DWG_BR, DW_GROUP, DWG_WARPS = 64, 2, 8
 SM_SMEM = 228 * 1024  # shared memory of an H100 SM, 1 KB of it reserved a block
+
+
+@functools.cache
+def warp_split(cin: int, cout: int, max_g: int) -> Tuple[int, int, int]:
+    """(WM, WN, G): how the 8 warps of a dW block split its [cin, cout]
+    products and the offsets a block takes, as ``warp_split`` in
+    csrc/sparse_conv_tc.cuh picks them: WM warps along cin (at most 4) and
+    WN along cout, each dividing the width's 16-column tiles, the most warps
+    whose accumulators (G x cin / WM x cout / WN / 32 a thread) stay within
+    128, the larger WM on a tie; the largest G <= ``max_g`` that has one."""
+    for g in range(max_g, 0, -1):
+        best = (0, 0, g)
+        for wm in range(1, 5):
+            if (cin // 16) % wm:
+                continue
+            for wn in range(1, 8 // wm + 1):
+                if (cout // 16) % wn or g * (cin // 16 // wm) * (cout // 8 // wn) * 4 > 128:
+                    continue
+                if (wm * wn, wm) > (best[0] * best[1], best[0]):
+                    best = (wm, wn, g)
+        if best[0]:
+            return best
+    raise ValueError(f"warp_split: no split of {cin} x {cout}")
+
+
+def dw_group(cin: int, cout: int) -> int:
+    """K2's dW: the offsets a block takes at ``cin`` -> ``cout`` (``DW_GROUP``,
+    or 1 where two offsets' accumulators would not fit: 160 -> 80, 192 -> 96)."""
+    return warp_split(cin, cout, DW_GROUP)[2]
 
 
 class DwPlan(NamedTuple):
@@ -108,20 +139,21 @@ def dw_warps(cin: int, cout: int) -> Tuple[int, int]:
 def dw_group_smem_bytes(cin: int, cout: int) -> int:
     """Shared memory a block of K2's dW takes, as ``dw_group_smem_bytes`` in
     csrc/sparse_conv_tc.cuh computes it (the card tests hold the two
-    equal): a ring of up to 4 tiles, each the x tile and ``DW_GROUP``
+    equal): a ring of up to 4 tiles, each the x tile and ``dw_group``
     gathered g tiles, the tile's map columns and each warp's vote a stage."""
-    if cin not in COUTS or cout not in COUTS:
+    if (cin, cout) not in K2_PAIRS:
         raise ValueError(f"dw_group_smem_bytes: widths {cin} x {cout} are not the "
                          f"tensor-core kernel's")
-    stage = (DWG_BR * (cin + PAD) + DW_GROUP * DWG_BR * (cout + PAD)) * 2
+    group = dw_group(cin, cout)
+    stage = (DWG_BR * (cin + PAD) + group * DWG_BR * (cout + PAD)) * 2
     stages = min(4, (SMEM_LIMIT - 4096) // stage)
-    return stages * stage + (DWG_BR * DW_GROUP + stages * DWG_WARPS) * 4
+    return stages * stage + (DWG_BR * group + stages * DWG_WARPS) * 4
 
 
 @functools.cache
 def dw_plan(rows: int, k: int, cin: int, cout: int, sms: int) -> DwPlan:
     """K2's dW plan from the shape and the card's ``sms`` alone:
-    ``DW_GROUP`` offsets a block, and as many row splits as fill the card's
+    ``dw_group`` offsets a block, and as many row splits as fill the card's
     block slots (the blocks a block's shared memory lets share an SM, times
     ``sms``) over the ceil(k / G) offset groups, at least
     ``SPLIT_ROWS["tensor_core"]`` rows a split and at most
@@ -130,9 +162,10 @@ def dw_plan(rows: int, k: int, cin: int, cout: int, sms: int) -> DwPlan:
     if rows <= 0 or k <= 0 or sms <= 0:
         raise ValueError(f"dw_plan: {rows} rows, {k} offsets, {sms} SMs")
     per_sm = max(1, SM_SMEM // (dw_group_smem_bytes(cin, cout) + 1024))
-    splits = min(-(-rows // SPLIT_ROWS["tensor_core"]), per_sm * sms // -(-k // DW_GROUP),
+    group = dw_group(cin, cout)
+    splits = min(-(-rows // SPLIT_ROWS["tensor_core"]), per_sm * sms // -(-k // group),
                  DW_PARTIAL_BYTES // (4 * k * cin * cout))
-    return DwPlan(DW_GROUP, max(1, splits))
+    return DwPlan(group, max(1, splits))
 
 
 # K3's list route (csrc/conv_dw.cu, csrc/sparse_conv_tc.cuh): map rows a
@@ -158,7 +191,7 @@ def dw_list_smem_bytes(cin: int, cout: int) -> int:
     tests hold the two equal): a ring of up to 4 slots within
     ``DWL_SMEM_BUDGET``, each the x and g tiles of ``DWL_BR`` entries and
     their row indices."""
-    if cin not in COUTS or cout not in COUTS:
+    if (cin, cout) not in K3_PAIRS:
         raise ValueError(f"dw_list_smem_bytes: widths {cin} x {cout} are not the "
                          f"tensor-core kernel's")
     slot = DWL_BR * (cin + PAD + cout + PAD) * 2 + 2 * DWL_BR * 4
@@ -277,7 +310,7 @@ def dx_list_smem_bytes(cin: int, cout: int) -> int:
     tests hold the two equal): W[k] [Cin][Cout] and a ring of ``DXL_STAGES``
     g tiles of ``DXL_BR`` rows, bf16 rows padded by 8; the ring's g row
     indices and the dX rows of ``DXL_STAGES + 1`` tiles."""
-    if cin not in COUTS or cout not in COUTS:
+    if (cin, cout) not in K3_PAIRS:
         raise ValueError(f"dx_list_smem_bytes: widths {cin} x {cout} are not the "
                          f"tensor-core kernel's")
     return (cin + DXL_STAGES * DXL_BR) * (cout + PAD) * 2 + (2 * DXL_STAGES + 1) * DXL_BR * 4
@@ -344,8 +377,8 @@ def down_dx(g: torch.Tensor, nbr: torch.Tensor, up8: torch.Tensor, weight: torch
       weight: [8, Cin, Cout] in ``g.dtype``, as stored.
       work:   ``down_lists(nbr)``.
     Returns [V_in, Cin] f32.  On the CPU ``down_dx_plain``; on a card bf16
-    with Cin, Cout in {32, 64, 128} launches ``ir_down_dx_tc``, anything
-    else raises.
+    with (Cin, Cout) in ``gather_conv.K3_PAIRS`` launches ``ir_down_dx_tc``,
+    anything else raises.
     """
     if g.dtype not in DTYPES or weight.dtype != g.dtype:
         raise TypeError(f"down_dx: g {g.dtype} and weight {weight.dtype} not one of f32/bf16")
@@ -364,9 +397,9 @@ def down_dx(g: torch.Tensor, nbr: torch.Tensor, up8: torch.Tensor, weight: torch
     if path == "twin":
         return down_dx_plain(g, nbr, weight, *list_view(work, v_out), v_in)
     if path != "tensor_core":
-        raise ValueError(f"down_dx: the list route takes bf16 at Cin in {COUTS}, got "
-                         f"{g.dtype} at Cin {cin}")
-    check_tc("down_dx", (cin, cout), g, nbr, up8, weight)
+        raise ValueError(f"down_dx: the list route takes bf16 at the widths of "
+                         f"gather_conv.K3_PAIRS, got {g.dtype} at Cin {cin}")
+    check_tc("down_dx", (cin, cout), g, nbr, up8, weight, pairs=K3_PAIRS)
     dx = torch.empty(v_in, cin, dtype=torch.float32, device=g.device)
     if v_in == 0:
         return dx
@@ -400,8 +433,13 @@ def _check_pair(name, feats, g):
         raise TypeError(f"{name}: g {g.dtype} != feats {feats.dtype}")
     if feats.dim() != 2 or g.dim() != 2:
         raise ValueError(f"{name}: want feats [V_in, Cin] and g [V_out, Cout]")
-    if g.shape[1] not in COUTS:
-        raise ValueError(f"{name}: Cout {g.shape[1]} not in {COUTS}")
+    if g.shape[1] % 16 or g.shape[1] <= 0:
+        raise ValueError(f"{name}: Cout {g.shape[1]} is not a multiple of 16")
+
+
+def _check_fma(name: str, cout: int) -> None:
+    if cout not in COUTS:
+        raise ValueError(f"{name}: the FMA kernel takes Cout in {COUTS}, got {cout}")
 
 
 def conv_dw(feats: torch.Tensor, nbr: torch.Tensor, g: torch.Tensor,
@@ -410,12 +448,14 @@ def conv_dw(feats: torch.Tensor, nbr: torch.Tensor, g: torch.Tensor,
 
     Args:
       feats: [V_in, Cin] f32 or bf16, any Cin; on a card, bf16 with Cin
-        outside {32, 64, 128} (a stem) needs K = 27, and with Cin in {32,
-        64, 128} (a down) K = 8 and a 16-byte aligned ``nbr``.  Or [V_in,
+        outside ``gather_conv.TC_CINS`` (a stem) needs K = 27, and with Cin
+        in it (a down) K = 8 and a 16-byte aligned ``nbr``.  Or [V_in,
         stem_channels(Cin)] from ``gather_conv.pad_channels`` (a stem's
         input), with ``cin`` given.
       nbr:   [V_out, K] int32 rows of ``feats`` (all < V_in), -1 = empty.
-      g:     [V_out, Cout] in ``feats.dtype``; Cout in {32, 64, 128}.
+      g:     [V_out, Cout] in ``feats.dtype``; (Cin, Cout) in
+        ``gather_conv.K3_PAIRS`` on the tensor-core route, Cout in {32, 64,
+        128} on the FMA route, a multiple of 16 at a stem.
       cin:   the conv's Cin (default ``feats.shape[1]``).
       lists: ``down_lists(nbr)``, on the tensor-core route: the list pass
         already run (none here); the other routes read no lists.
@@ -434,7 +474,7 @@ def conv_dw(feats: torch.Tensor, nbr: torch.Tensor, g: torch.Tensor,
     if path == "twin":
         return sparse.conv_dw(feats, nbr, g)
     if path == "tensor_core":
-        check_tc("conv_dw", (cin, cout), feats, g, nbr)
+        check_tc("conv_dw", (cin, cout), feats, g, nbr, pairs=K3_PAIRS)
         if k != LIST_K:
             raise ValueError(f"conv_dw: the tensor-core route takes the downs' maps of "
                              f"K = {LIST_K} offsets, got {k}")
@@ -444,12 +484,14 @@ def conv_dw(feats: torch.Tensor, nbr: torch.Tensor, g: torch.Tensor,
                              f"workspace of a {v_out}-row map")
     elif path == "stem_wide":
         check_stem("conv_dw", k, feats, g)
+    else:
+        _check_fma("conv_dw", cout)
     dw = torch.empty(k, cin, cout, dtype=torch.float32, device=feats.device)
     if v_out == 0:
         return dw.zero_()
-    if path == "stem_wide":  # a block per 32 columns of g and per depth block
-        splits = dw_splits(v_out, cout // 32 * stem_depth_blocks(cin), path, 4 * k * cin * cout,
-                           sm_count(feats.device))
+    if path == "stem_wide":  # a block per 32 (or 16) columns of g and per depth block
+        splits = dw_splits(v_out, cout // stem_block_n(cout) * stem_depth_blocks(cin), path,
+                           4 * k * cin * cout, sm_count(feats.device))
     elif path == "tensor_core":
         splits = dw_list_splits(v_out, k, cin, cout, sm_count(feats.device))
     else:
@@ -485,9 +527,11 @@ def subm_conv_bwd(
     g[nbr(u,k)], with the offsets in the host maps' order.
 
     Args:
-      feats:  [V, Cin] the conv's input, f32 or bf16; Cin in {32, 64, 128}.
+      feats:  [V, Cin] the conv's input, f32 or bf16.
       nbr:    [V, K] int32, K odd, symmetric under k -> K-1-k.
-      g:      [V, Cout] cotangent in ``feats.dtype``; Cout in {32, 64, 128}.
+      g:      [V, Cout] cotangent in ``feats.dtype``; (Cin, Cout) in
+        ``gather_conv.K2_PAIRS`` (bf16 on a card) or both in {32, 64, 128}
+        (f32 on a card).
       weight: [K, Cin, Cout] in ``feats.dtype``.
     Returns (dX [V, Cin] f32, dW [K, Cin, Cout] f32).
     """
@@ -496,7 +540,7 @@ def subm_conv_bwd(
         raise TypeError(f"subm_conv_bwd: weight {weight.dtype} {tuple(weight.shape)}")
     k, cin, cout = weight.shape
     check_map("subm_conv_bwd", nbr, k)
-    if k % 2 == 0 or cin not in COUTS or (feats.shape[1], g.shape[1]) != (cin, cout) \
+    if k % 2 == 0 or (feats.shape[1], g.shape[1]) != (cin, cout) \
             or not nbr.shape[0] == feats.shape[0] == g.shape[0]:
         raise ValueError(f"subm_conv_bwd: feats {tuple(feats.shape)}, nbr {tuple(nbr.shape)}, "
                          f"g {tuple(g.shape)}, weight {tuple(weight.shape)} disagree")
@@ -505,7 +549,10 @@ def subm_conv_bwd(
     if path == "twin":
         return sparse.subm_conv_bwd(feats, nbr, g, weight)
     if path == "tensor_core":
-        check_tc("subm_conv_bwd", (cin, cout), feats, g, weight)
+        check_tc("subm_conv_bwd", (cin, cout), feats, g, weight, pairs=K2_PAIRS)
+    elif path == "fma":
+        _check_fma("subm_conv_bwd", cin)
+        _check_fma("subm_conv_bwd", cout)
     v = nbr.shape[0]
     dx = torch.empty(v, cin, dtype=torch.float32, device=feats.device)
     dw = torch.empty(k, cin, cout, dtype=torch.float32, device=feats.device)

@@ -7,13 +7,21 @@ what bounds it on the card and what its design does about that.
 
 ``route`` picks the path of a call from the device, the input type and Cin
 alone: the plain twin (``ops/sparse.gather_conv``) for tensors on the CPU;
-on a card, for bf16, the tensor-core kernel for Cin in {32, 64, 128} (under
+on a card, for bf16, the tensor-core kernel for Cin in ``TC_CINS`` (under
 the tile plan ``tc_plan`` picks from the shape and the card's SM count:
 64-row tiles, a tile's offsets split over a cluster of 2 or 4 blocks at the
 small stages; ``check_plan`` raises on a plan the C entry is not built
 for) and the stem kernel for any other Cin (the stems, K = 27: 7 by default, 10 with
-``use_normal``, 135 with ``use_multiview``); the FMA kernel for f32.  A CUDA tensor launches a
-kernel or raises; there is no fallback.  ``gather_conv.launches`` counts
+``use_normal``, 135 with ``use_multiview``, 6 in PointGroup); the FMA kernel for f32.  A
+CUDA tensor launches a kernel or raises; there is no fallback.
+
+The tensor-core kernels are instantiated for the (Cin, Cout) pairs of the
+configurations' convs (``csrc/sparse_conv_tc.cuh`` keeps the same lists):
+``IR_PAIRS``, InstanceRefer's encoders at {32, 64, 128}; ``PG_SUBM_PAIRS``
+and ``PG_DOWN_PAIRS``, PointGroup's U-Net at m = 16 (its submanifold convs
+c -> c and 2c -> c, its downs c -> c + 16; the inverse convs take the
+downs' pairs).  ``K1_PAIRS``, ``K2_PAIRS`` and ``K3_PAIRS`` say which pairs
+each kernel takes; ``check_pair`` raises on any other.  ``gather_conv.launches`` counts
 kernel launches and nothing else, and ``gather_conv.stem_launches`` those
 of the stem kernel among them.
 
@@ -59,28 +67,48 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v", f"-DIRSC_STEM_DW_BLOCK={STEM_DW_BLOCK}",
 )
-COUTS = (32, 64, 128)
+COUTS = (32, 64, 128)  # the FMA kernels' (f32) output widths
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-TC_WIDTHS = (32, 64, 128)  # Cin and Cout the tensor-core kernels are built for
+IR_PAIRS = tuple((a, b) for a in COUTS for b in COUTS)
+PG_SUBM_PAIRS = ((16, 16), (48, 48), (80, 80), (96, 96), (112, 112), (32, 16), (96, 48),
+                 (160, 80), (192, 96))
+PG_DOWN_PAIRS = ((16, 32), (32, 48), (48, 64), (64, 80), (80, 96), (96, 112))
+# (Cin, Cout) of each tensor-core kernel: K1 by output type (f32 outputs at
+# InstanceRefer's pairs alone), K2 (submanifold backward), K3 (the downs'
+# dW over lists, and the downs' dX over the same lists)
+K1_PAIRS = {torch.bfloat16: IR_PAIRS + PG_SUBM_PAIRS + PG_DOWN_PAIRS, torch.float32: IR_PAIRS}
+K2_PAIRS = IR_PAIRS + PG_SUBM_PAIRS
+K3_PAIRS = IR_PAIRS + PG_DOWN_PAIRS
+TC_WIDTHS = COUTS  # InstanceRefer's widths, whose every pair each kernel takes
+# Cin the tensor-core kernels take (any other Cin is a stem)
+TC_CINS = tuple(sorted({c for pair in K1_PAIRS[torch.bfloat16] for c in pair}))
 STEM_K = 27  # the stem kernels' map: the 3^3 submanifold conv
 ENTRY = {"tensor_core": "tc", "stem_wide": "stem_wide"}  # C entries' suffixes
 
 
 def route(dtype: torch.dtype, cin: int, device) -> str:
     """``"twin"`` on the CPU; on a card, for bf16 inputs,
-    ``"tensor_core"`` with ``cin`` in ``TC_WIDTHS`` and ``"stem_wide"``
-    with any other ``cin``; ``"fma"`` for f32."""
+    ``"tensor_core"`` with ``cin`` in ``TC_CINS`` and ``"stem_wide"``
+    with any other ``cin``; ``"fma"`` for f32 (InstanceRefer's widths
+    alone)."""
     if torch.device(device).type == "cpu":
         return "twin"
     if dtype != torch.bfloat16:
         return "fma"
-    return "tensor_core" if cin in TC_WIDTHS else "stem_wide"
+    return "tensor_core" if cin in TC_CINS else "stem_wide"
 
 
 def stem_channels(cin: int) -> int:
     """The channels of a row in the stem kernels' im2col: ``cin`` rounded
     up to 8, 16 bytes (7 -> 8, 10 -> 16, 135 -> 136)."""
     return -(-cin // 8) * 8
+
+
+def stem_block_n(cout: int) -> int:
+    """Output (K1) or g (K3) columns a block of the stem kernels takes: 32,
+    or 16 where Cout is no multiple of 32 (csrc/sparse_conv_stem.cuh's
+    ``block_n``)."""
+    return 32 if cout % 32 == 0 else 16
 
 
 def stem_depth(cin: int) -> int:
@@ -166,12 +194,13 @@ def cuda_stream(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
-def check_tc(name: str, widths, *tensors: torch.Tensor) -> None:
-    """What the tensor-core kernels take: widths in ``TC_WIDTHS`` and
-    16-byte aligned data (their 16-byte ``cp.async`` copies)."""
-    if any(w not in TC_WIDTHS for w in widths):
-        raise ValueError(f"{name}: the tensor-core kernel takes widths in {TC_WIDTHS}, "
-                         f"got {widths}")
+def check_tc(name: str, widths, *tensors: torch.Tensor, pairs=K1_PAIRS[torch.bfloat16]) -> None:
+    """What the tensor-core kernels take: (Cin, Cout) ``widths``, one of
+    ``pairs`` (the kernel's; K1's by default), and 16-byte aligned data
+    (their 16-byte ``cp.async`` copies)."""
+    if tuple(widths) not in pairs:
+        raise ValueError(f"{name}: no tensor-core kernel is built for the widths (Cin, Cout) "
+                         f"{tuple(widths)}; built: {sorted(pairs)}")
     if any(t.data_ptr() % 16 for t in tensors):
         raise ValueError(f"{name}: the tensor-core kernel needs 16-byte aligned inputs")
 
@@ -214,9 +243,9 @@ def tc_plan(rows: int, k: int, red: int, nout: int, out_dtype: torch.dtype,
     (the 8192-16384-row stages), the tile's offsets split over a cluster of
     2 blocks, or 4 where they are no more than the SMs (the plan sweep of
     ``scripts/step_ab.py`` measured each choice)."""
-    if red not in TC_WIDTHS or nout not in TC_WIDTHS or out_dtype not in DTYPES:
+    if red not in TC_CINS or nout not in TC_CINS or out_dtype not in DTYPES:
         raise ValueError(f"tc_plan: widths {red} -> {nout} ({out_dtype}) are not the "
-                         f"tensor-core kernel's")
+                         f"tensor-core kernels'")
     if rows <= 0 or k <= 0 or sms <= 0:
         raise ValueError(f"tc_plan: {rows} rows, {k} offsets, {sms} SMs")
     tiles = -(-rows // TC_BM)
@@ -228,10 +257,11 @@ def tc_smem_bytes(k: int, red: int, nout: int, mirror: bool = False) -> int:
     """Shared memory a block of the gather-GEMM takes, as
     ``tile_smem_bytes`` in csrc/sparse_conv_tc.cuh computes it (the card
     tests hold the two equal): a ring of 2 steps, each the tile's gathered
-    rows [64][red + PAD] and the weight slice ([red][nout + PAD], mirrored
-    [nout][red + PAD]), or the cluster's f32 partials [64][nout + 4] where
-    larger; then the [64, k] map tile, the offsets' slice masks and their
-    list."""
+    rows [64][red + PAD] and the weight slice ([red][nout + PAD], or
+    [nout][red + PAD] with ``mirror``: K2's dX and the inverse convs' dX),
+    or the cluster's f32 partials [64][nout + 4] where larger; then the
+    [64, k] map tile, a flag a offset (whether any row of the tile has a
+    valid index there) and the list of the flagged offsets."""
     w_elems = nout * (red + PAD) if mirror else red * (nout + PAD)
     ring = 2 * (TC_BM * (red + PAD) + w_elems) * 2
     return max(ring, TC_BM * (nout + 4) * 4) + (TC_BM + 2) * k * 4
@@ -361,8 +391,8 @@ def _check(feats, nbr, weight, scale, bias, out_dtype):
         raise ValueError(
             f"gather_conv: feats {tuple(feats.shape)}, weight {tuple(weight.shape)} disagree"
         )
-    if cout not in COUTS:
-        raise ValueError(f"gather_conv: Cout {cout} not in {COUTS}")
+    if cout % 16 or cout <= 0:
+        raise ValueError(f"gather_conv: Cout {cout} is not a multiple of 16")
     if (scale is None) != (bias is None):
         raise ValueError("gather_conv: scale and bias come together")
     tensors = [feats, nbr, weight]
@@ -387,10 +417,12 @@ def gather_conv(
 
     Args:
       feats:  [V_in, Cin] f32 or bf16, contiguous, any Cin; on a card, bf16
-        with Cin outside {32, 64, 128} (a stem) needs K = 27.  Or [V_in,
+        with Cin outside ``TC_CINS`` (a stem) needs K = 27.  Or [V_in,
         stem_channels(Cin)] from ``pad_channels`` (a stem's input).
       nbr:    [V_out, K] int32 rows of ``feats`` (all < V_in), -1 = empty.
-      weight: [K, Cin, Cout] in ``feats.dtype``; Cout in {32, 64, 128}.
+      weight: [K, Cin, Cout] in ``feats.dtype``; (Cin, Cout) one of
+        ``K1_PAIRS`` on the tensor-core route, Cout in {32, 64, 128} on the
+        FMA route, a multiple of 16 at a stem.
       scale/bias: optional [Cout] f32 epilogue (folded eval BatchNorm).
       out_dtype: ``feats.dtype`` (the default) or f32.
     Returns [V_out, Cout] in ``out_dtype``; accumulation is f32.
@@ -403,9 +435,11 @@ def gather_conv(
     if path == "twin":
         return sparse.gather_conv(feats, nbr, weight, scale, bias, relu, out_dtype)
     if path == "tensor_core":
-        check_tc("gather_conv", (cin, cout), feats, weight)
+        check_tc("gather_conv", (cin, cout), feats, weight, pairs=K1_PAIRS[out_dtype])
     elif path == "stem_wide":
         check_stem("gather_conv", k, feats, weight)
+    elif path == "fma" and cout not in COUTS:
+        raise ValueError(f"gather_conv: the FMA kernel takes Cout in {COUTS}, got {cout}")
     v_out = nbr.shape[0]
     out = torch.empty(v_out, cout, dtype=out_dtype, device=feats.device)
     if v_out == 0:

@@ -37,8 +37,9 @@ dbias stay each rank's own sums, which DDP averages.
 
 ``masked_bn.launches`` counts forward calls on a card and
 ``masked_bn.bwd_launches`` backward ones (each a chain of three kernels,
-or four with the all-reduce's total): a train step makes 26 of each, one
-per encoder BN.
+or four with the all-reduce's total): an InstanceRefer train step makes
+26 of each, one per encoder BN.  The pre-activation BNs of PointGroup's
+U-Net (BN -> ReLU -> conv) are the form with no residual.
 """
 
 from __future__ import annotations
@@ -54,7 +55,9 @@ from instancerefer_tpu_torch.ops.gather_conv import (
 )
 from instancerefer_tpu_torch.parallel.distributed import all_reduce_sum, world_size
 
-CHANNELS = (32, 64, 128)  # the widths the kernels are built for
+# the widths the kernels are built for: InstanceRefer's encoders, and
+# PointGroup's U-Net (m = 16: 16 to 112, the tails' 2m to 192)
+CHANNELS = (16, 32, 48, 64, 80, 96, 112, 128, 160, 192)
 THREADS = 256  # a block (csrc/masked_bn.cu)
 UNROLL = {"fwd": 4, "bwd": 2}  # 16-byte loads a thread keeps in flight, by pass
 BLOCKS_PER_SM = 4
@@ -299,7 +302,7 @@ def masked_bn(x: torch.Tensor, mask: Optional[torch.Tensor], weight: torch.Tenso
     sets out.
 
     Args:
-      x: [N, C] f32 or bf16, contiguous; on a card C in {32, 64, 128}.
+      x: [N, C] f32 or bf16, contiguous; on a card C in ``CHANNELS``.
       mask: [N] bool (the rows of the statistics) or None (every row).
       weight, bias, running_mean, running_var: f32 [C]; the running
         statistics move in place.

@@ -11,10 +11,16 @@ Counterparts of the JAX package's custom VJPs ``pallas_conv.banded_subm_conv``
   ``stem_input``: on the card's stem route the same copy that casts it is
   zero-padded to 16-byte rows, and K1 and K3 read that copy.
 * ``down_conv``: forward K1 over ``down``; backward one list pass of
-  ``down`` (``conv_bwd.down_lists``) that both gradients read: dX
-  (``conv_bwd.down_dx``, the counterpart of K1 over the inverse map ``up8``
-  with W^T and an f32 output) and dW (K3 over ``down``).  f32 on a card
-  (the FMA kernels, no lists) takes K1 over ``up8`` and K3's own route.
+  ``down`` (``conv_bwd.down_lists``, or the caller's ``lists``) that both
+  gradients read: dX (``conv_bwd.down_dx``, the counterpart of K1 over the
+  inverse map ``up8`` with W^T and an f32 output) and dW (K3 over
+  ``down``).  f32 on a card (the FMA kernels, no lists) takes K1 over
+  ``up8`` and K3's own route.
+* ``inverse_conv``: spconv's ``SparseInverseConv3d`` over a down map
+  (PointGroup's up path; ``ops/up_conv``): forward ``up_conv`` over the
+  map's lists, backward ``up_dx`` (K1's gather over the map) and ``up_dw``
+  (K3 over the same lists), both in the compute dtype; the lists are the
+  caller's, one pass a level serving the down conv too.
 
 The backwards cast as the JAX ones do: the cotangent to ``cast_in(g.float())``;
 dX and dW are computed in f32 and cast to the dtype of the Function's
@@ -29,11 +35,14 @@ CPU tensors run the plain twins.  The Functions live here, not in
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 
 from instancerefer_tpu_torch.ops.conv_bwd import conv_dw, down_dx, down_lists, subm_conv_bwd
 from instancerefer_tpu_torch.ops.gather_conv import gather_conv, pad_channels, route
 from instancerefer_tpu_torch.ops.precision import cast_dtype, cast_in
+from instancerefer_tpu_torch.ops.up_conv import up_conv, up_dw, up_dx
 
 
 def _cotangent(g: torch.Tensor) -> torch.Tensor:
@@ -62,31 +71,54 @@ class SubmConv(torch.autograd.Function):
 
 class DownConv(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, feats, down, up8, weight):
+    def forward(ctx, feats, down, up8, weight, lists):
         xc, wc = cast_in(feats).contiguous(), cast_in(weight).contiguous()
-        ctx.save_for_backward(xc, down, up8, wc)
+        ctx.save_for_backward(xc, down, up8, wc, lists)
         ctx.dtypes = (feats.dtype, weight.dtype)
         return gather_conv(xc, down, wc)
 
     @staticmethod
     def backward(ctx, g):
-        xc, down, up8, wc = ctx.saved_tensors
+        xc, down, up8, wc, lists = ctx.saved_tensors
         feats_dtype, weight_dtype = ctx.dtypes
         gc = _cotangent(g)
         if route(gc.dtype, wc.shape[1], gc.device) == "fma":
             dx = gather_conv(gc, up8, wc.transpose(1, 2).contiguous(), out_dtype=torch.float32)
             dw = conv_dw(xc, down, gc)
         else:
-            lists = down_lists(down)
+            lists = down_lists(down) if lists is None else lists
             dx = down_dx(gc, down, up8, wc, lists)
             dw = conv_dw(xc, down, gc, lists=lists)
-        return dx.to(feats_dtype), None, None, dw.to(weight_dtype)
+        return dx.to(feats_dtype), None, None, dw.to(weight_dtype), None
+
+
+class InverseConv(torch.autograd.Function):
+    """out[down[v, k]] = x[v] @ W[k] (``ops/up_conv``), in the compute
+    dtype; dX and dW are computed from the cotangent cast as ``_cotangent``
+    casts it, dX in the compute dtype and dW in f32, each then cast to the
+    dtype of its input."""
+
+    @staticmethod
+    def forward(ctx, feats, down, up8, weight, lists):
+        xc, wc = cast_in(feats).contiguous(), cast_in(weight).contiguous()
+        ctx.save_for_backward(xc, down, wc, lists)
+        ctx.dtypes = (feats.dtype, weight.dtype)
+        return up_conv(xc, down, up8, wc, lists)
+
+    @staticmethod
+    def backward(ctx, g):
+        xc, down, wc, lists = ctx.saved_tensors
+        feats_dtype, weight_dtype = ctx.dtypes
+        gc = _cotangent(g)
+        dx = up_dx(gc, down, wc) if ctx.needs_input_grad[0] else None
+        dw = up_dw(gc, down, xc, lists)
+        return (None if dx is None else dx.to(feats_dtype)), None, None, dw.to(weight_dtype), None
 
 
 def stem_input(feats: torch.Tensor) -> torch.Tensor:
     """A stem's input, detached, in one copy: cast to the compute dtype
     and, where the stem takes the stem kernels (bf16 on a card, Cin not
-    in {32, 64, 128}), zero-padded to 16-byte rows
+    in ``gather_conv.TC_CINS``), zero-padded to 16-byte rows
     (``gather_conv.pad_channels``)."""
     x, dtype = feats.detach(), cast_dtype(feats.dtype)
     if route(dtype, x.shape[1], x.device) == "stem_wide":
@@ -105,7 +137,18 @@ def subm_conv(feats: torch.Tensor, nbr: torch.Tensor, weight: torch.Tensor,
 
 
 def down_conv(feats: torch.Tensor, down: torch.Tensor, up8: torch.Tensor,
-              weight: torch.Tensor) -> torch.Tensor:
+              weight: torch.Tensor, lists: Optional[torch.Tensor] = None) -> torch.Tensor:
     """2^3 stride-2 conv over ``down`` [V_s, 8] (rows of the previous stage);
-    ``up8`` [V_{s-1}, 8] is its inverse (``SparseStage.up8``)."""
-    return DownConv.apply(feats, down, up8, weight)
+    ``up8`` [V_{s-1}, 8] is its inverse (``SparseStage.up8``).  ``lists``:
+    ``conv_bwd.down_lists(down)`` where the caller has run it (else the
+    backward runs it)."""
+    return DownConv.apply(feats, down, up8, weight, lists)
+
+
+def inverse_conv(feats: torch.Tensor, down: torch.Tensor, up8: torch.Tensor,
+                 weight: torch.Tensor, lists: torch.Tensor) -> torch.Tensor:
+    """The inverse of the 2^3 stride-2 conv over ``down`` [V_s, 8]: feats
+    [V_s, Cin] -> [V_{s-1}, Cout], each row of the stage before taking its
+    parent's row times its offset's slice of ``weight`` [8, Cin, Cout] (0
+    where it has no parent); ``lists`` is ``conv_bwd.down_lists(down)``."""
+    return InverseConv.apply(feats, down, up8, weight, lists)

@@ -12,6 +12,14 @@ a ``.pth``/``.tar``, ``use_pretrained`` copies the submodules of a run's
 ``use_gt_lang`` is off, ``info.json``, then the ``Solver``'s epoch loop.
 ``--device cuda`` (the default; it needs a card) or ``--device cpu``.
 
+``model: pointgroup`` (``config/PointGroup.yaml``) trains PointGroup's first
+phase instead (``train_pointgroup``): the scenes of the split files under
+``{data_root}/scannet/meta_data`` whose exporter files
+(``data/prepare.py``) lie under ``{data_root}/scannet/pointgroup_data``,
+``data/pointgroup``'s batches, ``models/pointgroup.PointGroup`` and
+``train/pointgroup.PointGroupSolver``.  One process: data parallelism is
+not ported for it.
+
 Data-parallel under ``torchrun`` (one process a card):
 
     torchrun --nproc_per_node N -m instancerefer_tpu_torch.scripts.train --config ...
@@ -47,11 +55,13 @@ BACKUP = (
                                 "relation_module", "scene_module")]
     + ["train/solver.py", "data/dataset.py"]
 )
+PG_BACKUP = ["models/pointgroup.py", "train/pointgroup.py", "train/solver.py",
+             "data/pointgroup.py"]
 
 
-def init_experiment(cfg: Config, stamp: str) -> str:
+def init_experiment(cfg: Config, stamp: str, backup=BACKUP) -> str:
     root = os.path.join(cfg.path_output, stamp)
-    for rel in BACKUP:
+    for rel in backup:
         dest = os.path.join(root, "backup", os.path.basename(_PORT), rel)
         os.makedirs(os.path.dirname(dest), exist_ok=True)
         shutil.copyfile(os.path.join(_PORT, rel), dest)
@@ -77,11 +87,63 @@ def lang_predictor(model, device):
     return predict_fn
 
 
+def train_pointgroup(cfg: Config, device: torch.device):
+    """PointGroup's first phase as ``cfg`` says; returns its solver."""
+    from instancerefer_tpu_torch.data.pointgroup import PointGroupDataset, PointGroupLoader
+    from instancerefer_tpu_torch.models.pointgroup import PointGroup, init_parameters
+    from instancerefer_tpu_torch.ops.precision import set_compute_dtype
+    from instancerefer_tpu_torch.train.pointgroup import PointGroupSolver
+
+    if distributed.world_size() > 1:
+        raise ValueError("PointGroup trains in one process: data parallelism is not ported")
+    set_compute_dtype(cfg.compute_dtype)
+    np.random.seed(cfg.manual_seed)
+    torch.manual_seed(cfg.manual_seed)
+    stamp = time.strftime("%Y-%m-%d_%H-%M-%S", time.gmtime())
+    if cfg.log_dir:
+        stamp += "_" + cfg.log_dir.upper()
+    root = init_experiment(cfg, stamp, PG_BACKUP)
+    spec = cfg.pg_spec()
+    data = os.path.join(cfg.path_scannet, "pointgroup_data")
+    datasets = {}
+    for split in ("train", "val"):
+        with open(os.path.join(cfg.path_scannet_meta, f"scannetv2_{split}.txt")) as f:
+            ids = [line.strip() for line in f if line.strip()]
+        datasets[split] = PointGroupDataset(data, ids[:cfg.num_scenes] if cfg.num_scenes > 0
+                                            else ids, spec)
+    print(f"train on {len(datasets['train'])} scenes, val on {len(datasets['val'])} scenes")
+    loaders = {"train": PointGroupLoader(datasets["train"], cfg.batch_size, seed=cfg.manual_seed),
+               "val": PointGroupLoader(datasets["val"], cfg.batch_size, shuffle=False,
+                                       drop_last=False)}
+    model = PointGroup(6, cfg.m, cfg.num_levels, cfg.block_reps, cfg.sem_classes, cfg.bn_eps)
+    init_parameters(model, torch.Generator().manual_seed(cfg.manual_seed))
+    solver = PointGroupSolver(model, spec, device, lr=cfg.lr, wd=cfg.wd,
+                              lr_decay_step=cfg.lr_decay_step, lr_decay_rate=cfg.lr_decay_rate,
+                              bn_decay_step=cfg.bn_decay_step, bn_decay_rate=cfg.bn_decay_rate,
+                              stamp=stamp, output_dir=cfg.path_output, start_val=cfg.start_val)
+    if cfg.use_checkpoint:
+        solver.load_checkpoint(
+            os.path.join(cfg.path_output, cfg.use_checkpoint, "checkpoint.tar"), with_opt=True)
+    elif cfg.pretrain:
+        solver.load_checkpoint(cfg.pretrain)
+    info = {k: v for k, v in vars(cfg).items() if isinstance(v, (str, int, float, bool, list))}
+    info.update(num_train=len(datasets["train"]), num_val=len(datasets["val"]), num_devices=1)
+    with open(os.path.join(root, "info.json"), "w") as f:
+        json.dump(info, f, indent=4)
+    print("start training...\n")
+    solver(loaders, cfg.epoch, cfg.verbose)
+    return solver
+
+
 def train(cfg: Config):
     """Train as ``cfg`` says; returns the ``Solver`` after its last epoch.
     Joins the process group of ``torchrun``'s environment, if any; the
     process that runs ``main`` as a script ends it."""
     device = distributed.init_from_env(cfg.torch_device())
+    if cfg.model == "pointgroup":
+        return train_pointgroup(cfg, device)
+    if cfg.model != "instancerefer":
+        raise ValueError(f"model {cfg.model!r} is neither instancerefer nor pointgroup")
     world, rank = distributed.world_size(), distributed.rank()
     if cfg.batch_size % world:
         raise ValueError(f"batch_size {cfg.batch_size} does not divide over {world} ranks")

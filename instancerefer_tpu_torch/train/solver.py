@@ -256,6 +256,7 @@ class Solver:
         stamp: str = "run",
         output_dir: str = "outputs",
         start_val: int = 0,
+        task=None,
     ):
         self.device = torch.device(device)
         self.model = model.to(self.device)
@@ -275,7 +276,8 @@ class Solver:
         self.mean_size = torch.tensor(np.asarray(mean_size_arr), dtype=torch.float32,
                                       device=self.device)
         self.optimizer = make_optimizer(self.model.parameters(), lr, wd)
-        self.graphs, self._step_path = choose_steps(self.model, self.optimizer, self.mean_size)
+        self.graphs, self._step_path = choose_steps(self.model, self.optimizer, self.mean_size,
+                                                    task)
         self.lr_decay_step = lr_decay_step
         self.lr_decay_rate = lr_decay_rate
         self.bn_decay_step = bn_decay_step
@@ -302,13 +304,7 @@ class Solver:
         except ImportError:
             pass
 
-        self.best = {
-            "epoch": 0, "loss": float("inf"), "ref_loss": float("inf"),
-            "lang_loss": float("inf"), "seg_loss": float("inf"),
-            "lang_acc": -float("inf"), "ref_acc": -float("inf"),
-            "seg_acc": -float("inf"),
-            "iou_rate_0.25": -float("inf"), "iou_rate_0.5": -float("inf"),
-        }
+        self.best = self._initial_best()
         self.epochs_done = 0  # the epoch counter a checkpoint resumes from
         self.steps = {"train": 0, "val": 0}  # steps run by this solver
         self._global_iter_id = 0
@@ -386,6 +382,54 @@ class Solver:
                 f"max_candidates in the TPU config section"
             )
 
+    # ---------------------------------------------- the model's own parts
+    # (InstanceRefer's here; train/pointgroup.PointGroupSolver has its own)
+    metric_keys = METRIC_KEYS
+    best_key = "iou_rate_0.25"  # the val metric a new best model is picked by
+    best_higher = True  # whether a higher value of it is better
+
+    def _initial_best(self) -> dict:
+        return {
+            "epoch": 0, "loss": float("inf"), "ref_loss": float("inf"),
+            "lang_loss": float("inf"), "seg_loss": float("inf"),
+            "lang_acc": -float("inf"), "ref_acc": -float("inf"),
+            "seg_acc": -float("inf"),
+            "iou_rate_0.25": -float("inf"), "iou_rate_0.5": -float("inf"),
+        }
+
+    def _eager_train_step(self, dd: dict, bn_momentum: float) -> Dict[str, torch.Tensor]:
+        return train_step(self.train_model, self.optimizer, dd, self.mean_size, bn_momentum,
+                          self.timer)[0]
+
+    def _accumulate(self, phase: str, metrics: Dict[str, float]) -> None:
+        """One step's metrics into the phase's log."""
+        for k in METRIC_KEYS:
+            self.log[phase][k].append(metrics[k])
+        for k in ("iou25_hits", "iou5_hits", "iou_count"):
+            self.log[phase][k] += metrics[k]
+        denom = max(self.log[phase]["iou_count"], 1.0)
+        self.log[phase]["iou_rate_0.25"] = self.log[phase]["iou25_hits"] / denom
+        self.log[phase]["iou_rate_0.5"] = self.log[phase]["iou5_hits"] / denom
+
+    def _pooled(self, phase: str) -> Dict[str, float]:
+        """The phase's pooled metrics that are not means of steps."""
+        return {"iou_rate_0.25": self.log[phase]["iou_rate_0.25"],
+                "iou_rate_0.5": self.log[phase]["iou_rate_0.5"]}
+
+    def _to_file(self) -> dict:
+        """The model's state dict in the layout the checkpoints hold (the
+        reference's)."""
+        return to_reference_state_dict(self.model)
+
+    def _load_file_state(self, state: dict) -> None:
+        load_reference_state_dict(self.model, state)
+
+    def _moments_to_file(self, opt_state: dict) -> dict:
+        return _named_moments(opt_state, self._param_names(), to_reference)
+
+    def _moments_from_file(self, opt_state: dict) -> dict:
+        return _named_moments(opt_state, self._param_names(), from_reference)
+
     def _eval_step(self, dd: dict) -> Dict[str, torch.Tensor]:
         self.model.eval()
         return eval_body(self.model, dd, self.mean_size, self.timer.mark)[0]
@@ -425,8 +469,7 @@ class Solver:
                 if graphs:
                     metrics = self._graph_step(dd, phase, bn_momentum)
                 elif phase == "train":
-                    metrics, _ = train_step(self.train_model, self.optimizer, dd, self.mean_size,
-                                            bn_momentum, self.timer)
+                    metrics = self._eager_train_step(dd, bn_momentum)
                 else:
                     metrics = self._eval_step(dd)
                 metrics = metrics_to_host(metrics, sum(self.steps.values()))
@@ -441,13 +484,7 @@ class Solver:
                 self.log[phase]["backward"].append(phases[1] if phase == "train" else 0.0)
                 self.log[phase]["eval"].append(phases[-1])
 
-                for k in METRIC_KEYS:
-                    self.log[phase][k].append(metrics[k])
-                for k in ("iou25_hits", "iou5_hits", "iou_count"):
-                    self.log[phase][k] += metrics[k]
-                denom = max(self.log[phase]["iou_count"], 1.0)
-                self.log[phase]["iou_rate_0.25"] = self.log[phase]["iou25_hits"] / denom
-                self.log[phase]["iou_rate_0.5"] = self.log[phase]["iou5_hits"] / denom
+                self._accumulate(phase, metrics)
 
                 self.log[phase]["iter_time"].append(self.log[phase]["fetch"][-1] + step_time)
                 if phase == "train":
@@ -463,14 +500,16 @@ class Solver:
         if phase == "val":
             self._dump_log("val")
             self._epoch_report(epoch_id)
-            cur = self.log["val"]["iou_rate_0.25"]
-            if cur > self.best["iou_rate_0.25"]:
-                self._log(f"best iou_rate_0.25 achieved: {cur}")
-                for k in METRIC_KEYS:
-                    self.best[k] = float(np.mean(self.log["val"][k])) if self.log["val"][k] else 0.0
+            pooled = self._pooled("val")
+            means = {k: float(np.mean(self.log["val"][k])) if self.log["val"][k] else 0.0
+                     for k in self.metric_keys}
+            cur = pooled.get(self.best_key, means.get(self.best_key))
+            best = self.best[self.best_key]
+            if (cur > best) if self.best_higher else (cur < best):
+                self._log(f"best {self.best_key} achieved: {cur}")
+                self.best.update(means)
+                self.best.update(pooled)
                 self.best["epoch"] = epoch_id + 1
-                self.best["iou_rate_0.25"] = self.log["val"]["iou_rate_0.25"]
-                self.best["iou_rate_0.5"] = self.log["val"]["iou_rate_0.5"]
                 self._log("saving best models...\n")
                 self.save_checkpoint("model")
 
@@ -485,13 +524,13 @@ class Solver:
         path = os.path.join(self.root, name + (".tar" if with_opt else ".pth"))
         if not self.main:
             return path
-        payload = to_reference_state_dict(self.model)
+        payload = self._to_file()
         if with_opt:
             payload = {
                 "epoch": self.epochs_done,
                 "model_state_dict": payload,
-                "optimizer_state_dict": _named_moments(
-                    _portable(self.optimizer.state_dict()), self._param_names(), to_reference),
+                "optimizer_state_dict": self._moments_to_file(
+                    _portable(self.optimizer.state_dict())),
                 "best": dict(self.best),
             }
         torch.save(payload, path + ".tmp")
@@ -506,13 +545,13 @@ class Solver:
         captured step graph is dropped."""
         blob = torch.load(path, map_location="cpu", weights_only=True)
         is_tar = isinstance(blob, dict) and "model_state_dict" in blob
-        load_reference_state_dict(self.model, blob["model_state_dict"] if is_tar else blob)
+        self._load_file_state(blob["model_state_dict"] if is_tar else blob)
         if not with_opt:
             return
         if not is_tar:
             raise ValueError(f"{path} holds no optimizer state (not a checkpoint.tar)")
         names = self._param_names()
-        opt = _named_moments(blob["optimizer_state_dict"], names, from_reference)
+        opt = self._moments_from_file(blob["optimizer_state_dict"])
         params = dict(self.model.named_parameters())
         for idx, st in opt["state"].items():
             p = params[names[int(idx)]]
@@ -557,7 +596,7 @@ class Solver:
                 dd = self._load(staged, "train")
             if self.graphs is not None:
                 return self.graphs.train_step(dd)[0]
-            return train_step(self.train_model, self.optimizer, dd, self.mean_size)[0]
+            return self._eager_train_step(dd, 0.1)
 
         activities = [ProfilerActivity.CPU]
         if self.device.type == "cuda":
@@ -594,7 +633,7 @@ class Solver:
             phase: {
                 "forward": [], "backward": [], "eval": [], "fetch": [], "fetch_load": [],
                 "fetch_copy": [], "fetch_stage": [], "iter_time": [],
-                **{k: [] for k in METRIC_KEYS},
+                **{k: [] for k in self.metric_keys},
                 "iou25_hits": 0.0, "iou5_hits": 0.0, "iou_count": 0.0,
                 "iou_rate_0.25": 0.0, "iou_rate_0.5": 0.0,
             }

@@ -37,6 +37,11 @@ be alive at a capture: each parameter's gradient accumulator lives as long
 as a graph holds it and runs on the stream it was made on, so a capture
 would reach the default stream and fail.
 
+The model's own parts come from a ``task`` (``InstanceReferTask`` by
+default; PointGroup's is ``train/pointgroup.PointGroupTask``): the key part
+a batch gives (InstanceRefer: its language grid), the ``finish`` of its
+staged batches, the train and eval bodies, and the outputs a step returns.
+
 The kernel wrappers count their launches in Python, which a replay does not
 run: the count a capture made is taken back and added on every replay
 (``LAUNCH_COUNTERS``), so the counts read as they would eagerly.
@@ -61,6 +66,7 @@ from instancerefer_tpu_torch.ops import conv_bwd
 from instancerefer_tpu_torch.ops.gather_conv import gather_conv
 from instancerefer_tpu_torch.ops.masked_bn import masked_bn
 from instancerefer_tpu_torch.ops.precision import get_compute_dtype
+from instancerefer_tpu_torch.ops.up_conv import up_conv
 from instancerefer_tpu_torch.parallel.distributed import all_reduce_sum, world_size
 from instancerefer_tpu_torch.train.evaluate import get_eval
 from instancerefer_tpu_torch.train.losses import get_loss
@@ -74,12 +80,13 @@ OUT_KEYS = ("loss", "ref_loss", "lang_loss", "seg_loss", "seg_acc", "lang_acc", 
             "seg_scores", "score_mask", "cand_mask", "sample_valid", "ref_iou", "ref_acc",
             "lang_correct", "ref_multiple_mask", "ref_others_mask", "pred_bboxes", "gt_bboxes")
 # (wrapper, attribute) of every launch counter of the hand-written kernels:
-# the sparse convs', then the fused masked BN's forward and backward calls
+# the sparse convs', the fused masked BN's forward and backward calls, then
+# the inverse convs' (their forward, dX and dW kernels)
 LAUNCH_COUNTERS = ((gather_conv, "launches"), (gather_conv, "stem_launches"),
                    (conv_bwd.subm_conv_bwd, "launches"), (conv_bwd.conv_dw, "launches"),
                    (conv_bwd.conv_dw, "stem_launches"), (conv_bwd.dw_lists, "launches"),
                    (conv_bwd.down_dx, "launches"), (masked_bn, "launches"),
-                   (masked_bn, "bwd_launches"))
+                   (masked_bn, "bwd_launches"), (up_conv, "launches"))
 
 Step = Tuple[Dict[str, torch.Tensor], Dict[str, torch.Tensor]]
 
@@ -145,6 +152,30 @@ def eval_body(model: torch.nn.Module, dd: dict, mean_size: torch.Tensor,
         return metrics, out
 
 
+class InstanceReferTask:
+    """InstanceRefer's parts of a step graph: the language grid T keys a
+    graph, ``data/host.finish`` loads a batch, ``train_body`` and
+    ``eval_body`` run it, ``OUT_KEYS`` are returned."""
+
+    out_keys = OUT_KEYS
+
+    @staticmethod
+    def key(batch: Dict[str, torch.Tensor]) -> int:
+        return int(batch["lang_feat"].shape[1])
+
+    @staticmethod
+    def finish(staged, spec, out=None):
+        return finish(staged, spec, out=out)
+
+    @staticmethod
+    def train_body(model, optimizer, dd, mean_size, mark, set_to_none=True) -> Step:
+        return train_body(model, optimizer, dd, mean_size, mark, set_to_none)
+
+    @staticmethod
+    def eval_body(model, dd, mean_size, mark) -> Step:
+        return eval_body(model, dd, mean_size, mark)
+
+
 def launch_counts() -> Tuple[int, ...]:
     return tuple(getattr(fn, attr) for fn, attr in LAUNCH_COUNTERS)
 
@@ -155,7 +186,7 @@ def _add_launch_counts(counts) -> None:
 
 
 def choose(model: torch.nn.Module, optimizer: Optional[torch.optim.Optimizer],
-           mean_size: torch.Tensor) -> Tuple[Optional["StepGraphs"], str]:
+           mean_size: torch.Tensor, task=None) -> Tuple[Optional["StepGraphs"], str]:
     """How the steps run, with the line that logs it: ``StepGraphs`` on a
     card at world size 1; ``None`` (eager) on the CPU, which has no graphs,
     and data-parallel, whose steps hold collectives (a graph cannot hold
@@ -164,8 +195,8 @@ def choose(model: torch.nn.Module, optimizer: Optional[torch.optim.Optimizer],
         return None, f"eager (on {mean_size.device})"
     if world_size() > 1:
         return None, f"eager (data-parallel over {world_size()} ranks)"
-    return StepGraphs(model, optimizer, mean_size), (
-        "CUDA graphs, one per (train or eval, language grid, compute dtype), captured after "
+    return StepGraphs(model, optimizer, mean_size, task=task), (
+        "CUDA graphs, one per (train or eval, batch key, compute dtype), captured after "
         "each key's first batch, which runs eagerly")
 
 
@@ -234,6 +265,9 @@ class _Captured:
 class StepGraphs:
     """The train and eval steps of ``model`` as graphs, one per key.
 
+    ``mean_size`` is InstanceRefer's mean box sizes (any tensor on the
+    steps' device for a task that reads none); ``task`` the model's parts
+    (``InstanceReferTask`` by default).
     ``new_graph()`` makes the object a key's body is captured into and
     replayed from (``capture(fn) -> outputs``, ``replay() -> outputs``); the
     default is a ``CudaGraph`` in a pool the graphs share.  ``captures``
@@ -242,8 +276,10 @@ class StepGraphs:
     the last step at its body's marks."""
 
     def __init__(self, model: torch.nn.Module, optimizer: Optional[torch.optim.Optimizer],
-                 mean_size: torch.Tensor, new_graph: Optional[Callable[[], object]] = None):
+                 mean_size: torch.Tensor, new_graph: Optional[Callable[[], object]] = None,
+                 task=None):
         self.model = model
+        self.task = task or InstanceReferTask()
         self.optimizer = optimizer
         self.mean_size = mean_size
         self.device = mean_size.device
@@ -261,7 +297,8 @@ class StepGraphs:
     @staticmethod
     def key(phase: str, lang_grid: int) -> tuple:
         """The graph of a step: ``phase`` (``"train"`` or ``"eval"``), the
-        batch's language grid T and the compute dtype."""
+        batch's key part (InstanceRefer's language grid T) and the compute
+        dtype."""
         return phase, int(lang_grid), str(get_compute_dtype() or torch.float32)
 
     def load(self, staged: Dict[str, torch.Tensor], spec, phase: str) -> dict:
@@ -269,10 +306,10 @@ class StepGraphs:
         of its key's graph if there is one (they are overwritten), else into
         new tensors that the key's capture takes as its inputs."""
         with span("ir.load", step=self.steps):
-            step = self.graphs.get(self.key(phase, staged["lang_feat"].shape[1]))
+            step = self.graphs.get(self.key(phase, self.task.key(staged)))
             if step is not None:
-                return finish(staged, spec, out=step.inputs)
-            self._fresh = finish(staged, spec)
+                return self.task.finish(staged, spec, out=step.inputs)
+            self._fresh = self.task.finish(staged, spec)
             return self._fresh
 
     def train_step(self, dd: dict, bn_momentum: float = 0.1) -> Step:
@@ -282,14 +319,14 @@ class StepGraphs:
             self.model.train()
             self.model.set_bn_momentum(bn_momentum)
 
-        return self._step("train", dd, mode, lambda d, mark: train_body(
+        return self._step("train", dd, mode, lambda d, mark: self.task.train_body(
             self.model, self.optimizer, d, self.mean_size, mark, set_to_none=False))
 
     def eval_step(self, dd: dict) -> Step:
         """One eval step of ``dd``: (metrics, ``OUT_KEYS`` of the outputs),
         both clones."""
         return self._step("eval", dd, self.model.eval,
-                          lambda d, mark: eval_body(self.model, d, self.mean_size, mark))
+                          lambda d, mark: self.task.eval_body(self.model, d, self.mean_size, mark))
 
     def phase_seconds(self) -> List[float]:
         """The last step's seconds between its body's marks (train:
@@ -309,13 +346,13 @@ class StepGraphs:
             marks.begin()
             metrics, out = body(d, marks.mark)
             return ({k: v.detach() for k, v in metrics.items()},
-                    {k: out[k].detach() for k in OUT_KEYS if k in out})
+                    {k: out[k].detach() for k in self.task.out_keys if k in out})
 
         with span("ir.step", step=self.steps, phase=phase):
             self.steps += 1
             with span("ir.step.mode"):
                 mode()
-                key = self.key(phase, dd["lang_feat"].shape[1])
+                key = self.key(phase, self.task.key(dd))
                 step = self.graphs.get(key)
                 if step is not None and dd is not step.inputs:
                     copy_data(dd, step.inputs)

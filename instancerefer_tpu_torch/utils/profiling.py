@@ -108,18 +108,21 @@ KERNEL_FAMILIES = (
     ("down lists", re.compile(r"dw_list_(count|write)_kernel")),
     ("K3", re.compile(r"dw_partial_kernel<.*true>|dw_list_tc_kernel|stem_wide_dw_kernel")),
     ("K2/K3 sum of splits", re.compile(r"sum_partials_kernel")),
+    ("inverse convs", re.compile(r"up_(fwd|dgrad|wgrad)_tc_kernel")),
 )
 
 # a wrapper's launch as the profiler names its kernels: the first kernel of
 # each launch (K1, and the down convs' dX over the lists; K2's dX; K3; "L",
-# the list pass a down's backward runs before both), then the kernels that
-# finish it (K2's dW; the list pass's writes; the sum of the splits)
+# the list pass a down's backward runs before both; "UP", each of the
+# inverse convs' three kernels), then the kernels that finish it (K2's dW;
+# the list pass's writes; the sum of the splits)
 LAUNCH_FIRST = {
     "K1": re.compile(r"gather_gemm(_tc)?_kernel<.*false>|stem_wide_conv_kernel"
                      r"|dx_list_tc_kernel"),
     "K2": re.compile(r"gather_gemm(_tc)?_kernel<.*true>"),
     "K3": re.compile(r"dw_partial_kernel<.*true>|stem_wide_dw_kernel|dw_list_tc_kernel"),
     "L": re.compile(r"dw_list_count_kernel"),
+    "UP": re.compile(r"up_(fwd|dgrad|wgrad)_tc_kernel"),
 }
 LAUNCH_REST = re.compile(r"dw_partial_kernel<.*false>|dw_group_tc_kernel|sum_partials_kernel"
                          r"|dw_list_write_kernel")
@@ -166,10 +169,11 @@ def launches(names: Iterable[str]) -> Dict[str, int]:
 def counted(before: Sequence[int], after: Sequence[int]) -> Dict[str, int]:
     """What ``step_graph.launch_counts`` added between two readings, by the
     wrapper whose kernel opens the launch: (K1, K1 at the stems, K2, K3,
-    K3 at the stems, the list pass, the downs' dX) -> K1, K2, K3, L (K1's
-    and K3's counters count their stems and the dX too)."""
+    K3 at the stems, the list pass, the downs' dX, the BN pair's two, the
+    inverse convs) -> K1, K2, K3, L, UP (K1's and K3's counters count their
+    stems and the dX too)."""
     d = [a - b for a, b in zip(after, before)]
-    return {"K1": d[0], "K2": d[2], "K3": d[3], "L": d[5]}
+    return {"K1": d[0], "K2": d[2], "K3": d[3], "L": d[5], "UP": d[9]}
 
 
 def segments(spans: Iterable[Tuple[str, float, float]]) -> List[Tuple[float, float, tuple]]:

@@ -119,9 +119,9 @@ def test_load_config_agrees_with_jax(tmp_path, which):
     got = port.load_config(argv + ["--device", "cpu"])
     jax_fields = {f.name for f in dataclasses.fields(JaxConfig)}
     port_fields = {f.name for f in dataclasses.fields(port.Config)}
-    assert port_fields - jax_fields == {"device"}
+    assert port_fields - jax_fields == {"device"} | set(port.POINTGROUP_KEYS)
     assert jax_fields - port_fields == set(port.IGNORED_KEYS)
-    for name in sorted(port_fields - {"device"}):
+    for name in sorted(port_fields - {"device"} - set(port.POINTGROUP_KEYS)):
         assert getattr(got, name) == getattr(want, name), name
     assert got.device == "cpu" and got.input_feature_dim == want.input_feature_dim
     assert got.exp_path == want.exp_path and got.path_output == want.path_output

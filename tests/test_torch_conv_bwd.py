@@ -228,7 +228,7 @@ def test_wrappers_reject_what_the_kernels_do_not_take(bad):
     if bad == "g_dtype":
         g = g.double()
     elif bad == "cout":
-        g, w = torch.zeros(10, 48), torch.zeros(27, 64, 48)
+        g, w = torch.zeros(10, 40), torch.zeros(27, 64, 40)
     elif bad == "nbr_dtype":
         nbr = nbr.long()
     elif bad == "weight":

@@ -171,7 +171,7 @@ def test_plan_branches(rows, k, dt, want):
 
 def test_plans_refuse_what_they_do_not_cover():
     for bad in ((0, 27, 64, 64, H100_SMS), (10, 0, 64, 64, H100_SMS), (10, 27, 64, 64, 0),
-                (10, 27, 48, 64, H100_SMS), (10, 27, 64, 256, H100_SMS)):
+                (10, 27, 40, 64, H100_SMS), (10, 27, 64, 256, H100_SMS)):
         with pytest.raises(ValueError):
             G.tc_plan(*bad[:4], torch.bfloat16, bad[4])
     with pytest.raises(ValueError):

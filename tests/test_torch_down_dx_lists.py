@@ -318,7 +318,7 @@ def test_k3_alone_still_runs_its_own_list_pass(monkeypatch):
 @pytest.mark.parametrize("bad", ["f32", "width", "k", "g_rows", "workspace"])
 def test_down_dx_refuses_what_the_kernel_does_not_take(monkeypatch, bad):
     """On the card's route: f32 (the FMA route keeps K1 over ``up8``), a
-    width outside {32, 64, 128}, a map of other than 8 offsets, g of another
+    width outside the kernels' (40), a map of other than 8 offsets, g of another
     row count, a workspace of another map's size."""
     calls = []
     _fake_card(monkeypatch, calls)
@@ -332,7 +332,7 @@ def test_down_dx_refuses_what_the_kernel_does_not_take(monkeypatch, bad):
     if bad == "f32":
         g, w = g.float(), w.float()
     elif bad == "width":
-        w = torch.zeros(8, 48, cout, dtype=torch.bfloat16)
+        w = torch.zeros(8, 40, cout, dtype=torch.bfloat16)
     elif bad == "k":
         down, w = torch.full((v_out, 27), -1, dtype=torch.int32), torch.zeros(27, cin, cout,
                                                                             dtype=torch.bfloat16)

@@ -127,7 +127,7 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(bad):
     nbr = torch.zeros(4, 27, dtype=torch.int32)
     w = torch.zeros(27, 8, 32)
     if bad == "cout":
-        w = torch.zeros(27, 8, 48)
+        w = torch.zeros(27, 8, 40)
     elif bad == "dtype":
         w = w.double()
     elif bad == "nbr_dtype":

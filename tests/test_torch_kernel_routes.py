@@ -39,7 +39,7 @@ WIDTHS = (32, 64, 128)
     (torch.bfloat16, 32, "cuda", "tensor_core"),
     (torch.bfloat16, 128, "cuda", "tensor_core"),
     (torch.bfloat16, 64, "cuda", "tensor_core"),
-    (torch.bfloat16, 16, "cuda", "stem_wide"),
+    (torch.bfloat16, 16, "cuda", "tensor_core"),
     (torch.bfloat16, 15, "cuda", "stem_wide"),
     (torch.bfloat16, 9, "cuda", "stem_wide"),
     (torch.bfloat16, 8, "cuda", "stem_wide"),
@@ -48,7 +48,7 @@ WIDTHS = (32, 64, 128)
     (torch.bfloat16, 10, "cuda", "stem_wide"),
     (torch.bfloat16, 135, "cuda", "stem_wide"),
     (torch.bfloat16, 200, "cuda", "stem_wide"),
-    (torch.bfloat16, 48, "cuda", "stem_wide"),
+    (torch.bfloat16, 48, "cuda", "tensor_core"),
     (torch.float32, 128, "cuda", "fma"),
     (torch.float32, 7, "cuda", "fma"),
     (torch.float32, 135, "cuda", "fma"),
@@ -61,7 +61,7 @@ def test_route_from_device_dtype_and_cin(dtype, cin, device, want):
 def test_tensor_core_path_checks_widths_and_alignment():
     x = torch.zeros(64, 64, dtype=torch.bfloat16)
     G.check_tc("k", (64, 128), x)
-    for widths in ((48, 64), (64, 16), (256, 64)):
+    for widths in ((48, 80), (64, 16), (256, 64)):
         with pytest.raises(ValueError, match="widths"):
             G.check_tc("k", widths, x)
     with pytest.raises(ValueError, match="aligned"):
@@ -332,7 +332,7 @@ def _stem_map(gen, v_out, v_in, dev):
 @pytest.mark.parametrize("cin, cout, v_out", [
     (7, 32, 1000), (7, 64, 1000), (3, 32, 1000), (8, 128, 1000), (9, 32, 1000),
     (10, 32, 1000), (10, 32, 40000), (17, 32, 1000), (135, 32, 1000), (135, 32, 40000),
-    (135, 128, 1000), (200, 32, 1000), (48, 64, 1000)])
+    (135, 128, 1000), (200, 32, 1000), (40, 64, 1000)])
 def test_stem_k1_matches_twin_on_card(cin, cout, v_out, epilogue):
     """K1's stem route at K = 27: bf16 out with and without the epilogue,
     f32 out, padding tiles storing their epilogue of a zero sum; rows padded

@@ -238,7 +238,7 @@ def card():
     return torch.device("cuda", 0)
 
 
-def _fused_on(device, x, r, dy, mask, weight, bias, residual, momentum, running):
+def _fused_on(device, x, r, dy, mask, weight, bias, residual, momentum, running, eps=EPS):
     def leaf(t):
         return t.detach().to(device).clone().requires_grad_(True)
 
@@ -246,7 +246,7 @@ def _fused_on(device, x, r, dy, mask, weight, bias, residual, momentum, running)
     ri = leaf(r) if residual else None
     rm, rv = (t.to(device).clone() for t in running)
     m = torch.tensor(momentum, device=device)
-    y = M.masked_bn(xi, None if mask is None else mask.to(device), w, b, rm, rv, m, EPS, ri)
+    y = M.masked_bn(xi, None if mask is None else mask.to(device), w, b, rm, rv, m, eps, ri)
     y.backward(dy.to(device))
     out = {"y": y.detach(), "dx": xi.grad, "dweight": w.grad, "dbias": b.grad,
            "dres": None if ri is None else ri.grad, "running_mean": rm, "running_var": rv}
@@ -279,6 +279,43 @@ def test_kernels_equal_the_twin_on_card(card, rows, c, mask_kind, residual, dtyp
         assert torch.equal(g, again[key]), f"{key}: a second launch differs"
         tol = TOL[dtype] if key in ("y", "dx", "dres") else 1e-4
         _close(g, want[key], tol, key)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("c", [16, 48, 80, 96, 112, 160, 192])
+def test_kernels_equal_the_twin_at_pointgroup_widths_on_card(card, c, dtype):
+    """PointGroup's U-Net widths (m = 16: 16-112 and the tails' 2m-192,
+    several of which leave a block's last threads without rows) at its eps
+    1e-4, in the pre-activation form (no residual) and with one.  Each
+    pass is held against its twin from the same inputs: the backward's
+    twin takes the kernels' own y and statistics, since over millions of
+    f32 elements a few y within a rounding of 0 take the other side of the
+    ReLU when the statistics are summed in another order."""
+    for rows, residual in ((60001, False), (333, True)):
+        x, r, dy, mask, weight, bias = _inputs(rows, c, dtype, "random", seed=rows + c,
+                                               offset=0.5)
+        res = r if residual else None
+        got, want = [], []
+        for dev, plain, out in ((card, False, got), ("cpu", True, want)):
+            def on(t):
+                return None if t is None else t.to(dev)
+            rm = torch.linspace(-0.1, 0.1, c, device=dev)
+            rv = torch.linspace(0.5, 1.5, c, device=dev)
+            y, stat = M.forward_passes(on(x), on(mask), on(weight), on(bias), on(res), rm, rv,
+                                       torch.tensor(0.1, device=dev), 1e-4, plain)
+            if not plain:
+                y_card, stat_card = y, stat
+            grads = M.backward_passes(on(dy), on(y_card), on(x), on(mask), on(stat_card),
+                                      residual, plain)
+            out.append({"y": y, "stat": stat, "running_mean": rm, "running_var": rv,
+                        **dict(zip(("dx", "dweight", "dbias", "dres"), grads))})
+        for key, g in got[0].items():
+            if g is None:
+                assert want[0][key] is None
+                continue
+            tol = TOL[dtype] if key in ("y", "dx", "dres") else 1e-4
+            _close(g.cpu(), want[0][key].cpu(), tol, key)
 
 
 @pytest.mark.gpu

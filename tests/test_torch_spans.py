@@ -239,7 +239,7 @@ def test_a_window_is_retaken_until_its_launches_agree(monkeypatch):
     monkeypatch.setattr(P, "_device_records", records([1, 0]))
     _, _, rec = P.profile_agreeing(run)
     assert rec["agrees"] and rec["windows"] == 2 and rec["why"] is None
-    assert rec["seen"] == rec["counted"] == {"K1": 2, "K2": 0, "K3": 0, "L": 0}
+    assert rec["seen"] == rec["counted"] == {"K1": 2, "K2": 0, "K3": 0, "L": 0, "UP": 0}
     windows.clear()
     logged = []
     monkeypatch.setattr(P, "_device_records", records([1]))

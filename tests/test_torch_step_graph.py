@@ -233,7 +233,7 @@ def test_launch_counts_read_as_eager_under_replay():
         graphs.train_step(dd)
     assert [a - b for a, b in zip(G.launch_counts(), before)] == [3 * 34, 3 * 2, 3 * 16, 3 * 10,
                                                                    3 * 2, 3 * 8, 3 * 8, 3 * 26,
-                                                                   3 * 26]
+                                                                   3 * 26, 0]
 
 
 def _tensor_lr_adam(params, lr, wd):
@@ -444,8 +444,9 @@ def test_graph_replays_equal_eager_steps_on_card():
     assert graphs.captures == 1
     launched = [a - b for a, b in zip(G.launch_counts(), counts)]
     # 4 steps (2 eager, 2 replays); f32 takes no stem kernel, no list pass and
-    # no dX over the lists; the fused masked BN at the encoders' 26 BNs
-    assert launched == [4 * 34, 0, 4 * 16, 4 * 10, 0, 0, 0, 4 * 26, 4 * 26]
+    # no dX over the lists; the fused masked BN at the encoders' 26 BNs; no
+    # inverse conv
+    assert launched == [4 * 34, 0, 4 * 16, 4 * 10, 0, 0, 0, 4 * 26, 4 * 26, 0]
     total, count = 0.0, 0
     for e, g in zip(models[0].parameters(), models[1].parameters()):
         diff = (g - e).abs()
