@@ -230,7 +230,8 @@ without the final ``ok`` line:
     c, the BN pair (eps 1e-4, no residual) at c and 2c; at every down c ->
     c + 16 K1, the list pass, K3 and the dX over the lists; the inverse
     conv c + 16 -> c's forward, dX and dW; the input conv 6 -> 16 on the
-    stem kernels; each against its twin on the card (``[pg]``).  Then two
+    stem kernels; each against its twin on the card (``[pg]``); K2's dW
+    alone at each pair, device ms against its bound.  Then two
     train steps through ``StepGraphs`` with ``PointGroupTask`` from zeroed
     counters: every counter of ``LAUNCH_COUNTERS`` (the inverse convs'
     ``up_conv.launches`` among them) at twice the count the model's
@@ -3103,7 +3104,9 @@ def phase_pointgroup(dev):
     and dW (``ops/up_conv``), two launches bit-identical and the fine rows
     no entry names 0; the input conv 6 -> 16 on the stem kernels.  Each
     against its twin on the card to a tolerance a wrong kernel fails
-    (``[pg]``, with the kernel's CUDA-event median).  Then the counters
+    (``[pg]``, with the kernel's CUDA-event median), and K2's dW alone at
+    each pair (its kernel and the sum of its splits, from the profiler)
+    beside its bound (``step_ab.dw_bound_ms``).  Then the counters
     zeroed and two train steps through ``StepGraphs`` (a capture, a
     replay): every counter of ``LAUNCH_COUNTERS`` twice a step's count
     from the model's structure (``_pg_launches``), the inverse convs' too."""
@@ -3114,6 +3117,7 @@ def phase_pointgroup(dev):
     from instancerefer_tpu_torch.ops import gather_conv as G
     from instancerefer_tpu_torch.ops import masked_bn as M
     from instancerefer_tpu_torch.ops.precision import set_compute_dtype
+    from instancerefer_tpu_torch.scripts.step_ab import dw_bound_ms, kernel_split
     from instancerefer_tpu_torch.train.pointgroup import PointGroupTask
     from instancerefer_tpu_torch.train.solver import make_optimizer
     from instancerefer_tpu_torch.train.step_graph import (
@@ -3135,6 +3139,7 @@ def phase_pointgroup(dev):
     gen = torch.Generator(device=dev).manual_seed(PG_SEED)
     widths = [values["m"] * (i + 1) for i in range(values["num_levels"])]
     worst: dict = {}
+    k2_dw_ms: dict = {}  # label -> [device ms of K2's dW alone, its bound]
     totals = {"dw_lists": Totals(), "down_dx": Totals()}
 
     def rows(sv, c, dt=bf, shift=0.0):
@@ -3153,6 +3158,19 @@ def phase_pointgroup(dev):
             raise AssertionError(f"PointGroup {kind} at {label} disagrees with its twin: "
                                  f"max |err| {err:.3e}, max |ref| {scale:.3e}")
         worst[kind] = max(worst.get(kind, 0.0), rel)
+
+    def k2_dw(label, x, nbr, g, w):
+        """K2's dW alone (its kernel and the sum of its splits, device ms a
+        call from the profiler) against its bound."""
+        by_kernel = kernel_split(lambda: conv_bwd.subm_conv_bwd(x, nbr, g, w))
+        ms = sum(t for name, t in by_kernel.items()
+                 if name.startswith(("dw_group_tc_kernel", "sum_partials_kernel")))
+        (v, k), (cin, cout) = nbr.shape, w.shape[1:]
+        least = dw_bound_ms(int((nbr >= 0).sum()), v, k, cin, cout)
+        plan = conv_bwd.dw_plan(v, k, cin, cout, G.sm_count(dev))
+        log(f"[pg] K2 dW alone {label}: G={plan.group} splits={plan.splits} "
+            f"device_ms={ms:.4f} bound_ms={least:.4f} ({100 * least / ms:.2f}% of the bound)")
+        k2_dw_ms[label] = [round(ms, 4), round(least, 4)]
 
     def bn_pair(label, x, mask):
         c = x.shape[1]
@@ -3199,6 +3217,7 @@ def phase_pointgroup(dev):
             held("K2 dX", label, got[0], want[0], DX_TOL,
                  lambda: conv_bwd.subm_conv_bwd(x, sv.nbr3, g, w))
             held("K2 dW", label, got[1], want[1], DW_TOL)
+            k2_dw(label, x, sv.nbr3, g, w)
             bn_pair(f"level {lvl} C={cin}", rows(sv, cin, shift=0.5), sv.mask)
         if lvl == last:
             break
@@ -3258,7 +3277,7 @@ def phase_pointgroup(dev):
         raise AssertionError("PointGroup's train steps: the launches counted differ from the "
                              "model's, or a loss is not finite")
     log(json.dumps({"pointgroup": {"valid_rows": valid, "launches_per_step": {
-        k: n // 2 for k, n in counted.items()}, "worst_rel_err": worst,
+        k: n // 2 for k, n in counted.items()}, "worst_rel_err": worst, "k2_dw_ms": k2_dw_ms,
         "dw_lists": totals["dw_lists"].entry(), "down_dx": totals["down_dx"].entry(),
         "wall_s": round(time.perf_counter() - t0, 1)}}))
 

@@ -36,8 +36,9 @@
 // 8192-16384 rows splits a tile's offsets over a cluster of 2 or 4 blocks
 // summed in distributed shared memory (ops/gather_conv.tc_plan picks the
 // plan).
-// K2's dW stages each x tile once for G = 2 offsets and reads the map's G
-// columns once a tile: 6.83 GB over a train step's 16 launches at B = 64.
+// K2's dW stages each x tile once for its G offsets (2 at 64 channels and
+// above, 2-5 at PointGroup's narrow pairs) and reads the map's G columns
+// once a tile: 6.83 GB over a train step's 16 launches at B = 64.
 // K3 at the downs walks per-offset lists of the map's valid entries (the
 // list pass of conv_dw.cu), so it stages only rows that are multiplied:
 // 367 MB over a train step's 8 down launches at B = 64, where walking every
@@ -546,25 +547,43 @@ cudaError_t dispatch_gather_gemm_tc(const void* feats, const void* nbr, const vo
 // entries of a row side by side, neighbouring threads on neighbouring
 // entries), stages the x tile once [BR][CIN] and the G gathered g tiles
 // [BR][COUT] (16-byte cp.async, a -1 index zero-fills its row) in a ring of
-// 4 tiles, and adds x^T g_j into the G [CIN, COUT] f32 products it keeps in
+// 3-4 tiles, and adds x^T g_j into the [CIN, COUT] f32 products it keeps in
 // registers (x read transposed by ldmatrix.trans as the A operand).
-// Each thread loads its map entry of the tile STAGES ahead into a
-// register one tile before the gathers need it.  A tile whose G columns are
-// all -1 is neither loaded nor multiplied, and an offset whose column is
-// all -1 in a tile is neither gathered nor multiplied.  The warps split
-// [CIN, COUT] WM x WN ways (4 of the 8 warps at 32 x 32).  No float
-// atomics: sum_partials_kernel adds the splits in a fixed order.
+// Each thread loads its map entries of the tile STAGES ahead into registers
+// one tile before the gathers need them.  A tile whose G columns are all -1
+// is neither loaded nor multiplied, and an offset whose column is all -1 in
+// a tile is neither gathered nor multiplied.  No float atomics:
+// sum_partials_kernel adds the splits in a fixed order.
 //
-// G = 2 at every width: at the 278528-row 64 -> 64 residual K2 took 0.63 ms
-// a launch with it against 0.68 with G = 4 (one block an SM) and 0.75 with
-// G = 1, and 128 -> 128 holds no more (128 accumulators a thread; the plan
-// sweep of scripts/step_ab.py on an earlier build that had all three,
-// PERF.md).
+// The warps (dw_group_split): WM x WN of them split [CIN, COUT] as
+// warp_split picks at DWG_G offsets a warp, and the WG = 8 / (WM x WN)
+// groups of those split the block's offsets, group q taking q, q + WG, ...
+// Where WM x WN > 4 (every pair of 64 channels and above) WG = 1 and G is
+// warp_split's: 2, or 1 at 160 -> 80 and 192 -> 96.  At the 278528-row
+// 64 -> 64 residual K2 took 0.63 ms a launch with G = 2 against 0.68 with
+// G = 4 (one block an SM) and 0.75 with G = 1, and 128 -> 128 holds no more
+// (128 accumulators a thread; the plan sweep of scripts/step_ab.py on an
+// earlier build that had all three, PERF.md).
+//
+// At the narrow pairs the warps that would idle take offsets of their own:
+// WG = 8 at 16 -> 16, 4 at 32 -> 16, 2 at 32 -> 32 and 48 -> 48.  There the
+// kernel waits on memory, not on its multiplies (a tile costs 1-2 us a
+// block whatever G), so the blocks an SM count first: G starts at one
+// offset a group (at most DWG_WIDE_G) and grows while as many blocks share
+// an SM, giving G = 5, 4, 2 and 3 with 3, 3, 3 and 2 blocks an SM.  On
+// PointGroup's cell (one batch, level 0's 1000192 rows at 16 channels,
+// level 1's 728832 at 32, level 2's 228864 at 48; step_ab --dw-groups) dW
+// took 0.274, 0.300-0.328, 0.432 and 0.234 ms a launch, where one offset a
+// warp group (G = 8, 4, 2, 2) took 0.323, the same, the same and 0.258,
+// and G = 2 took 0.483, 0.511, 0.432 and 0.258; loading the map entries 2
+// or 3 tiles ahead was no faster (PERF.md).
 // ---------------------------------------------------------------------------
 constexpr int DWG_THREADS = 256;  // 8 warps
 constexpr int DWG_BR = 64;        // rows a tile
-constexpr int DWG_G = 2;          // offsets a block, where the accumulators allow
+constexpr int DWG_G = 2;          // offsets a warp where WG = 1 and the accumulators allow
+constexpr int DWG_WIDE_G = 4;     // the fewest offsets a block where WG >= 4
 constexpr int SMEM_LIMIT = 232448;  // shared memory a block may take on an H100
+constexpr int SM_SMEM_BYTES = 233472;  // shared memory of an H100 SM, 1 KB of it reserved a block
 
 // How the 8 warps of a dW block split its [cin, cout] products, and the
 // offsets g a block takes (at most max_g): WM warps along cin (at most 4)
@@ -593,34 +612,66 @@ constexpr WarpSplit warp_split(int cin, int cout, int max_g) {
   }
   return WarpSplit{0, 0, 0};
 }
-// K2's dW: offsets a block at cin -> cout (ops/conv_bwd.dw_group passes it).
-constexpr int dw_group_g(int cin, int cout) { return warp_split(cin, cout, DWG_G).g; }
 
-// A stage of the ring: the x tile and the G gathered g tiles, bf16 rows
+// A stage of the ring: the x tile and the g gathered g tiles, bf16 rows
 // padded by PAD.
-constexpr int dw_group_stage_bytes(int cin, int cout) {
-  return (DWG_BR * (cin + PAD) + dw_group_g(cin, cout) * DWG_BR * (cout + PAD)) * 2;
+constexpr int dw_group_stage_bytes(int cin, int cout, int g) {
+  return (DWG_BR * (cin + PAD) + g * DWG_BR * (cout + PAD)) * 2;
 }
 // Stages in the ring: as many as fit, at most 4.
-constexpr int dw_group_stages(int cin, int cout) {
-  return (SMEM_LIMIT - 4096) / dw_group_stage_bytes(cin, cout) < 4
-             ? (SMEM_LIMIT - 4096) / dw_group_stage_bytes(cin, cout)
+constexpr int dw_group_stages(int cin, int cout, int g) {
+  return (SMEM_LIMIT - 4096) / dw_group_stage_bytes(cin, cout, g) < 4
+             ? (SMEM_LIMIT - 4096) / dw_group_stage_bytes(cin, cout, g)
              : 4;
 }
-// Shared memory of a block: the ring, the tile's map columns [BR][G] and
-// each warp's vote a stage (ops/conv_bwd.dw_group_smem_bytes is held equal
-// to it on the card through ir_dw_group_smem_bytes).
-constexpr size_t dw_group_smem_bytes(int cin, int cout) {
-  return static_cast<size_t>(dw_group_stages(cin, cout)) * dw_group_stage_bytes(cin, cout) +
-         (DWG_BR * dw_group_g(cin, cout) + dw_group_stages(cin, cout) * 8) * sizeof(int);
+// Shared memory of a block of g offsets: the ring, the tile's map columns
+// [BR][g] and each warp's vote a stage (ops/conv_bwd.dw_group_smem_bytes is
+// held equal to it on the card through ir_dw_group_smem_bytes).
+constexpr size_t dw_group_smem_bytes(int cin, int cout, int g) {
+  return static_cast<size_t>(dw_group_stages(cin, cout, g)) * dw_group_stage_bytes(cin, cout, g) +
+         (DWG_BR * g + dw_group_stages(cin, cout, g) * 8) * sizeof(int);
+}
+// Blocks that share an SM (the kernel's launch bounds; ops/conv_bwd.dw_plan
+// fills the card's slots with them): as many as its shared memory holds, at
+// most 3, which leaves each thread 80 registers.
+constexpr int dw_group_blocks(int cin, int cout, int g) {
+  return SM_SMEM_BYTES / (static_cast<int>(dw_group_smem_bytes(cin, cout, g)) + 1024) < 3
+             ? SM_SMEM_BYTES / (static_cast<int>(dw_group_smem_bytes(cin, cout, g)) + 1024)
+             : 3;
 }
 
-template <int CIN, int COUT>
+// K2's dW block at cin -> cout: WM x WN warps over the product, WG groups
+// of them over the offsets, g offsets a block (ops/conv_bwd.dw_group_split
+// mirrors it).  Where WG > 1, g starts at one offset a group (at most
+// DWG_WIDE_G) and grows while a block still fits its accumulators, a ring
+// of 3 stages and as many blocks an SM.
+struct DwGroupSplit {
+  int wm, wn, wg, g;
+};
+constexpr DwGroupSplit dw_group_split(int cin, int cout) {
+  const WarpSplit s = warp_split(cin, cout, DWG_G);
+  const int wg = 8 / (s.wm * s.wn);
+  if (wg == 1) return DwGroupSplit{s.wm, s.wn, 1, s.g};
+  const int acc = (cin / 16 / s.wm) * (cout / 8 / s.wn) * 4;  // a thread's, an offset
+  int g = wg < DWG_WIDE_G ? wg : DWG_WIDE_G;
+  while (g < 32 && (g + wg) / wg * acc <= 128 && dw_group_stages(cin, cout, g + 1) >= 3 &&
+         dw_group_blocks(cin, cout, g + 1) == dw_group_blocks(cin, cout, g))
+    ++g;
+  return DwGroupSplit{s.wm, s.wn, wg, g};
+}
+// K2's dW: offsets a block at cin -> cout (ops/conv_bwd.dw_group passes it).
+constexpr int dw_group_g(int cin, int cout) { return dw_group_split(cin, cout).g; }
+constexpr size_t dw_group_smem_bytes(int cin, int cout) {
+  return dw_group_smem_bytes(cin, cout, dw_group_g(cin, cout));
+}
+
+template <int CIN, int COUT, int G>
 struct DwGroupShape {
-  static constexpr WarpSplit SPLIT = warp_split(CIN, COUT, DWG_G);
-  static constexpr int G = SPLIT.g;
+  static constexpr DwGroupSplit SPLIT = dw_group_split(CIN, COUT);
   static constexpr int WM = SPLIT.wm;  // warps along CIN
   static constexpr int WN = SPLIT.wn;  // along COUT
+  static constexpr int WG = SPLIT.wg;  // along the offsets
+  static constexpr int GW = (G + WG - 1) / WG;  // offsets a warp
   static constexpr int MT = CIN / WM / 16;
   static constexpr int NT = COUT / WN / 8;
   static constexpr int X_STRIDE = CIN + PAD;
@@ -628,22 +679,25 @@ struct DwGroupShape {
   static constexpr int X_ELEMS = DWG_BR * X_STRIDE;
   static constexpr int G_ELEMS = DWG_BR * G_STRIDE;
   static constexpr int STAGE_ELEMS = X_ELEMS + G * G_ELEMS;
-  static constexpr int STAGES = dw_group_stages(CIN, COUT);
-  static constexpr size_t SMEM_BYTES = dw_group_smem_bytes(CIN, COUT);
-  static_assert(STAGE_ELEMS * 2 == dw_group_stage_bytes(CIN, COUT), "stage");
-  static_assert(G >= 1 && MT >= 1 && NT >= 2 && NT % 2 == 0, "warp tile");
+  static constexpr int STAGES = dw_group_stages(CIN, COUT, G);
+  static constexpr size_t SMEM_BYTES = dw_group_smem_bytes(CIN, COUT, G);
+  static constexpr int BLOCKS = dw_group_blocks(CIN, COUT, G);  // an SM
+  static constexpr int ENTRIES = (DWG_BR * G + DWG_THREADS - 1) / DWG_THREADS;  // a thread's
+  static_assert(STAGE_ELEMS * 2 == dw_group_stage_bytes(CIN, COUT, G), "stage");
+  static_assert(G >= 1 && G <= 32 && MT >= 1 && NT >= 2 && NT % 2 == 0, "warp tile");
   static_assert(WM * MT * 16 == CIN && WN * NT * 8 == COUT, "warps cover the product");
-  static_assert(G * MT * NT * 4 <= 128, "at most 128 accumulators a thread");
-  static_assert(DWG_BR * G <= DWG_THREADS && STAGES >= 3 && SMEM_BYTES <= SMEM_LIMIT, "block");
+  static_assert(WG * WM * WN <= DWG_THREADS / 32, "warps");
+  static_assert(GW * MT * NT * 4 <= 128, "at most 128 accumulators a thread");
+  static_assert(STAGES >= 3 && SMEM_BYTES <= SMEM_LIMIT && BLOCKS >= 1, "block");
 };
 
-template <int CIN, int COUT>
-__global__ void __launch_bounds__(DWG_THREADS, 1)
+template <int CIN, int COUT, int G>
+__global__ void __launch_bounds__(DWG_THREADS, DwGroupShape<CIN, COUT, G>::BLOCKS)
 dw_group_tc_kernel(const bf16* __restrict__ x, const bf16* __restrict__ g,
                    const int* __restrict__ nbr, float* __restrict__ partial, long long rows,
                    int k_offsets, long long rows_per_split) {
-  using S = DwGroupShape<CIN, COUT>;
-  constexpr int G = S::G;
+  using S = DwGroupShape<CIN, COUT, G>;
+  constexpr int E = S::ENTRIES;
   extern __shared__ __align__(16) unsigned char smem[];
   bf16* ring = reinterpret_cast<bf16*>(smem);
   int* idx_s = reinterpret_cast<int*>(smem + S::STAGES * S::STAGE_ELEMS * sizeof(bf16));
@@ -652,9 +706,10 @@ dw_group_tc_kernel(const bf16* __restrict__ x, const bf16* __restrict__ g,
   const int tid = threadIdx.x;
   const int lane = tid % 32;
   const int warp = tid / 32;
-  const bool active = warp < S::WM * S::WN;
+  const bool active = warp < S::WG * S::WM * S::WN;
   const int m0 = (warp % S::WM) * (CIN / S::WM);
   const int n0 = (warp / S::WM % S::WN) * (COUT / S::WN);
+  const int jw = S::WG == 1 ? 0 : warp / (S::WM * S::WN);  // this warp's offsets: jw, jw + WG, ...
   const int k0 = blockIdx.x * G;
   const int ng = min(G, k_offsets - k0);
   const long long r_begin = static_cast<long long>(blockIdx.y) * rows_per_split;
@@ -662,12 +717,19 @@ dw_group_tc_kernel(const bf16* __restrict__ x, const bf16* __restrict__ g,
   const int n_tiles =
       r_end > r_begin ? static_cast<int>((r_end - r_begin + DWG_BR - 1) / DWG_BR) : 0;
 
-  // this thread's map entry of tile t: row tid / G, offset k0 + tid % G
-  auto fetch = [&](int t) -> int {
-    if (tid >= DWG_BR * G || t >= n_tiles) return -1;
-    const long long r = r_begin + static_cast<long long>(t) * DWG_BR + tid / G;
-    const int j = tid % G;
-    return r < r_end && j < ng ? nbr[r * k_offsets + k0 + j] : -1;
+  // this thread's map entries of tile t: entry e = tid + THREADS q is row
+  // e / G, offset k0 + e % G
+  int entry[E];
+  auto fetch = [&](int t) {
+#pragma unroll
+    for (int q = 0; q < E; ++q) {
+      const int e = tid + q * DWG_THREADS;
+      const long long r = r_begin + static_cast<long long>(t) * DWG_BR + e / G;
+      const int j = e % G;
+      entry[q] = e < DWG_BR * G && t < n_tiles && r < r_end && j < ng
+                     ? nbr[r * k_offsets + k0 + j]
+                     : -1;
+    }
   };
   auto mask_of = [&](int slot) {
     int m = 0;
@@ -677,15 +739,21 @@ dw_group_tc_kernel(const bf16* __restrict__ x, const bf16* __restrict__ g,
   };
   // tile t's entries into idx_s and the votes, then its copies into slot
   // t % S::STAGES; the first barrier frees idx_s and that slot
-  auto stage = [&](int t, int entry) {
+  auto stage = [&](int t) {
     __syncthreads();
     if (t >= n_tiles) return;
     const int slot = t % S::STAGES;
-    if (tid < DWG_BR * G) idx_s[tid] = entry;
+#pragma unroll
+    for (int q = 0; q < E; ++q)
+      if (tid + q * DWG_THREADS < DWG_BR * G) idx_s[tid + q * DWG_THREADS] = entry[q];
     int bits = 0;
 #pragma unroll
-    for (int j = 0; j < G; ++j)
-      bits |= (__ballot_sync(0xffffffffu, entry >= 0 && tid % G == j) != 0) << j;
+    for (int j = 0; j < G; ++j) {
+      bool valid = false;
+#pragma unroll
+      for (int q = 0; q < E; ++q) valid |= entry[q] >= 0 && (tid + q * DWG_THREADS) % G == j;
+      bits |= (__ballot_sync(0xffffffffu, valid) != 0) << j;
+    }
     if (lane == 0) vote_s[slot * 8 + warp] = bits;
     __syncthreads();
     const int mask = mask_of(slot);
@@ -700,31 +768,47 @@ dw_group_tc_kernel(const bf16* __restrict__ x, const bf16* __restrict__ g,
       cp_async16(x_s + r * S::X_STRIDE + c * 8, ok ? x + (r0 + r) * CIN + c * 8 : x,
                  ok ? 16 : 0);
     }
+    // the g tiles offset by offset where WG = 1, as the wide pairs always
+    // ran; where the warps split the offsets, all G offsets' copies spread
+    // over all threads (dW 8% and 9% faster at 16 and 32 channels, PERF.md)
     constexpr int CPG = COUT / 8;
+    if constexpr (S::WG == 1) {
 #pragma unroll
-    for (int j = 0; j < G; ++j) {
-      if (!((mask >> j) & 1)) continue;
-      bf16* g_s = x_s + S::X_ELEMS + j * S::G_ELEMS;
-      for (int e = tid; e < DWG_BR * CPG; e += DWG_THREADS) {
-        const int r = e / CPG;
+      for (int j = 0; j < G; ++j) {
+        if (!((mask >> j) & 1)) continue;
+        bf16* g_s = x_s + S::X_ELEMS + j * S::G_ELEMS;
+        for (int e = tid; e < DWG_BR * CPG; e += DWG_THREADS) {
+          const int r = e / CPG;
+          const int c = e % CPG;
+          const int src = idx_s[r * G + j];
+          cp_async16(g_s + r * S::G_STRIDE + c * 8,
+                     src >= 0 ? g + static_cast<long long>(src) * COUT + c * 8 : g,
+                     src >= 0 ? 16 : 0);
+        }
+      }
+    } else {
+      for (int e = tid; e < G * DWG_BR * CPG; e += DWG_THREADS) {
+        const int j = e / (DWG_BR * CPG);
+        if (!((mask >> j) & 1)) continue;
+        const int r = e / CPG % DWG_BR;
         const int c = e % CPG;
         const int src = idx_s[r * G + j];
-        cp_async16(g_s + r * S::G_STRIDE + c * 8,
+        cp_async16(x_s + S::X_ELEMS + j * S::G_ELEMS + r * S::G_STRIDE + c * 8,
                    src >= 0 ? g + static_cast<long long>(src) * COUT + c * 8 : g,
                    src >= 0 ? 16 : 0);
       }
     }
   };
 
-  float acc[G][S::MT][S::NT][4];
+  float acc[S::GW][S::MT][S::NT][4];
 #pragma unroll
-  for (int j = 0; j < G; ++j)
+  for (int i = 0; i < S::GW; ++i)
 #pragma unroll
-    for (int i = 0; i < S::MT; ++i)
+    for (int m = 0; m < S::MT; ++m)
 #pragma unroll
       for (int n = 0; n < S::NT; ++n)
 #pragma unroll
-        for (int t = 0; t < 4; ++t) acc[j][i][n][t] = 0.f;
+        for (int t = 0; t < 4; ++t) acc[i][m][n][t] = 0.f;
 
   auto compute = [&](int slot, int mask) {
     const bf16* x_s = ring + slot * S::STAGE_ELEMS;
@@ -732,12 +816,13 @@ dw_group_tc_kernel(const bf16* __restrict__ x, const bf16* __restrict__ g,
     for (int kk = 0; kk < DWG_BR; kk += 16) {
       unsigned a[S::MT][4];
 #pragma unroll
-      for (int i = 0; i < S::MT; ++i)
-        ldsm_x4_trans(a[i], x_s + (kk + lane % 8 + (lane / 16) * 8) * S::X_STRIDE + m0 + i * 16 +
+      for (int m = 0; m < S::MT; ++m)
+        ldsm_x4_trans(a[m], x_s + (kk + lane % 8 + (lane / 16) * 8) * S::X_STRIDE + m0 + m * 16 +
                                 ((lane / 8) % 2) * 8);
 #pragma unroll
-      for (int j = 0; j < G; ++j) {
-        if ((mask >> j) & 1) {
+      for (int i = 0; i < S::GW; ++i) {
+        const int j = jw + i * S::WG;
+        if (j < G && ((mask >> j) & 1)) {
           const bf16* g_s = x_s + S::X_ELEMS + j * S::G_ELEMS;
 #pragma unroll
           for (int n = 0; n < S::NT; n += 2) {
@@ -745,9 +830,9 @@ dw_group_tc_kernel(const bf16* __restrict__ x, const bf16* __restrict__ g,
             ldsm_x4_trans(b, g_s + (kk + lane % 8 + ((lane / 8) % 2) * 8) * S::G_STRIDE + n0 +
                                  n * 8 + (lane / 16) * 8);
 #pragma unroll
-            for (int i = 0; i < S::MT; ++i) {
-              mma_bf16(acc[j][i][n], a[i], b[0], b[1]);
-              mma_bf16(acc[j][i][n + 1], a[i], b[2], b[3]);
+            for (int m = 0; m < S::MT; ++m) {
+              mma_bf16(acc[i][m][n], a[m], b[0], b[1]);
+              mma_bf16(acc[i][m][n + 1], a[m], b[2], b[3]);
             }
           }
         }
@@ -757,18 +842,18 @@ dw_group_tc_kernel(const bf16* __restrict__ x, const bf16* __restrict__ g,
 
   // the ring: tile t + STAGES - 1 is loaded while tile t is multiplied;
   // an empty group past the last tile keeps the count
-  int entry = fetch(0);
+  fetch(0);
 #pragma unroll
   for (int t = 0; t < S::STAGES - 1; ++t) {
-    stage(t, entry);
+    stage(t);
     cp_async_commit();
-    entry = fetch(t + 1);
+    fetch(t + 1);
   }
   for (int t = 0; t < n_tiles; ++t) {
     cp_async_wait<S::STAGES - 2>();
-    stage(t + S::STAGES - 1, entry);  // its first barrier publishes tile t's copies
+    stage(t + S::STAGES - 1);  // its first barrier publishes tile t's copies
     cp_async_commit();
-    entry = fetch(t + S::STAGES);
+    fetch(t + S::STAGES);
     const int slot = t % S::STAGES;
     const int mask = mask_of(slot);
     if (active && mask != 0) compute(slot, mask);
@@ -779,45 +864,77 @@ dw_group_tc_kernel(const bf16* __restrict__ x, const bf16* __restrict__ g,
   // accumulator fragment: CIN rows lane/4 and lane/4 + 8 of each 16-row
   // tile, COUT columns 8n + 2(lane%4) + {0, 1}
 #pragma unroll
-  for (int j = 0; j < G; ++j) {
+  for (int i = 0; i < S::GW; ++i) {
+    const int j = jw + i * S::WG;
     if (j >= ng) break;
     float* dst = partial + (static_cast<long long>(blockIdx.y) * k_offsets + k_offsets - 1 -
                             (k0 + j)) * CIN * COUT;
 #pragma unroll
-    for (int i = 0; i < S::MT; ++i)
+    for (int m = 0; m < S::MT; ++m)
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
-        const int c = m0 + i * 16 + lane / 4 + h * 8;
+        const int c = m0 + m * 16 + lane / 4 + h * 8;
 #pragma unroll
         for (int n = 0; n < S::NT; ++n)
-          store2<float>(dst + c * COUT + n0 + n * 8 + (lane % 4) * 2, acc[j][i][n][2 * h],
-                        acc[j][i][n][2 * h + 1]);
+          store2<float>(dst + c * COUT + n0 + n * 8 + (lane % 4) * 2, acc[i][m][n][2 * h],
+                        acc[i][m][n][2 * h + 1]);
       }
   }
 }
 
-// dw_group_tc_kernel over a (ceil(K / G), splits) grid, then the
-// fixed-order sum into dw.
+// dw_group_tc_kernel<CIN, COUT, G> over a (ceil(K / G), splits) grid, then
+// the fixed-order sum into dw; the kernel's shared-memory limit already
+// raised (launch_dw_group_tc, dw_group_occupancy).
+template <int CIN, int COUT, int G>
+cudaError_t launch_dw_group_grid(const void* x, const void* g, const void* nbr, void* partial,
+                                 void* dw, long long rows, int k_offsets, int splits,
+                                 cudaStream_t stream) {
+  const long long tiles = (rows + DWG_BR - 1) / DWG_BR;
+  const long long rows_per_split = (tiles + splits - 1) / splits * DWG_BR;
+  const dim3 grid(static_cast<unsigned>((k_offsets + G - 1) / G), static_cast<unsigned>(splits));
+  dw_group_tc_kernel<CIN, COUT, G><<<grid, DWG_THREADS, DwGroupShape<CIN, COUT, G>::SMEM_BYTES,
+                                     stream>>>(
+      static_cast<const bf16*>(x), static_cast<const bf16*>(g), static_cast<const int*>(nbr),
+      static_cast<float*>(partial), rows, k_offsets, rows_per_split);
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  return launch_sum_partials(partial, dw, static_cast<long long>(k_offsets) * CIN * COUT, splits,
+                             stream);
+}
+
+// K2's dW at dw_group_g's G.
 template <int CIN, int COUT>
 cudaError_t launch_dw_group_tc(const void* x, const void* g, const void* nbr, void* partial,
                                void* dw, long long rows, int k_offsets, int splits,
                                cudaStream_t stream) {
-  using S = DwGroupShape<CIN, COUT>;
-  auto kernel = dw_group_tc_kernel<CIN, COUT>;
+  constexpr int G = dw_group_g(CIN, COUT);
   static std::atomic<int> smem_set{0};
-  cudaError_t err = reserve_smem(kernel, smem_set, S::SMEM_BYTES);
+  const cudaError_t err = reserve_smem(dw_group_tc_kernel<CIN, COUT, G>, smem_set,
+                                       DwGroupShape<CIN, COUT, G>::SMEM_BYTES);
   if (err != cudaSuccess) return err;
-  const long long tiles = (rows + DWG_BR - 1) / DWG_BR;
-  const long long rows_per_split = (tiles + splits - 1) / splits * DWG_BR;
-  const dim3 grid(static_cast<unsigned>((k_offsets + S::G - 1) / S::G),
-                  static_cast<unsigned>(splits));
-  kernel<<<grid, DWG_THREADS, S::SMEM_BYTES, stream>>>(
-      static_cast<const bf16*>(x), static_cast<const bf16*>(g), static_cast<const int*>(nbr),
-      static_cast<float*>(partial), rows, k_offsets, rows_per_split);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  return launch_sum_partials(partial, dw, static_cast<long long>(k_offsets) * CIN * COUT, splits,
-                             stream);
+  return launch_dw_group_grid<CIN, COUT, G>(x, g, nbr, partial, dw, rows, k_offsets, splits,
+                                            stream);
+}
+
+// What the card holds of dw_group_tc_kernel<CIN, COUT, G>: its registers a
+// thread (regs), its launch bounds' blocks an SM (bound), and the blocks an
+// SM runs at its shared memory (returned; -1 on an error).  Raises the
+// kernel's shared-memory limit on the way.
+template <int CIN, int COUT, int G = dw_group_g(CIN, COUT)>
+int dw_group_occupancy(int* regs, int* bound) {
+  using S = DwGroupShape<CIN, COUT, G>;
+  auto kernel = dw_group_tc_kernel<CIN, COUT, G>;
+  cudaFuncAttributes attr;
+  int blocks = 0;
+  if (cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           static_cast<int>(S::SMEM_BYTES)) != cudaSuccess ||
+      cudaFuncGetAttributes(&attr, kernel) != cudaSuccess ||
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel, DWG_THREADS,
+                                                    S::SMEM_BYTES) != cudaSuccess)
+    return -1;
+  *regs = attr.numRegs;
+  *bound = S::BLOCKS;
+  return blocks;
 }
 
 // ---------------------------------------------------------------------------
@@ -876,7 +993,6 @@ constexpr int dw_list_stages(int cin, int cout) {
 constexpr size_t dw_list_smem_bytes(int cin, int cout) {
   return static_cast<size_t>(dw_list_stages(cin, cout)) * dw_list_slot_bytes(cin, cout);
 }
-constexpr int SM_SMEM_BYTES = 233472;  // shared memory of an H100 SM, 1 KB of it reserved a block
 // Blocks that share an SM: as many as its shared memory holds, at most 3
 // (the launch bounds then leave each thread 85 registers).
 constexpr int dw_list_blocks(int cin, int cout) {

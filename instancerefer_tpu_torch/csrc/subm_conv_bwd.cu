@@ -23,12 +23,13 @@
 //         (ops/gather_conv.tc_plan) — W[K-1-k] staged as it lies ([Cin][Cout])
 //         and read by plain ldmatrix as the transposed B operand; f32 store.
 //     dW: irsc::tc::dw_group_tc_kernel under ops/conv_bwd.dw_plan — block
-//         (offset group, split) of 8 warps keeps G = 2 [Cin, Cout] products
-//         in registers, reads the G map columns of each 64-row tile once,
-//         stages the x tile once for both and the G gathered g tiles in a
-//         ring of 3-4 tiles, as many blocks as fill the card's slots; then
-//         irsc::sum_partials_kernel adds the splits in a fixed order, so dW
-//         is bit-identical across launches.
+//         (offset group, split) of 8 warps keeps the [Cin, Cout] products of
+//         its G offsets in registers (dw_group_split: WM x WN warps over a
+//         product, WG groups of them over the offsets), reads the G map
+//         columns of each 64-row tile once, stages the x tile once for all
+//         and the G gathered g tiles in a ring of 3-4 tiles, as many blocks
+//         as fill the card's slots; then irsc::sum_partials_kernel adds the
+//         splits in a fixed order, so dW is bit-identical across launches.
 //   ir_subm_conv_bwd     f32 only: the FMA templates irsc::gather_gemm_kernel
 //     (MIRROR_T) and irsc::dw_partial_kernel, f32 products (no TF32).
 //
@@ -115,8 +116,8 @@ extern "C" int ir_subm_conv_bwd(const void* x, const void* nbr, const void* g, c
 // The tensor-core route: bfloat16 x, g and w (16-byte aligned), (cin,
 // cout) one of the pairs of dispatch_dw_group, the other arguments as
 // above; (bm, cs) dX's plan (ops/gather_conv.tc_plan) and dW's G
-// (ops/conv_bwd.dw_plan: 2, or 1 where the accumulators of 2 would not
-// fit), each refused unless the templates are built for it.
+// (ops/conv_bwd.dw_plan: dw_group_g's), each refused unless the templates
+// are built for it.
 extern "C" int ir_subm_conv_bwd_tc(const void* x, const void* nbr, const void* g, const void* w,
                                    void* dx, void* partial, void* dw, long long v,
                                    int k_offsets, int cin, int cout, int splits, int bm, int cs,
@@ -136,4 +137,28 @@ extern "C" int ir_subm_conv_bwd_tc(const void* x, const void* nbr, const void* g
 // dw_group_smem_bytes computes the same on the host.
 extern "C" long long ir_dw_group_smem_bytes(int cin, int cout) {
   return static_cast<long long>(irsc::tc::dw_group_smem_bytes(cin, cout));
+}
+
+// K2's dW block at cin -> cout (irsc::tc::dw_group_split): WM, WN, WG and G
+// into out[0..3]; ops/conv_bwd.dw_group_split computes the same on the host.
+extern "C" void ir_dw_group_split(int cin, int cout, int* out) {
+  const irsc::tc::DwGroupSplit s = irsc::tc::dw_group_split(cin, cout);
+  out[0] = s.wm;
+  out[1] = s.wn;
+  out[2] = s.wg;
+  out[3] = s.g;
+}
+
+// What the card holds of K2's dW kernel at cin -> cout: its registers a
+// thread and its launch bounds' blocks an SM into regs and bound, and the
+// blocks an SM runs (ops/conv_bwd.dw_group_blocks, by which dw_plan fills
+// the card, is held equal to it on the card); -1 for a pair it is not
+// built for or an error.
+extern "C" int ir_dw_group_occupancy(int cin, int cout, int* regs, int* bound) {
+#define IRSC_DWG_OCC(CI, CO) \
+  if (cin == CI && cout == CO) return irsc::tc::dw_group_occupancy<CI, CO>(regs, bound);
+  IRSC_IR_PAIRS(IRSC_DWG_OCC)
+  IRSC_PG_SUBM_PAIRS(IRSC_DWG_OCC)
+#undef IRSC_DWG_OCC
+  return -1;
 }

@@ -85,9 +85,11 @@ def dw_splits(rows: int, blocks_per_split: int, path: str, split_bytes: int = 0,
 
 
 # K2's dW kernel (csrc/sparse_conv_tc.cuh, dw_group_tc_kernel): rows a
-# tile, offsets a block where the accumulators allow (the C entry refuses
-# another than dw_group's), warps a block
-DWG_BR, DW_GROUP, DWG_WARPS = 64, 2, 8
+# tile, offsets a warp where one group of warps takes all of a block's
+# (WG = 1) and the accumulators allow, the fewest offsets a block where
+# more than that many groups split them, warps a block, blocks an SM at
+# most (the C entry refuses another G than dw_group's)
+DWG_BR, DW_GROUP, DWG_WIDE_G, DWG_WARPS, DWG_BLOCKS = 64, 2, 4, 8, 3
 SM_SMEM = 228 * 1024  # shared memory of an H100 SM, 1 KB of it reserved a block
 
 
@@ -114,10 +116,31 @@ def warp_split(cin: int, cout: int, max_g: int) -> Tuple[int, int, int]:
     raise ValueError(f"warp_split: no split of {cin} x {cout}")
 
 
+@functools.cache
+def dw_group_split(cin: int, cout: int) -> Tuple[int, int, int, int]:
+    """(WM, WN, WG, G): K2's dW block at ``cin`` -> ``cout``, as
+    ``dw_group_split`` in csrc/sparse_conv_tc.cuh picks it: WM x WN warps
+    over a [cin, cout] product (``warp_split`` at ``DW_GROUP`` offsets a
+    warp), WG = 8 // (WM x WN) groups of them over the offsets, G offsets a
+    block: ``warp_split``'s where WG = 1; where more, one a group (at most
+    ``DWG_WIDE_G``), then the most that keep a thread's accumulators within
+    128, a ring of 3 stages and as many blocks an SM (``dw_group_blocks``)."""
+    wm, wn, g = warp_split(cin, cout, DW_GROUP)
+    wg = DWG_WARPS // (wm * wn)
+    if wg == 1:
+        return wm, wn, 1, g
+    acc = (cin // 16 // wm) * (cout // 8 // wn) * 4  # a thread's, an offset
+    g = min(wg, DWG_WIDE_G)
+    while (g < 32 and -(-(g + 1) // wg) * acc <= 128 and dw_group_stages(cin, cout, g + 1) >= 3
+           and dw_group_blocks(cin, cout, g + 1) == dw_group_blocks(cin, cout, g)):
+        g += 1
+    return wm, wn, wg, g
+
+
 def dw_group(cin: int, cout: int) -> int:
-    """K2's dW: the offsets a block takes at ``cin`` -> ``cout`` (``DW_GROUP``,
-    or 1 where two offsets' accumulators would not fit: 160 -> 80, 192 -> 96)."""
-    return warp_split(cin, cout, DW_GROUP)[2]
+    """K2's dW: the offsets a block takes at ``cin`` -> ``cout``
+    (``dw_group_split``'s G)."""
+    return dw_group_split(cin, cout)[3]
 
 
 class DwPlan(NamedTuple):
@@ -129,43 +152,62 @@ class DwPlan(NamedTuple):
     splits: int
 
 
-def dw_warps(cin: int, cout: int) -> Tuple[int, int]:
-    """(WM, WN): the warps along Cin and Cout that split a block's [Cin,
-    Cout] products (``DwGroupShape``; 4 of 8 warps at 32 x 32)."""
-    wm = min(cin // 16, 4)
-    return wm, min(cout // 16, DWG_WARPS // wm)
+def dw_group_stage_bytes(cin: int, cout: int, group: int) -> int:
+    """A stage of K2's dW ring at ``group`` offsets a block: the x tile and
+    the gathered g tiles, bf16 rows padded by ``PAD``."""
+    return (DWG_BR * (cin + PAD) + group * DWG_BR * (cout + PAD)) * 2
 
 
-def dw_group_smem_bytes(cin: int, cout: int) -> int:
+def dw_group_stages(cin: int, cout: int, group: int) -> int:
+    """Stages in the ring of K2's dW at ``group`` offsets a block, as
+    ``dw_group_stages`` in csrc/sparse_conv_tc.cuh: as many as fit, at most
+    4."""
+    return min(4, (SMEM_LIMIT - 4096) // dw_group_stage_bytes(cin, cout, group))
+
+
+def dw_group_smem_bytes(cin: int, cout: int, group: Optional[int] = None) -> int:
     """Shared memory a block of K2's dW takes, as ``dw_group_smem_bytes`` in
     csrc/sparse_conv_tc.cuh computes it (the card tests hold the two
-    equal): a ring of up to 4 tiles, each the x tile and ``dw_group``
-    gathered g tiles, the tile's map columns and each warp's vote a stage."""
+    equal): a ring of ``dw_group_stages`` tiles, each the x tile and
+    ``group`` (default ``dw_group``'s) gathered g tiles, the tile's map
+    columns and each warp's vote a stage."""
     if (cin, cout) not in K2_PAIRS:
         raise ValueError(f"dw_group_smem_bytes: widths {cin} x {cout} are not the "
                          f"tensor-core kernel's")
-    group = dw_group(cin, cout)
-    stage = (DWG_BR * (cin + PAD) + group * DWG_BR * (cout + PAD)) * 2
-    stages = min(4, (SMEM_LIMIT - 4096) // stage)
-    return stages * stage + (DWG_BR * group + stages * DWG_WARPS) * 4
+    group = dw_group(cin, cout) if group is None else group
+    stages = dw_group_stages(cin, cout, group)
+    ring = stages * dw_group_stage_bytes(cin, cout, group)
+    return ring + (DWG_BR * group + stages * DWG_WARPS) * 4
+
+
+def dw_group_blocks(cin: int, cout: int, group: Optional[int] = None) -> int:
+    """Blocks of K2's dW an SM holds (its launch bounds, ``dw_group_blocks``
+    in csrc/sparse_conv_tc.cuh; the card tests hold it to the card's
+    occupancy): as many as the SM's shared memory takes, at most
+    ``DWG_BLOCKS``."""
+    return min(DWG_BLOCKS, SM_SMEM // (dw_group_smem_bytes(cin, cout, group) + 1024))
+
+
+def dw_group_splits(rows: int, k: int, cin: int, cout: int, sms: int, group: int) -> int:
+    """Row splits of K2's dW at ``group`` offsets a block: as many as fill
+    the card's block slots (``dw_group_blocks`` an SM, times ``sms``) over
+    the ceil(k / group) offset groups, at least ``SPLIT_ROWS["tensor_core"]``
+    rows a split and at most ``DW_PARTIAL_BYTES`` of partials."""
+    if rows <= 0 or k <= 0 or sms <= 0:
+        raise ValueError(f"dw_plan: {rows} rows, {k} offsets, {sms} SMs")
+    splits = min(-(-rows // SPLIT_ROWS["tensor_core"]),
+                 dw_group_blocks(cin, cout, group) * sms // -(-k // group),
+                 DW_PARTIAL_BYTES // (4 * k * cin * cout))
+    return max(1, splits)
 
 
 @functools.cache
 def dw_plan(rows: int, k: int, cin: int, cout: int, sms: int) -> DwPlan:
     """K2's dW plan from the shape and the card's ``sms`` alone:
-    ``dw_group`` offsets a block, and as many row splits as fill the card's
-    block slots (the blocks a block's shared memory lets share an SM, times
-    ``sms``) over the ceil(k / G) offset groups, at least
-    ``SPLIT_ROWS["tensor_core"]`` rows a split and at most
-    ``DW_PARTIAL_BYTES`` of partials.  A shape always sums in one order on a
-    card."""
-    if rows <= 0 or k <= 0 or sms <= 0:
-        raise ValueError(f"dw_plan: {rows} rows, {k} offsets, {sms} SMs")
-    per_sm = max(1, SM_SMEM // (dw_group_smem_bytes(cin, cout) + 1024))
+    ``dw_group`` offsets a block over ``dw_group_splits`` row splits.  A
+    shape always sums in one order on a card."""
     group = dw_group(cin, cout)
-    splits = min(-(-rows // SPLIT_ROWS["tensor_core"]), per_sm * sms // -(-k // group),
-                 DW_PARTIAL_BYTES // (4 * k * cin * cout))
-    return DwPlan(group, max(1, splits))
+    return DwPlan(group, dw_group_splits(rows, k, cin, cout, sms, group))
 
 
 # K3's list route (csrc/conv_dw.cu, csrc/sparse_conv_tc.cuh): map rows a

@@ -5,6 +5,7 @@ under this tree's plans, beside each shape's valid map entries and its
 bound.
 
     python -m instancerefer_tpu_torch.scripts.conv_bytes [--batch 64] [--sms 132]
+    python -m instancerefer_tpu_torch.scripts.conv_bytes --pointgroup [--sms 132]
 
 Runs on the CPU (numpy; no card).  The batch is ``scripts/bench.py``'s:
 ``config/band_profile.synthetic.yaml``'s caps, 40 000-point scenes, seed 0.
@@ -44,6 +45,14 @@ pass's reads of the map (``map_MB``, once in each of its two kernels) and
 its writes of the lists (``lists_MB``); the dW kernel's reads of the lists
 and of the map entries they name (``index_MB``, one 32-byte sector a map
 entry); the split partials written and read (``partial_MB``).
+
+``--pointgroup`` counts K2's dW alone instead, at every submanifold pair of
+PointGroup's U-Net over its level's map in the cell
+``pointgroup-train-resident`` (``step_ab.pointgroup_levels``: the first
+pool batch of seed 15, 4 rooms at the configuration's capacities): the
+x, g, map and partial bytes under the rule's G (``conv_bwd.dw_plan``) and
+at two offsets a block, with their launches a step (a level's seven c -> c
+convs and one 2c -> c, the last level's four c -> c) and a step's totals.
 """
 
 from __future__ import annotations
@@ -110,6 +119,43 @@ def list_dx_bytes(down, up8, cin: int, cout: int, splits: int) -> dict:
             "grid": grid}
 
 
+def pointgroup_dw(sms: int) -> None:
+    """K2's dW bytes at PointGroup's submanifold pairs (``--pointgroup``):
+    under the rule's G, and, where the warps split a block's offsets (WG >
+    1), at two offsets a block; a step's totals of each (the pairs of WG =
+    1 at the rule's in both)."""
+    import torch
+
+    from instancerefer_tpu_torch.ops import conv_bwd
+    from instancerefer_tpu_torch.scripts import step_ab
+
+    levels = step_ab.pointgroup_levels(torch.device("cpu"))
+    mb = 1e-6
+    totals = {"rule": 0, "two a block": 0}
+    print(f"{step_ab.PG_WORKLOAD}, seed {step_ab.PG_SEED}'s first batch, {sms} SMs; K2's dW, "
+          f"MB staged from L2 into shared memory (x, g, map sectors) and partials written and "
+          f"read")
+    for lvl, (rows, nbr) in enumerate(levels):
+        nbr = nbr.numpy()
+        c = 16 * (lvl + 1)
+        last = lvl == len(levels) - 1
+        for cin, launches in ((c, 4 if last else 7),) + (() if last else ((2 * c, 1),)):
+            k = nbr.shape[1]
+            rule = conv_bwd.dw_group(cin, c)
+            wide = conv_bwd.dw_group_split(cin, c)[2] == 1
+            line = (f"level {lvl} {cin}->{c}: V={rows} valid={int((nbr >= 0).sum())} "
+                    f"launches={launches}")
+            for name, group in (("rule", rule), ("two a block", rule if wide else 2)):
+                splits = conv_bwd.dw_group_splits(rows, k, cin, c, sms, group)
+                x, g, m, part = dw_bytes(nbr, cin, c, group, splits)
+                totals[name] += launches * (x + g + m + part)
+                if name == "rule" or not wide:
+                    line += (f"; {name} G={group} splits={splits}: x_MB {x * mb:.1f} g_MB "
+                             f"{g * mb:.1f} map_MB {m * mb:.1f} partial_MB {part * mb:.1f}")
+            print(line)
+    print("a train step, MB: " + ", ".join(f"{name} {b * mb:.1f}" for name, b in totals.items()))
+
+
 def main(argv=None) -> None:
     import torch
 
@@ -123,7 +169,12 @@ def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--batch", type=int, default=64, help="scenes a batch (the bench's 64)")
     ap.add_argument("--sms", type=int, default=132, help="the card's SMs (an H100 SXM's 132)")
+    ap.add_argument("--pointgroup", action="store_true",
+                    help="K2's dW at PointGroup's submanifold pairs in its cell instead")
     args = ap.parse_args(argv)
+    if args.pointgroup:
+        pointgroup_dw(args.sms)
+        return
     caps = band_profile_kwargs(bench.PROFILE)
     spec = BatchSpec(**{k: caps[k] for k in ("scene_caps", "inst_caps", "max_candidates",
                                             "max_instances")})

@@ -72,6 +72,14 @@ splits: how ``tc_plan``, ``dw_plan``, ``dw_list_splits`` and
 ``dx_list_splits`` were chosen.  The list lines also give the device ms a
 call by kernel (K3: the list pass's two kernels, the dW kernel, the sum of
 the splits) under the picked plan, from the profiler.
+
+    python -m instancerefer_tpu_torch.scripts.step_ab --dw-groups [--out FILE]
+
+times K2's dW alone at the pairs where its warps split a block's offsets
+(``DW_GROUPS``: 16 -> 16, 32 -> 16, 32 -> 32, 48 -> 48) over their levels'
+maps in PointGroup's cell, at several offsets a block each, from a library
+the sweep builds for them (``dw_group_sweep``): how ``conv_bwd.
+dw_group_split``'s G was chosen.
 """
 
 from __future__ import annotations
@@ -612,6 +620,161 @@ def plan_sweep(batch_sizes, out_path=None, dw_scales=(0.5, 1, 2, 3),
                                         "ms": ms[label], "by_kernel": split.get(label)}) + "\n")
 
 
+# K2's dW where the warps of a block split its offsets (WG > 1 in
+# ops/conv_bwd.dw_group_split): (Cin, Cout) -> the level of PointGroup's
+# U-Net whose map it runs over in the cell, and the offsets a block that
+# ``dw_group_sweep`` times there
+DW_GROUPS = {(16, 16): (0, (2, 4, 5, 6, 7, 8, 14)),
+             (32, 16): (0, (2, 3, 4, 6, 8)),
+             (32, 32): (1, (2, 3, 4)),
+             (48, 48): (2, (1, 2, 3, 4))}
+PG_WORKLOAD, PG_SEED = "pointgroup-train-resident", 15  # chip_smoke.py phase 15's batch
+
+
+def dw_bound_ms(nnz: int, rows: int, k: int, cin: int, cout: int, peak_flops: float = 989e12,
+                peak_bytes_s: float = 3.35e12) -> float:
+    """The least ms an H100 could take for K2's dW alone over a ``rows`` x
+    ``k`` map of ``nnz`` valid entries: the larger of 2 nnz cin cout flops
+    over ``peak_flops`` and the bytes it must move (the map, x and g read
+    once, the f32 dW written) over ``peak_bytes_s``."""
+    nb = 4 * rows * k + 2 * rows * (cin + cout) + 4 * k * cin * cout
+    return max(2 * nnz * cin * cout / peak_flops, nb / peak_bytes_s) * 1e3
+
+
+def _sweep_library(groups):
+    """A library of its own for the sweep: ``dw_group_tc_kernel`` at every
+    (Cin, Cout, G) of ``groups``, built with the package's flags from a
+    source written into its build directory.  ``ir_dw_group_sweep`` launches
+    one (its kernel and the sum of the splits) and
+    ``ir_dw_group_sweep_occupancy`` reads what the card holds of it and
+    raises its shared-memory limit, which the first must follow."""
+    import ctypes
+    import hashlib
+    import subprocess
+
+    from instancerefer_tpu_torch.ops import gather_conv as G
+
+    cases = "".join(f"  X({ci}, {co}, {g})\n" for ci, co, g in groups)
+    src = ("#include \"sparse_conv_tc.cuh\"\n"
+           "using namespace irsc::tc;\n"
+           "extern \"C\" int ir_dw_group_sweep(const void* x, const void* g, const void* nbr,"
+           " void* partial, void* dw, long long rows, int k, int cin, int cout, int group,"
+           " int splits, void* stream) {\n"
+           "#define X(CI, CO, GR) if (cin == CI && cout == CO && group == GR) return "
+           "launch_dw_group_grid<CI, CO, GR>(x, g, nbr, partial, dw, rows, k, splits, "
+           "static_cast<cudaStream_t>(stream));\n" + cases + "#undef X\n"
+           "  return cudaErrorInvalidValue;\n}\n"
+           "extern \"C\" int ir_dw_group_sweep_occupancy(int cin, int cout, int group, int* regs,"
+           " int* bound) {\n"
+           "#define X(CI, CO, GR) if (cin == CI && cout == CO && group == GR) return "
+           "dw_group_occupancy<CI, CO, GR>(regs, bound);\n" + cases + "#undef X\n"
+           "  return -1;\n}\n")
+    h = hashlib.sha256(src.encode() + " ".join(G.NVCC_FLAGS).encode())
+    for name in sorted(os.listdir(G.CSRC)):
+        with open(os.path.join(G.CSRC, name), "rb") as f:
+            h.update(f.read())
+    lib = os.path.join(G.BUILD_DIR, f"dw_group_sweep_{h.hexdigest()[:16]}.so")
+    if not os.path.exists(lib):
+        os.makedirs(G.BUILD_DIR, exist_ok=True)
+        with open(lib[:-3] + ".cu", "w") as f:
+            f.write(src)
+        proc = subprocess.run([G._nvcc(), *G.NVCC_FLAGS, "-I", G.CSRC, "-o", lib, lib[:-3] + ".cu"],
+                              capture_output=True, text=True)
+        with open(lib[:-3] + ".log", "w") as f:
+            f.write(proc.stdout + proc.stderr)
+        if proc.returncode:
+            raise RuntimeError("the sweep's library did not build\n" + proc.stdout + proc.stderr)
+    out = ctypes.CDLL(lib)
+    p, i = ctypes.c_void_p, ctypes.c_int
+    out.ir_dw_group_sweep.restype = i
+    out.ir_dw_group_sweep.argtypes = [p] * 5 + [ctypes.c_longlong] + [i] * 5 + [p]
+    out.ir_dw_group_sweep_occupancy.restype = i
+    out.ir_dw_group_sweep_occupancy.argtypes = [i] * 3 + [ctypes.POINTER(i)] * 2
+    return out
+
+
+def pointgroup_levels(dev, seed: int = PG_SEED):
+    """[(rows, nbr3)] by level of the first pool batch of PointGroup's cell
+    (its traffic at the configuration's capacities, as ``chip_smoke.py``
+    phase 15 builds it), on ``dev``."""
+    sys.path.insert(0, os.getcwd())  # the checkout's benchmark/
+    from benchmark import run as bench_run
+    from benchmark.drivers import pointgroup as drv
+
+    _, values, traffic, _, _, _ = bench_run.cell_data(os.getcwd(), PG_WORKLOAD)
+    traffic = {**traffic, "pool_batches": 1}
+    spec = drv.level_spec(values, traffic)
+    host = drv.host_batches(drv.make_pool(seed, traffic), spec)[0]
+    staged = {k: v.to(dev) for k, v in spec.stage(host).items()}
+    return [(sv.mask.numel(), sv.nbr3) for sv in spec.finish(staged)["pyramid"]]
+
+
+def dw_group_sweep(out_path=None, groups=None) -> None:
+    """K2's dW alone at each pair of ``groups`` (default ``DW_GROUPS``) over
+    its level's map in PointGroup's cell, at each of its offsets a block G:
+    the splits ``conv_bwd.dw_group_splits`` gives that G, the card's
+    registers and blocks an SM, and the device ms a call (``device_ms``)
+    beside the bound (``dw_bound_ms``); each G's dW held against the plain
+    twin first.  One line a pair; with ``out_path``, one JSON record a pair
+    appended there too.  The rule's G (``conv_bwd.dw_group``) is marked."""
+    import ctypes
+
+    import torch
+
+    from instancerefer_tpu_torch.ops import conv_bwd, sparse
+    from instancerefer_tpu_torch.ops import gather_conv as G
+
+    if not torch.cuda.is_available():
+        raise SystemExit("step_ab --dw-groups: no CUDA device")
+    groups = DW_GROUPS if groups is None else groups
+    dev = torch.device("cuda", 0)
+    torch.backends.cuda.matmul.allow_tf32 = False  # the twin's products in f32
+    sms = G.sm_count(dev)
+    lib = _sweep_library([(ci, co, g) for (ci, co), (_, gs) in groups.items() for g in gs])
+    levels = pointgroup_levels(dev)
+    gen = torch.Generator(device=dev).manual_seed(PG_SEED)
+    print(f"{torch.cuda.get_device_name(0)}, {sms} SMs; K2's dW alone in {PG_WORKLOAD} (seed "
+          f"{PG_SEED}'s first batch), device ms a call by offsets a block G [splits, blocks an "
+          f"SM, registers]; * the rule's G", flush=True)
+    for (cin, cout), (level, gs) in groups.items():
+        rows, nbr = levels[level]
+        k = nbr.shape[1]
+        nnz = int((nbr >= 0).sum())
+        x = torch.randn(rows, cin, device=dev, generator=gen).bfloat16()
+        g = torch.randn(rows, cout, device=dev, generator=gen).bfloat16()
+        want = sparse.subm_conv_bwd(x.float(), nbr, g.float(),
+                                    torch.zeros(k, cin, cout, device=dev))[1]
+        dw = torch.empty(k, cin, cout, device=dev)
+        ms = {}
+        for grp in gs:
+            regs, bound = ctypes.c_int(), ctypes.c_int()
+            blocks = lib.ir_dw_group_sweep_occupancy(cin, cout, grp, regs, bound)
+            splits = conv_bwd.dw_group_splits(rows, k, cin, cout, sms, grp)
+            partial = torch.empty(splits, k, cin, cout, device=dev)
+
+            def call():  # on the current stream: a capture's, inside device_ms
+                G.check_launch("dw_group_sweep", lib.ir_dw_group_sweep(
+                    x.data_ptr(), g.data_ptr(), nbr.data_ptr(), partial.data_ptr(),
+                    dw.data_ptr(), rows, k, cin, cout, grp, splits, G.cuda_stream(x)))
+
+            call()
+            err = (dw - want).abs().max().item() / want.abs().max().item()
+            if not err <= 1e-4:
+                raise AssertionError(f"K2 dW {cin}->{cout} G={grp}: max rel err {err:.3e}")
+            ms[grp] = {"ms": device_ms(call), "splits": splits, "blocks": blocks,
+                       "bound_blocks": bound.value, "regs": regs.value}
+        bound_ms = dw_bound_ms(nnz, rows, k, cin, cout)
+        rule = conv_bwd.dw_group(cin, cout)
+        print(f"{cin}->{cout} level {level}: rows={rows} valid={nnz} bound {bound_ms:.4f}: "
+              + ", ".join(f"G={grp}{'*' if grp == rule else ''} {r['ms']:.4f} [{r['splits']}, "
+                          f"{r['blocks']}, {r['regs']}]" for grp, r in ms.items()), flush=True)
+        if out_path:
+            with open(out_path, "a") as f:
+                f.write(json.dumps({"pair": [cin, cout], "level": level, "rows": rows,
+                                    "valid": nnz, "bound_ms": bound_ms, "rule_g": rule,
+                                    "by_group": ms}) + "\n")
+
+
 def _order(roots, rounds: int):
     return [r for _ in range(rounds) for r in list(roots) + list(roots)[::-1]]
 
@@ -626,6 +789,9 @@ def main(argv=None) -> None:
                     help="scenes a batch (default: ROOT's chip_smoke.BATCH)")
     ap.add_argument("--plans", type=int, nargs="+", metavar="B",
                     help="instead of an A/B, sweep this checkout's tile plans at batches B")
+    ap.add_argument("--dw-groups", action="store_true",
+                    help="instead of an A/B, sweep K2's dW offsets a block at PointGroup's "
+                         "narrow pairs")
     ap.add_argument("--child", action="store_true", help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     if args.child:
@@ -633,6 +799,9 @@ def main(argv=None) -> None:
         return
     if args.plans:
         plan_sweep(args.plans, args.out)
+        return
+    if args.dw_groups:
+        dw_group_sweep(args.out)
         return
     if not args.roots:
         ap.error("give at least one ROOT")

@@ -111,12 +111,13 @@ def test_every_tensor_core_launch_gets_a_built_plan(batches, which):
         assert smem <= G.SMEM_LIMIT
         if wrapper == "subm_conv_bwd":
             dwp = plans[1]
-            assert dwp.group == conv_bwd.DW_GROUP and dwp.splits >= 1
+            assert dwp.group == conv_bwd.dw_group(cin, cout) == 2 and dwp.splits >= 1
             smem = conv_bwd.dw_group_smem_bytes(cin, cout)
             assert smem <= G.SMEM_LIMIT
             assert dwp.splits * k * cin * cout * 4 <= conv_bwd.DW_PARTIAL_BYTES
             # no more blocks than the card's slots: the blocks an SM holds x SMs
-            per_sm = conv_bwd.SM_SMEM // (smem + 1024)
+            per_sm = conv_bwd.dw_group_blocks(cin, cout)
+            assert per_sm * (smem + 1024) <= conv_bwd.SM_SMEM
             assert -(-k // dwp.group) * dwp.splits <= per_sm * H100_SMS
     assert counts == {"gather_conv": 24, "gather_conv_dx": 8, "subm_conv_bwd": 16}
 
@@ -191,7 +192,8 @@ def test_shared_memory_and_groups_of_every_width():
     """The gather-GEMM at every width (K = 8 and 27, mirrored or not) and
     K2's dW at every width within one block's shared memory, the
     gather-GEMM with room for two blocks an SM; K2's dW holds at most 128
-    accumulators a thread (G = 2 at 128 -> 128 reaches it)."""
+    accumulators a thread (G = 2 at 128 -> 128 reaches it; a warp takes
+    ceil(G / WG) of a block's offsets)."""
     for red in G.TC_WIDTHS:
         for nout in G.TC_WIDTHS:
             for k in (8, 27):
@@ -201,8 +203,8 @@ def test_shared_memory_and_groups_of_every_width():
     for ci in G.TC_WIDTHS:
         for co in G.TC_WIDTHS:
             assert conv_bwd.dw_group_smem_bytes(ci, co) <= G.SMEM_LIMIT
-            wm, wn = conv_bwd.dw_warps(ci, co)
-            acc = conv_bwd.DW_GROUP * ci * co // (wm * wn * 32)  # accumulators a thread
+            wm, wn, wg, g = conv_bwd.dw_group_split(ci, co)
+            acc = -(-g // wg) * ci * co // (wm * wn * 32)  # accumulators a thread
             assert acc <= 128 and (acc == 128) == (ci == co == 128)
 
 
@@ -214,6 +216,33 @@ def test_dw_partials_shrink_against_the_old_split_rule():
         old = conv_bwd.dw_splits(rows, 27, "tensor_core")
         assert plan.splits < old
         assert plan.splits * 27 * c * c * 4 <= conv_bwd.DW_PARTIAL_BYTES
+
+
+# PointGroup's cell: the rows of a batch of 4 rooms at levels 0, 1 and 2
+# (benchmark/configs/pointgroup-scannet-m16.json's level_caps)
+PG_LEVEL_ROWS = (4 * 250048, 4 * 182208, 4 * 57216)
+
+
+@pytest.mark.parametrize("cin, cout", G.K2_PAIRS)
+def test_dw_plan_at_pointgroup_levels(cin, cout):
+    """K2's dW plan at the rows of the cell's levels 0-2: the block's G,
+    splits that fill the card's slots (``dw_group_blocks`` an SM) in one
+    wave, at most ``DW_PARTIAL_BYTES`` of partials; where WG = 1 the splits
+    the rule had before the warp groups (the SM's blocks by shared memory
+    alone, at two offsets a block but at 160 -> 80 and 192 -> 96)."""
+    g = conv_bwd.dw_group(cin, cout)
+    wg = conv_bwd.dw_group_split(cin, cout)[2]
+    for rows in PG_LEVEL_ROWS:
+        plan = conv_bwd.dw_plan(rows, 27, cin, cout, H100_SMS)
+        assert plan.group == g and plan.splits >= 1
+        per_sm = conv_bwd.dw_group_blocks(cin, cout)
+        assert -(-27 // g) * plan.splits <= per_sm * H100_SMS
+        assert plan.splits * 27 * cin * cout * 4 <= conv_bwd.DW_PARTIAL_BYTES
+        if wg == 1:
+            old_per_sm = conv_bwd.SM_SMEM // (conv_bwd.dw_group_smem_bytes(cin, cout) + 1024)
+            assert per_sm == old_per_sm and g == conv_bwd.warp_split(cin, cout, 2)[2]
+            assert plan.splits == min(-(-rows // 512), old_per_sm * H100_SMS // -(-27 // g),
+                                      conv_bwd.DW_PARTIAL_BYTES // (4 * 27 * cin * cout))
 
 
 def _fake_card(monkeypatch):
@@ -351,7 +380,8 @@ def test_k2_plan_matches_twin_on_card(monkeypatch, plan, v, cin, cout, splits):
     zero, dX and dW bit-identical over two launches."""
     dev = _card()
     _force(monkeypatch, plan)
-    monkeypatch.setattr(conv_bwd, "dw_plan", lambda *a: conv_bwd.DwPlan(conv_bwd.DW_GROUP, splits))
+    monkeypatch.setattr(conv_bwd, "dw_plan",
+                        lambda *a: conv_bwd.DwPlan(conv_bwd.dw_group(cin, cout), splits))
     gen = torch.Generator(device=dev).manual_seed(cin * cout + v + plan[0] + plan[1] + splits)
     nbr = _map(gen, v, max(v, 1), 27, dev)
     x = torch.randn(v, cin, device=dev, generator=gen).bfloat16()

@@ -20,6 +20,7 @@ import ctypes
 import os
 import re
 
+import numpy as np
 import pytest
 import torch
 
@@ -71,6 +72,95 @@ def test_warp_split_covers_the_product(cin, cout):
     mt, nt = cin // 16 // wm, cout // 8 // wn
     assert wm * mt * 16 == cin and wn * nt * 8 == cout and nt % 2 == 0
     assert wm * wn <= 8 and g * mt * nt * 4 <= 128 and g >= 1
+
+
+# K2's pairs whose warps split a block's offsets (WG > 1)
+NARROW_K2 = ((16, 16), (32, 16), (32, 32), (48, 48))
+
+
+def _cuh_int(name):
+    with open(os.path.join(ROOT, "instancerefer_tpu_torch", "csrc", "sparse_conv_tc.cuh")) as f:
+        return int(re.search(rf"constexpr int {name} = (\d+);", f.read()).group(1))
+
+
+def test_dw_group_constants_are_the_sources():
+    assert (_cuh_int("DWG_BR"), _cuh_int("DWG_G"), _cuh_int("DWG_WIDE_G")) == \
+        (conv_bwd.DWG_BR, conv_bwd.DW_GROUP, conv_bwd.DWG_WIDE_G)
+
+
+@pytest.mark.parametrize("cin, cout", G.K2_PAIRS)
+def test_dw_group_split_covers_the_product(cin, cout):
+    """K2's dW block: WG x WM x WN warps of 8 at most, WM x WN covering the
+    [Cin, Cout] product, each warp's offsets' accumulators within 128; WG =
+    8 // (WM x WN), so the warps idle only where no group fits."""
+    wm, wn, wg, g = conv_bwd.dw_group_split(cin, cout)
+    mt, nt = cin // 16 // wm, cout // 8 // wn
+    assert wm * mt * 16 == cin and wn * nt * 8 == cout and nt % 2 == 0
+    assert wg * wm * wn <= 8 < (wg + 1) * wm * wn
+    assert 1 <= g <= 32 and -(-g // wg) * mt * nt * 4 <= 128
+    assert conv_bwd.dw_group(cin, cout) == g
+
+
+@pytest.mark.parametrize("cin, cout", G.K2_PAIRS)
+def test_dw_group_split_keeps_the_wide_pairs(cin, cout):
+    """Where WM x WN > 4 (every pair of 64 channels and above, so all that
+    InstanceRefer's cells run) the block is warp_split's at two offsets a
+    warp: WG = 1 and the same (WM, WN, G); G = 1 stays at 160 -> 80 and 192
+    -> 96.  The groups of warps split the offsets at the narrow pairs alone."""
+    wm, wn, wg, g = conv_bwd.dw_group_split(cin, cout)
+    if wm * wn > 4:
+        assert (wg, (wm, wn, g)) == (1, conv_bwd.warp_split(cin, cout, conv_bwd.DW_GROUP))
+        assert g == (1 if (cin, cout) in ((160, 80), (192, 96)) else 2)
+    assert (wg > 1) == ((cin, cout) in NARROW_K2)
+    if min(cin, cout) >= 64:
+        assert wg == 1
+
+
+@pytest.mark.parametrize("cin, cout", G.K2_PAIRS)
+def test_dw_group_shared_memory_fits(cin, cout):
+    """A ring of 3 stages or more within a block's shared memory, and the
+    blocks an SM the launch bounds take (``dw_group_blocks``) within the
+    SM's."""
+    smem = conv_bwd.dw_group_smem_bytes(cin, cout)
+    assert conv_bwd.dw_group_stages(cin, cout, conv_bwd.dw_group(cin, cout)) >= 3
+    assert smem <= G.SMEM_LIMIT
+    blocks = conv_bwd.dw_group_blocks(cin, cout)
+    assert 1 <= blocks <= conv_bwd.DWG_BLOCKS and blocks * (smem + 1024) <= conv_bwd.SM_SMEM
+
+
+@pytest.mark.parametrize("cin, cout", NARROW_K2)
+def test_dw_group_sweep_builds_only_blocks_that_fit(cin, cout):
+    """``step_ab.DW_GROUPS``, the offsets a block the sweep's library is
+    built for: each within the accumulators and the shared memory of a
+    block with a ring of 3 stages or more, the rule's G among them."""
+    from instancerefer_tpu_torch.scripts import step_ab
+
+    wm, wn, wg, rule = conv_bwd.dw_group_split(cin, cout)
+    _, groups = step_ab.DW_GROUPS[(cin, cout)]
+    assert rule in groups and set(step_ab.DW_GROUPS) == set(NARROW_K2)
+    for g in groups:
+        assert -(-g // wg) * (cin // 16 // wm) * (cout // 8 // wn) * 4 <= 128
+        assert conv_bwd.dw_group_stages(cin, cout, g) >= 3
+        assert conv_bwd.dw_group_smem_bytes(cin, cout, g) <= G.SMEM_LIMIT
+
+
+def test_conv_bytes_counts_a_block_of_many_offsets():
+    """``scripts/conv_bytes.dw_bytes`` as G grows: the g rows staged do not
+    change, x is staged once a tile for all 27 offsets at G = 27 (the tiles
+    with a valid entry), a row's map entries are read once (the sectors
+    they span), and the partials are written and read once a split."""
+    from instancerefer_tpu_torch.scripts import conv_bytes
+
+    gen = torch.Generator().manual_seed(21)
+    nbr = _nbr3(gen, 700).numpy()
+    g2 = conv_bytes.dw_bytes(nbr, 16, 16, 2, 3)
+    g27 = conv_bytes.dw_bytes(nbr, 16, 16, 27, 5)
+    assert g27[1] == g2[1]
+    tiles = int(conv_bytes.active_pairs(nbr, 64).any(1).sum())
+    assert g27[0] == tiles * 64 * 16 * 2 < g2[0]
+    rows = np.arange(700)
+    assert g27[2] == int(((rows * 27 + 26) * 4 // 32 - rows * 27 * 4 // 32 + 1).sum()) * 32 < g2[2]
+    assert g27[3] == 2 * 5 * 27 * 16 * 16 * 4
 
 
 def _down(gen, v_out, v_in, fill=0.7):
@@ -171,6 +261,79 @@ def test_k2_at_pointgroup_pairs_on_card(cin, cout):
         for name, a, b, c in zip(("dX", "dW"), got, again, want):
             assert torch.equal(a, b), f"K2 {name} {cin}->{cout}: a second launch differs"
             _close(a, c, TOL[torch.float32], f"K2 {name} {cin}->{cout}")
+
+
+def _nbr_sym(gen, v, k, fill=0.4):
+    """A random k-offset map (k odd) over v rows, symmetric as the host
+    maps are (offset k - 1 - j mirrors j), the centre the row itself, the
+    first 100 rows empty (padding); in rows 640-703 (one tile) offsets 1, 3
+    and 4 all -1, mirrors included."""
+    c = k // 2
+    nbr = torch.full((v, k), -1, dtype=torch.int32)
+    nbr[:, c] = torch.arange(v, dtype=torch.int32)
+    for j in range(c):
+        pick = torch.rand(v, generator=gen) < fill
+        other = torch.randint(0, v, (v,), generator=gen, dtype=torch.int32)
+        src = torch.nonzero(pick)[:, 0]
+        nbr[src, j] = other[src]
+        nbr[other[src].long(), k - 1 - j] = src.int()
+    nbr[:100] = -1
+    nbr[torch.isin(nbr, torch.arange(100, dtype=torch.int32))] = -1
+    for u in range(640, min(v, 704)):
+        for j in (1, 3, 4):
+            if nbr[u, j] >= 0:
+                nbr[nbr[u, j].long(), k - 1 - j] = -1
+            nbr[u, j] = -1
+    return nbr
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("k", [27, 7])
+@pytest.mark.parametrize("cin, cout", NARROW_K2)
+def test_k2_dw_at_narrow_pairs_on_card(monkeypatch, cin, cout, k):
+    """K2 where the warps split a block's offsets: K = 27 and 7 (at each
+    pair one of them no multiple of G, so a block takes fewer offsets than
+    G), 12000 and 150 rows (no multiple of 64), a padding tile and a tile
+    with three offsets' columns all -1, under the plan's splits and under
+    more splits than row tiles (empty ranges): dX and dW against the twin,
+    a second launch equal to the bit."""
+    dev = _card()
+    gen = torch.Generator().manual_seed(cin * 1000 + cout + k)
+    group = conv_bwd.dw_group(cin, cout)
+    assert 27 % group or 7 % group
+    for v in (12000, 150):
+        nbr = _nbr_sym(gen, v, k)
+        x, g, w = _bf(gen, v, cin), _bf(gen, v, cout), _bf(gen, k, cin, cout)
+        want = sparse.subm_conv_bwd(x, nbr, g, w)
+        for splits in (None, -(-v // 64) + 3):
+            if splits is not None:
+                monkeypatch.setattr(conv_bwd, "dw_plan",
+                                    lambda *a, s=splits: conv_bwd.DwPlan(group, s))
+            args = (x.to(dev), nbr.to(dev), g.to(dev), w.to(dev))
+            got, again = conv_bwd.subm_conv_bwd(*args), conv_bwd.subm_conv_bwd(*args)
+            for name, a, b, c in zip(("dX", "dW"), got, again, want):
+                what = f"K2 {name} {cin}->{cout} K={k} V={v} splits={splits}"
+                assert torch.equal(a, b), f"{what}: a second launch differs"
+                _close(a, c, TOL[torch.float32], what)
+            monkeypatch.undo()
+
+
+@pytest.mark.gpu
+def test_dw_group_block_matches_the_card_on_card():
+    """At every K2 pair the library's block (``ir_dw_group_split``) is the
+    host's ``dw_group_split``, and the card runs as many blocks an SM as
+    ``dw_group_blocks`` says, the count ``dw_plan`` fills the card by and
+    the kernel's launch bounds."""
+    _card()
+    lib = G.library("subm_conv_bwd")
+    lib.ir_dw_group_occupancy.restype = ctypes.c_int
+    out, regs, bound = (ctypes.c_int * 4)(), ctypes.c_int(), ctypes.c_int()
+    for cin, cout in G.K2_PAIRS:
+        lib.ir_dw_group_split(cin, cout, out)
+        assert tuple(out) == conv_bwd.dw_group_split(cin, cout)
+        blocks = lib.ir_dw_group_occupancy(cin, cout, ctypes.byref(regs), ctypes.byref(bound))
+        assert blocks == bound.value == conv_bwd.dw_group_blocks(cin, cout), \
+            (cin, cout, blocks, bound.value, regs.value)
 
 
 @pytest.mark.gpu
