@@ -18,9 +18,10 @@
 // or 135; 6 -> 16 in PointGroup).  Three routes, chosen by the
 // wrapper (ops/conv_bwd.py) from the input type and Cin alone, as K1's:
 //
-//   ir_conv_dw_tc    bf16 at the downs' pairs (dispatch_dw_tc): the list
-//     pass below, then irsc::tc::dw_list_tc_kernel (sparse_conv_tc.cuh).
-//     The list pass compacts each column k of the map into the rows v with
+//   ir_conv_dw_tc_lists  bf16 at the downs' pairs (dispatch_dw_tc):
+//     irsc::tc::dw_list_tc_kernel (sparse_conv_tc.cuh) over the lists that
+//     the list pass below (ir_dw_lists, its own launch) wrote.  The list
+//     pass compacts each column k of the map into the rows v with
 //     nbr[v, k] >= 0, ascending, and their count; block (k, split) of the
 //     dW kernel takes a contiguous range of list k, gathers x[nbr[v, k]]
 //     and g[v] with 16-byte cp.async in a ring, and accumulates x^T g with
@@ -287,27 +288,11 @@ extern "C" int ir_conv_dw(const void* feats, const void* nbr, const void* g, voi
 }
 
 // The tensor-core route (the downs): bfloat16 feats and g and the int32
-// map nbr of 8 offsets (all 16-byte aligned), (cin, cout) one of the
-// pairs of dispatch_dw_tc; work is int32 scratch of ir_dw_list_work_ints(v_out); the other
-// arguments as above.  The list pass, the dW kernel and the sum of the
-// splits, in that order.
-extern "C" int ir_conv_dw_tc(const void* feats, const void* nbr, const void* g, void* work,
-                             void* partial, void* dw, long long v_out, int k_offsets, int cin,
-                             int cout, int splits, void* stream) {
-  if (bad_shape(v_out, k_offsets, cin, splits) || bad_lists(nbr, v_out, k_offsets) ||
-      !tc_width(cin) || !tc_width(cout))
-    return cudaErrorInvalidValue;
-  const auto s = static_cast<cudaStream_t>(stream);
-  const cudaError_t err =
-      irsc::lists::launch_lists(static_cast<const int*>(nbr), static_cast<int*>(work), v_out, s);
-  if (err != cudaSuccess) return err;
-  return dispatch_dw_tc(feats, g, nbr, static_cast<int*>(work), partial, dw, v_out, k_offsets, cin,
-                        cout, splits, s);
-}
-
-// The tensor-core route over lists the caller's list pass already wrote
-// into work (ops/conv_bwd.down_lists: the down convs' backward runs one
-// pass for its dX and its dW): the dW kernel and the sum of the splits.
+// map nbr of 8 offsets (all 16-byte aligned), (cin, cout) one of the pairs
+// of dispatch_dw_tc; work holds the lists the caller's list pass wrote
+// (ops/conv_bwd.down_lists: the down convs' backward runs one pass for its
+// dX and its dW); the other arguments as above.  The dW kernel and the sum
+// of the splits.
 extern "C" int ir_conv_dw_tc_lists(const void* feats, const void* nbr, const void* g, void* work,
                                    void* partial, void* dw, long long v_out, int k_offsets,
                                    int cin, int cout, int splits, void* stream) {
@@ -318,8 +303,9 @@ extern "C" int ir_conv_dw_tc_lists(const void* feats, const void* nbr, const voi
                         cout, splits, static_cast<cudaStream_t>(stream));
 }
 
-// The list pass alone (ops/conv_bwd.dw_lists, held against its plain
-// version): nbr int32 [v_out, 8], 16-byte aligned, into work as above.
+// The list pass (ops/conv_bwd.down_lists, held against its plain version):
+// nbr int32 [v_out, 8], 16-byte aligned, into work, int32 scratch of
+// ir_dw_list_work_ints(v_out).
 extern "C" int ir_dw_lists(const void* nbr, void* work, long long v_out, int k_offsets,
                            void* stream) {
   if (bad_lists(nbr, v_out, k_offsets)) return cudaErrorInvalidValue;

@@ -12,13 +12,13 @@
 //
 // Call sites: every sparse conv's forward (3^3 subm over nbr3, 2^3 stride-2
 // over down), and in f32 training on the FMA route the down conv's dX,
-// which is this kernel over the inverse map up8 with W^T and an f32
-// output.  In bf16 the down conv's dX is ir_down_dx_tc below:
-// irsc::tc::dx_list_tc_kernel (sparse_conv_tc.cuh) over the per-offset
-// lists of the down map that K3 reads too, each dX row stored once.
+// which is this kernel over the inverse map up8 with W^T.  In bf16 the
+// down conv's dX is ir_down_dx_tc below: irsc::tc::dx_list_tc_kernel
+// (sparse_conv_tc.cuh) over the per-offset lists of the down map that K3
+// reads too, each dX row stored once, in f32.
 //
 // Three routes, chosen by the wrapper (ops/gather_conv.py) from the input
-// type and Cin alone:
+// type and Cin alone; each stores its input's type:
 //
 //   ir_gather_conv_tc  bf16 at the pairs of sparse_conv_tc.cuh (every down
 //     and residual of InstanceRefer, Cin and Cout in {32, 64, 128}; every
@@ -100,40 +100,33 @@ bool bad_rows(long long v_out, int k_offsets, int cin, int bm) {
 
 }  // namespace
 
-// The FMA route: float32 feats, w and out (dtype and out_dtype codes 0 =
-// float32; bf16 always takes one of the tensor-core routes below).  scale
-// and bias are float32 [cout], both null for no affine epilogue.
+// The FMA route: float32 feats, w and out (bf16 always takes one of the
+// tensor-core routes below).  scale and bias are float32 [cout], both null
+// for no affine epilogue.
 extern "C" int ir_gather_conv(const void* feats, const void* nbr, const void* w,
                               const void* scale, const void* bias, void* out,
                               long long v_out, int k_offsets, int cin, int cout, int relu,
-                              int dtype, int out_dtype, void* stream) {
-  if (bad_rows(v_out, k_offsets, cin, irsc::GEMM_BM) || dtype != 0 || out_dtype != 0)
-    return cudaErrorInvalidValue;
+                              void* stream) {
+  if (bad_rows(v_out, k_offsets, cin, irsc::GEMM_BM)) return cudaErrorInvalidValue;
   return dispatch(feats, nbr, w, scale, bias, out, v_out, k_offsets, cin, cout, relu,
                   static_cast<cudaStream_t>(stream));
 }
 
-// The tensor-core route: bfloat16 feats and w [K, cin, cout] (16-byte
-// aligned), (cin, cout) one of the pairs of sparse_conv_tc.cuh (bfloat16
-// out: IRSC_IR_PAIRS, IRSC_PG_SUBM_PAIRS and IRSC_PG_DOWN_PAIRS; float32
-// out: IRSC_IR_PAIRS); (bm, cs) the plan of
-// ops/gather_conv.tc_plan (tile height, cluster size), refused unless the
-// template is built for it; out_dtype 0 = float32, 1 = bfloat16.
+// The tensor-core route: bfloat16 feats, w [K, cin, cout] (16-byte
+// aligned) and out, (cin, cout) one of the pairs of sparse_conv_tc.cuh
+// (IRSC_IR_PAIRS, IRSC_PG_SUBM_PAIRS and IRSC_PG_DOWN_PAIRS); (bm, cs) the
+// plan of ops/gather_conv.tc_plan (tile height, cluster size), refused
+// unless the template is built for it.
 extern "C" int ir_gather_conv_tc(const void* feats, const void* nbr, const void* w,
                                  const void* scale, const void* bias, void* out,
                                  long long v_out, int k_offsets, int cin, int cout, int relu,
-                                 int bm, int cs, int out_dtype, void* stream) {
+                                 int bm, int cs, void* stream) {
   if (!irsc::tc::tile_plan_ok(bm, cs) || bad_rows(v_out, k_offsets, cin, bm) ||
       (v_out + bm - 1) / bm * cs > 0x7fffffffLL)
     return cudaErrorInvalidValue;
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (out_dtype == 1)
-    return irsc::tc::dispatch_gather_gemm_tc<__nv_bfloat16, false>(
-        feats, nbr, w, scale, bias, out, v_out, k_offsets, cin, cout, relu, bm, cs, s);
-  if (out_dtype == 0)
-    return irsc::tc::dispatch_gather_gemm_tc<float, false>(
-        feats, nbr, w, scale, bias, out, v_out, k_offsets, cin, cout, relu, bm, cs, s);
-  return cudaErrorInvalidValue;
+  return irsc::tc::dispatch_gather_gemm_tc<__nv_bfloat16, false>(
+      feats, nbr, w, scale, bias, out, v_out, k_offsets, cin, cout, relu, bm, cs,
+      static_cast<cudaStream_t>(stream));
 }
 
 // Shared memory a block of the tensor-core gather-GEMM takes (widths red ->
@@ -146,22 +139,17 @@ extern "C" long long ir_tc_smem_bytes(int red, int nout, int mirror, int k_offse
 // The stem route: bfloat16 feats [V_in, channels(cin)] (cin up to
 // MAX_CIN, rows zero-padded to a multiple of 8 channels), nbr [v_out, 27],
 // w [27, cin, cout] as stored, both 16-byte aligned, cout a multiple of
-// 16; out_dtype 0 = float32, 1 = bfloat16.
+// 16; bfloat16 out.
 extern "C" int ir_gather_conv_stem_wide(const void* feats, const void* nbr, const void* w,
                                         const void* scale, const void* bias, void* out,
                                         long long v_out, int k_offsets, int cin, int cout,
-                                        int relu, int out_dtype, void* stream) {
+                                        int relu, void* stream) {
   namespace stem = irsc::stem;
   if (bad_rows(v_out, k_offsets, cin, stem::BM) || k_offsets != stem::K ||
       cin > stem::MAX_CIN)
     return cudaErrorInvalidValue;
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (out_dtype == 1)
-    return stem::launch_conv<__nv_bfloat16>(feats, nbr, w, scale, bias, out, v_out, cin, cout,
-                                             relu, s);
-  if (out_dtype == 0)
-    return stem::launch_conv<float>(feats, nbr, w, scale, bias, out, v_out, cin, cout, relu, s);
-  return cudaErrorInvalidValue;
+  return stem::launch_conv<__nv_bfloat16>(feats, nbr, w, scale, bias, out, v_out, cin, cout,
+                                          relu, static_cast<cudaStream_t>(stream));
 }
 
 // The down convs' dX over the per-offset lists of their map (ops/conv_bwd.

@@ -507,9 +507,8 @@ cudaError_t launch_up_dx_tc(const void* g, const void* nbr, const void* w, void*
   X(16, 16) X(48, 48) X(80, 80) X(96, 96) X(112, 112) X(32, 16) X(96, 48) X(160, 80) X(192, 96)
 #define IRSC_PG_DOWN_PAIRS(X) X(16, 32) X(32, 48) X(48, 64) X(64, 80) X(80, 96) X(96, 112)
 
-// (red, nout): K1's (Cin, Cout) of the pairs above, f32 outputs at
-// InstanceRefer's alone; K2's dX (MIRROR_T) (Cout, Cin) of its
-// submanifold pairs.  (bm, cs) a plan of tile_plan_ok.
+// (red, nout): K1's (Cin, Cout) of the pairs above; K2's dX (MIRROR_T)
+// (Cout, Cin) of its submanifold pairs.  (bm, cs) a plan of tile_plan_ok.
 template <typename O, bool MIRROR_T>
 cudaError_t dispatch_gather_gemm_tc(const void* feats, const void* nbr, const void* w,
                                     const void* scale, const void* bias, void* out,
@@ -526,10 +525,8 @@ cudaError_t dispatch_gather_gemm_tc(const void* feats, const void* nbr, const vo
     IRSC_PG_SUBM_PAIRS(IRSC_TC_MIRROR)
   } else {
     IRSC_IR_PAIRS(IRSC_TC)
-    if constexpr (std::is_same<O, bf16>::value) {
-      IRSC_PG_SUBM_PAIRS(IRSC_TC)
-      IRSC_PG_DOWN_PAIRS(IRSC_TC)
-    }
+    IRSC_PG_SUBM_PAIRS(IRSC_TC)
+    IRSC_PG_DOWN_PAIRS(IRSC_TC)
   }
   return cudaErrorInvalidValue;
 #undef IRSC_TC_MIRROR

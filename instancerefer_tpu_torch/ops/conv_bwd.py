@@ -21,21 +21,21 @@ with its dX under ``gather_conv.tc_plan``; K3 on tensor cores
 repeated launches give bit-identical dW.
 
 K3's tensor-core route (the down convs) runs over per-offset lists of the
-map's valid entries: the list pass compacts each column k of the map into
-the rows v with nbr[v, k] >= 0, ascending, into an int32 workspace, then
-block (k, split) of the dW kernel takes a contiguous range of list k
-(``dw_list_ranges``).  The down convs' backward runs the list pass once
-(``down_lists``) and hands the workspace to both gradients: to
+map's valid entries: the list pass (``down_lists``) compacts each column k
+of the map into the rows v with nbr[v, k] >= 0, ascending, into an int32
+workspace, then block (k, split) of the dW kernel takes a contiguous range
+of list k (``dw_list_ranges``).  The down convs' backward runs the list
+pass once and hands the workspace to both gradients: to
 ``conv_dw(..., lists=)`` and to ``down_dx``, the dX over the same lists
 (``csrc/sparse_conv_tc.cuh``'s ``dx_list_tc_kernel``, entry in
 ``csrc/gather_conv.cu``), whose launches count as K1's
 (``gather_conv.launches``; ``down_dx.launches`` counts them alone): its
 TPU counterpart is ``_conv_kernel`` over the inverse map ``up8``.
-``conv_dw`` given no lists runs the pass in its own launch.
-``dw_lists`` runs the list pass alone, and ``dw_lists_plain`` is its plain
-version (the tests and ``chip_smoke.py`` hold the two equal); its
-launches, shared, inside K3's or alone, count in ``dw_lists.launches``.
-``down_dx_plain`` is ``down_dx``'s plain version, in the kernel's order.
+``conv_dw`` given no lists runs ``down_lists`` first.  ``dw_lists`` gives
+the lists and counts of ``down_lists``, and ``dw_lists_plain`` is its
+plain version (the tests and ``chip_smoke.py`` hold the two equal); the
+list passes count in ``dw_lists.launches``.  ``down_dx_plain`` is
+``down_dx``'s plain version, in the kernel's order.
 """
 
 from __future__ import annotations
@@ -48,7 +48,7 @@ import torch
 
 from instancerefer_tpu_torch.ops import sparse
 from instancerefer_tpu_torch.ops.gather_conv import (
-    COUTS, DTYPES, ENTRY, K2_PAIRS, K3_PAIRS, PAD, SMEM_LIMIT, check_launch, check_map,
+    COUTS, DTYPES, K2_PAIRS, K3_PAIRS, PAD, SMEM_LIMIT, TC_CINS, check_launch, check_map,
     check_plan, check_stem, check_tc, check_tensors, cuda_stream, gather_conv, library, route,
     sm_count, stem_block_n, stem_depth_blocks, stem_rows, tc_plan,
 )
@@ -282,33 +282,11 @@ def dw_lists_plain(nbr: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
 
 
 def dw_lists_into(nbr: torch.Tensor, work: torch.Tensor) -> None:
-    """The list pass alone on the card, into ``work`` (``dw_list_workspace``
+    """The list pass on the card, into ``work`` (``dw_list_workspace``
     int32 elements)."""
     check_launch("dw_lists", _entry("conv_dw", "ir_dw_lists", 2, 1)(
         nbr.data_ptr(), work.data_ptr(), *nbr.shape, cuda_stream(nbr)))
     dw_lists.launches += 1
-
-
-def dw_lists(nbr: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(lists, counts) of ``nbr`` [V_out, 8] int32 as ``dw_lists_plain``
-    gives them: on the CPU that function, on a card the list pass of K3's
-    tensor-core route (-1 written past each count here, not by the pass)."""
-    check_map("dw_lists", nbr)
-    check_tensors("dw_lists", nbr)
-    v_out, k = nbr.shape
-    if nbr.device.type == "cpu":
-        return dw_lists_plain(nbr)
-    if v_out == 0 or k != LIST_K or nbr.data_ptr() % 16:
-        raise ValueError(f"dw_lists: the list pass takes a 16-byte aligned map of "
-                         f"{LIST_K} offsets and at least one row, got {tuple(nbr.shape)}")
-    work = torch.empty(dw_list_workspace(v_out), dtype=torch.int32, device=nbr.device)
-    dw_lists_into(nbr, work)
-    lists, counts = work[:k * v_out].view(k, v_out), work[k * v_out:k * v_out + k]
-    pos = torch.arange(v_out, device=nbr.device)
-    return torch.where(pos < counts[:, None], lists, -1), counts
-
-
-dw_lists.launches = 0
 
 
 def list_view(work: torch.Tensor, v_out: int) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -321,14 +299,14 @@ def list_view(work: torch.Tensor, v_out: int) -> Tuple[torch.Tensor, torch.Tenso
 def down_lists(nbr: torch.Tensor) -> torch.Tensor:
     """The list pass of a down map ``nbr`` [V_out, 8] int32, run once per
     down backward: the workspace (``dw_list_workspace(V_out)`` int32) that
-    ``down_dx`` and ``conv_dw(..., lists=)`` read.  On the CPU
-    ``dw_lists_plain`` written in the workspace's layout; on a card the
-    list pass (counted in ``dw_lists.launches``), none for a map of no
-    rows."""
+    ``down_dx`` and ``conv_dw(..., lists=)`` read.  On the twin route (the
+    CPU) ``dw_lists_plain`` written in the workspace's layout; on a card the
+    list pass (``dw_lists_into``), none for a map of no rows."""
     check_map("down_lists", nbr, LIST_K)
     check_tensors("down_lists", nbr)
     v_out = nbr.shape[0]
-    if nbr.device.type == "cpu" or v_out == 0:
+    # the list pass is the tensor-core route's, its plain version the twin's
+    if v_out == 0 or route(torch.bfloat16, TC_CINS[0], nbr.device) == "twin":
         work = torch.zeros(dw_list_workspace(v_out), dtype=torch.int32, device=nbr.device)
         lists, counts = list_view(work, v_out)
         lists[:], counts[:] = dw_lists_plain(nbr)
@@ -338,6 +316,17 @@ def down_lists(nbr: torch.Tensor) -> torch.Tensor:
     work = torch.empty(dw_list_workspace(v_out), dtype=torch.int32, device=nbr.device)
     dw_lists_into(nbr, work)
     return work
+
+
+def dw_lists(nbr: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(lists, counts) of ``nbr`` [V_out, 8] int32 as ``dw_lists_plain``
+    gives them: those of ``down_lists``, -1 past each count."""
+    lists, counts = list_view(down_lists(nbr), nbr.shape[0])
+    pos = torch.arange(nbr.shape[0], device=nbr.device)
+    return torch.where(pos < counts[:, None], lists, -1), counts
+
+
+dw_lists.launches = 0
 
 
 # The down convs' dX over the lists (csrc/sparse_conv_tc.cuh,
@@ -490,17 +479,18 @@ def conv_dw(feats: torch.Tensor, nbr: torch.Tensor, g: torch.Tensor,
 
     Args:
       feats: [V_in, Cin] f32 or bf16, any Cin; on a card, bf16 with Cin
-        outside ``gather_conv.TC_CINS`` (a stem) needs K = 27, and with Cin
-        in it (a down) K = 8 and a 16-byte aligned ``nbr``.  Or [V_in,
-        stem_channels(Cin)] from ``gather_conv.pad_channels`` (a stem's
-        input), with ``cin`` given.
+        outside ``gather_conv.TC_CINS`` (a stem) needs K = 27 and the [V_in,
+        stem_channels(Cin)] rows of ``gather_conv.pad_channels`` (a stem's
+        input, which the twin takes too) with ``cin`` given, and with Cin
+        in it (a down) K = 8 and a 16-byte aligned ``nbr``.
       nbr:   [V_out, K] int32 rows of ``feats`` (all < V_in), -1 = empty.
       g:     [V_out, Cout] in ``feats.dtype``; (Cin, Cout) in
         ``gather_conv.K3_PAIRS`` on the tensor-core route, Cout in {32, 64,
         128} on the FMA route, a multiple of 16 at a stem.
       cin:   the conv's Cin (default ``feats.shape[1]``).
-      lists: ``down_lists(nbr)``, on the tensor-core route: the list pass
-        already run (none here); the other routes read no lists.
+      lists: ``down_lists(nbr)``, on the tensor-core route, where the
+        caller has run it (else it runs here); the other routes read no
+        lists.
     Returns [K, Cin, Cout] f32.
     """
     _check_pair("conv_dw", feats, g)
@@ -540,21 +530,17 @@ def conv_dw(feats: torch.Tensor, nbr: torch.Tensor, g: torch.Tensor,
         splits = dw_splits(v_out, k, path, 4 * k * cin * cout)
     partial = torch.empty(splits, k, cin, cout, dtype=torch.float32, device=feats.device)
     ptrs = [feats.data_ptr(), nbr.data_ptr(), g.data_ptr(), partial.data_ptr(), dw.data_ptr()]
-    own_lists = path == "tensor_core" and lists is None  # the list pass runs in this launch
-    if path == "tensor_core":  # the list workspace before the partials
-        if own_lists:
-            lists = torch.empty(dw_list_workspace(v_out), dtype=torch.int32, device=feats.device)
-        ptrs.insert(3, lists.data_ptr())
-    args = [*ptrs, v_out, k, cin, cout, splits]
     if path == "fma":
         fn, codes = _entry("conv_dw", "ir_conv_dw", 5), [DTYPES[feats.dtype]]
-    else:
-        suffix = "_lists" if path == "tensor_core" and not own_lists else ""
-        fn, codes = _entry("conv_dw", f"ir_conv_dw_{ENTRY[path]}{suffix}", len(ptrs), 4), []
-    check_launch("conv_dw", fn(*args, *codes, cuda_stream(feats)))
+    elif path == "stem_wide":
+        fn, codes = _entry("conv_dw", "ir_conv_dw_stem_wide", 5, 4), []
+    else:  # the list workspace before the partials
+        lists = down_lists(nbr) if lists is None else lists
+        ptrs.insert(3, lists.data_ptr())
+        fn, codes = _entry("conv_dw", "ir_conv_dw_tc_lists", 6, 4), []
+    check_launch("conv_dw", fn(*ptrs, v_out, k, cin, cout, splits, *codes, cuda_stream(feats)))
     conv_dw.launches += 1
     conv_dw.stem_launches += path == "stem_wide"
-    dw_lists.launches += own_lists
     return dw
 
 

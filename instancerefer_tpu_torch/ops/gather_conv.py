@@ -12,8 +12,9 @@ the tile plan ``tc_plan`` picks from the shape and the card's SM count:
 64-row tiles, a tile's offsets split over a cluster of 2 or 4 blocks at the
 small stages; ``check_plan`` raises on a plan the C entry is not built
 for) and the stem kernel for any other Cin (the stems, K = 27: 7 by default, 10 with
-``use_normal``, 135 with ``use_multiview``, 6 in PointGroup); the FMA kernel for f32.  A
-CUDA tensor launches a kernel or raises; there is no fallback.
+``use_normal``, 135 with ``use_multiview``, 6 in PointGroup); the FMA kernel for f32.  The
+output takes the input's type.  A CUDA tensor launches a kernel or raises; there is no
+fallback.
 
 The tensor-core kernels are instantiated for the (Cin, Cout) pairs of the
 configurations' convs (``csrc/sparse_conv_tc.cuh`` keeps the same lists):
@@ -28,8 +29,8 @@ of the stem kernel among them.
 The stem kernels (K1 here, K3 in ``ops/conv_bwd.py``) take their depth from
 the im2col of a row: 27 neighbours of ``stem_channels(Cin)`` channels each
 (Cin rounded up to 8, a 16-byte row), padded to a multiple of 16.  They
-read x zero-padded to those channels: ``pad_channels`` makes that copy in
-one pass, and the stems' input takes it in place of the cast to bf16
+read only x zero-padded to those channels: ``pad_channels`` makes that copy
+in one pass, and the stems' input takes it in place of the cast to bf16
 (``ops/sparse_conv.stem_input``).  ``stem_im2col`` and ``stem_weight``
 write the kernels' layout in PyTorch, and ``stem_dw`` reads dW out of it
 (the tests hold them against the plain twins).
@@ -73,17 +74,18 @@ IR_PAIRS = tuple((a, b) for a in COUTS for b in COUTS)
 PG_SUBM_PAIRS = ((16, 16), (48, 48), (80, 80), (96, 96), (112, 112), (32, 16), (96, 48),
                  (160, 80), (192, 96))
 PG_DOWN_PAIRS = ((16, 32), (32, 48), (48, 64), (64, 80), (80, 96), (96, 112))
-# (Cin, Cout) of each tensor-core kernel: K1 by output type (f32 outputs at
-# InstanceRefer's pairs alone), K2 (submanifold backward), K3 (the downs'
-# dW over lists, and the downs' dX over the same lists)
-K1_PAIRS = {torch.bfloat16: IR_PAIRS + PG_SUBM_PAIRS + PG_DOWN_PAIRS, torch.float32: IR_PAIRS}
+# (Cin, Cout) of each tensor-core kernel: K1, K2 (submanifold backward), K3
+# (the downs' dW over lists, and the downs' dX over the same lists)
+K1_PAIRS = IR_PAIRS + PG_SUBM_PAIRS + PG_DOWN_PAIRS
 K2_PAIRS = IR_PAIRS + PG_SUBM_PAIRS
 K3_PAIRS = IR_PAIRS + PG_DOWN_PAIRS
 TC_WIDTHS = COUTS  # InstanceRefer's widths, whose every pair each kernel takes
 # Cin the tensor-core kernels take (any other Cin is a stem)
-TC_CINS = tuple(sorted({c for pair in K1_PAIRS[torch.bfloat16] for c in pair}))
+TC_CINS = tuple(sorted({c for pair in K1_PAIRS for c in pair}))
 STEM_K = 27  # the stem kernels' map: the 3^3 submanifold conv
-ENTRY = {"tensor_core": "tc", "stem_wide": "stem_wide"}  # C entries' suffixes
+# K1's C entry by route
+ENTRY = {"fma": "ir_gather_conv", "tensor_core": "ir_gather_conv_tc",
+         "stem_wide": "ir_gather_conv_stem_wide"}
 
 
 def route(dtype: torch.dtype, cin: int, device) -> str:
@@ -176,15 +178,14 @@ def check_stem(name: str, k: int, *tensors: torch.Tensor) -> None:
 
 
 def stem_rows(name: str, feats: torch.Tensor, cin: int, path: str) -> torch.Tensor:
-    """``feats`` as route ``path`` reads it, given the conv's ``cin``:
-    [V, Cin] as it is, or, already padded by ``pad_channels``, [V,
-    stem_channels(Cin)], which the stem kernels read as it is, the twin
-    through a view of its first Cin channels, and the other kernels not
-    at all.  The stem kernels pad [V, Cin] themselves (one more copy)."""
-    if feats.shape[1] == cin:
-        return pad_channels(feats) if path == "stem_wide" and stem_channels(cin) != cin else feats
-    if feats.shape[1] != stem_channels(cin) or path not in ("twin", "stem_wide"):
-        raise ValueError(f"{name}: feats of {feats.shape[1]} channels for a conv of Cin {cin} "
+    """``feats`` as route ``path`` reads it, given the conv's ``cin``: the
+    stem kernels read only the rows ``pad_channels`` makes, [V,
+    stem_channels(Cin)]; the twin reads [V, Cin], or those rows through a
+    view of their first Cin channels; the other kernels [V, Cin]."""
+    width = feats.shape[1]
+    takes = {"stem_wide": (stem_channels(cin),), "twin": (cin, stem_channels(cin))}
+    if width not in takes.get(path, (cin,)):
+        raise ValueError(f"{name}: feats of {width} channels for a conv of Cin {cin} "
                          f"on route {path!r}")
     return feats[:, :cin] if path == "twin" else feats
 
@@ -194,7 +195,7 @@ def cuda_stream(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
-def check_tc(name: str, widths, *tensors: torch.Tensor, pairs=K1_PAIRS[torch.bfloat16]) -> None:
+def check_tc(name: str, widths, *tensors: torch.Tensor, pairs=K1_PAIRS) -> None:
     """What the tensor-core kernels take: (Cin, Cout) ``widths``, one of
     ``pairs`` (the kernel's; K1's by default), and 16-byte aligned data
     (their 16-byte ``cp.async`` copies)."""
@@ -342,8 +343,8 @@ def library(stem: str) -> ctypes.CDLL:
 
 @functools.cache
 def _entry(name: str, n_codes: int):
-    """``ir_gather_conv`` (FMA, dtype and out_dtype codes), or
-    ``ir_gather_conv_{tc,stem_wide}`` (out_dtype code only)."""
+    """``ir_gather_conv{,_tc,_stem_wide}``: the pointers, the rows, 4 ints
+    and ``n_codes`` more (the tile plan's two on the tensor-core route)."""
     fn = getattr(library("gather_conv"), name)
     p = ctypes.c_void_p
     fn.restype = ctypes.c_int
@@ -376,13 +377,11 @@ def check_map(name: str, nbr: torch.Tensor, k: Optional[int] = None) -> None:
         raise ValueError(f"{name}: nbr {tuple(nbr.shape)} is not [V, {k or 'K'}]")
 
 
-def _check(feats, nbr, weight, scale, bias, out_dtype):
+def _check(feats, nbr, weight, scale, bias):
     if feats.dtype not in DTYPES:
         raise TypeError(f"gather_conv: feats dtype {feats.dtype} not f32/bf16")
     if weight.dtype != feats.dtype:
         raise TypeError(f"gather_conv: weight {weight.dtype} != feats {feats.dtype}")
-    if out_dtype not in (feats.dtype, torch.float32):
-        raise TypeError(f"gather_conv: output {out_dtype} is neither {feats.dtype} nor f32")
     if feats.dim() != 2 or weight.dim() != 3:
         raise ValueError("gather_conv: want feats [V_in, Cin], nbr [V_out, K], weight [K, Cin, Cout]")
     k, cin, cout = weight.shape
@@ -411,37 +410,35 @@ def gather_conv(
     scale: Optional[torch.Tensor] = None,
     bias: Optional[torch.Tensor] = None,
     relu: bool = False,
-    out_dtype: Optional[torch.dtype] = None,
 ) -> torch.Tensor:
     """out[v] = relu?(sum_k feats[nbr[v, k]] @ weight[k] * scale + bias).
 
     Args:
       feats:  [V_in, Cin] f32 or bf16, contiguous, any Cin; on a card, bf16
-        with Cin outside ``TC_CINS`` (a stem) needs K = 27.  Or [V_in,
-        stem_channels(Cin)] from ``pad_channels`` (a stem's input).
+        with Cin outside ``TC_CINS`` (a stem) needs K = 27 and the [V_in,
+        stem_channels(Cin)] rows of ``pad_channels`` (a stem's input), which
+        the twin takes too.
       nbr:    [V_out, K] int32 rows of ``feats`` (all < V_in), -1 = empty.
       weight: [K, Cin, Cout] in ``feats.dtype``; (Cin, Cout) one of
         ``K1_PAIRS`` on the tensor-core route, Cout in {32, 64, 128} on the
         FMA route, a multiple of 16 at a stem.
       scale/bias: optional [Cout] f32 epilogue (folded eval BatchNorm).
-      out_dtype: ``feats.dtype`` (the default) or f32.
-    Returns [V_out, Cout] in ``out_dtype``; accumulation is f32.
+    Returns [V_out, Cout] in ``feats.dtype``; accumulation is f32.
     """
-    out_dtype = feats.dtype if out_dtype is None else out_dtype
-    _check(feats, nbr, weight, scale, bias, out_dtype)
+    _check(feats, nbr, weight, scale, bias)
     k, cin, cout = weight.shape
     path = route(feats.dtype, cin, feats.device)
     feats = stem_rows("gather_conv", feats, cin, path)
     if path == "twin":
-        return sparse.gather_conv(feats, nbr, weight, scale, bias, relu, out_dtype)
+        return sparse.gather_conv(feats, nbr, weight, scale, bias, relu)
     if path == "tensor_core":
-        check_tc("gather_conv", (cin, cout), feats, weight, pairs=K1_PAIRS[out_dtype])
+        check_tc("gather_conv", (cin, cout), feats, weight)
     elif path == "stem_wide":
         check_stem("gather_conv", k, feats, weight)
     elif path == "fma" and cout not in COUTS:
         raise ValueError(f"gather_conv: the FMA kernel takes Cout in {COUTS}, got {cout}")
     v_out = nbr.shape[0]
-    out = torch.empty(v_out, cout, dtype=out_dtype, device=feats.device)
+    out = torch.empty(v_out, cout, dtype=feats.dtype, device=feats.device)
     if v_out == 0:
         return out
     args = [
@@ -450,14 +447,12 @@ def gather_conv(
         None if bias is None else bias.data_ptr(),
         out.data_ptr(), v_out, k, cin, cout, int(relu),
     ]
-    if path == "fma":
-        fn, codes = _entry("ir_gather_conv", 2), [DTYPES[feats.dtype], DTYPES[out_dtype]]
-    elif path == "tensor_core":
-        plan = tc_plan(v_out, k, cin, cout, out_dtype, sm_count(feats.device))
+    codes = []
+    if path == "tensor_core":
+        plan = tc_plan(v_out, k, cin, cout, feats.dtype, sm_count(feats.device))
         check_plan("gather_conv", plan)
-        fn, codes = _entry("ir_gather_conv_tc", 3), [plan.bm, plan.cluster, DTYPES[out_dtype]]
-    else:
-        fn, codes = _entry(f"ir_gather_conv_{ENTRY[path]}", 1), [DTYPES[out_dtype]]
+        codes = [plan.bm, plan.cluster]
+    fn = _entry(ENTRY[path], len(codes))
     check_launch("gather_conv", fn(*args, *codes, cuda_stream(feats)))
     gather_conv.launches += 1
     gather_conv.stem_launches += path == "stem_wide"

@@ -9,7 +9,7 @@ Counterparts of the JAX package's custom VJPs ``pallas_conv.banded_subm_conv``
   backward K2 (dX and dW), or with ``grad_input=False`` (the stems, whose
   input is a detached leaf) K3 and a zero dX.  A stem's input comes from
   ``stem_input``: on the card's stem route the same copy that casts it is
-  zero-padded to 16-byte rows, and K1 and K3 read that copy.
+  zero-padded to 16-byte rows, the only rows the stem kernels read.
 * ``down_conv``: forward K1 over ``down``; backward one list pass of
   ``down`` (``conv_bwd.down_lists``, or the caller's ``lists``) that both
   gradients read: dX (``conv_bwd.down_dx``, the counterpart of K1 over the
@@ -83,7 +83,7 @@ class DownConv(torch.autograd.Function):
         feats_dtype, weight_dtype = ctx.dtypes
         gc = _cotangent(g)
         if route(gc.dtype, wc.shape[1], gc.device) == "fma":
-            dx = gather_conv(gc, up8, wc.transpose(1, 2).contiguous(), out_dtype=torch.float32)
+            dx = gather_conv(gc, up8, wc.transpose(1, 2).contiguous())
             dw = conv_dw(xc, down, gc)
         else:
             lists = down_lists(down) if lists is None else lists

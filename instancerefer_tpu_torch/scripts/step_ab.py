@@ -36,24 +36,23 @@ falls on every root alike.  Each run prints one line ``STEP_AB {...}``:
   from one call under the profiler);
 - ``eval_wall_ms``: each eager eval step (``chip_smoke.run_slice``: the
   eval forward, ``get_loss``, ``get_eval``), timed as ``wall_ms``;
-- ``graph``: where ROOT has ``train/step_graph.py``, the same model's train
-  and eval steps as CUDA graph replays (``train_wall_ms``,
-  ``eval_wall_ms``), timed as ``wall_ms``; empty otherwise;
+- ``graph``: the same model's train and eval steps as CUDA graph replays
+  (``train_wall_ms``, ``eval_wall_ms``), timed as ``wall_ms``;
 - ``kernels_ms``: the device's ms a call of ROOT's wrappers on the same
   batch's maps, bf16 (``device_ms``: 20 calls captured into a CUDA graph,
   the median of 3 replays, so no host time between launches): K1 with its
   BN/ReLU epilogue at both stems, and K3 at both stems and every down conv
-  of both encoders (``SHAPES``); the stems at Cin 7, 10 and 135, each fed the rows its main
-  path gives it (a root with ``gather_conv.pad_channels`` pads the stems'
-  rows before the timing, as ``ops/sparse_conv.stem_input`` does); and K1
-  at every tensor-core shape of a train step (the downs and residuals with
-  the epilogue; the downs' dX: ``conv_bwd.down_dx`` over the lists of the
+  of both encoders (``SHAPES``; K3 at a down runs its list pass and then
+  the dW kernel); the stems at Cin 7, 10 and 135, each fed the rows its
+  main path gives it (padded by ``gather_conv.pad_channels`` before the
+  timing, as ``ops/sparse_conv.stem_input`` does); and K1 at every
+  tensor-core shape of a train step (the downs and residuals with the
+  epilogue; the downs' dX: ``conv_bwd.down_dx`` over the lists of the
   down map, built outside the timing as the down's backward shares them
-  with K3, or in a checkout from before it K1 over ``up8`` with an f32
-  output) and K2 at every residual; beside each, ``kernels_bound`` (its
+  with K3) and K2 at every residual; beside each, ``kernels_bound`` (its
   valid map entries and the least ms an H100 could take, ``shape_bounds``)
   and ``kernels_plan`` (ROOT's ``tc_plan`` / ``dw_plan`` /
-  ``dw_list_splits`` / ``dx_list_splits`` where it has them).
+  ``dw_list_splits`` / ``dx_list_splits``).
 
 ``--batch B`` sets the scenes of the step's and the kernels' batch (default
 ROOT's ``chip_smoke.BATCH``, 32; the bench runs 64).
@@ -267,7 +266,6 @@ def _time_kernels(batch, dev, timer, labels=None) -> dict:
     from instancerefer_tpu_torch.ops import gather_conv as G
 
     gen = torch.Generator(device=dev).manual_seed(7)
-    pad = getattr(G, "pad_channels", None)
 
     def rnd(*shape):
         return torch.randn(*shape, device=dev, generator=gen)
@@ -279,27 +277,24 @@ def _time_kernels(batch, dev, timer, labels=None) -> dict:
         nbr = torch.from_numpy(shape_map(batch, key)).to(dev)
         k = nbr.shape[1]
         x = rnd(batch[in_key].shape[0], cin).bfloat16()
-        if pad is not None and "stem" in label:
-            x = pad(x)  # the rows the stem's main path gives it
+        if "stem" in label:
+            x = G.pad_channels(x)  # the rows the stem's main path gives it
         w = (rnd(k, cin, cout) / (k * cin) ** 0.5).bfloat16()
         if wrapper == "gather_conv":
             sc, bi = 0.5 + torch.rand(cout, device=dev, generator=gen), 0.1 * rnd(cout)
             out[label] = timer(lambda: G.gather_conv(x, nbr, w, sc, bi, relu=True))
-        elif wrapper == "gather_conv_dx" and hasattr(conv_bwd, "down_dx"):
+        elif wrapper == "gather_conv_dx":
             # over the lists of the down map (built outside the timing: the
             # down's backward shares them with K3), W as stored
             down = torch.from_numpy(shape_map(batch, key.replace("_up8_", "_down_"))).to(dev)
             ws, work = w.transpose(1, 2).contiguous(), conv_bwd.down_lists(down)
             out[label] = timer(lambda: conv_bwd.down_dx(x, down, nbr, ws, work))
-        elif wrapper == "gather_conv_dx":  # a checkout from before the lists: K1 over up8
-            out[label] = timer(lambda: G.gather_conv(x, nbr, w, out_dtype=torch.float32))
         elif wrapper == "subm_conv_bwd":
             g = rnd(nbr.shape[0], cout).bfloat16()
             out[label] = timer(lambda: conv_bwd.subm_conv_bwd(x, nbr, g, w))
         else:
             g = rnd(nbr.shape[0], cout).bfloat16()
-            kw = {"cin": cin} if pad is not None else {}
-            out[label] = timer(lambda: conv_bwd.conv_dw(x, nbr, g, **kw))
+            out[label] = timer(lambda: conv_bwd.conv_dw(x, nbr, g, cin=cin))
     return out
 
 
@@ -331,26 +326,22 @@ def shape_bounds(batch, peak_flops: float = 989e12, peak_bytes_s: float = 3.35e1
 def shape_plans(batch, sms: int) -> dict:
     """Per K1 tensor-core, K2 and K3-down label of ``SHAPES``: the plans
     ROOT's package picks for it (``tc_plan``; for K2 also ``dw_plan``; for
-    K3 ``dw_list_splits``), or none where ROOT has none (a checkout from
-    before them)."""
+    K3 ``dw_list_splits``; for the downs' dX ``dx_list_splits``)."""
     import torch
 
     from instancerefer_tpu_torch.ops import conv_bwd
     from instancerefer_tpu_torch.ops import gather_conv as G
 
-    if not hasattr(G, "tc_plan"):
-        return {}
     out = {}
     for label, wrapper, key, in_key, cin, cout in SHAPES:
         v, k = shape_map(batch, key).shape
-        if wrapper == "conv_dw" and cin in G.TC_WIDTHS and hasattr(conv_bwd, "dw_list_splits"):
+        if wrapper == "conv_dw" and cin in G.TC_WIDTHS:
             out[label] = [conv_bwd.dw_list_splits(v, k, cin, cout, sms)]
-        elif wrapper == "gather_conv_dx" and hasattr(conv_bwd, "dx_list_splits"):
+        elif wrapper == "gather_conv_dx":
             v_down = batch[in_key].shape[0]  # the down map's rows
             out[label] = ["lists", conv_bwd.dx_list_splits(v_down, k, cout, cin, sms)]
-        elif wrapper in ("gather_conv", "gather_conv_dx") and cin in G.TC_WIDTHS:
-            dt = torch.float32 if wrapper == "gather_conv_dx" else torch.bfloat16
-            out[label] = list(G.tc_plan(v, k, cin, cout, dt, sms))
+        elif wrapper == "gather_conv" and cin in G.TC_WIDTHS:
+            out[label] = list(G.tc_plan(v, k, cin, cout, torch.bfloat16, sms))
         elif wrapper == "subm_conv_bwd":
             out[label] = list(G.tc_plan(v, k, cout, cin, torch.float32, sms)) + \
                 list(conv_bwd.dw_plan(v, k, cin, cout, sms))
@@ -412,16 +403,13 @@ def child(steps: int, batch_size: int = 0) -> dict:
 
     import chip_smoke as cs
     from instancerefer_tpu_torch.data.host import batch_to_torch
+    from instancerefer_tpu_torch.data.pipeline import BatchSpec
+    from instancerefer_tpu_torch.data.synthetic import make_batch
     from instancerefer_tpu_torch.models.instancerefer import InstanceRefer
     from instancerefer_tpu_torch.ops import gather_conv
     from instancerefer_tpu_torch.ops.precision import set_compute_dtype
     from instancerefer_tpu_torch.train.solver import make_optimizer, train_step
-
-    try:
-        from instancerefer_tpu_torch.data.pipeline import BatchSpec
-        from instancerefer_tpu_torch.data.synthetic import make_batch
-    except ImportError:  # a checkout whose host bridge re-exports them
-        from instancerefer_tpu_torch.data.host import BatchSpec, make_batch
+    from instancerefer_tpu_torch.train.step_graph import StepGraphs
 
     if not torch.cuda.is_available():
         raise SystemExit("step_ab: no CUDA device")
@@ -477,23 +465,17 @@ def child(steps: int, batch_size: int = 0) -> dict:
     if not all(bool(torch.isfinite(x)) for x in losses):
         raise AssertionError("non-finite loss")
     probe_after = host_probe()
-    prof = _profile(step, getattr(cs, "KERNEL_FAMILIES", ()))
+    prof = _profile(step, cs.KERNEL_FAMILIES)
     lang = _lang_profile(model.train(), dd, cs.median_ms)
     eval_wall = _walls(lambda: cs.run_slice(model.eval(), dd, mean_size), steps)
-    graph = {}
-    try:
-        from instancerefer_tpu_torch.train.step_graph import StepGraphs
-    except ImportError:  # a checkout whose steps run only eagerly
-        StepGraphs = None
-    if StepGraphs is not None:  # the same model and batch, replayed
-        graphs = StepGraphs(model, opt, mean_size)
-        graphs.train_step(dd)
-        graphs.eval_step(dd)
-        key = dd["lang_feat"].shape[1]
-        t_in = graphs.graphs[graphs.key("train", key)].inputs
-        e_in = graphs.graphs[graphs.key("eval", key)].inputs
-        graph = {"train_wall_ms": _walls(lambda: graphs.train_step(t_in), steps),
-                 "eval_wall_ms": _walls(lambda: graphs.eval_step(e_in), steps)}
+    graphs = StepGraphs(model, opt, mean_size)  # the same model and batch, replayed
+    graphs.train_step(dd)
+    graphs.eval_step(dd)
+    key = dd["lang_feat"].shape[1]
+    t_in = graphs.graphs[graphs.key("train", key)].inputs
+    e_in = graphs.graphs[graphs.key("eval", key)].inputs
+    graph = {"train_wall_ms": _walls(lambda: graphs.train_step(t_in), steps),
+             "eval_wall_ms": _walls(lambda: graphs.eval_step(e_in), steps)}
     set_compute_dtype(None)
     kernels = _time_kernels(batch, dev, device_ms)
     sms = torch.cuda.get_device_properties(dev).multi_processor_count

@@ -1,12 +1,10 @@
 """The benchmark's PointGroup cell on the CPU: the rehearsal of
 ``pointgroup-train-resident`` (``benchmark.run --rehearse``: the cell's
 driver at the sizes of its traffic's ``rehearse`` key, in f32, every metric
-null, ``correct`` from the plain reference), the reference's copy in the
-benchmark equal to ``tests/plain_pointgroup.py``, the counts over the
-reference's maps, and the metric readers on records with and without what
-they read."""
+null, ``correct`` from the plain reference), the counts over the
+reference's maps (``benchmark/reference/pointgroup.py``), and the metric
+readers on records with and without what they read."""
 
-import filecmp
 import importlib.util
 import json
 import os
@@ -18,7 +16,7 @@ import pytest
 import torch
 
 from benchmark import counts_pointgroup
-from tests import plain_pointgroup as R
+from benchmark.reference import pointgroup as R
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 NEW = ("mfu.pointgroup", "unet_roofline.pointgroup", "up_roofline.pointgroup",
@@ -67,12 +65,6 @@ def test_the_limits_fail_the_control_and_each_fault_in_the_rehearsal():
         assert failed, kind
     # the control fails by precision: the statistics, which no fault moves
     assert got["control"]["stats_gap"] > limits["stats_gap"]
-
-
-def test_the_benchmarks_reference_is_the_tests_copy():
-    assert filecmp.cmp(os.path.join(ROOT, "tests", "plain_pointgroup.py"),
-                       os.path.join(ROOT, "benchmark", "reference", "pointgroup.py"),
-                       shallow=False)
 
 
 def test_counts_follow_the_reference_maps():

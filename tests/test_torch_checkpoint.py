@@ -40,12 +40,9 @@ from instancerefer_tpu_torch.models.instancerefer import InstanceRefer, build_mo
 from instancerefer_tpu_torch.train.evaluate import get_eval
 from instancerefer_tpu_torch.train.losses import get_loss
 from instancerefer_tpu_torch.utils import convert
-from instancerefer_tpu_torch.utils.convert import (
-    load_reference_state_dict,
-    state_dict_from_jax,
-    to_reference_state_dict,
-)
+from instancerefer_tpu_torch.utils.convert import load_reference_state_dict, to_reference_state_dict
 
+from jax_weights import state_dict_from_jax
 from test_torch_modules import perturb_stats
 
 SPEC = TEST_SPEC
@@ -138,7 +135,7 @@ def test_bare_load_state_dict_is_wrong_when_the_orders_differ(jax_side, monkeypa
     """Kernel-order regression: with the reference's offsets in another
     order, a bare ``load_state_dict`` of its file loads "fine" and computes
     wrong scores; ``load_reference_state_dict`` does not."""
-    for exporter in (convert_torch, convert):  # the JAX package's and the port's key maps
+    for exporter in (convert_torch, convert):  # the JAX package's exporter and the port's loader
         monkeypatch.setattr(exporter, "_PERM3", np.arange(27)[::-1].copy())
         monkeypatch.setattr(exporter, "_PERM2", np.arange(8)[::-1].copy())
     pth = tmp_path / "reversed.pth"

@@ -208,19 +208,6 @@ def test_cpu_backward_launches_no_kernel(maps):
             conv_bwd.conv_dw.launches) == before
 
 
-def test_k1_f32_output_of_bf16_input(maps):
-    """The down conv's dX: bf16 in, f32 out, the f32 sum unrounded."""
-    nbr, v_in = maps["subm"]
-    rng = np.random.default_rng(8)
-    x, w = (torch.from_numpy(a).bfloat16() for a in (_randn(rng, v_in, 64),
-                                                      _randn(rng, 27, 64, 32, scale=0.03)))
-    tnbr = torch.from_numpy(nbr)
-    out = gather_conv.gather_conv(x, tnbr, w, out_dtype=torch.float32)
-    ref = sparse.gather_conv(x.float(), tnbr, w.float())
-    assert out.dtype == torch.float32 and torch.equal(out, ref)
-    assert gather_conv.gather_conv(x, tnbr, w).dtype == torch.bfloat16
-
-
 @pytest.mark.parametrize("bad", ["g_dtype", "cout", "nbr_dtype", "weight", "even_k", "device"])
 def test_wrappers_reject_what_the_kernels_do_not_take(bad):
     x, g = torch.zeros(10, 64), torch.zeros(10, 64)

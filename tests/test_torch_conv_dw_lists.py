@@ -205,11 +205,12 @@ def test_list_kernel_shared_memory_fits_two_blocks(cin, cout):
 
 
 def test_wrapper_hands_the_entry_the_lists(monkeypatch):
-    """On the tensor-core route the wrapper allocates the list workspace
-    (``dw_list_workspace`` int32) and the partials of ``dw_list_splits``,
-    launches ``ir_conv_dw_tc`` once and counts one K3 and one list-pass
-    launch; a map of other than 8 offsets raises.  On the CPU with the
-    card's route and the C entry faked."""
+    """On the tensor-core route, given no lists, the wrapper allocates the
+    list workspace (``dw_list_workspace`` int32) and the partials of
+    ``dw_list_splits``, launches the list pass (``ir_dw_lists``) into the
+    workspace and then ``ir_conv_dw_tc_lists`` over it, and counts one K3
+    and one list-pass launch; a map of other than 8 offsets raises.  On the
+    CPU with the card's route and the C entries faked."""
     calls = []
 
     def entry(source, name, n_args, n_ints=5):
@@ -236,9 +237,12 @@ def test_wrapper_hands_the_entry_the_lists(monkeypatch):
     conv_bwd.conv_dw(x, nbr, g)
     assert (conv_bwd.conv_dw.launches, conv_bwd.dw_lists.launches) == \
         (before[0] + 1, before[1] + 1)
-    [(name, n_args, args)] = calls
+    [(list_name, _, list_args), (name, n_args, args)] = calls
+    assert list_name == "ir_dw_lists" and list_args[0] == nbr.data_ptr()
+    assert list_args[2:4] == (v_out, k) and list_args[1] == args[3]  # the workspace
     splits = conv_bwd.dw_list_splits(v_out, k, 64, 128, H100_SMS)
-    assert name == "ir_conv_dw_tc" and n_args == 6 and args[6:11] == (v_out, k, 64, 128, splits)
+    assert name == "ir_conv_dw_tc_lists" and n_args == 6
+    assert args[6:11] == (v_out, k, 64, 128, splits)
     assert ((conv_bwd.dw_list_workspace(v_out),), torch.int32) in allocated
     assert ((splits, k, 64, 128), torch.float32) in allocated
     with pytest.raises(ValueError, match="K = 8"):
@@ -293,7 +297,7 @@ def test_list_pass_matches_plain_on_card(v_out):
     empty = torch.full((300, 8), -1, dtype=torch.int32, device=dev)
     lists, counts = conv_bwd.dw_lists(empty)
     assert not counts.any() and (lists == -1).all()
-    with pytest.raises(ValueError, match="8 offsets"):
+    with pytest.raises(ValueError, match=r"not \[V, 8\]"):
         conv_bwd.dw_lists(torch.zeros(300, 27, dtype=torch.int32, device=dev))
 
 

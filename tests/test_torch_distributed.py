@@ -51,9 +51,9 @@ from instancerefer_tpu_torch.models.basic_blocks import MaskedBatchNorm
 from instancerefer_tpu_torch.models.instancerefer import InstanceRefer
 from instancerefer_tpu_torch.parallel import distributed
 from instancerefer_tpu_torch.train import solver
-from instancerefer_tpu_torch.utils.convert import state_dict_from_jax
 
 import torch_ddp_rank as R
+from jax_weights import state_dict_from_jax
 from test_torch_host_pipeline import assert_same_batch, jax_spec
 from test_torch_train import _check_gradients, _np_tree, jax_train  # noqa: F401
 

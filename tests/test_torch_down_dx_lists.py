@@ -253,11 +253,11 @@ def _counters():
 
 def test_down_backward_runs_one_list_pass_for_both_gradients(monkeypatch):
     """On the card's route ``DownConv.backward`` runs the list pass once
-    (``down_lists``; its plain version here, which launches nothing), then
-    ``ir_down_dx_tc`` and K3's ``ir_conv_dw_tc_lists`` over the same
-    workspace: one K1 and one K3 launch; ``down_dx`` gets W as stored, the
-    splits of ``dx_list_splits`` and an f32 dX of the input's rows.  On the
-    CPU with the entries faked."""
+    (``down_lists``: ``ir_dw_lists``), then ``ir_down_dx_tc`` and K3's
+    ``ir_conv_dw_tc_lists`` over the same workspace: one list pass, one K1
+    and one K3 launch; ``down_dx`` gets W as stored, the splits of
+    ``dx_list_splits`` and an f32 dX of the input's rows.  On the CPU with
+    the entries faked."""
     calls = []
     _fake_card(monkeypatch, calls)
 
@@ -279,11 +279,12 @@ def test_down_backward_runs_one_list_pass_for_both_gradients(monkeypatch):
         out.float().backward(torch.ones(v_out, cout))
     finally:
         precision.set_compute_dtype(None)
-    assert _counters() == (before[0] + 1, before[1] + 1, before[2])
+    assert _counters() == (before[0] + 1, before[1] + 1, before[2] + 1)
     names = [name for name, _ in calls]
-    assert names == ["down_lists", "ir_down_dx_tc", "ir_conv_dw_tc_lists"]
-    work = calls[0][1][1]
-    dx_args, dw_args = calls[1][1], calls[2][1]
+    assert names == ["ir_dw_lists", "down_lists", "ir_down_dx_tc", "ir_conv_dw_tc_lists"]
+    work = calls[1][1][1]
+    assert calls[0][1][:2] == (down.data_ptr(), work)
+    dx_args, dw_args = calls[2][1], calls[3][1]
     assert dx_args[1] == dw_args[1] == down.data_ptr() and dx_args[2] == up8.data_ptr()
     assert dx_args[4] == dw_args[3] == work
     splits = conv_bwd.dx_list_splits(v_out, 8, cin, cout, H100_SMS)
@@ -292,25 +293,29 @@ def test_down_backward_runs_one_list_pass_for_both_gradients(monkeypatch):
 
 
 def test_k3_alone_still_runs_its_own_list_pass(monkeypatch):
-    """``conv_dw`` given no lists takes ``ir_conv_dw_tc`` (the list pass in
-    its launch) and counts it; given a workspace, ``ir_conv_dw_tc_lists``
-    and no list pass; a workspace of another map's size raises.  The list
-    pass alone (``down_lists``) on the CPU is ``dw_lists_plain`` in the
-    workspace's layout."""
-    calls = []
-    _fake_card(monkeypatch, calls)
+    """``conv_dw`` given no lists runs the list pass (``ir_dw_lists``, one
+    list pass counted) and then ``ir_conv_dw_tc_lists`` over its
+    workspace; given a workspace, ``ir_conv_dw_tc_lists`` and no list
+    pass; a workspace of another map's size raises.  The list pass
+    (``down_lists``) on the CPU is ``dw_lists_plain`` in the workspace's
+    layout."""
     x = torch.zeros(900, 32, dtype=torch.bfloat16)
     nbr = torch.full((400, 8), -1, dtype=torch.int32)
     g = torch.zeros(400, 64, dtype=torch.bfloat16)
-    before = _counters()
-    conv_bwd.conv_dw(x, nbr, g)
     work = conv_bwd.down_lists(nbr)
-    conv_bwd.conv_dw(x, nbr, g, lists=work)
-    assert [name for name, _ in calls] == ["ir_conv_dw_tc", "ir_conv_dw_tc_lists"]
-    assert _counters() == (before[0], before[1] + 2, before[2] + 1)
     lists, counts = conv_bwd.list_view(work, 400)
     assert not counts.any() and (lists == -1).all()
     assert work.numel() == conv_bwd.dw_list_workspace(400)
+    calls = []
+    _fake_card(monkeypatch, calls)
+    before = _counters()
+    conv_bwd.conv_dw(x, nbr, g)
+    conv_bwd.conv_dw(x, nbr, g, lists=work)
+    assert [name for name, _ in calls] == ["ir_dw_lists", "ir_conv_dw_tc_lists",
+                                           "ir_conv_dw_tc_lists"]
+    assert calls[0][1][1] == calls[1][1][3] != work.data_ptr()  # its own workspace
+    assert calls[2][1][3] == work.data_ptr()
+    assert _counters() == (before[0], before[1] + 2, before[2] + 1)
     with pytest.raises(ValueError, match="workspace"):
         conv_bwd.conv_dw(x, nbr, g, lists=work[1:])
 

@@ -1,6 +1,6 @@
 """The port's own host pipeline (``instancerefer_tpu_torch/data``,
-``ops/voxelize.py``, ``native/voxelizer.cpp``) and key map
-(``utils/convert.export_state_dict``) against the JAX package's.
+``ops/voxelize.py``, ``native/voxelizer.cpp``) and kernel permutations
+(``utils/convert._PERM3``/``_PERM2``) against the JAX package's.
 
 * ``make_batch``/``collate``: bit for bit, on every key the port's batch
   holds, equal to the JAX package's with ``pallas_conv=True`` (the raster
@@ -11,15 +11,14 @@
   scene-block cache (val): the same batches, bit for bit; and each rank's
   loader of 2 against the JAX package's host loader of 2.
 * The port's native voxelizer against its numpy path.
-* ``export_state_dict`` against ``convert_torch.export_state_dict``, key for
-  key and value for value.
+* ``_PERM3``/``_PERM2`` against ``convert_torch``'s, which its exporter
+  applies.
 """
 
 import dataclasses
 
 import numpy as np
 import pytest
-import torch
 
 from instancerefer_tpu.data import dataset as jdataset
 from instancerefer_tpu.data import pipeline as jpipeline
@@ -27,7 +26,6 @@ from instancerefer_tpu.data import synthetic as jsynthetic
 from instancerefer_tpu.utils import convert_torch
 
 from instancerefer_tpu_torch.data import dataset, pipeline, synthetic
-from instancerefer_tpu_torch.models.instancerefer import InstanceRefer
 from instancerefer_tpu_torch.ops import voxelize as V
 from instancerefer_tpu_torch.utils import convert
 
@@ -183,16 +181,14 @@ def test_native_voxelizer_equals_numpy_path(seed):
                 np.testing.assert_array_equal(getattr(a, field), getattr(b, field), err_msg=field)
 
 
-@pytest.mark.parametrize("use_bidir", [True, False])
-def test_export_state_dict_equals_jax_exporter(use_bidir):
-    model = InstanceRefer(7, 18, 4, use_bidir=use_bidir, generator=torch.Generator().manual_seed(0))
-    ref = {k: v.numpy() for k, v in convert.to_reference_state_dict(model).items()}
-    params, stats = convert_torch.map_state_dict(ref)
-    got = convert.export_state_dict(params, stats)
-    want = convert_torch.export_state_dict(params, stats)
-    assert list(got) == list(want)
-    for key, value in want.items():
-        assert got[key].dtype == value.dtype and got[key].shape == value.shape, key
-        np.testing.assert_array_equal(got[key], value, err_msg=key)
-    np.testing.assert_array_equal(convert._PERM3, convert_torch._PERM3)
-    np.testing.assert_array_equal(convert._PERM2, convert_torch._PERM2)
+@pytest.mark.parametrize("ks", [3, 2])
+def test_offset_permutation_equals_jax_exporter(ks):
+    """The port's kernel permutation at kernel size ``ks`` (the one
+    ``from_reference``/``to_reference`` apply) is the JAX exporter's, over
+    the same torchsparse offsets, and a bijection of the ks^3 offsets."""
+    got = {3: convert._PERM3, 2: convert._PERM2}[ks]
+    want = {3: convert_torch._PERM3, 2: convert_torch._PERM2}[ks]
+    np.testing.assert_array_equal(convert.torchsparse_offsets(ks),
+                                  convert_torch.torchsparse_offsets(ks))
+    np.testing.assert_array_equal(got, want)
+    assert sorted(got.tolist()) == list(range(ks ** 3))

@@ -16,8 +16,8 @@ The card tests (``@pytest.mark.gpu``) skip without a CUDA device.  This file
 imports no JAX, so on a card it also runs without the repo's conftest:
 ``python -m pytest tests/test_torch_kernel_routes.py -m gpu --noconftest``.
 Tolerances as in ``chip_smoke.py``: bf16 outputs within 1e-2 of the largest
-value (one bf16 ulp where two f32 sums round apart); f32 outputs (K1's f32
-output, K2's dX) within 1e-5 and dW within 1e-4 of the largest value.
+value (one bf16 ulp where two f32 sums round apart); f32 outputs (K1's FMA
+route, K2's dX) within 1e-5 and dW within 1e-4 of the largest value.
 """
 
 import itertools
@@ -159,27 +159,34 @@ def _fake_entries(monkeypatch, module, path):
 @pytest.mark.parametrize("path, cin, k, entry, n_args", [
     ("twin", 7, 27, None, 0),
     ("fma", 7, 27, "ir_conv_dw", 12),
-    ("tensor_core", 32, 8, "ir_conv_dw_tc", 12),
+    ("tensor_core", 32, 8, "ir_conv_dw_tc_lists", 12),
     ("stem_wide", 7, 27, "ir_conv_dw_stem_wide", 11),
     ("stem_wide", 10, 27, "ir_conv_dw_stem_wide", 11),
     ("stem_wide", 135, 27, "ir_conv_dw_stem_wide", 11),
 ])
 def test_conv_dw_follows_route(monkeypatch, path, cin, k, entry, n_args):
     """K3's wrapper launches the entry of the route it is given (one launch
-    counted) and runs the twin only on the route ``"twin"``."""
+    counted; on the tensor-core route after the list pass, ``ir_dw_lists``,
+    counted as one) and runs the twin only on the route ``"twin"``.  The
+    stem route gets the rows ``pad_channels`` makes, as the main path gives
+    them."""
     calls = _fake_entries(monkeypatch, conv_bwd, path)
     gen = torch.Generator().manual_seed(k)
     x = torch.randn(40, cin, generator=gen).bfloat16()
     nbr = torch.randint(-1, 40, (50, k), generator=gen, dtype=torch.int32)
     g = torch.randn(50, 32, generator=gen).bfloat16()
-    before = conv_bwd.conv_dw.launches
-    out = conv_bwd.conv_dw(x, nbr, g)
+    xk = G.pad_channels(x) if path == "stem_wide" else x
+    before = (conv_bwd.conv_dw.launches, conv_bwd.dw_lists.launches)
+    out = conv_bwd.conv_dw(xk, nbr, g, cin=cin)
     assert out.shape == (k, cin, 32) and out.dtype == torch.float32
+    lists = path == "tensor_core"
     if entry is None:
-        assert calls == [] and conv_bwd.conv_dw.launches == before
+        assert calls == [] and (conv_bwd.conv_dw.launches, conv_bwd.dw_lists.launches) == before
         assert torch.equal(out, sparse.conv_dw(x, nbr, g))
     else:
-        assert calls == [(entry, n_args)] and conv_bwd.conv_dw.launches == before + 1
+        assert calls == [("ir_dw_lists", 5)] * lists + [(entry, n_args)]
+        assert (conv_bwd.conv_dw.launches, conv_bwd.dw_lists.launches) == \
+            (before[0] + 1, before[1] + lists)
 
 
 @pytest.mark.parametrize("path, cin, k, entry", [
@@ -188,14 +195,28 @@ def test_conv_dw_follows_route(monkeypatch, path, cin, k, entry, n_args):
     ("stem_wide", 7, 27, "ir_gather_conv_stem_wide"),
     ("stem_wide", 10, 27, "ir_gather_conv_stem_wide"),
     ("stem_wide", 135, 27, "ir_gather_conv_stem_wide"),
+    ("stem_wide", 10, 27, None),
 ])
 def test_gather_conv_follows_route(monkeypatch, path, cin, k, entry):
+    """K1's wrapper launches the entry of the route it is given, one launch
+    counted, its output in the input's type.  The stem route gets the rows
+    ``pad_channels`` makes, as the main path gives them; given [V, Cin]
+    rows of fewer channels (``entry`` None) it raises and launches
+    nothing."""
     calls = _fake_entries(monkeypatch, G, path)
     x = torch.zeros(40, cin, dtype=torch.bfloat16)
+    if path == "stem_wide" and entry is not None:
+        x = G.pad_channels(x)
+    nbr, w = torch.zeros(50, k, dtype=torch.int32), torch.zeros(k, cin, 32, dtype=torch.bfloat16)
     before = G.gather_conv.launches
-    out = G.gather_conv(x, torch.zeros(50, k, dtype=torch.int32),
-                        torch.zeros(k, cin, 32, dtype=torch.bfloat16))
-    assert out.shape == (50, 32) and G.gather_conv.launches == before + 1
+    if entry is None:
+        with pytest.raises(ValueError, match="channels"):
+            G.gather_conv(x, nbr, w)
+        assert calls == [] and G.gather_conv.launches == before
+        return
+    out = G.gather_conv(x, nbr, w)
+    assert out.shape == (50, 32) and out.dtype == torch.bfloat16
+    assert G.gather_conv.launches == before + 1
     assert [name for name, _ in calls] == [entry]
 
 
@@ -205,12 +226,12 @@ def test_stem_route_refuses_other_maps(monkeypatch, path, cin):
     that route raises, with no fallback to another kernel."""
     for module in (G, conv_bwd):
         _fake_entries(monkeypatch, module, path)
-    x = torch.zeros(40, cin, dtype=torch.bfloat16)
+    x = G.pad_channels(torch.zeros(40, cin, dtype=torch.bfloat16))
     nbr = torch.zeros(50, 8, dtype=torch.int32)
     with pytest.raises(ValueError, match="K = 27"):
         G.gather_conv(x, nbr, torch.zeros(8, cin, 32, dtype=torch.bfloat16))
     with pytest.raises(ValueError, match="K = 27"):
-        conv_bwd.conv_dw(x, nbr, torch.zeros(50, 32, dtype=torch.bfloat16))
+        conv_bwd.conv_dw(x, nbr, torch.zeros(50, 32, dtype=torch.bfloat16), cin=cin)
 
 
 def test_padded_rows_only_where_the_route_reads_them(monkeypatch):
@@ -270,15 +291,6 @@ def test_tensor_core_k1_matches_twin_on_card(cin, cout):
     assert G.gather_conv.launches == before + 1
     _close(got, sparse.gather_conv(x, nbr, w, sc, bi, relu=True), 1e-2)
     assert torch.equal(got[64:192].float(), torch.relu(bi).bfloat16().float().expand(128, cout))
-    # the down conv's dX over up8: one valid neighbour a row, f32 output
-    up8 = torch.full((1000, 8), -1, dtype=torch.int32, device=dev)
-    rows = torch.arange(1000, device=dev)
-    up8[rows, rows % 8] = torch.randint(0, 900, (1000,), generator=gen, device=dev,
-                                        dtype=torch.int32)
-    w8 = w[:8].contiguous()
-    got = G.gather_conv(x, up8, w8, out_dtype=torch.float32)
-    assert got.dtype == torch.float32
-    _close(got, sparse.gather_conv(x, up8, w8, out_dtype=torch.float32), 1e-5)
 
 
 @pytest.mark.gpu
@@ -310,8 +322,9 @@ def test_tensor_core_k3_matches_twin_on_card(cin, cout):
     g = torch.randn(1000, cout, device=dev, generator=gen).bfloat16()
     assert G.route(x.dtype, cin, x.device) == "tensor_core"
     before = conv_bwd.conv_dw.launches
+    lists = conv_bwd.dw_lists.launches
     dw = conv_bwd.conv_dw(x, nbr, g)
-    assert conv_bwd.conv_dw.launches == before + 1
+    assert (conv_bwd.conv_dw.launches, conv_bwd.dw_lists.launches) == (before + 1, lists + 1)
     _close(dw, sparse.conv_dw(x, nbr, g), 1e-4)
     assert torch.equal(dw[5], torch.zeros_like(dw[5]))
     assert torch.equal(dw, conv_bwd.conv_dw(x, nbr, g))  # bit-identical
@@ -335,11 +348,10 @@ def _stem_map(gen, v_out, v_in, dev):
     (135, 128, 1000), (200, 32, 1000), (40, 64, 1000)])
 def test_stem_k1_matches_twin_on_card(cin, cout, v_out, epilogue):
     """K1's stem route at K = 27: bf16 out with and without the epilogue,
-    f32 out, padding tiles storing their epilogue of a zero sum; rows padded
-    to 16 bytes, the depth in stages of 64 columns (4 at Cin 3 and 7, 7 at
-    10, 58 at 135, 85 at 200), from
-    [V, Cin] rows (the wrapper pads them) and from ``pad_channels``' rows
-    (as the stems' input comes); 1000 rows end in a ragged tile."""
+    padding tiles storing their epilogue of a zero sum; rows padded to 16
+    bytes by ``pad_channels`` (as the stems' input comes), the depth in
+    stages of 64 columns (4 at Cin 3 and 7, 7 at 10, 58 at 135, 85 at
+    200); 1000 rows end in a ragged tile."""
     dev = _card()
     gen = torch.Generator(device=dev).manual_seed(cin * cout + epilogue + v_out)
     nbr = _stem_map(gen, v_out, 900, dev)
@@ -349,7 +361,7 @@ def test_stem_k1_matches_twin_on_card(cin, cout, v_out, epilogue):
     bi = 0.1 * torch.randn(cout, device=dev, generator=gen) if epilogue else None
     assert G.route(x.dtype, cin, x.device) == "stem_wide"
     before = (G.gather_conv.launches, G.gather_conv.stem_launches)
-    got = G.gather_conv(x, nbr, w, sc, bi, relu=epilogue)
+    got = G.gather_conv(G.pad_channels(x), nbr, w, sc, bi, relu=epilogue)
     assert (G.gather_conv.launches, G.gather_conv.stem_launches) == (before[0] + 1, before[1] + 1)
     assert got.dtype == torch.bfloat16
     _close(got, sparse.gather_conv(x, nbr, w, sc, bi, relu=epilogue), 1e-2)
@@ -357,11 +369,6 @@ def test_stem_k1_matches_twin_on_card(cin, cout, v_out, epilogue):
     assert torch.equal(got[64:192].float(), pad.expand(128, cout))
     if v_out > 768:
         assert torch.equal(got[512:768].float(), pad.expand(256, cout))
-    if G.stem_channels(cin) != cin:
-        assert torch.equal(G.gather_conv(G.pad_channels(x), nbr, w, sc, bi, relu=epilogue), got)
-    got = G.gather_conv(x, nbr, w, out_dtype=torch.float32)
-    assert got.dtype == torch.float32
-    _close(got, G.stem_im2col(x, nbr) @ G.stem_weight(w), 1e-5)
 
 
 @pytest.mark.gpu
@@ -383,8 +390,9 @@ def test_stem_k3_matches_twin_on_card(cin, cout, v_out):
     x = torch.randn(900, cin, device=dev, generator=gen).bfloat16()
     g = torch.randn(v_out, cout, device=dev, generator=gen).bfloat16()
     assert G.route(x.dtype, cin, x.device) == "stem_wide"
+    xp = G.pad_channels(x)  # the rows the stems' input comes in
     before = (conv_bwd.conv_dw.launches, conv_bwd.conv_dw.stem_launches)
-    dw = conv_bwd.conv_dw(x, nbr, g)
+    dw = conv_bwd.conv_dw(xp, nbr, g, cin=cin)
     assert (conv_bwd.conv_dw.launches, conv_bwd.conv_dw.stem_launches) == \
         (before[0] + 1, before[1] + 1)
     assert dw.shape == (27, cin, cout)
@@ -392,9 +400,7 @@ def test_stem_k3_matches_twin_on_card(cin, cout, v_out):
     _close(dw, ref, 1e-4)
     assert torch.equal(dw[5], torch.zeros_like(dw[5]))
     _close(dw, G.stem_dw(G.stem_im2col(x, nbr).T @ g.float(), cin), 1e-4)
-    assert torch.equal(dw, conv_bwd.conv_dw(x, nbr, g))  # bit-identical
-    if G.stem_channels(cin) != cin:
-        assert torch.equal(conv_bwd.conv_dw(G.pad_channels(x), nbr, g, cin=cin), dw)
+    assert torch.equal(dw, conv_bwd.conv_dw(xp, nbr, g, cin=cin))  # bit-identical
 
 
 @pytest.mark.gpu

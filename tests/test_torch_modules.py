@@ -32,7 +32,8 @@ from instancerefer_tpu.ops.sparse import masked_global_max_pool as jax_pool
 from instancerefer_tpu_torch.data.host import batch_to_torch
 from instancerefer_tpu_torch.models.instancerefer import InstanceRefer
 from instancerefer_tpu_torch.ops import boxes, gru, knn, sparse
-from instancerefer_tpu_torch.utils.convert import state_dict_from_jax
+
+from jax_weights import state_dict_from_jax
 
 SPEC = TEST_SPEC
 B = 2

@@ -49,10 +49,10 @@ def test_pointgroup_pairs_cover_the_unet():
     c submanifold convs (K1, K2), c -> c + 16 downs (K1, K3, the list dX)."""
     widths = [16 * i for i in range(1, 8)]
     for c in widths:
-        assert (c, c) in G.K1_PAIRS[torch.bfloat16] and (c, c) in G.K2_PAIRS
+        assert (c, c) in G.K1_PAIRS and (c, c) in G.K2_PAIRS
     for c in widths[:-1]:
-        assert (2 * c, c) in G.K1_PAIRS[torch.bfloat16] and (2 * c, c) in G.K2_PAIRS
-        assert (c, c + 16) in G.K1_PAIRS[torch.bfloat16] and (c, c + 16) in G.K3_PAIRS
+        assert (2 * c, c) in G.K1_PAIRS and (2 * c, c) in G.K2_PAIRS
+        assert (c, c + 16) in G.K1_PAIRS and (c, c + 16) in G.K3_PAIRS
     assert G.route(torch.bfloat16, 6, "cuda") == "stem_wide"
     assert all(G.route(torch.bfloat16, c, "cuda") == "tensor_core" for c in widths)
 
@@ -399,7 +399,7 @@ def test_smem_sizes_match_the_build_on_card():
         return fn
 
     tc = entry("gather_conv", "ir_tc_smem_bytes")
-    for cin, cout in G.K1_PAIRS[torch.bfloat16]:
+    for cin, cout in G.K1_PAIRS:
         assert tc(cin, cout, 0, 27) == G.tc_smem_bytes(27, cin, cout)
     for cin, cout in G.K2_PAIRS:
         assert tc(cout, cin, 1, 27) == G.tc_smem_bytes(27, cout, cin, mirror=True)

@@ -1,8 +1,8 @@
 """PointGroup on the port (``models/pointgroup``, ``data/pointgroup``,
-``train/pointgroup``) against the plain reference ``tests/plain_pointgroup.py``
-on the CPU, at a small size: two synthetic rooms (``data/synthetic_scans.
-make_scan``) of a few hundred points, all seven levels, m = 16, seeded
-random weights loaded into both.
+``train/pointgroup``) against the benchmark's plain reference
+``benchmark/reference/pointgroup.py`` on the CPU, at a small size: two
+synthetic rooms (``data/synthetic_scans.make_scan``) of a few hundred
+points, all seven levels, m = 16, seeded random weights loaded into both.
 
 Both run in f32 with their sums in other orders (the port's twins gather
 and add per offset as the reference does, its BN sums x and x^2 where the
@@ -25,7 +25,7 @@ from instancerefer_tpu_torch.models.pointgroup import PointGroup
 from instancerefer_tpu_torch.ops import conv_bwd, sparse_conv
 from instancerefer_tpu_torch.train import pointgroup as T
 from instancerefer_tpu_torch.train.solver import make_optimizer
-from tests import plain_pointgroup as R
+from benchmark.reference import pointgroup as R
 
 CFG = {"m": 16, "num_levels": 7, "block_reps": 2, "sem_classes": 20, "bn_eps": 1e-4,
        "lr": 1e-3, "wd": 1e-4}

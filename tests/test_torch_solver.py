@@ -38,7 +38,8 @@ from instancerefer_tpu.train import solver as jax_solver
 
 from instancerefer_tpu_torch.models.instancerefer import InstanceRefer
 from instancerefer_tpu_torch.train import solver
-from instancerefer_tpu_torch.utils.convert import state_dict_from_jax
+
+from jax_weights import state_dict_from_jax
 
 SPEC = TEST_SPEC
 MEAN_SIZE = np.linspace(0.3, 2.0, 18)[:, None] * np.array([[1.0, 0.9, 0.8]])

@@ -43,9 +43,9 @@ from instancerefer_tpu_torch.data.synthetic import TEST_SPEC
 from instancerefer_tpu_torch.models.instancerefer import InstanceRefer
 from instancerefer_tpu_torch.ops import conv_bwd, gather_conv, precision, sparse, sparse_conv
 from instancerefer_tpu_torch.train import solver
-from instancerefer_tpu_torch.utils.convert import state_dict_from_jax
 
 from fake_scanrefer import make_fake_root
+from jax_weights import state_dict_from_jax
 from test_torch_host_pipeline import assert_same_batch, jax_spec
 from test_torch_train import MEAN_SIZE, _check_gradients, _np_tree
 

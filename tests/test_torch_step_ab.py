@@ -27,8 +27,9 @@ def test_a_run_needs_a_card():
 
 def test_kernel_shapes_cover_the_stem_widths(monkeypatch):
     """The stems at Cin 7, 10 and 135 (K1 and K3 each, both encoders), fed
-    the rows their main path gives them, K3 at every down conv, and K1 at
-    every tensor-core shape (down, residual, the down's dX over ``up8``)
+    the rows their main path gives them, K3 at every down conv (the list
+    pass, then the dW kernel), and K1 at every tensor-core shape (down,
+    residual, the down's dX over its lists, their pass outside the timing)
     and K2 at every residual.  On the CPU with the card's routes and the C
     entries faked: which entry each shape launches."""
     import numpy as np
@@ -67,8 +68,10 @@ def test_kernel_shapes_cover_the_stem_widths(monkeypatch):
     assert list(out) == labels
     stems = ["ir_gather_conv_stem_wide", "ir_conv_dw_stem_wide"] * len(step_ab.STEM_CINS)
     # the down, the residual, the down's dX over its lists, K2
-    tensor_core = ["ir_gather_conv_tc"] * 2 + ["ir_down_dx_tc", "ir_subm_conv_bwd_tc"]
-    assert calls == (stems + ["ir_conv_dw_tc"] * 4) * 2 + tensor_core * 8
+    tensor_core = ["ir_gather_conv_tc"] * 2 + ["ir_dw_lists", "ir_down_dx_tc",
+                                               "ir_subm_conv_bwd_tc"]
+    downs = ["ir_dw_lists", "ir_conv_dw_tc_lists"] * 4
+    assert calls == (stems + downs) * 2 + tensor_core * 8
 
 
 def test_plan_sweep_forces_each_plan_and_restores(monkeypatch):
@@ -114,9 +117,9 @@ def test_plan_sweep_forces_each_plan_and_restores(monkeypatch):
     assert list(out) == labels
     assert (G.tc_plan, conv_bwd.tc_plan, conv_bwd.dw_plan) == plans
     assert dw[1] == min(3 * dw[0], conv_bwd.DW_PARTIAL_BYTES // (4 * 27 * 64 * 64))
-    # (relu, tile rows, cluster, out type) of K1; (splits, tile rows,
-    # cluster, G) of K2
-    assert {tuple(a[1:3]) for n, a in calls if n == "ir_gather_conv_tc"} == {(64, 4)}
+    # (Cout, relu, tile rows, cluster) of K1; (splits, tile rows, cluster,
+    # G) of K2
+    assert {tuple(a[2:4]) for n, a in calls if n == "ir_gather_conv_tc"} == {(64, 4)}
     assert {tuple(a[1:3]) for n, a in calls if n == "ir_subm_conv_bwd_tc"} == {(64, 4)}
     assert len(calls) == 24
     with pytest.raises(SystemExit, match="no CUDA device"):
@@ -163,8 +166,10 @@ def test_plan_sweep_forces_the_list_splits_and_restores(monkeypatch):
         calls.clear()
         with step_ab.forced_plans(list_scale=scale):
             out = step_ab._time_kernels(batch, torch.device("cpu"), timer, labels)
-        assert list(out) == labels and len(calls) == 16
-        for (name, splits), label in zip(calls, labels):
+        # a list pass for each label (K3's own, the dX's outside the timing)
+        assert [name for name, _ in calls[::2]] == ["ir_dw_lists"] * 16
+        assert list(out) == labels and len(calls) == 32
+        for (name, splits), label in zip(calls[1::2], labels):
             _, wrapper, key, in_key, cin, cout = next(s for s in step_ab.SHAPES if s[0] == label)
             if wrapper == "gather_conv_dx":  # the down map's rows, its Cin -> Cout
                 v = batch[in_key].shape[0]
@@ -173,6 +178,6 @@ def test_plan_sweep_forces_the_list_splits_and_restores(monkeypatch):
                 continue
             v = step_ab.shape_map(batch, key).shape[0]
             cap = conv_bwd.DW_PARTIAL_BYTES // (4 * 8 * cin * cout)
-            assert name == "ir_conv_dw_tc"
+            assert name == "ir_conv_dw_tc_lists"
             assert splits == max(1, min(int(scale * picked(v, 8, cin, cout, 132)), cap))
     assert conv_bwd.dw_list_splits is picked and conv_bwd.dx_list_splits is picked_dx

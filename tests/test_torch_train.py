@@ -48,8 +48,8 @@ from instancerefer_tpu_torch.models.instancerefer import InstanceRefer
 from instancerefer_tpu_torch.ops import conv_bwd, gather_conv
 from instancerefer_tpu_torch.train import solver
 from instancerefer_tpu_torch.train.losses import get_loss
-from instancerefer_tpu_torch.utils.convert import state_dict_from_jax
 
+from jax_weights import state_dict_from_jax
 from test_torch_slice import rules_batch
 
 SPEC = TEST_SPEC

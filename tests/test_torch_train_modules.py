@@ -32,8 +32,8 @@ from instancerefer_tpu.models.instancerefer import InstanceRefer as JaxModel
 from instancerefer_tpu_torch.data.host import batch_to_torch
 from instancerefer_tpu_torch.models.basic_blocks import MaskedBatchNorm
 from instancerefer_tpu_torch.models.instancerefer import InstanceRefer
-from instancerefer_tpu_torch.utils.convert import state_dict_from_jax
 
+from jax_weights import state_dict_from_jax
 from test_torch_train import B, SPEC, partial_batch
 
 MOMENTUM = 0.3
