@@ -380,7 +380,7 @@ def plan_text(kernel: str, path: str, v_out: int, k: int, cin: int, cout: int,
     if kernel == "K3":
         return f" plan per-offset lists, {dw_list_splits(v_out, k, cin, cout, sms)} splits a list"
     if kernel == "K2":
-        p, d = tc_plan(v_out, k, cout, cin, torch.float32, sms), dw_plan(v_out, k, cin, cout, sms)
+        p, d = tc_plan(v_out, k, cout, cin, torch.bfloat16, sms), dw_plan(v_out, k, cin, cout, sms)
         return (f" plan dX {p.bm} rows x cluster {p.cluster} ({p.offsets_per_block} offsets a "
                 f"block), dW G={d.group} splits={d.splits}")
     p = tc_plan(v_out, k, cin, cout, out_dtype, sms)
@@ -707,6 +707,15 @@ def _max_err(got, ref):
     return err, ref.float().abs().max().item()
 
 
+def _stored_err(got, ref):
+    """``_max_err`` of an output summed in f32 and stored in ``got.dtype``
+    (K2's and the downs' dX) against an f32 ``ref``, before the store's one
+    rounding (``precision.rounding_gap``)."""
+    from instancerefer_tpu_torch.ops.precision import rounding_gap
+
+    return rounding_gap(got, ref).max().item(), ref.float().abs().max().item()
+
+
 def check_lists(label, nbr, nnz, totals):
     """K3's list pass alone (``conv_bwd.dw_lists``) against its plain
     version, every entry equal; its CUDA-event median beside the plain
@@ -732,9 +741,10 @@ def check_lists(label, nbr, nnz, totals):
 
 def check_down_dx(label, down, up8, cin, cout, gen, totals):
     """The down conv's dX over the lists of its map (``conv_bwd.down_dx``,
-    bf16 in, f32 out) against its plain version (``down_dx_plain`` over the
+    bf16 in and out) against its plain version (``down_dx_plain`` over the
     same lists in the kernel's split and tile order) to DX_TOL of the
-    largest value, two launches bit-identical,
+    largest value before the store's rounding, its f32 store (an f32
+    input's) rounded to bf16 equal to it, two launches bit-identical,
     the rows no entry names exactly 0; its CUDA-event median beside the
     plain version's, the im2col yardstick over ``up8`` and the bound (g,
     ``up8`` and W read once, dX written once; the valid entries' flops),
@@ -752,16 +762,19 @@ def check_down_dx(label, down, up8, cin, cout, gen, totals):
     splits = conv_bwd.dx_list_splits(v_out, k, cin, cout, sm_count(down.device))
     dx = conv_bwd.down_dx(g, down, up8, w, work)
     again = conv_bwd.down_dx(g, down, up8, w, work)
+    dx32 = conv_bwd.down_dx(g, down, up8, w, work, torch.float32)
     ref = conv_bwd.down_dx_plain(g, down, w, lists, counts, v_in, splits)
     torch.cuda.synchronize()
-    err, scale = _max_err(dx, ref)
+    err, scale = _stored_err(dx, ref)
     uncovered = (up8 < 0).all(1)
     nnz = int((down >= 0).sum())
     log(f"[down-dx] {label} dX V_in={v_in} V_out={v_out} {cout}->{cin} valid={nnz} "
         f"uncovered rows={int(uncovered.sum())}: max_abs={err:.3e} "
         f"max_rel={err / max(scale, 1e-30):.3e} (tol {DX_TOL:g} x max|ref|={scale:.3f})")
-    if dx.dtype != torch.float32 or not err <= DX_TOL * max(scale, 1e-30):
+    if dx.dtype != dt or not err <= DX_TOL * max(scale, 1e-30):
         raise AssertionError(f"down_dx disagrees with its plain version at {label}")
+    if dx32.dtype != torch.float32 or not torch.equal(dx32.to(dt), dx):
+        raise AssertionError(f"down_dx at {label}: the f32 store rounded differs from the bf16")
     if not torch.equal(dx, again):
         raise AssertionError(f"down_dx at {label}: dX differs between two launches")
     if dx[uncovered].any():
@@ -866,11 +879,13 @@ def phase_bwd_kernels(batch, dev):
             nb = nbytes(*args, *got)
             b_ms, b_by = bound(flops, nb, dt)
             for out_name, g, r, tol in zip(outs, got, ref, tols):
-                err, scale = _max_err(g, r)
+                # dX stored in its input's dtype: held before that rounding
+                err, scale = (_stored_err if out_name == "dX" else _max_err)(g, r)
                 log(f"[bwd-kernel] {name} {label} {out_name} V_out={v_out} K={k} {cin}->{cout} "
                     f"{str(dt)[6:]}: max_abs={err:.3e} max_rel={err / max(scale, 1e-30):.3e} "
                     f"(tol {tol:g} x max|ref|={scale:.3f})")
-                if g.dtype != torch.float32 or not err <= tol * max(scale, 1e-30):
+                want_dtype = dt if out_name == "dX" else torch.float32
+                if g.dtype != want_dtype or not err <= tol * max(scale, 1e-30):
                     raise AssertionError(f"{name} disagrees with its twin at {label} {dt} {out_name}")
                 res[name].worst = max(res[name].worst, err)
             path = route(dt, cin, dev)
@@ -1089,6 +1104,21 @@ def check_step(label, names, ref, got):
     log(f"[{label}] {len(c_stats)} running statistics agree (rtol {STATS_RTOL:g}, atol 1e-5)")
 
 
+def cotangent_copies(run):
+    """``run()``, a key's first step through ``StepGraphs`` (its eager
+    warm-up and its capture: two runs of the step's Python), and the
+    sparse backwards' cotangent copies a step it made
+    (``sparse_conv._cotangent.copies``; 0 where every cotangent came in the
+    compute dtype and contiguous), as text with the Functions that copied."""
+    from instancerefer_tpu_torch.ops import sparse_conv
+
+    before, by = sparse_conv._cotangent.copies, collections.Counter(sparse_conv._cotangent.copied)
+    result = run()
+    n = sparse_conv._cotangent.copies - before
+    owners = {k: v // 2 for k, v in (sparse_conv._cotangent.copied - by).items()}
+    return result, f"cotangent copies a step {n / 2:g}" + (f" ({owners})" if owners else "")
+
+
 def phase_train(spec, dev, dds, label="train", repeats=5, profile=True):
     """The train step at B = BATCH through its CUDA graph (``StepGraphs``,
     the solver's path on one card): a warm-up that also captures, the timed
@@ -1128,7 +1158,9 @@ def phase_train(spec, dev, dds, label="train", repeats=5, profile=True):
         f.launches = 0
     for f in stems.values():
         f.stem_launches = 0
-    check(*graphs.train_step(dds[0]))  # warm-up and capture
+    first, copies = cotangent_copies(lambda: graphs.train_step(dds[0]))  # warm-up and capture
+    check(*first)
+    del first
     static = static_inputs(graphs, "train", dds[0])
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -1170,7 +1202,7 @@ def phase_train(spec, dev, dds, label="train", repeats=5, profile=True):
         " (" + ", ".join(f"{k} {stem_launches[k] // n_steps} at the stems" for k in stems) +
         f"); train {BATCH * repeats / dt:.2f} scenes/s (forward+get_loss+backward+Adam+get_eval, "
         f"graph replays, mean over {repeats} steps, {dt / repeats * 1e3:.2f} ms/step); "
-        f"{graphs.captures} capture; peak device memory {peak / 2**20:.1f} MiB")
+        f"{graphs.captures} capture; peak device memory {peak / 2**20:.1f} MiB; {copies}")
     set_compute_dtype(None)
     return launches, stem_launches
 
@@ -3149,8 +3181,8 @@ def phase_pointgroup(dev):
     def weight(k, cin, cout):
         return (torch.randn(k, cin, cout, device=dev, generator=gen) / (k * cin) ** 0.5).to(bf)
 
-    def held(kind, label, got, want, tol, run=None):
-        err, scale = _max_err(got, want)
+    def held(kind, label, got, want, tol, run=None, stored=False):
+        err, scale = (_stored_err if stored else _max_err)(got, want)
         rel = err / max(scale, 1e-30)
         ms = "" if run is None else f" kernel_ms={median_ms(run):.4f}"
         log(f"[pg] {kind} {label}: max_rel={rel:.3e} (tol {tol:g}){ms}")
@@ -3214,8 +3246,10 @@ def phase_pointgroup(dev):
                  KERNEL_TOL[bf], lambda: G.gather_conv(x, sv.nbr3, w))
             got = conv_bwd.subm_conv_bwd(x, sv.nbr3, g, w)
             want = sparse.subm_conv_bwd(x.float(), sv.nbr3, g.float(), w.float())
+            if got[0].dtype != bf:
+                raise AssertionError(f"K2's dX at {label} is {got[0].dtype}, not its input's")
             held("K2 dX", label, got[0], want[0], DX_TOL,
-                 lambda: conv_bwd.subm_conv_bwd(x, sv.nbr3, g, w))
+                 lambda: conv_bwd.subm_conv_bwd(x, sv.nbr3, g, w), stored=True)
             held("K2 dW", label, got[1], want[1], DW_TOL)
             k2_dw(label, x, sv.nbr3, g, w)
             bn_pair(f"level {lvl} C={cin}", rows(sv, cin, shift=0.5), sv.mask)
@@ -3264,15 +3298,18 @@ def phase_pointgroup(dev):
                             torch.zeros((), device=dev), task=PointGroupTask())
         for fn, attr in LAUNCH_COUNTERS:
             setattr(fn, attr, 0)
-        losses = [float(graphs.train_step(graphs.load(staged, spec, "train"))[0]["loss"])
-                  for _ in range(2)]  # the eager step that captures, then a replay
+        first, copies = cotangent_copies(
+            lambda: graphs.train_step(graphs.load(staged, spec, "train")))
+        losses = [float(first[0]["loss"]), float(graphs.train_step(
+            graphs.load(staged, spec, "train"))[0]["loss"])]  # the warm-up and capture, a replay
+        del first
         counted = {f"{fn.__name__}.{attr}": n
                    for (fn, attr), n in zip(LAUNCH_COUNTERS, launch_counts())}
     finally:
         set_compute_dtype(None)
     want = {k: 2 * n for k, n in _pg_launches(model, values["num_levels"]).items()}
     log(f"[pg] 2 train steps (bf16; {graphs.captures} capture, then a replay): losses "
-        f"{losses}; launches counted {counted}, want {want}")
+        f"{losses}; launches counted {counted}, want {want}; {copies}")
     if graphs.captures != 1 or counted != want or not all(map(math.isfinite, losses)):
         raise AssertionError("PointGroup's train steps: the launches counted differ from the "
                              "model's, or a loss is not finite")

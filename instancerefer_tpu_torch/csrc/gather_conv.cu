@@ -15,7 +15,7 @@
 // which is this kernel over the inverse map up8 with W^T.  In bf16 the
 // down conv's dX is ir_down_dx_tc below: irsc::tc::dx_list_tc_kernel
 // (sparse_conv_tc.cuh) over the per-offset lists of the down map that K3
-// reads too, each dX row stored once, in f32.
+// reads too, each dX row stored once, in the type of the conv's input.
 //
 // Three routes, chosen by the wrapper (ops/gather_conv.py) from the input
 // type and Cin alone; each stores its input's type:
@@ -156,13 +156,16 @@ extern "C" int ir_gather_conv_stem_wide(const void* feats, const void* nbr, cons
 // down_dx): bfloat16 g [v_out, cout] and w [K, cin, cout] as stored, the
 // int32 down map [v_out, 8] and its inverse up8 [v_in, 8], all 16-byte
 // aligned; work the list pass's workspace of down (lists [8, v_out], then
-// counts [8]); dx float32 [v_in, cin]; (cin, cout) one of the pairs of
-// IRSC_IR_PAIRS and IRSC_PG_DOWN_PAIRS (sparse_conv_tc.cuh); splits the
-// blocks a list (ops/conv_bwd.dx_list_splits).
+// counts [8]); dx [v_in, cin], float32 where f32_out is 1 and bfloat16
+// where 0; (cin, cout) one of the pairs of IRSC_IR_PAIRS and
+// IRSC_PG_DOWN_PAIRS (sparse_conv_tc.cuh); splits the blocks a list
+// (ops/conv_bwd.dx_list_splits).
 extern "C" int ir_down_dx_tc(const void* g, const void* down, const void* up8, const void* w,
                              const void* work, void* dx, long long v_out, long long v_in,
-                             int k_offsets, int cin, int cout, int splits, void* stream) {
-  if (v_out < 0 || v_out > 0x7fffffffLL || v_in <= 0 || k_offsets != 8 || splits <= 0)
+                             int k_offsets, int cin, int cout, int splits, int f32_out,
+                             void* stream) {
+  if (v_out < 0 || v_out > 0x7fffffffLL || v_in <= 0 || k_offsets != 8 || splits <= 0 ||
+      (f32_out != 0 && f32_out != 1))
     return cudaErrorInvalidValue;
   const int* lists = static_cast<const int*>(work);
   const int* counts = lists + k_offsets * v_out;
@@ -170,7 +173,7 @@ extern "C" int ir_down_dx_tc(const void* g, const void* down, const void* up8, c
 #define IRSC_DX(CI, CO)                                                                       \
   if (cin == CI && cout == CO)                                                                \
     return irsc::tc::launch_dx_list_tc<CI, CO>(g, down, up8, w, lists, counts, dx, v_out, v_in, \
-                                               k_offsets, splits, s);
+                                               k_offsets, splits, f32_out == 1, s);
   IRSC_IR_PAIRS(IRSC_DX)
   IRSC_PG_DOWN_PAIRS(IRSC_DX)
 #undef IRSC_DX

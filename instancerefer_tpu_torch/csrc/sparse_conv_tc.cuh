@@ -46,7 +46,8 @@
 // same lists (one list pass a down's backward serves both): 233.5 MB of g
 // rows and 42.3 MB of W over the 8 downs at B = 64, where K1's 64-row
 // tiles over up8 staged 2396.8 MB of gathered rows and weight slices; the
-// 381.7 MB of f32 dX it writes either way bound it.
+// dX it writes either way bounds it (381.7 MB in f32, half that in the bf16
+// the main path stores).
 //
 // Shared-memory rows are padded by 8 bf16 (16 bytes), so the 8 rows one
 // ldmatrix phase reads start in 8 distinct 4-bank groups.  A gathered row
@@ -66,7 +67,6 @@
 #include <cooperative_groups.h>
 
 #include <atomic>
-#include <type_traits>
 
 #include "sparse_conv.cuh"  // sum_partials_kernel
 
@@ -157,7 +157,9 @@ __device__ __forceinline__ void store2<bf16>(bf16* dst, float v0, float v1) {
 // ---------------------------------------------------------------------------
 // K1 and K2's dX: output-stationary gather-GEMM on tensor cores.  A block of
 // 4 warps owns a tile of BM = 64 output rows x NOUT channels, each warp 16
-// rows as f32 accumulators in registers.  It reads its [BM, K] map tile
+// rows as f32 accumulators in registers, rounded once by the store into the
+// output's type O (bf16 for K1, K2's dX and the inverse convs' dX: the
+// compute dtype their inputs come in).  It reads its [BM, K] map tile
 // once, coalesced, and flags the offsets that hold a valid index in the
 // tile; those are listed, staged and multiplied.  A tile with none goes
 // straight to the epilogue of a zero sum.  (Checking 16-row slices as well,
@@ -1259,7 +1261,9 @@ cudaError_t launch_dw_list_tc(const void* x, const void* g, const void* nbr, con
 // DXL_BR entries gathers their g rows [BR][COUT] with 16-byte cp.async in a
 // ring of DXL_STAGES, multiplies g_tile W[k]^T with mma.sync.m16n8k16 (W^T
 // is the B operand that plain ldmatrix reads from W as stored: 4 warps, 16
-// entries each) and stores each entry's f32 row once, to dX[down[v, k]].
+// entries each) and stores each entry's row once, to dX[down[v, k]]: in the
+// type of the conv's input, bf16 on the main path (one rounding of the f32
+// accumulators), f32 where a caller gave the down conv f32 rows.
 // The list entries and the map entries they name come through register
 // queues as in dw_list_tc_kernel, so no iteration waits on an index load
 // issued by the one before it; the map entries of a tile are kept until its
@@ -1308,11 +1312,12 @@ struct DxListShape {
 };
 
 // The zero pass of one block: rows [r_begin, r_begin + DXL_ZERO_ROWS) of
-// up8, each warp DXL_ZERO_STEPS ballots of 32 consecutive rows.
-template <int CIN, typename O>
-__device__ __forceinline__ void dx_zero_rows(const int* __restrict__ up8, O* __restrict__ dx,
-                                             long long v_in, long long r_begin, int warp,
-                                             int lane) {
+// up8, each warp DXL_ZERO_STEPS ballots of 32 consecutive rows; dx rows of
+// CIN elements of `elem` bytes (4: f32, 2: bf16).
+template <int CIN>
+__device__ __forceinline__ void dx_zero_rows(const int* __restrict__ up8, void* __restrict__ dx,
+                                             int elem, long long v_in, long long r_begin,
+                                             int warp, int lane) {
   constexpr int STEPS = DXL_ZERO_STEPS;
   const long long r0 = r_begin + static_cast<long long>(warp) * STEPS * 32;
   int4 lo[STEPS], hi[STEPS];
@@ -1334,22 +1339,26 @@ __device__ __forceinline__ void dx_zero_rows(const int* __restrict__ up8, O* __r
     while (bits) {
       const int j = __ffs(bits) - 1;
       bits &= bits - 1;
-      uint4* dst = reinterpret_cast<uint4*>(dx + (r0 + i * 32 + j) * CIN);
-      constexpr int ROW16 = CIN * static_cast<int>(sizeof(O)) / 16;  // 16-byte pieces a row
-      for (int c = lane; c < ROW16; c += 32) dst[c] = make_uint4(0, 0, 0, 0);
+      uint4* dst = reinterpret_cast<uint4*>(static_cast<unsigned char*>(dx) +
+                                            (r0 + i * 32 + j) * CIN * elem);
+      const int row16 = CIN * elem / 16;  // 16-byte pieces a row
+      for (int c = lane; c < row16; c += 32) dst[c] = make_uint4(0, 0, 0, 0);
     }
   }
 }
 
-template <int CIN, int COUT, typename O>
+// dx in f32 where f32_out, else bf16: the one rounding of each row's f32
+// accumulators is its store.
+template <int CIN, int COUT>
 __device__ __forceinline__ void dx_list_tc_body(const bf16* __restrict__ g,
                                                 const int* __restrict__ nbr,
                                                 const int* __restrict__ up8,
                                                 const bf16* __restrict__ w,
                                                 const int* __restrict__ lists,
                                                 const int* __restrict__ counts,
-                                                O* __restrict__ dx, long long v_out,
-                                                long long v_in, int k_offsets, int splits) {
+                                                void* __restrict__ dx, long long v_out,
+                                                long long v_in, int k_offsets, int splits,
+                                                bool f32_out) {
   using S = DxListShape<CIN, COUT>;
   constexpr int BR = DXL_BR;
   constexpr int ST = DXL_STAGES;
@@ -1361,7 +1370,8 @@ __device__ __forceinline__ void dx_list_tc_body(const bf16* __restrict__ g,
   const int warp = tid / 32;  // owns entries [16 warp, 16 warp + 16) of a tile
   const long long list_blocks = static_cast<long long>(k_offsets) * splits;
   if (blockIdx.x >= list_blocks) {
-    dx_zero_rows<CIN, O>(up8, dx, v_in, (blockIdx.x - list_blocks) * DXL_ZERO_ROWS, warp, lane);
+    dx_zero_rows<CIN>(up8, dx, f32_out ? 4 : 2, v_in, (blockIdx.x - list_blocks) * DXL_ZERO_ROWS,
+                      warp, lane);
     return;
   }
   extern __shared__ __align__(16) unsigned char smem[];
@@ -1463,9 +1473,17 @@ __device__ __forceinline__ void dx_list_tc_body(const bf16* __restrict__ g,
     for (int h = 0; h < 2; ++h) {
       const int u = ur[warp * 16 + lane / 4 + h * 8];
       if (u < 0) continue;
-      O* dst = dx + static_cast<long long>(u) * CIN + (lane % 4) * 2;
+      const long long at = static_cast<long long>(u) * CIN + (lane % 4) * 2;
+      if (f32_out) {
+        float* dst = static_cast<float*>(dx) + at;
 #pragma unroll
-      for (int j = 0; j < S::NT; ++j) store2<O>(dst + j * 8, acc[j][2 * h], acc[j][2 * h + 1]);
+        for (int j = 0; j < S::NT; ++j)
+          store2<float>(dst + j * 8, acc[j][2 * h], acc[j][2 * h + 1]);
+      } else {
+        bf16* dst = static_cast<bf16*>(dx) + at;
+#pragma unroll
+        for (int j = 0; j < S::NT; ++j) store2<bf16>(dst + j * 8, acc[j][2 * h], acc[j][2 * h + 1]);
+      }
     }
   };
 
@@ -1502,10 +1520,10 @@ __global__ void __launch_bounds__(DXL_THREADS, DxListShape<CIN, COUT>::BLOCKS)
 dx_list_tc_kernel(const bf16* __restrict__ g, const int* __restrict__ nbr,
                   const int* __restrict__ up8, const bf16* __restrict__ w,
                   const int* __restrict__ lists, const int* __restrict__ counts,
-                  float* __restrict__ dx, long long v_out, long long v_in, int k_offsets,
-                  int splits) {
-  dx_list_tc_body<CIN, COUT, float>(g, nbr, up8, w, lists, counts, dx, v_out, v_in, k_offsets,
-                                    splits);
+                  void* __restrict__ dx, long long v_out, long long v_in, int k_offsets,
+                  int splits, int f32_out) {
+  dx_list_tc_body<CIN, COUT>(g, nbr, up8, w, lists, counts, dx, v_out, v_in, k_offsets, splits,
+                             f32_out != 0);
 }
 
 // The inverse convs' forward over the down map's lists, the same product
@@ -1519,34 +1537,43 @@ up_fwd_tc_kernel(const bf16* __restrict__ g, const int* __restrict__ nbr,
                   const int* __restrict__ lists, const int* __restrict__ counts,
                   bf16* __restrict__ dx, long long v_out, long long v_in, int k_offsets,
                   int splits) {
-  dx_list_tc_body<CIN, COUT, bf16>(g, nbr, up8, w, lists, counts, dx, v_out, v_in, k_offsets,
-                                   splits);
+  dx_list_tc_body<CIN, COUT>(g, nbr, up8, w, lists, counts, dx, v_out, v_in, k_offsets, splits,
+                             false);
 }
 
-// dx_list_tc_kernel (O float) or up_fwd_tc_kernel (O bf16) over K x
-// splits list blocks and ceil(v_in / DXL_ZERO_ROWS) zero-pass blocks.
-// lists [K, v_out] and counts [K] come from the list pass.
-template <int CIN, int COUT, typename O = float>
+// dx_list_tc_kernel (UP false: dx f32 where f32_out, else bf16) or
+// up_fwd_tc_kernel (UP: bf16) over K x splits list blocks and
+// ceil(v_in / DXL_ZERO_ROWS) zero-pass blocks.  lists [K, v_out] and
+// counts [K] come from the list pass.
+template <int CIN, int COUT, bool UP = false>
 cudaError_t launch_dx_list_tc(const void* g, const void* nbr, const void* up8, const void* w,
                               const int* lists, const int* counts, void* dx, long long v_out,
-                              long long v_in, int k_offsets, int splits, cudaStream_t stream) {
+                              long long v_in, int k_offsets, int splits, bool f32_out,
+                              cudaStream_t stream) {
   using S = DxListShape<CIN, COUT>;
-  auto kernel = [] {
-    if constexpr (std::is_same<O, float>::value)
-      return dx_list_tc_kernel<CIN, COUT>;
-    else
-      return up_fwd_tc_kernel<CIN, COUT>;
-  }();
   const long long blocks = static_cast<long long>(k_offsets) * splits +
                            (v_in + DXL_ZERO_ROWS - 1) / DXL_ZERO_ROWS;
-  if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
+  if (blocks > 0x7fffffffLL || (UP && f32_out)) return cudaErrorInvalidValue;
   static std::atomic<int> smem_set{0};
-  cudaError_t err = reserve_smem(kernel, smem_set, S::SMEM_BYTES);
-  if (err != cudaSuccess) return err;
-  kernel<<<static_cast<unsigned>(blocks), DXL_THREADS, S::SMEM_BYTES, stream>>>(
-      static_cast<const bf16*>(g), static_cast<const int*>(nbr), static_cast<const int*>(up8),
-      static_cast<const bf16*>(w), lists, counts, static_cast<O*>(dx), v_out, v_in, k_offsets,
-      splits);
+  const auto* gb = static_cast<const bf16*>(g);
+  const auto* wb = static_cast<const bf16*>(w);
+  const auto* map = static_cast<const int*>(nbr);
+  const auto* inv = static_cast<const int*>(up8);
+  cudaError_t err;
+  if constexpr (UP) {
+    err = reserve_smem(up_fwd_tc_kernel<CIN, COUT>, smem_set, S::SMEM_BYTES);
+    if (err != cudaSuccess) return err;
+    up_fwd_tc_kernel<CIN, COUT><<<static_cast<unsigned>(blocks), DXL_THREADS, S::SMEM_BYTES,
+                                  stream>>>(gb, map, inv, wb, lists, counts,
+                                            static_cast<bf16*>(dx), v_out, v_in, k_offsets,
+                                            splits);
+  } else {
+    err = reserve_smem(dx_list_tc_kernel<CIN, COUT>, smem_set, S::SMEM_BYTES);
+    if (err != cudaSuccess) return err;
+    dx_list_tc_kernel<CIN, COUT><<<static_cast<unsigned>(blocks), DXL_THREADS, S::SMEM_BYTES,
+                                   stream>>>(gb, map, inv, wb, lists, counts, dx, v_out, v_in,
+                                             k_offsets, splits, f32_out ? 1 : 0);
+  }
   return cudaGetLastError();
 }
 

@@ -1,6 +1,6 @@
 // K2: backward of the 3^3 submanifold sparse conv, for sm_90a.
 //
-//   dX[u]        = sum_k g[nbr(u, k)] @ W[K-1-k]^T      [V, Cin],       f32
+//   dX[u]        = sum_k g[nbr(u, k)] @ W[K-1-k]^T      [V, Cin],       x's type
 //   dW[K-1-k]    = sum_u x[u]^T g[nbr(u, k)]            [K, Cin, Cout], f32
 //
 // Both follow from the mirror identity of the symmetric map
@@ -21,7 +21,9 @@
 //   wrapper:
 //     dX: irsc::tc::gather_gemm_tc_kernel with MIRROR_T under K1's plan
 //         (ops/gather_conv.tc_plan) — W[K-1-k] staged as it lies ([Cin][Cout])
-//         and read by plain ldmatrix as the transposed B operand; f32 store.
+//         and read by plain ldmatrix as the transposed B operand; bf16 store,
+//         the one rounding of the f32 sums (after the cluster's sum where a
+//         cluster splits a tile), as K1 stores.
 //     dW: irsc::tc::dw_group_tc_kernel under ops/conv_bwd.dw_plan — block
 //         (offset group, split) of 8 warps keeps the [Cin, Cout] products of
 //         its G offsets in registers (dw_group_split: WM x WN warps over a
@@ -113,7 +115,7 @@ extern "C" int ir_subm_conv_bwd(const void* x, const void* nbr, const void* g, c
                                          s);
 }
 
-// The tensor-core route: bfloat16 x, g and w (16-byte aligned), (cin,
+// The tensor-core route: bfloat16 x, g, w and dx (16-byte aligned), (cin,
 // cout) one of the pairs of dispatch_dw_group, the other arguments as
 // above; (bm, cs) dX's plan (ops/gather_conv.tc_plan) and dW's G
 // (ops/conv_bwd.dw_plan: dw_group_g's), each refused unless the templates
@@ -127,7 +129,7 @@ extern "C" int ir_subm_conv_bwd_tc(const void* x, const void* nbr, const void* g
       (v + bm - 1) / bm * cs > 0x7fffffffLL)
     return cudaErrorInvalidValue;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t err = irsc::tc::dispatch_gather_gemm_tc<float, true>(
+  cudaError_t err = irsc::tc::dispatch_gather_gemm_tc<irsc::tc::bf16, true>(
       g, nbr, w, nullptr, nullptr, dx, v, k_offsets, cout, cin, 0, bm, cs, s);
   if (err != cudaSuccess) return err;
   return dispatch_dw_group(x, g, nbr, partial, dw, v, k_offsets, cin, cout, splits, s);

@@ -54,9 +54,9 @@ extern "C" int ir_up_conv_tc(const void* x, const void* down, const void* up8, c
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define IRSC_UP(CI, CO)                                                                        \
   if (cout == CI && cin == CO)                                                                 \
-    return irsc::tc::launch_dx_list_tc<CI, CO, irsc::tc::bf16>(x, down, up8, wt, lists, counts, \
-                                                               out, v_coarse, v_fine,          \
-                                                               k_offsets, splits, s);
+    return irsc::tc::launch_dx_list_tc<CI, CO, true>(x, down, up8, wt, lists, counts, out,     \
+                                                     v_coarse, v_fine, k_offsets, splits,      \
+                                                     false, s);
   IRSC_PG_DOWN_PAIRS(IRSC_UP)
 #undef IRSC_UP
   return cudaErrorInvalidValue;

@@ -13,9 +13,10 @@ tensor-core kernels at the pairs they are built for (``gather_conv.K2_PAIRS``,
 ``K3_PAIRS``) and, for ``conv_dw``, the stem kernel at any other Cin (K =
 27: 7, 10 or 135 channels, 6 in PointGroup); the FMA kernels for f32 (Cout
 in {32, 64, 128}).  ``<wrapper>.launches`` counts kernel launches and
-nothing else (``conv_dw.stem_launches`` those of the stem kernel).  Both
-outputs are f32.  dW is a split reduction: the wrapper picks the split
-count from the shapes alone (``dw_splits``; K2 on tensor cores ``dw_plan``,
+nothing else (``conv_dw.stem_launches`` those of the stem kernel).  dW is
+f32; K2's dX takes its input's type (bf16 from the tensor-core kernel's
+store, the one rounding of its f32 sums).  dW is a split reduction: the
+wrapper picks the split count from the shapes alone (``dw_splits``; K2 on tensor cores ``dw_plan``,
 with its dX under ``gather_conv.tc_plan``; K3 on tensor cores
 ``dw_list_splits``), so a given shape always sums in the same order and
 repeated launches give bit-identical dW.
@@ -28,7 +29,8 @@ of list k (``dw_list_ranges``).  The down convs' backward runs the list
 pass once and hands the workspace to both gradients: to
 ``conv_dw(..., lists=)`` and to ``down_dx``, the dX over the same lists
 (``csrc/sparse_conv_tc.cuh``'s ``dx_list_tc_kernel``, entry in
-``csrc/gather_conv.cu``), whose launches count as K1's
+``csrc/gather_conv.cu``; stored in the type the caller names, the down
+conv's input's), whose launches count as K1's
 (``gather_conv.launches``; ``down_dx.launches`` counts them alone): its
 TPU counterpart is ``_conv_kernel`` over the inverse map ``up8``.
 ``conv_dw`` given no lists runs ``down_lists`` first.  ``dw_lists`` gives
@@ -394,7 +396,7 @@ def down_dx_plain(g: torch.Tensor, nbr: torch.Tensor, weight: torch.Tensor,
 
 
 def down_dx(g: torch.Tensor, nbr: torch.Tensor, up8: torch.Tensor, weight: torch.Tensor,
-            work: torch.Tensor) -> torch.Tensor:
+            work: torch.Tensor, out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
     """dX of the 2^3 stride-2 down conv over ``nbr`` (its ``down`` map):
     dX[nbr[v, k]] = g[v] @ W[k]^T for every valid entry, 0 in the rows no
     entry names.
@@ -407,12 +409,17 @@ def down_dx(g: torch.Tensor, nbr: torch.Tensor, up8: torch.Tensor, weight: torch
         the kernel's zero pass writes the rows whose entries are all -1.
       weight: [8, Cin, Cout] in ``g.dtype``, as stored.
       work:   ``down_lists(nbr)``.
-    Returns [V_in, Cin] f32.  On the CPU ``down_dx_plain``; on a card bf16
-    with (Cin, Cout) in ``gather_conv.K3_PAIRS`` launches ``ir_down_dx_tc``,
-    anything else raises.
+      out_dtype: f32 or bf16, the dX's (default ``g.dtype``): the down
+        conv's input's, so that an f32 input's dX is not rounded.
+    Returns [V_in, Cin] in ``out_dtype``, each row the one rounding of its
+    f32 product.  On the CPU ``down_dx_plain``; on a card bf16 with (Cin,
+    Cout) in ``gather_conv.K3_PAIRS`` launches ``ir_down_dx_tc``, anything
+    else raises.
     """
-    if g.dtype not in DTYPES or weight.dtype != g.dtype:
-        raise TypeError(f"down_dx: g {g.dtype} and weight {weight.dtype} not one of f32/bf16")
+    out_dtype = g.dtype if out_dtype is None else out_dtype
+    if g.dtype not in DTYPES or weight.dtype != g.dtype or out_dtype not in DTYPES:
+        raise TypeError(f"down_dx: g {g.dtype}, weight {weight.dtype} and dX {out_dtype} not "
+                        f"one of f32/bf16")
     if g.dim() != 2 or weight.dim() != 3:
         raise ValueError("down_dx: want g [V_out, Cout] and weight [8, Cin, Cout]")
     k, cin, cout = weight.shape
@@ -426,18 +433,19 @@ def down_dx(g: torch.Tensor, nbr: torch.Tensor, up8: torch.Tensor, weight: torch
     check_tensors("down_dx", g, nbr, up8, weight, work)
     path = route(g.dtype, cin, g.device)
     if path == "twin":
-        return down_dx_plain(g, nbr, weight, *list_view(work, v_out), v_in)
+        return down_dx_plain(g, nbr, weight, *list_view(work, v_out), v_in).to(out_dtype)
     if path != "tensor_core":
         raise ValueError(f"down_dx: the list route takes bf16 at the widths of "
                          f"gather_conv.K3_PAIRS, got {g.dtype} at Cin {cin}")
     check_tc("down_dx", (cin, cout), g, nbr, up8, weight, pairs=K3_PAIRS)
-    dx = torch.empty(v_in, cin, dtype=torch.float32, device=g.device)
+    dx = torch.empty(v_in, cin, dtype=out_dtype, device=g.device)
     if v_in == 0:
         return dx
     splits = dx_list_splits(max(v_out, 1), k, cin, cout, sm_count(g.device))
-    check_launch("down_dx", _entry("gather_conv", "ir_down_dx_tc", 6, 4, 2)(
+    check_launch("down_dx", _entry("gather_conv", "ir_down_dx_tc", 6, 5, 2)(
         g.data_ptr(), nbr.data_ptr(), up8.data_ptr(), weight.data_ptr(), work.data_ptr(),
-        dx.data_ptr(), v_out, v_in, k, cin, cout, splits, cuda_stream(g)))
+        dx.data_ptr(), v_out, v_in, k, cin, cout, splits, int(out_dtype == torch.float32),
+        cuda_stream(g)))
     gather_conv.launches += 1
     down_dx.launches += 1
     return dx
@@ -561,7 +569,8 @@ def subm_conv_bwd(
         ``gather_conv.K2_PAIRS`` (bf16 on a card) or both in {32, 64, 128}
         (f32 on a card).
       weight: [K, Cin, Cout] in ``feats.dtype``.
-    Returns (dX [V, Cin] f32, dW [K, Cin, Cout] f32).
+    Returns (dX [V, Cin] in ``feats.dtype``, the one rounding of its f32
+    sums; dW [K, Cin, Cout] f32).
     """
     _check_pair("subm_conv_bwd", feats, g)
     if weight.dtype != feats.dtype or weight.dim() != 3:
@@ -575,20 +584,21 @@ def subm_conv_bwd(
     check_tensors("subm_conv_bwd", feats, nbr, g, weight)
     path = route(feats.dtype, cin, feats.device)
     if path == "twin":
-        return sparse.subm_conv_bwd(feats, nbr, g, weight)
+        dx, dw = sparse.subm_conv_bwd(feats, nbr, g, weight)
+        return dx.to(feats.dtype), dw
     if path == "tensor_core":
         check_tc("subm_conv_bwd", (cin, cout), feats, g, weight, pairs=K2_PAIRS)
     elif path == "fma":
         _check_fma("subm_conv_bwd", cin)
         _check_fma("subm_conv_bwd", cout)
     v = nbr.shape[0]
-    dx = torch.empty(v, cin, dtype=torch.float32, device=feats.device)
+    dx = torch.empty(v, cin, dtype=feats.dtype, device=feats.device)
     dw = torch.empty(k, cin, cout, dtype=torch.float32, device=feats.device)
     if v == 0:
         return dx, dw.zero_()
     if path == "tensor_core":  # dX over the mirrored offsets (reduction Cout), then dW
         sms = sm_count(feats.device)
-        plan, dwp = tc_plan(v, k, cout, cin, torch.float32, sms), dw_plan(v, k, cin, cout, sms)
+        plan, dwp = tc_plan(v, k, cout, cin, feats.dtype, sms), dw_plan(v, k, cin, cout, sms)
         check_plan("subm_conv_bwd", plan)
         splits, name, plans = dwp.splits, "ir_subm_conv_bwd_tc", [plan.bm, plan.cluster, dwp.group]
     else:

@@ -41,3 +41,21 @@ def cast_in(x: torch.Tensor) -> torch.Tensor:
     """Cast an f32 conv input to the compute dtype (no-op in f32 mode)."""
     dtype = cast_dtype(x.dtype)
     return x if dtype == x.dtype else x.to(dtype)
+
+
+def rounding_gap(got: torch.Tensor, ref: torch.Tensor) -> torch.Tensor:
+    """Elementwise, how far ``ref`` lies from the values that a store in
+    ``got.dtype`` rounds to ``got``: 0 where ``ref`` itself rounds there,
+    |got - ref| where ``got`` is f32.  A kernel that sums in f32 and stores
+    bf16 holds a tolerance t on its sums iff ``rounding_gap(out, ref) <=
+    t`` against an f32 reference (rounding is monotone: out lies between
+    ``ref - t`` and ``ref + t``, each rounded)."""
+    ref = ref.float()
+    if got.dtype == torch.float32:
+        return (got - ref).abs()
+    inf = torch.full_like(got, float("inf"))
+    mid = got.float()
+    # the midpoints to the neighbours, exact in f32, bound got's rounding cell
+    hi = (mid + torch.nextafter(got, inf).float()) / 2
+    lo = (mid + torch.nextafter(got, -inf).float()) / 2
+    return (lo - ref).clamp(min=0) + (ref - hi).clamp(min=0)

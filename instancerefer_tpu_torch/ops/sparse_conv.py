@@ -13,20 +13,26 @@ Counterparts of the JAX package's custom VJPs ``pallas_conv.banded_subm_conv``
 * ``down_conv``: forward K1 over ``down``; backward one list pass of
   ``down`` (``conv_bwd.down_lists``, or the caller's ``lists``) that both
   gradients read: dX (``conv_bwd.down_dx``, the counterpart of K1 over the
-  inverse map ``up8`` with W^T and an f32 output) and dW (K3 over
-  ``down``).  f32 on a card (the FMA kernels, no lists) takes K1 over
-  ``up8`` and K3's own route.
+  inverse map ``up8`` with W^T, stored in the dtype of the conv's input)
+  and dW (K3 over ``down``).  f32 on a card (the FMA kernels, no lists)
+  takes K1 over ``up8`` and K3's own route.
 * ``inverse_conv``: spconv's ``SparseInverseConv3d`` over a down map
   (PointGroup's up path; ``ops/up_conv``): forward ``up_conv`` over the
   map's lists, backward ``up_dx`` (K1's gather over the map) and ``up_dw``
   (K3 over the same lists), both in the compute dtype; the lists are the
   caller's, one pass a level serving the down conv too.
 
-The backwards cast as the JAX ones do: the cotangent to ``cast_in(g.float())``;
-dX and dW are computed in f32 and cast to the dtype of the Function's
-``feats`` and ``weight``.  ``subm_conv`` receives both already cast to the
-compute dtype (so in bf16 its dW is rounded through bf16, as in JAX);
-``down_conv`` receives them uncast and casts inside (its dW stays f32).
+The backwards give the bits of the JAX ones' casts (the cotangent as
+``cast_in(g.float())``; dX and dW summed in f32, then cast to the dtype of
+the Function's ``feats`` and ``weight``) with no round trip through f32:
+``_cotangent`` takes the cotangent as ``cast_in(g)``, copying only to
+round an f32 one or to make one contiguous (``_cotangent.copies`` counts
+those, ``_cotangent.copied`` by Function), and the kernels store dX in
+the input's dtype, the one rounding of their f32 sums.  ``subm_conv``
+receives feats and weight already cast to the compute dtype (so in bf16
+its dW is rounded through bf16, as in JAX); ``down_conv`` receives them
+uncast and casts inside (its dW stays f32, and so does an f32 input's
+dX).
 
 The kernels' wrappers dispatch by device: CUDA tensors launch the kernels,
 CPU tensors run the plain twins.  The Functions live here, not in
@@ -35,6 +41,7 @@ CPU tensors run the plain twins.  The Functions live here, not in
 
 from __future__ import annotations
 
+import collections
 from typing import Optional
 
 import torch
@@ -45,8 +52,18 @@ from instancerefer_tpu_torch.ops.precision import cast_dtype, cast_in
 from instancerefer_tpu_torch.ops.up_conv import up_conv, up_dw, up_dx
 
 
-def _cotangent(g: torch.Tensor) -> torch.Tensor:
-    return cast_in(g.float()).contiguous()
+def _cotangent(g: torch.Tensor, owner: str) -> torch.Tensor:
+    """The cotangent ``g`` of Function ``owner`` as its kernels read it:
+    ``cast_in(g)``, contiguous; ``g`` itself where it is both already."""
+    gc = cast_in(g).contiguous()
+    if gc is not g:
+        _cotangent.copies += 1
+        _cotangent.copied[owner] += 1
+    return gc
+
+
+_cotangent.copies = 0
+_cotangent.copied = collections.Counter()
 
 
 class SubmConv(torch.autograd.Function):
@@ -59,10 +76,9 @@ class SubmConv(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         feats, nbr, weight = ctx.saved_tensors
-        gc = _cotangent(g)
+        gc = _cotangent(g, "SubmConv")
         if ctx.grad_input:
             dx, dw = subm_conv_bwd(feats, nbr, gc, weight)
-            dx = dx.to(feats.dtype)
         else:
             dw = conv_dw(feats, nbr, gc, cin=weight.shape[1])
             dx = torch.zeros_like(feats) if ctx.needs_input_grad[0] else None
@@ -81,13 +97,13 @@ class DownConv(torch.autograd.Function):
     def backward(ctx, g):
         xc, down, up8, wc, lists = ctx.saved_tensors
         feats_dtype, weight_dtype = ctx.dtypes
-        gc = _cotangent(g)
+        gc = _cotangent(g, "DownConv")
         if route(gc.dtype, wc.shape[1], gc.device) == "fma":
             dx = gather_conv(gc, up8, wc.transpose(1, 2).contiguous())
             dw = conv_dw(xc, down, gc)
         else:
             lists = down_lists(down) if lists is None else lists
-            dx = down_dx(gc, down, up8, wc, lists)
+            dx = down_dx(gc, down, up8, wc, lists, feats_dtype)
             dw = conv_dw(xc, down, gc, lists=lists)
         return dx.to(feats_dtype), None, None, dw.to(weight_dtype), None
 
@@ -109,7 +125,7 @@ class InverseConv(torch.autograd.Function):
     def backward(ctx, g):
         xc, down, wc, lists = ctx.saved_tensors
         feats_dtype, weight_dtype = ctx.dtypes
-        gc = _cotangent(g)
+        gc = _cotangent(g, "InverseConv")
         dx = up_dx(gc, down, wc) if ctx.needs_input_grad[0] else None
         dw = up_dw(gc, down, xc, lists)
         return (None if dx is None else dx.to(feats_dtype)), None, None, dw.to(weight_dtype), None

@@ -354,11 +354,13 @@ def held_against_twins(report: Dict[str, dict]):
     there, against K1's twin over ``up8`` with W^T) is repeated by the
     kernel's plain twin (``ops/sparse``) on the same inputs.  ``report`` takes, per kernel, its
     calls and per output the largest |kernel - twin| in ``TWIN_TOL``'s
-    units (bf16: over max|twin|; f32: over each element's sum of term
-    magnitudes); a stem's input padded to 16-byte rows reaches the twin
-    unpadded."""
+    units (bf16: over max|twin|; f32 sums: over each element's sum of term
+    magnitudes, and where the kernel stored them in bf16 (K2's and the
+    downs' dX) before that one rounding, ``precision.rounding_gap``); a
+    stem's input padded to 16-byte rows reaches the twin unpadded."""
     from instancerefer_tpu_torch.models import basic_blocks
     from instancerefer_tpu_torch.ops import sparse, sparse_conv
+    from instancerefer_tpu_torch.ops.precision import rounding_gap
 
     callers = (sparse_conv, basic_blocks)
     names = ("gather_conv", "down_dx", "subm_conv_bwd", "conv_dw")
@@ -368,7 +370,8 @@ def held_against_twins(report: Dict[str, dict]):
     def note(kernel: str, kind: str, got: torch.Tensor, want: torch.Tensor,
              magnitude: Optional[torch.Tensor] = None) -> None:
         entry = report.setdefault(kernel, {"calls": 0})
-        err = (got.float() - want.float()).abs()
+        err = rounding_gap(got, want) if want.dtype == torch.float32 else \
+            (got.float() - want.float()).abs()
         if magnitude is None:
             scale = want.float().abs().max() if want.numel() else 0.0
             rel = float(err.max() / scale) if scale else (math.inf if bool(err.any()) else 0.0)
@@ -389,9 +392,9 @@ def held_against_twins(report: Dict[str, dict]):
         report["K1"]["calls"] += 1
         return out
 
-    def down_dx(g, nbr, up8, weight, lists):
+    def down_dx(g, nbr, up8, weight, lists, out_dtype=None):
         # K1's route at the down convs' dX: the twin is K1's over up8 with W^T
-        out = real["down_dx"](g, nbr, up8, weight, lists)
+        out = real["down_dx"](g, nbr, up8, weight, lists, out_dtype)
         w_t = weight.transpose(1, 2).contiguous()
         want = sparse.gather_conv(g, up8, w_t, out_dtype=torch.float32)
         note("K1", "out_f32", out, want,

@@ -30,7 +30,7 @@ Then the downs' dX over the per-offset lists of the down map
 (``conv_bwd.down_dx``, ``dx_list_splits`` blocks a list): the valid
 entries' g rows staged (``rows_MB``), W[k] staged once a block (``w_MB``),
 the list and map entries read (``index_MB``, one 32-byte sector a map
-entry), ``up8`` read by the zero pass (``up8_MB``) and the f32 dX written
+entry), ``up8`` read by the zero pass (``up8_MB``) and the bf16 dX written
 (``dx_MB``: the named rows and the zeroed ones), beside what K1's grid of
 64-row tiles over ``up8`` with its 16-row slice checks staged for it
 (``grid_MB``: the gathered rows of every (16-row slice, offset) pair with
@@ -115,7 +115,7 @@ def list_dx_bytes(down, up8, cin: int, cout: int, splits: int) -> dict:
     grid = int(active_pairs(up8, 16).sum()) * 16 * cout * 2 + \
         int(active_pairs(up8, BM).sum()) * cout * cin * 2
     return {"rows": nnz * cout * 2, "w": down.shape[1] * splits * cin * cout * 2,
-            "index": nnz * (4 + 32), "up8": up8.nbytes, "dx": up8.shape[0] * cin * 4,
+            "index": nnz * (4 + 32), "up8": up8.nbytes, "dx": up8.shape[0] * cin * 2,
             "grid": grid}
 
 

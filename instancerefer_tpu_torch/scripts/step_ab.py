@@ -302,8 +302,8 @@ def shape_bounds(batch, peak_flops: float = 989e12, peak_bytes_s: float = 3.35e1
     """Per label of ``SHAPES``, bf16: (valid map entries, the least ms an
     H100 could take: the larger of the valid entries' flops (x2 for K2's
     two products) over ``peak_flops`` and the bytes the function must move
-    (inputs read once, outputs written once: bf16 rows and weights, int32
-    map, f32 dX and dW) over ``peak_bytes_s``)."""
+    (inputs read once, outputs written once: bf16 rows, weights and dX,
+    int32 map, f32 dW) over ``peak_bytes_s``)."""
     out = {}
     for label, wrapper, key, in_key, cin, cout in SHAPES:
         nbr = shape_map(batch, key)
@@ -313,10 +313,10 @@ def shape_bounds(batch, peak_flops: float = 989e12, peak_bytes_s: float = 3.35e1
         nb = nbr.nbytes
         if wrapper == "gather_conv":  # x, W, scale/bias in; bf16 out
             nb += 2 * (v_in * cin + k * cin * cout + v_out * cout) + 8 * cout
-        elif wrapper == "gather_conv_dx":  # g, W^T in; f32 dX out
-            nb += 2 * (v_in * cin + k * cin * cout) + 4 * v_out * cout
-        elif wrapper == "subm_conv_bwd":  # x, g, W in; f32 dX and dW out
-            nb += 2 * (v_out * (cin + cout) + k * cin * cout) + 4 * (v_out * cin + k * cin * cout)
+        elif wrapper == "gather_conv_dx":  # g, W^T in; bf16 dX out
+            nb += 2 * (v_in * cin + k * cin * cout + v_out * cout)
+        elif wrapper == "subm_conv_bwd":  # x, g, W in; bf16 dX and f32 dW out
+            nb += 2 * (v_out * (cin + cout) + k * cin * cout + v_out * cin) + 4 * k * cin * cout
         else:  # x, g in; f32 dW out
             nb += 2 * (v_in * cin + v_out * cout) + 4 * k * cin * cout
         out[label] = (nnz, max(flops / peak_flops, nb / peak_bytes_s) * 1e3)
@@ -343,7 +343,7 @@ def shape_plans(batch, sms: int) -> dict:
         elif wrapper == "gather_conv" and cin in G.TC_WIDTHS:
             out[label] = list(G.tc_plan(v, k, cin, cout, torch.bfloat16, sms))
         elif wrapper == "subm_conv_bwd":
-            out[label] = list(G.tc_plan(v, k, cout, cin, torch.float32, sms)) + \
+            out[label] = list(G.tc_plan(v, k, cout, cin, torch.bfloat16, sms)) + \
                 list(conv_bwd.dw_plan(v, k, cin, cout, sms))
     return out
 

@@ -31,7 +31,7 @@ from instancerefer_tpu.ops.pallas_conv import (
     banded_subm_conv, windowed_conv_bwd_fused, windowed_conv_dw,
 )
 
-from instancerefer_tpu_torch.ops import conv_bwd, gather_conv, sparse, sparse_conv
+from instancerefer_tpu_torch.ops import conv_bwd, gather_conv, sparse, sparse_conv, up_conv
 from instancerefer_tpu_torch.ops import precision
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -91,8 +91,9 @@ def test_k2_twin_matches_pallas(maps, cin, cout):
     want_dx, want_dw = windowed_conv_bwd_fused(
         jnp.asarray(x), jnp.asarray(nbr), jnp.asarray(g), w_t, ws, wskt,
         window=WINDOW, chunk=CHUNK, subwin=SUBWIN, center_k=13, interpret=True)
-    dx, dw = sparse.subm_conv_bwd(*_t(x, nbr, g, w))
-    assert dx.dtype == dw.dtype == torch.float32
+    xt, nt, gt, wt = _t(x, nbr, g, w)
+    dx, dw = sparse.subm_conv_bwd(xt, nt, gt, wt)
+    assert dx.dtype == xt.dtype and dw.dtype == torch.float32  # dX in its input's dtype
     np.testing.assert_allclose(dx.numpy(), np.asarray(want_dx), **TOL)
     np.testing.assert_allclose(dw.numpy(), np.asarray(want_dw), **DW_TOL)
 
@@ -183,9 +184,10 @@ def test_bf16_casts_match_banded_subm_conv_vjp(maps, bf16_policy):
     assert out.dtype == jnp.bfloat16
 
     tg = torch.from_numpy(g.astype(np.float32)).bfloat16()
-    dx, dw = _grads(lambda a, b: sparse_conv.subm_conv(a, torch.from_numpy(nbr), b),
-                    *_t(x, w), g=tg)
-    assert dx.dtype == dw.dtype == torch.float32
+    xt, wt = _t(x, w)
+    dx, dw = _grads(lambda a, b: sparse_conv.subm_conv(a, torch.from_numpy(nbr), b), xt, wt,
+                    g=tg)
+    assert dx.dtype == xt.dtype and dw.dtype == wt.dtype  # each in its input's dtype
     assert torch.equal(dw.bfloat16().float(), dw)  # rounded through bf16
     for got, want in ((dx, want_dx), (dw, want_dw)):
         scale = np.abs(want).max()
@@ -206,6 +208,114 @@ def test_cpu_backward_launches_no_kernel(maps):
     assert w0.grad.abs().max() > 0 and w1.grad.abs().max() > 0
     assert (gather_conv.gather_conv.launches, conv_bwd.subm_conv_bwd.launches,
             conv_bwd.conv_dw.launches) == before
+
+
+@pytest.mark.parametrize("case", ["bf16", "bf16_strided", "f32_under_bf16", "f32_mode"])
+def test_cotangent_is_cast_in_of_its_f32_and_copies_only_when_it_must(case):
+    """``_cotangent(g)`` gives the bits of ``cast_in(g.float()).contiguous()``
+    (the cast the JAX VJPs make); a bf16 contiguous cotangent comes back as
+    itself (no copy, ``_cotangent.copies`` unchanged), a strided one or an
+    f32 one under bf16 compute as one copy, counted under its Function."""
+    base = torch.randn(40, 64, generator=torch.Generator().manual_seed(12))
+    g = {"bf16": base.bfloat16(), "bf16_strided": base.bfloat16()[:, 16:48],
+         "f32_under_bf16": base, "f32_mode": base}[case]
+    precision.set_compute_dtype(None if case == "f32_mode" else "bfloat16")
+    try:
+        want = precision.cast_in(g.float()).contiguous()
+        before, owned = sparse_conv._cotangent.copies, sparse_conv._cotangent.copied["Test"]
+        got = sparse_conv._cotangent(g, "Test")
+    finally:
+        precision.set_compute_dtype(None)
+    copied = case in ("bf16_strided", "f32_under_bf16")
+    assert got.dtype == want.dtype and got.is_contiguous() and torch.equal(got, want)
+    assert (got is not g) == copied and (got.data_ptr() == g.data_ptr()) == (not copied)
+    assert sparse_conv._cotangent.copies == before + copied
+    assert sparse_conv._cotangent.copied["Test"] == owned + copied
+
+
+def _parent_grads(kind, x, w, g, nbr, up8, lists):
+    """(dX, dW) by the backward formula before the compute dtype was kept
+    end to end: the cotangent as ``cast_in(g.float())``, dX and dW summed
+    in f32 by the twins, each then cast to its input's dtype."""
+    gc = precision.cast_in(g.float()).contiguous()
+    xc, wc = precision.cast_in(x).contiguous(), precision.cast_in(w).contiguous()
+    if kind == "subm":
+        dx, dw = sparse.subm_conv_bwd(xc, nbr, gc, wc)
+    elif kind == "down":
+        work_lists, counts = conv_bwd.list_view(lists, nbr.shape[0])
+        dx = conv_bwd.down_dx_plain(gc, nbr, wc, work_lists, counts, x.shape[0])
+        dw = sparse.conv_dw(xc, nbr, gc)
+    else:
+        dx = up_conv.up_dx_plain(gc, nbr, wc).to(gc.dtype)
+        dw = up_conv.up_dw_plain(gc, nbr, xc)
+    return dx.to(x.dtype), dw.to(w.dtype)
+
+
+# (Function, Cin, Cout): a PointGroup pair and an InstanceRefer pair each
+# (the inverse convs' Cin -> Cout mirror the downs')
+BACKWARD_PAIRS = [("subm", 16, 16), ("subm", 64, 64), ("down", 16, 32), ("down", 32, 64),
+                  ("inverse", 32, 16), ("inverse", 64, 32)]
+
+
+@pytest.mark.parametrize("strided", [False, True])
+@pytest.mark.parametrize("kind, cin, cout", BACKWARD_PAIRS)
+def test_bf16_backwards_give_the_bits_of_the_f32_round_trip(maps, kind, cin, cout, strided):
+    """Under bf16 compute on the CPU twins, ``SubmConv``, ``DownConv`` and
+    ``InverseConv`` give dX and dW bit-identical to the formula that took
+    the cotangent through f32 and cast an f32 dX (``_parent_grads``), for a
+    bf16 cotangent as it comes and for one strided as a concatenation's
+    backward hands it on; the down conv for bf16 and f32 inputs."""
+    rng = np.random.default_rng(cin * 100 + cout)
+    nbr3, v = maps["subm"]
+    down, v_in = maps["down"]
+    up8, tdown = torch.from_numpy(maps["up8"]), torch.from_numpy(down)
+    lists = conv_bwd.down_lists(tdown)
+    k = 27 if kind == "subm" else 8
+    v_x, v_g = {"subm": (v, v), "down": (v_in, down.shape[0]),
+                "inverse": (down.shape[0], v_in)}[kind]
+    x, w = _t(_randn(rng, v_x, cin), _randn(rng, k, cin, cout, scale=(k * cin) ** -0.5))
+    wide = torch.from_numpy(_randn(rng, v_g, 2 * cout)).bfloat16()
+    g = wide[:, cout:] if strided else wide[:, cout:].contiguous()
+    nbr = {"subm": torch.from_numpy(nbr3), "down": tdown, "inverse": tdown}[kind]
+    dtypes = (torch.bfloat16, torch.float32) if kind == "down" else (torch.bfloat16,)
+    precision.set_compute_dtype("bfloat16")
+    try:
+        for dtype in dtypes:
+            xl = x.to(dtype).requires_grad_(True)
+            wl = (w.bfloat16() if kind == "subm" else w).requires_grad_(True)
+            if kind == "subm":
+                out = sparse_conv.SubmConv.apply(xl, nbr, wl, True)
+            elif kind == "down":
+                out = sparse_conv.down_conv(xl, nbr, up8, wl, lists)
+            else:
+                out = sparse_conv.inverse_conv(xl, nbr, up8, wl, lists)
+            assert out.dtype == torch.bfloat16 and out.shape == g.shape
+            got = torch.autograd.grad(out, (xl, wl), g)
+            want = _parent_grads(kind, xl.detach(), wl.detach(), g, nbr, up8, lists)
+            for a, b in zip(got, want):
+                assert a.dtype == b.dtype and torch.equal(a, b), (kind, dtype)
+    finally:
+        precision.set_compute_dtype(None)
+
+
+def test_down_conv_keeps_an_f32_input_dx_unrounded(maps):
+    """An f32 input to ``down_conv`` on the bf16 route: its dX is the f32
+    of the sums, never rounded through bf16 (the list dX stores f32 for
+    it), equal to the plain form's."""
+    down, v_in = maps["down"]
+    rng = np.random.default_rng(13)
+    x, w = _t(_randn(rng, v_in, 32), _randn(rng, 8, 32, 64, scale=0.06))
+    g = torch.from_numpy(_randn(rng, down.shape[0], 64)).bfloat16()
+    tdown, up8 = torch.from_numpy(down), torch.from_numpy(maps["up8"])
+    precision.set_compute_dtype("bfloat16")
+    try:
+        dx, = _grads(lambda a: sparse_conv.down_conv(a, tdown, up8, w), x, g=g)
+    finally:
+        precision.set_compute_dtype(None)
+    lists, counts = conv_bwd.dw_lists_plain(tdown)
+    want = conv_bwd.down_dx_plain(g, tdown, w.bfloat16(), lists, counts, v_in)
+    assert dx.dtype == torch.float32 and torch.equal(dx, want)
+    assert not torch.equal(dx.bfloat16().float(), dx)  # values bf16 cannot hold
 
 
 @pytest.mark.parametrize("bad", ["g_dtype", "cout", "nbr_dtype", "weight", "even_k", "device"])

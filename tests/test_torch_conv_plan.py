@@ -36,6 +36,7 @@ from instancerefer_tpu_torch.data.pipeline import BatchSpec
 from instancerefer_tpu_torch.data.synthetic import TEST_SPEC, make_batch
 from instancerefer_tpu_torch.ops import conv_bwd, sparse
 from instancerefer_tpu_torch.ops import gather_conv as G
+from instancerefer_tpu_torch.ops.precision import rounding_gap
 from instancerefer_tpu_torch.scripts import step_ab
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -75,8 +76,8 @@ def _tc_launches(batch):
 
 
 def _plans(wrapper, v, k, cin, cout, sms=H100_SMS):
-    if wrapper == "subm_conv_bwd":  # dX reduces over Cout into Cin, f32
-        return (G.tc_plan(v, k, cout, cin, torch.float32, sms),
+    if wrapper == "subm_conv_bwd":  # dX reduces over Cout into Cin, stored bf16
+        return (G.tc_plan(v, k, cout, cin, torch.bfloat16, sms),
                 conv_bwd.dw_plan(v, k, cin, cout, sms))
     return (G.tc_plan(v, k, cin, cout, torch.bfloat16, sms),)
 
@@ -168,6 +169,25 @@ def test_plan_branches(rows, k, dt, want):
     assert plan.offsets_per_block == -(-k // plan.cluster)
     # the card's SM count is part of the shape's key
     assert G.tc_plan(16384, 27, 128, 128, torch.bfloat16, 40) == G.TcPlan(64, 1, 27)
+
+
+# K2's shapes in the train cells: the rows of InstanceRefer's stages at B =
+# 32 and 64 (the residuals' maps of step_ab.SHAPES) and of PointGroup's
+# levels, a batch of 4 rooms at its configuration's caps
+PG_LEVEL_ROWS = tuple(4 * c for c in (250048, 182208, 57216, 15936, 5184, 1280, 256))
+
+
+def test_k2_dx_keeps_the_plan_of_its_f32_store(batches):
+    """K2's dX stores bf16 where it stored f32: at every K2 shape of the
+    three train cells and at each K2 pair the plan (tile, cluster) is the
+    one the f32 store ran under."""
+    rows = {v for b in ("B=32", "B=64") for _, wrapper, v, _, _, _ in _tc_launches(batches[b])
+            if wrapper == "subm_conv_bwd"} | set(PG_LEVEL_ROWS)
+    assert len(rows) >= 10
+    for v in sorted(rows):
+        for cin, cout in G.K2_PAIRS:
+            assert G.tc_plan(v, 27, cout, cin, torch.bfloat16, H100_SMS) == \
+                G.tc_plan(v, 27, cout, cin, torch.float32, H100_SMS), (v, cin, cout)
 
 
 def test_plans_refuse_what_they_do_not_cover():
@@ -332,6 +352,15 @@ def _close(got, ref, tol):
     assert err <= tol * max(scale, 1e-30), (err, scale)
 
 
+def _close_stored(got, ref, tol):
+    """``_close`` for a bf16 output summed in f32 (K2's dX): within ``tol``
+    of the f32 ``ref`` before its one rounding (``rounding_gap``)."""
+    assert got.dtype == torch.bfloat16 and ref.dtype == torch.float32
+    scale = ref.abs().max().item()
+    err = rounding_gap(got, ref).max().item()
+    assert err <= tol * max(scale, 1e-30), (err, scale)
+
+
 ROWS = [1000, 50, 0]  # a ragged last tile (and padding tiles), less than a tile, none
 
 
@@ -390,7 +419,7 @@ def test_k2_plan_matches_twin_on_card(monkeypatch, plan, v, cin, cout, splits):
         assert torch.equal(dw, torch.zeros_like(dw))
         return
     ref_dx, ref_dw = sparse.subm_conv_bwd(x, nbr, g, w)
-    _close(dx, ref_dx, 1e-5)
+    _close_stored(dx, ref_dx, 1e-5)
     _close(dw, ref_dw, 1e-4)
     assert torch.equal(dw[27 - 1 - 5], torch.zeros_like(dw[0]))  # offset 5 is empty
     if v > 512:
@@ -418,7 +447,7 @@ def test_natural_plans_at_main_path_sizes_on_card():
         _close(G.gather_conv(x, nbr, w), sparse.gather_conv(x, nbr, w), 1e-2)
         dx, dw = conv_bwd.subm_conv_bwd(x, nbr, x, w)
         ref_dx, ref_dw = sparse.subm_conv_bwd(x, nbr, x, w)
-        _close(dx, ref_dx, 1e-5)
+        _close_stored(dx, ref_dx, 1e-5)
         _close(dw, ref_dw, 1e-4)
 
 

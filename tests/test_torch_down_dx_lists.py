@@ -23,8 +23,9 @@ that it and K3 share in ``ops/sparse_conv.DownConv.backward``.
 f32 on every side, sums in another order: within 1e-5 of the largest
 value.  The card tests (``@pytest.mark.gpu``) skip without a CUDA device:
 the kernel against its plain version at the 8 down shapes of a train step
-at B = 64, bf16 in and f32 out, two launches bit-identical, the rows no
-entry names 0.  JAX is imported only inside the CPU tests that compare with
+at B = 64, bf16 in and out (within 1e-5 before the store's one rounding,
+``precision.rounding_gap``), its f32 store rounded to bf16 equal to its
+bf16 store, two launches bit-identical, the rows no entry names 0.  JAX is imported only inside the CPU tests that compare with
 it, so on a card this file runs without the repo's conftest: ``python -m
 pytest tests/test_torch_down_dx_lists.py -m gpu --noconftest``.
 """
@@ -37,6 +38,7 @@ import torch
 
 from instancerefer_tpu_torch.ops import conv_bwd, precision, sparse, sparse_conv
 from instancerefer_tpu_torch.ops import gather_conv as G
+from instancerefer_tpu_torch.ops.precision import rounding_gap
 
 H100_SMS = 132
 TOL = 1e-5  # of the largest value: f32 sums in another order
@@ -251,13 +253,15 @@ def _counters():
     return (G.gather_conv.launches, conv_bwd.conv_dw.launches, conv_bwd.dw_lists.launches)
 
 
-def test_down_backward_runs_one_list_pass_for_both_gradients(monkeypatch):
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_down_backward_runs_one_list_pass_for_both_gradients(monkeypatch, dtype):
     """On the card's route ``DownConv.backward`` runs the list pass once
     (``down_lists``: ``ir_dw_lists``), then ``ir_down_dx_tc`` and K3's
     ``ir_conv_dw_tc_lists`` over the same workspace: one list pass, one K1
     and one K3 launch; ``down_dx`` gets W as stored, the splits of
-    ``dx_list_splits`` and an f32 dX of the input's rows.  On the CPU with
-    the entries faked."""
+    ``dx_list_splits`` and a dX of the input's rows in the input's dtype
+    (an f32 input's stored in f32, unrounded; a bf16 input's in bf16).  On
+    the CPU with the entries faked."""
     calls = []
     _fake_card(monkeypatch, calls)
 
@@ -270,7 +274,7 @@ def test_down_backward_runs_one_list_pass_for_both_gradients(monkeypatch):
     v_out, v_in, cin, cout = 3000, 9000, 64, 128
     down = torch.full((v_out, 8), -1, dtype=torch.int32)
     up8 = torch.full((v_in, 8), -1, dtype=torch.int32)
-    x = torch.zeros(v_in, cin, requires_grad=True)
+    x = torch.zeros(v_in, cin, dtype=dtype, requires_grad=True)
     w = torch.zeros(8, cin, cout, requires_grad=True)
     precision.set_compute_dtype("bfloat16")  # the main path's policy: casts inside
     try:
@@ -288,8 +292,9 @@ def test_down_backward_runs_one_list_pass_for_both_gradients(monkeypatch):
     assert dx_args[1] == dw_args[1] == down.data_ptr() and dx_args[2] == up8.data_ptr()
     assert dx_args[4] == dw_args[3] == work
     splits = conv_bwd.dx_list_splits(v_out, 8, cin, cout, H100_SMS)
-    assert dx_args[6:12] == (v_out, v_in, 8, cin, cout, splits)
+    assert dx_args[6:13] == (v_out, v_in, 8, cin, cout, splits, int(dtype == torch.float32))
     assert x.grad.shape == (v_in, cin) and w.grad.shape == (8, cin, cout)
+    assert x.grad.dtype == dtype
 
 
 def test_k3_alone_still_runs_its_own_list_pass(monkeypatch):
@@ -374,10 +379,11 @@ def _card_down(gen, v_out, v_in, dev, fill=0.9):
 @pytest.mark.parametrize("v_out, v_in, cin, cout", BENCH_DOWNS)
 def test_down_dx_matches_plain_on_card(v_out, v_in, cin, cout):
     """The kernel at the 8 down shapes of a train step at B = 64, bf16 in
-    and f32 out, against its plain version on the same lists (within 1e-5
-    of the largest value: one product a row, summed in another order), two
-    launches bit-identical, the rows no entry names exactly 0, one K1
-    launch a call."""
+    and out, against its plain version on the same lists (within 1e-5 of
+    the largest value before the store's one rounding: one product a row,
+    summed in another order), its f32 store (an f32 input's) rounded to
+    bf16 equal to it, two launches bit-identical, the rows no entry names
+    exactly 0, one K1 launch a call."""
     dev = _card()
     gen = torch.Generator(device=dev).manual_seed(v_out + cin)
     down, up8 = _card_down(gen, v_out, v_in, dev)
@@ -390,11 +396,14 @@ def test_down_dx_matches_plain_on_card(v_out, v_in, cin, cout):
     assert G.gather_conv.launches == before + 2
     splits = conv_bwd.dx_list_splits(v_out, 8, cin, cout, G.sm_count(dev))
     ref = conv_bwd.down_dx_plain(g, down, w, *conv_bwd.dw_lists_plain(down), v_in, splits)
+    dx32 = conv_bwd.down_dx(g, down, up8, w, work, torch.float32)
     torch.cuda.synchronize()
-    assert dx.dtype == torch.float32 and dx.shape == (v_in, cin)
-    err = (dx - ref).abs().max().item()
+    assert dx.dtype == g.dtype and dx.shape == (v_in, cin)
+    err = rounding_gap(dx, ref).max().item()
     assert err <= 1e-5 * ref.abs().max().item(), err
     assert torch.equal(dx, again)
+    assert dx32.dtype == torch.float32 and torch.equal(dx32.bfloat16(), dx)
+    assert (dx32 - ref).abs().max().item() <= 1e-5 * ref.abs().max().item()
     uncovered = (up8 < 0).all(1)
     assert uncovered.any() and not dx[uncovered].any()
 
@@ -422,8 +431,9 @@ def test_down_dx_every_width_and_edge_on_card(cin, cout):
         work = conv_bwd.down_lists(down)
         dx = conv_bwd.down_dx(g, down, up8, w, work)
         ref = conv_bwd.down_dx_plain(g, down, w, *conv_bwd.dw_lists_plain(down), v_in)
-        err = (dx - ref).abs().max().item()
-        assert err <= 1e-5 * max(ref.abs().max().item(), 1e-30), (v_out, err)
+        err = rounding_gap(dx, ref).max().item()
+        assert dx.dtype == g.dtype and err <= 1e-5 * max(ref.abs().max().item(), 1e-30), \
+            (v_out, err)
         assert not dx[(up8 < 0).all(1)].any()
         assert torch.equal(conv_bwd.conv_dw(x, down, g, lists=work), conv_bwd.conv_dw(x, down, g))
     none = torch.full((700, 8), -1, dtype=torch.int32, device=dev)
@@ -449,7 +459,7 @@ def test_down_dx_smem_matches_the_build_on_card():
 
 def test_conv_bytes_counts_what_the_list_dx_moves(down_map):
     """``scripts/conv_bytes.list_dx_bytes``: the valid entries' g rows, W
-    once a block, the list and map entries, ``up8`` once and the f32 dX
+    once a block, the list and map entries, ``up8`` once and the bf16 dX
     once, beside what K1's grid of tiles over ``up8`` staged (more)."""
     from instancerefer_tpu_torch.scripts import conv_bytes
 
@@ -457,5 +467,5 @@ def test_conv_bytes_counts_what_the_list_dx_moves(down_map):
     nnz = int((down >= 0).sum())
     b = conv_bytes.list_dx_bytes(down, up8, 32, 64, 5)
     assert b == {"rows": nnz * 64 * 2, "w": 8 * 5 * 32 * 64 * 2, "index": nnz * 36,
-                 "up8": up8.nbytes, "dx": up8.shape[0] * 32 * 4, "grid": b["grid"]}
+                 "up8": up8.nbytes, "dx": up8.shape[0] * 32 * 2, "grid": b["grid"]}
     assert b["grid"] > b["rows"] + b["w"]

@@ -146,7 +146,8 @@ def test_plan_sweep_forces_the_list_splits_and_restores(monkeypatch):
 
     def entry(*key):
         name = next(k for k in key if str(k).startswith("ir_"))
-        return lambda *args: calls.append((name, args[-2])) or 0
+        at = -3 if name == "ir_down_dx_tc" else -2  # the splits, before the dX's store type
+        return lambda *args: calls.append((name, args[at])) or 0
 
     route = G.route
     monkeypatch.setattr(conv_bwd, "_entry", entry)
